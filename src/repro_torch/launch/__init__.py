@@ -1,0 +1,1 @@
+"""Launchers: command-line entry points of the port."""
