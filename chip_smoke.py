@@ -8,16 +8,24 @@ each fatal on failure (nothing is caught):
 1. build the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once) and print the card's name and power limit;
 2. hold every kernel against its plain PyTorch version on the card at
-   the serving path's shapes, timing kernel, plain version and a PyTorch
+   the serving paths' shapes, timing kernel, plain version and a PyTorch
    library call with CUDA events (median of 25 runs, L2 flushed before
-   each), beside the least time the card could take (``bound_ms``);
+   each), beside the least time the card could take (``bound_ms``); for
+   each matmul shape also the three schedules side by side — K1 tiled,
+   K4 mcast, K5 unicast on the same inputs — with the B bytes the
+   schedules' traffic model gives each (the paper's comparison);
 3. build qwen1.5-0.5b at full width from a seed and compare one prefill
-   and one paged decode step run through the kernels with the same run
-   through the plain versions;
+   and one decode step run through the kernels with the same run through
+   the plain versions: paged decode under the default policy, and dense
+   decode under each of ``tiled``, ``mcast`` and ``unicast``, each decode
+   step also timed, counted and profiled, and the host cost of one
+   schedule resolution;
 4. serve 8 requests (32-token shared prefix, 40-60-token prompts, 32 new
-   tokens each) through ``PagedEngine`` and check that every kernel was
-   launched by that run, that every request drained and that the pool
-   audit is green.
+   tokens each) through ``PagedEngine`` under the default policy, and
+   through the dense ``Server`` under the default policy, ``mcast`` and
+   ``unicast``.  Each run starts with every launch count at 0 and fails
+   unless every request drained and every kernel of its path — and no
+   other matmul kernel — was launched.
 
 It prints one JSON line per check, then the card line, the kernel
 summary and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -49,7 +57,16 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import api  # noqa: E402
-from repro_torch.kernels.matmul import matmul_tiled, matmul_tiled_plain  # noqa: E402
+from repro_torch.kernels.matmul import (  # noqa: E402
+    hbm_traffic_model,
+    kernel_blocks,
+    matmul_mcast,
+    matmul_mcast_plain,
+    matmul_tiled,
+    matmul_tiled_plain,
+    matmul_unicast,
+    matmul_unicast_plain,
+)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     gather_pages,
     paged_attention_decode,
@@ -58,6 +75,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_prefill_plain,
 )
 from repro_torch.kernels.paged_attention.paged_attention import prefill_chunk  # noqa: E402
+from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import PagedEngine, Request, ServeConfig  # noqa: E402
 
@@ -81,11 +99,18 @@ TOL_MODEL = 2e-2
 KERNEL_META = {
     "matmul_tiled": ("src/repro_torch/csrc/matmul_tiled.cu",
                      "src/repro/kernels/matmul/matmul.py:153"),
+    "matmul_mcast": ("src/repro_torch/csrc/matmul_mcast.cu",
+                     "src/repro/kernels/matmul/matmul.py:77"),
+    "matmul_unicast": ("src/repro_torch/csrc/matmul_unicast.cu",
+                       "src/repro/kernels/matmul/matmul.py:232"),
     "paged_attention_decode": ("src/repro_torch/csrc/paged_attention_decode.cu",
                                "src/repro/kernels/paged_attention/paged_attention.py:105"),
     "paged_attention_prefill": ("src/repro_torch/csrc/paged_attention_prefill.cu",
                                 "src/repro/kernels/paged_attention/paged_attention.py:240"),
 }
+POLICIES = ("tiled", "mcast", "unicast")
+MATMULS = ("matmul_tiled", "matmul_mcast", "matmul_unicast")
+
 
 def emit(rec: dict) -> None:
     print(json.dumps(rec), flush=True)
@@ -202,6 +227,54 @@ def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False):
                max_err=err, tol=tol)
     emit(rec)
     return rec
+
+
+def check_schedules(gen, m, k, n, *, logits=False):
+    """K1, K4 and K5 on the same inputs computing the same function,
+    ``C = A @ B`` in a's dtype with no epilogue: each against the plain
+    version, each timed, with the traffic model's B bytes for each
+    schedule at the kernels' own tile sizes.  Emits one kernel record for
+    K4 and one for K5, then the side-by-side record."""
+    dev = "cuda"
+    if logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
+        a = torch.randn(m, k, device=dev, generator=gen) * 4
+        b = (torch.randn(n, k, device=dev, generator=gen) * 0.02).to(torch.bfloat16).t()
+    else:
+        a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+        b = (torch.randn(k, n, device=dev, generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+    tol = TOL_FP32 if a.dtype == torch.float32 else TOL_BF16
+    want = matmul_mcast_plain(a, b)  # the one function all three compute
+    plain_ms = time_ms(lambda: matmul_mcast_plain(a, b))[0]
+    nbytes = (a.numel() + m * n) * a.element_size() + b.numel() * b.element_size()
+    # the card's peak for the operands' type, whatever the kernels compute on
+    both_bf16 = a.dtype == b.dtype == torch.bfloat16
+    b_ms, b_by = bound(2.0 * m * n * k, nbytes, PEAK_BF16 if both_bf16 else PEAK_FP32)
+    library, lib_ms = (None, None) if logits else \
+        ("torch.matmul", time_ms(lambda: torch.matmul(a, b))[0])
+    blocks = kernel_blocks(m)
+    rec = dict(check="schedules", shape=[m, k, n], a_dtype=str(a.dtype), b_dtype=str(b.dtype),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, blocks=blocks)
+    out = {}
+    for sched, fn in zip(POLICIES, (matmul_tiled, matmul_mcast, matmul_unicast)):
+        before = fn.launches
+        got = fn(a, b)
+        assert fn.launches == before + 1, sched
+        err = check_close(f"{fn.__name__} {m}x{k}x{n}", got, want, tol)
+        k_ms, k_host = time_ms(lambda: fn(a, b))
+        traffic = hbm_traffic_model(m, n, k, dtype_bytes=b.element_size(), **blocks[sched])
+        # how often the kernel requests each B element from global memory
+        reads = -(-m // blocks[sched]["bm"])
+        rec.update({f"{sched}_ms": k_ms, f"{sched}_b_bytes": traffic[f"{sched}_b_bytes"],
+                    f"{sched}_b_reads": reads, f"{sched}_max_err": err})
+        if sched != "tiled":
+            out[fn.__name__] = dict(
+                check="kernel", name=fn.__name__, shape=[m, k, n], a_dtype=str(a.dtype),
+                b_dtype=str(b.dtype), out_dtype=str(got.dtype), kernel_ms=k_ms,
+                host_ms=k_host, plain_ms=plain_ms, library=library, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol)
+            emit(out[fn.__name__])
+    emit(rec)
+    return out
 
 
 def _pool(gen, kvh, b, n, ps, d, quant=False):
@@ -327,9 +400,17 @@ def plain_versions():
     """Route the kernel layer to the plain versions (CUDA tensors and all)
     for a reference run; the port itself has no such switch."""
     with mock.patch.object(api, "matmul_tiled", matmul_tiled_plain), \
+            mock.patch.object(api, "matmul_mcast", matmul_mcast_plain), \
+            mock.patch.object(api, "matmul_unicast", matmul_unicast_plain), \
             mock.patch.object(api, "paged_attention_decode", paged_attention_decode_plain), \
             mock.patch.object(api, "paged_attention_prefill", paged_attention_prefill_plain):
         yield
+
+
+def _bucketed(prompt):
+    padded = torch.zeros((1, 48), dtype=torch.long, device="cuda")  # the 48-token bucket
+    padded[0, :len(prompt)] = prompt
+    return padded
 
 
 def model_run(cfg, params, prompt, step_tokens, *, time_step=False):
@@ -338,9 +419,7 @@ def model_run(cfg, params, prompt, step_tokens, *, time_step=False):
     ``time_step``, the decode step's device and host ms)."""
     pools = lm.init_paged_cache(cfg, 33, 16, device="cuda")
     n = len(prompt)  # 45 tokens: the 48-token bucket, as the engine pads it
-    padded = torch.zeros((1, 48), dtype=torch.long, device="cuda")
-    padded[0, :n] = prompt
-    pre, dense = lm.prefill(params, cfg, padded, logit_index=n - 1)
+    pre, dense = lm.prefill(params, cfg, _bucketed(prompt), logit_index=n - 1)
     lm.prefill_to_pages(dense, pools, torch.tensor([1, 2, 3], device="cuda",
                                                    dtype=torch.int32), n)
     # four sequences share the first two prompt pages; each gets its own
@@ -359,31 +438,130 @@ def model_run(cfg, params, prompt, step_tokens, *, time_step=False):
 
     dec = step()
     if time_step:  # the step rewrites the same rows: repeating it is idempotent
-        return pre, dec, time_ms(step, runs=10, max_spin_s=1.0)
+        return pre, dec, step_stats(step)
     return pre, dec
+
+
+def dense_model_run(cfg, params, prompt, step_tokens, *, time_step=False):
+    """The dense server's path: one bucketed prefill into 256-slot rings,
+    masked past the prompt and copied to all 4 batch slots, then one
+    decode step for the batch; returns both logits (and, with
+    ``time_step``, the decode step's device and host ms)."""
+    caches = lm.init_cache(cfg, 4, 256, device="cuda")
+    n = len(prompt)
+    pre, one = lm.prefill(params, cfg, _bucketed(prompt), cache_slots=256, logit_index=n - 1)
+    for full, c in zip(caches, lm.mask_cache_after(one, n)):
+        for dst, src in zip(full, c):
+            dst[:] = src
+    index = torch.full((4,), n, dtype=torch.long, device="cuda")
+
+    def step():
+        return lm.decode_step(params, cfg, caches, step_tokens, index)[0]
+
+    dec = step()
+    if time_step:  # the step rewrites the same ring rows: idempotent
+        return pre, dec, step_stats(step)
+    return pre, dec
+
+
+def profile_step(step) -> dict:
+    """One step under ``torch.profiler``: the summed device time of its
+    kernels and copies, how many there were, and the span from the first
+    start to the last end.  No spin kernel runs first, so the span
+    includes the card's waits for the host.  A reading, not a check: if
+    the profiler cannot trace the card, the record says why."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as exc:  # noqa: BLE001
+        return dict(profile_error=repr(exc)[:300])
+    if not evs:
+        return dict(profile_error="the profiler recorded no device events")
+    return dict(device_ops=len(evs),
+                device_op_sum_ms=sum(e.time_range.elapsed_us() for e in evs) / 1e3,
+                device_span_ms=(max(e.time_range.end for e in evs)
+                                - min(e.time_range.start for e in evs)) / 1e3)
+
+
+def step_stats(step) -> dict:
+    """A decode step's device ms (CUDA events behind a spin kernel) and
+    host ms, the port's kernel launches in it, and its profile.  The
+    events can also time the card waiting for the host — a step enqueues
+    some 2,000 device ops, and the host may block on a full launch queue
+    before the spin ends — so the busy share comes from the profile's
+    summed device time, not from the events."""
+    device_ms, host_ms = time_ms(step, runs=10, max_spin_s=1.0)
+    kernels.reset_launch_counts()
+    step()
+    launches = sum(kernels.launch_counts().values())
+    prof = profile_step(step)
+    busy = prof.get("device_op_sum_ms")
+    return dict(device_ms=device_ms, host_ms=host_ms,
+                device_busy_share=None if busy is None else min(1.0, busy / host_ms),
+                port_launches=launches, **prof)
+
+
+def check_dispatch(resolves_per_step: int) -> None:
+    """Host µs of one schedule resolution as ``linear`` makes it at a
+    decode shape: memoised (what runs) and unmemoised (the cost model
+    evaluated afresh), and what each adds to a decode step."""
+    mm, pol = api.op("matmul"), kernels.get_policy()
+    problem = api.Problem((4, 1024, 1024), "bfloat16")
+
+    def us_per_call(fn, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    memo = us_per_call(lambda: mm.resolve(api.Problem((4, 1024, 1024), "bfloat16")), 20000)
+    fresh = us_per_call(lambda: mm.pick(problem, pol), 2000)
+    emit(dict(check="dispatch", shape=[4, 1024, 1024], resolve_us=memo,
+              unmemoised_resolve_us=fresh, resolves_per_decode_step=resolves_per_step,
+              resolve_ms_per_step=memo * resolves_per_step / 1e3,
+              unmemoised_ms_per_step=fresh * resolves_per_step / 1e3))
+
+
+def _compare_logits(tag: dict, pairs) -> None:
+    torch.cuda.synchronize()
+    for name, got, want in pairs:
+        err = max_err(got, want)
+        scale = float(want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        emit(dict(check="model", name=name, **tag, shape=list(got.shape), max_err=err,
+                  max_abs_logit=scale, tol=TOL_MODEL * scale, argmax_agree=agree))
+        if not (torch.isfinite(got).all() and err <= TOL_MODEL * scale):
+            raise AssertionError(f"full model {name} {tag}: kernels vs plain versions max abs "
+                                 f"err {err} > {TOL_MODEL} x {scale}")
 
 
 def check_model(cfg, params):
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
     step = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
-    pre_k, dec_k, (step_ms, step_host_ms) = model_run(cfg, params, prompt, step,
-                                                      time_step=True)
-    emit(dict(check="decode_step_time", batch=4, context=len(prompt) + 1,
-              device_ms=step_ms, host_ms=step_host_ms,
-              device_busy_share=min(1.0, step_ms / step_host_ms)))
+    pre_k, dec_k, stats = model_run(cfg, params, prompt, step, time_step=True)
+    emit(dict(check="decode_step_time", kv="paged", policy="default", batch=4,
+              context=len(prompt) + 1, **stats))
+    check_dispatch(stats["port_launches"])  # one resolution per launch
     with plain_versions():
         pre_p, dec_p = model_run(cfg, params, prompt, step)
-    torch.cuda.synchronize()
-    for name, got, want in (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p)):
-        err = max_err(got, want)
-        scale = float(want.abs().max())
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        emit(dict(check="model", name=name, shape=list(got.shape), max_err=err,
-                  max_abs_logit=scale, tol=TOL_MODEL * scale, argmax_agree=agree))
-        if not (torch.isfinite(got).all() and err <= TOL_MODEL * scale):
-            raise AssertionError(f"full model {name}: kernels vs plain versions max abs err "
-                                 f"{err} > {TOL_MODEL} x {scale}")
+    _compare_logits(dict(kv="paged", policy="default"),
+                    (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p)))
+    for policy in POLICIES:  # a forced matmul schedule runs the dense path only
+        with kernels.use_policy(policy):
+            pre_k, dec_k, stats = dense_model_run(cfg, params, prompt, step, time_step=True)
+            with plain_versions():
+                pre_p, dec_p = dense_model_run(cfg, params, prompt, step)
+        emit(dict(check="decode_step_time", kv="dense", policy=policy, batch=4,
+                  context=len(prompt) + 1, **stats))
+        _compare_logits(dict(kv="dense", policy=policy),
+                        (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p)))
 
 
 # ---------------------------------------------------------------------------
@@ -391,14 +569,19 @@ def check_model(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def check_serving(cfg, params):
+def serving_requests(cfg):
     rng = np.random.default_rng(0)
     prefix = [int(t) for t in rng.integers(0, cfg.vocab, size=32)]
-    reqs = [Request(rid=i, prompt=prefix + [int(t) for t in rng.integers(
+    return [Request(rid=i, prompt=prefix + [int(t) for t in rng.integers(
         0, cfg.vocab, size=int(rng.integers(8, 29)))], max_new=32) for i in range(8)]
-    engine = PagedEngine(cfg, params, config=ServeConfig(), device="cuda")
+
+
+def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=None) -> dict:
+    """Drive one main path: every launch count set to 0 just before,
+    read just after.  Fails unless every request drained with its tokens
+    and every kernel of ``path_kernels`` — and no other — was launched."""
     first: dict[int, float] = {}
-    admit = engine._admit
+    admit = server._admit
 
     def timed_admit(req):
         res = admit(req)
@@ -406,29 +589,50 @@ def check_serving(cfg, params):
             first[req.rid] = time.perf_counter() - t0  # the sampler synced the card
         return res
 
-    engine._admit = timed_admit
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    engine.check()
-    stats = engine.stats()
+    server._admit = timed_admit
+    with kernels.use_policy(policy):  # None: the default policy
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
     n_tok = sum(len(r.out) for r in done)
-    rec = dict(check="serving", requests=len(done), new_tokens=n_tok,
-               prompt_lens=[len(r.prompt) for r in reqs], wall_s=wall,
+    rec = dict(check="serving", path=name, policy=policy or "default", requests=len(done),
+               new_tokens=n_tok, prompt_lens=[len(r.prompt) for r in reqs], wall_s=wall,
                tokens_per_s=n_tok / wall, ttft_median_s=statistics.median(first.values()),
-               launches=launches, prefix_hit_tokens=stats["prefix_hit_tokens"],
-               kernel_calls=stats["kernel_calls"])
+               launches=launches)
+    if isinstance(server, PagedEngine):
+        server.check()
+        stats = server.stats()
+        rec.update(prefix_hit_tokens=stats["prefix_hit_tokens"],
+                   kernel_calls=stats["kernel_calls"])
     emit(rec)
     if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
-        raise AssertionError("serving: not every request drained with max_new tokens")
-    missing = [name for name, n in launches.items() if n == 0]
+        raise AssertionError(f"serving {name}: not every request drained with max_new tokens")
+    missing = [k for k in path_kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"serving: kernels never launched on the main path: {missing}")
+        raise AssertionError(f"serving {name}: kernels never launched on the main path: "
+                             f"{missing}")
+    stray = [k for k, v in launches.items() if v and k not in path_kernels]
+    if stray:
+        raise AssertionError(f"serving {name}: kernels off this path were launched: {stray}")
     return launches
+
+
+def check_serving(cfg, params) -> dict[str, int]:
+    """The paged engine under the default policy, then the dense server
+    under the default policy, mcast and unicast; returns each kernel's
+    launches summed over the runs."""
+    paged = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+    runs = [serve_path("paged", PagedEngine(cfg, params, config=ServeConfig(), device="cuda"),
+                       serving_requests(cfg), paged)]
+    for policy, kernel in ((None, "matmul_tiled"), ("mcast", "matmul_mcast"),
+                           ("unicast", "matmul_unicast")):
+        runs.append(serve_path("dense", Server(cfg, params, device="cuda"),
+                               serving_requests(cfg), (kernel,), policy))
+    return {k: sum(r[k] for r in runs) for k in kernels.KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +665,13 @@ def main() -> None:
           check_matmul(gen, 48, 1024, 2816, bias=False, activation="silu"),  # prefill gate
           check_matmul(gen, 4, 1024, 151936, logits=True)]       # tied logits, fp32
     summary["matmul_tiled"] = mm[0]
+    for m, k, n, logits in ((4, 1024, 1024, False), (4, 1024, 2816, False),
+                            (4, 2816, 1024, False), (48, 1024, 2816, False),
+                            (4, 1024, 151936, True), (256, 1024, 2816, False),
+                            (2049, 1024, 2816, False)):
+        flat = check_schedules(gen, m, k, n, logits=logits)
+        for kname, rec in flat.items():
+            summary.setdefault(kname, rec)  # the first shape: decode q/k/v
     summary["paged_attention_decode"] = check_decode(gen)
     check_decode(gen, h=16, kvh=4)                               # GQA
     summary["paged_attention_prefill"] = check_prefill(gen)
@@ -473,7 +684,8 @@ def main() -> None:
     launches = check_serving(cfg, params)
 
     kernels_line = []
-    for kname, rec in summary.items():
+    for kname in kernels.KERNELS:
+        rec = summary[kname]
         source, replaces = KERNEL_META[kname]
         kernels_line.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,

@@ -4,8 +4,9 @@ Each source under ``src/repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and
 loaded with :mod:`ctypes`.  The build happens at first use, from the
 sources in the checkout only, into ``build/kernels/`` at the repository
-root; a library's file name carries a hash of its source and flags, so a
-changed source is rebuilt and never confused with a stale library.
+root; a library's file name carries a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so a changed source is rebuilt
+and never confused with a stale library.
 :func:`build_all` starts one ``nvcc`` per source at once, so the whole
 set builds in the time of the slowest file.
 
@@ -46,6 +47,18 @@ KERNELS = {
         _I, _I, _I, _I,            # M, N, K, activation
         _P,                        # stream
     ]),
+    "matmul_mcast": ("matmul_mcast.cu", "matmul_mcast", [
+        _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
+        _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
+        _P, _I, _I, _I,            # out (a's dtype), M, N, K
+        _P,                        # stream
+    ]),
+    "matmul_unicast": ("matmul_unicast.cu", "matmul_unicast", [
+        _P, _I, _LL, _LL,
+        _P, _I, _LL, _LL,
+        _P, _I, _I, _I,
+        _P,
+    ]),
     "paged_attention_decode": ("paged_attention_decode.cu", "paged_attention_decode", [
         _P, _P, _P, _I,            # q, k pages, v pages, dtype
         _P, _P, _P, _P,            # block table, start, lengths, out
@@ -80,6 +93,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / KERNELS[name][0]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -1,9 +1,9 @@
-"""K1: the tiled (supertile) multicast matmul with a fused epilogue.
+"""The three matmul schedules of the paper: K1 tiled, K4 mcast, K5 unicast.
 
-``C = act(A @ B + bias)`` -> ``out_dtype`` with fp32 accumulation — the
-port of ``matmul_mcast_tiled``, the schedule every ``kernels.linear``
-projection of the serving path runs.  Two implementations of the one
-function live here:
+K1 ``matmul_tiled`` computes ``C = act(A @ B + bias)`` -> ``out_dtype``
+with fp32 accumulation — the port of ``matmul_mcast_tiled``, the
+schedule the cost model picks for almost every projection.  Two
+implementations of the one function live here:
 
 * :func:`matmul_tiled` — the wrapper: on CUDA tensors it launches the
   hand-written kernel ``csrc/matmul_tiled.cu`` (grouped CTA raster so a
@@ -15,6 +15,14 @@ function live here:
   product summed in fp64 and rounded to fp32 (the kernel's fp32 sum,
   without its dependence on summation order), bias and activation in
   fp32, one rounding to ``out_dtype``.
+
+K4 ``matmul_mcast`` (the flat multicast: one CTA per column tile owns
+every row, so each B element is read once) and K5 ``matmul_unicast``
+(the classic grid that re-reads B for every row block) compute plain
+``C = A @ B`` in ``a.dtype``, with no epilogue, as their TPU kernels
+do; ``kernels.api`` runs bias and activation after them.  Each has a
+wrapper (``csrc/matmul_mcast.cu``, ``csrc/matmul_unicast.cu``) and a
+plain version: the fp64 product rounded to fp32, then to ``a.dtype``.
 
 A and B may each be bf16 or fp32 and are read through their strides,
 so ``B`` can be a transposed view (the tied logits read the bf16
@@ -43,15 +51,28 @@ ACTIVATIONS = {
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(a, b, bias, activation, out_dtype):
+def _check_operands(kernel: str, a, b):
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"matmul_tiled: need (M, K) @ (K, N), got {tuple(a.shape)} "
+        raise ValueError(f"{kernel}: need (M, K) @ (K, N), got {tuple(a.shape)} "
                          f"and {tuple(b.shape)}")
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation: {activation!r}")
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"matmul_tiled: {name} must be bf16 or fp32, got {t.dtype}")
+            raise TypeError(f"{kernel}: {name} must be bf16 or fp32, got {t.dtype}")
+
+
+def _check_device(kernel: str, *tensors) -> torch.device:
+    """The one CUDA device all operands share; raises otherwise."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{kernel}: operands must share one CUDA device, got "
+                         f"{', '.join(str(t.device) for t in tensors)}")
+    return dev
+
+
+def _check(a, b, bias, activation, out_dtype):
+    _check_operands("matmul_tiled", a, b)
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation: {activation!r}")
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"matmul_tiled: out_dtype must be bf16 or fp32, got {out_dtype}")
     if bias is not None and tuple(bias.shape) != (b.shape[1],):
@@ -80,11 +101,7 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_tiled_plain(a, b, bias, activation=activation, out_dtype=out_dtype)
     _check(a, b, bias, activation, out_dtype)
-    dev = a.device
-    if dev.type != "cuda" or b.device != dev or (bias is not None and bias.device != dev):
-        raise ValueError(f"matmul_tiled: operands must share one CUDA device, got "
-                         f"{a.device}, {b.device}"
-                         f"{'' if bias is None else ', ' + str(bias.device)}")
+    dev = _check_device("matmul_tiled", a, b, *(() if bias is None else (bias,)))
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
@@ -105,3 +122,114 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
 
 
 matmul_tiled.launches = 0  # kernel launches since the last reset
+
+
+def _flat_plain(kernel: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check_operands(kernel, a, b)
+    return (a.double() @ b.double()).float().to(a.dtype)
+
+
+def matmul_mcast_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4's function in plain PyTorch: fp64 product -> fp32 -> ``a.dtype``."""
+    return _flat_plain("matmul_mcast", a, b)
+
+
+def matmul_unicast_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K5's function in plain PyTorch: fp64 product -> fp32 -> ``a.dtype``."""
+    return _flat_plain("matmul_unicast", a, b)
+
+
+def _flat_launch(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch K4 or K5 (same C interface): ``C = A @ B`` in ``a.dtype``;
+    counts the launch on ``wrapper``."""
+    kernel = wrapper.__name__
+    _check_operands(kernel, a, b)
+    dev = _check_device(kernel, a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    rc = getattr(_build.load(kernel), kernel)(
+        a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
+        b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, kernel)
+    wrapper.launches += 1
+    return out
+
+
+def matmul_mcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
+    read once per launch for M <= ``MCAST_RESIDENT_ROWS``), the plain
+    version for CPU tensors."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_mcast_plain(a, b)
+    return _flat_launch(matmul_mcast, a, b)
+
+
+def matmul_unicast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K5, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
+    re-read for every row block), the plain version for CPU tensors."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_unicast_plain(a, b)
+    return _flat_launch(matmul_unicast, a, b)
+
+
+matmul_mcast.launches = 0
+matmul_unicast.launches = 0
+
+#: rows K4 keeps resident in one pass (csrc/matmul_mcast.cu ``RESIDENT_ROWS``):
+#: up to this M every B element is read from global memory once per
+#: launch; beyond it K4 walks row panels of this size, each re-reading B.
+MCAST_RESIDENT_ROWS = 256
+
+
+def kernel_blocks(m: int) -> dict[str, dict[str, int]]:
+    """The CUDA kernels' tile sizes at ``m`` rows, in
+    :func:`hbm_traffic_model`'s terms (rows ``bm``, columns ``bn``, depth
+    ``bk``, supertile ``gm``): the constants of ``csrc/matmul_tiled.cu``
+    (grouped raster of 8 row blocks), ``csrc/matmul_mcast.cu`` and
+    ``csrc/matmul_unicast.cu``.  Up to 64 rows K4 and K5 run the same
+    tile, one row block: unicast with a single row block is multicast."""
+    tiled = dict(bm=16, bn=32, bk=128) if m <= 16 else dict(bm=64, bn=64, bk=16)
+    if m <= 16:
+        mcast = unicast = dict(bm=16, bn=64, bk=32)
+    elif m <= 64:
+        mcast = unicast = dict(bm=64, bn=64, bk=32)
+    else:
+        mcast = dict(bm=MCAST_RESIDENT_ROWS, bn=64, bk=16)
+        unicast = dict(bm=64, bn=64, bk=32)
+    return {"tiled": dict(tiled, gm=8 * tiled["bm"]), "mcast": mcast, "unicast": unicast}
+
+
+def hbm_traffic_model(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
+                      gm: int | None = None,
+                      dtype_bytes: int = 4) -> dict[str, float]:
+    """Analytical HBM byte counts for the schedules (the JAX package's
+    model, copied).
+
+    mcast:   B read once per (j, kk) tile; A panel re-read per j.
+    tiled:   B re-read once per *supertile* (gm rows) — pass ``gm``.
+    unicast: B re-read per row block i (the paper's multiple-unicast).
+
+    Per-schedule B traffic is exposed as ``<name>_b_bytes``."""
+    a_bytes, b_bytes, c_bytes = (m * k, k * n, m * n)
+    j_steps, i_steps = -(-n // bn), -(-m // bm)
+    schedules = {
+        "mcast": {"a": a_bytes * j_steps, "b": b_bytes, "c": c_bytes},
+        "unicast": {"a": a_bytes * j_steps, "b": b_bytes * i_steps, "c": c_bytes},
+    }
+    if gm is not None:
+        schedules["tiled"] = {"a": a_bytes * j_steps, "b": b_bytes * -(-m // gm),
+                              "c": c_bytes}
+    flops = 2.0 * m * n * k
+    out = {}
+    for name, t in schedules.items():
+        total = sum(t.values()) * dtype_bytes
+        out[f"{name}_bytes"] = total
+        out[f"{name}_b_bytes"] = t["b"] * dtype_bytes
+        out[f"{name}_oi"] = flops / total
+    out["oi_ratio"] = out["mcast_oi"] / out["unicast_oi"]
+    return out

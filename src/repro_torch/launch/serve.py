@@ -1,34 +1,126 @@
-"""Serving launcher of the port: paged continuous batching on the card.
+"""Serving launcher of the port: continuous batching on the card.
 
 ``python -m repro_torch.launch.serve`` takes the JAX launcher's flags for
 the paths the port runs (``--arch --reduced --requests --max-new
---max-batch --shared-prefix --kv paged`` and every :class:`ServeConfig`
-field) plus ``--device`` (default ``cuda``), builds the same seeded
-requests, serves them through :class:`PagedEngine` and prints the same
-``req …`` lines on stdout, so the two launchers' outputs can be diffed
-when they serve the same weights (:func:`main` takes ``params=`` for
-that).  Paged-engine statistics go to stderr.
+--max-batch --shared-prefix --kv --kernel-policy`` and every
+:class:`ServeConfig` field) plus ``--device`` (default ``cuda``), builds
+the same seeded requests and prints the same ``req …`` lines on stdout,
+so the two launchers' outputs can be diffed when they serve the same
+weights (:func:`main` takes ``params=`` for that).  Two KV backends, as
+in the JAX launcher:
 
-Not ported yet: the dense ``--kv dense`` server, the async ``--server``
-loop and the options :class:`PagedEngine` rejects.
+* ``--kv dense`` (the default): :class:`Server`, one ring-buffer cache
+  slot per batch lane, bucketed prefill written in place into the slot;
+* ``--kv paged``: :class:`PagedEngine`, the page pool with prefix
+  sharing (its statistics go to stderr).
+
+``--kernel-policy`` forces the matmul schedule as in the JAX launcher:
+``tiled`` (K1), ``mcast`` (K4), ``unicast`` (K5); the default is the
+cost model's pick (``backend=pallas``).  A forced matmul schedule cannot
+reach the paged engine: its attention op has no such schedule and
+raises, as in the JAX package.
+
+Not ported yet: the async ``--server`` loop and the options
+:class:`PagedEngine` rejects.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
-        --requests 8 --max-new 32 --shared-prefix 32
+        --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
-        --reduced --device cpu --shared-prefix 24
+        --reduced --device cpu --shared-prefix 24 --kv paged
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 import numpy as np
+import torch
 
+from repro_torch import kernels
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm
-from repro_torch.serve import PagedEngine, Request, add_serve_args, get_sampler
+from repro_torch.serve import (
+    PagedEngine,
+    Request,
+    Sampler,
+    add_serve_args,
+    get_sampler,
+    pad_to_bucket,
+)
 from repro_torch.serve import config as serve_config
+
+
+class Server:
+    """Continuous-batching decode server over dense ring-buffer KV caches
+    (``--kv dense``): the port of the JAX launcher's ``Server``.
+
+    Each admitted request prefills alone, right-padded to a
+    ``prompt_bucket`` multiple, with the padded tail masked out of its
+    cache; the cache is written in place into the request's batch slot.
+    Every decode step runs all ``max_batch`` slots at their own positions
+    (ragged continuous batching).  ``params`` must live on ``device``."""
+
+    def __init__(self, cfg, params, *, max_batch: int = 4, cache_len: int = 256,
+                 prompt_bucket: int = 16, sampler: Sampler | None = None,
+                 device: str | torch.device = DEFAULT):
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.device = resolve(device)
+        self.sampler = sampler if sampler is not None else get_sampler("greedy")
+        self.caches = lm.init_cache(cfg, max_batch, cache_len, device=self.device)
+        self.active: dict[int, Request] = {}  # slot -> request
+        self.pos = np.zeros(max_batch, np.int32)
+        self.last_tok = np.zeros(max_batch, np.int32)
+        # lm.init_cache admits global-attention, non-MoE decoders only, for
+        # which right-padding a prompt to its bucket is exact
+        self._bucket = prompt_bucket
+
+    def _admit(self, req: Request) -> bool:
+        free = [s for s in range(self.max_batch) if s not in self.active]
+        if not free:
+            return False
+        slot = free[0]
+        n = len(req.prompt)
+        toks = torch.as_tensor(pad_to_bucket(req.prompt, self._bucket),
+                               device=self.device).long()
+        logits, one = lm.prefill(self.params, self.cfg, toks, cache_slots=self.cache_len,
+                                 logit_index=n - 1)
+        # bucket padding wrote K/V rows past the prompt: mark them empty
+        for full, c in zip(self.caches, lm.mask_cache_after(one, n)):
+            for dst, src in zip(full, c):  # in-place slot write; axis 0 is the batch
+                dst[slot:slot + 1] = src
+        self.active[slot] = req
+        self.pos[slot] = n
+        self.last_tok[slot] = int(self.sampler.select(logits)[0, -1])
+        req.out.append(int(self.last_tok[slot]))
+        return True
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        queue = list(requests)
+        done: list[Request] = []
+        while queue or self.active:
+            while queue and self._admit(queue[0]):
+                queue.pop(0)
+            if not self.active:
+                continue
+            toks = torch.as_tensor(self.last_tok, device=self.device).long()[:, None]
+            idx = torch.as_tensor(self.pos, device=self.device).long()
+            logits, self.caches = lm.decode_step(self.params, self.cfg, self.caches, toks, idx)
+            nxt = self.sampler.select(logits)[:, -1]
+            finished = []
+            for slot, req in list(self.active.items()):
+                self.pos[slot] += 1
+                self.last_tok[slot] = nxt[slot]
+                req.out.append(int(nxt[slot]))
+                if len(req.out) >= req.max_new:
+                    finished.append(slot)
+            for slot in finished:
+                done.append(self.active.pop(slot))
+        return done
 
 
 def make_requests(cfg, *, n: int, max_new: int, shared_prefix: int, seed: int):
@@ -58,13 +150,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--kv", choices=("paged",), default="paged",
-                    help="KV-cache backend: the paged pool with prefix sharing "
-                         "(the dense server is not ported yet)")
+    ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
+                    help="KV-cache backend: dense ring buffers, or the paged pool "
+                         "with prefix sharing")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend a common random prefix of this many tokens "
                          "to every request (exercises prefix sharing and the "
                          "chunked suffix prefill)")
+    ap.add_argument("--kernel-policy", default=None,
+                    help='kernel dispatch policy, e.g. "mcast", "unicast", "tiled" or '
+                         '"backend=pallas" (see repro_torch.kernels.api)')
     ap.add_argument("--device", default=DEFAULT,
                     help="torch device: cuda (the kernels) or cpu (their plain "
                          "versions)")
@@ -76,7 +171,11 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None, *, params=None) -> list[Request]:
     """Run the launcher; ``params`` (on the chosen device) replaces the
     seeded random init, e.g. weights converted by ``repro_torch.weights``."""
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.spec_k and args.kv != "paged":
+        ap.error("--spec-k requires --kv paged (speculative verify-accept "
+                 "runs on the paged engine's COW page machinery)")
     serve_cfg = serve_config.from_args(args, max_slots=args.max_batch)
     for flag, value in (("--trace", serve_cfg.trace), ("--queue-cap", serve_cfg.queue_cap)):
         if value is not None:
@@ -85,13 +184,23 @@ def main(argv: list[str] | None = None, *, params=None) -> list[Request]:
     device = resolve(args.device)
     if params is None:
         params = lm.init(cfg, seed=serve_cfg.seed, device=device)
-    engine = PagedEngine(cfg, params, config=serve_cfg,
-                         sampler=get_sampler(serve_cfg.sampler), device=device)
-    reqs = make_requests(cfg, n=args.requests, max_new=args.max_new,
-                         shared_prefix=args.shared_prefix, seed=serve_cfg.seed)
-    done = engine.run(reqs)
+    sampler = get_sampler(serve_cfg.sampler)
+    policy = (kernels.use_policy(args.kernel_policy) if args.kernel_policy
+              else contextlib.nullcontext())
+    with policy:
+        if args.kv == "paged":
+            server = PagedEngine(cfg, params, config=serve_cfg, sampler=sampler,
+                                 device=device)
+        else:
+            server = Server(cfg, params, max_batch=serve_cfg.max_slots, sampler=sampler,
+                            device=device)
+        reqs = make_requests(cfg, n=args.requests, max_new=args.max_new,
+                             shared_prefix=args.shared_prefix, seed=serve_cfg.seed)
+        with serve_cfg.fault_plan() or contextlib.nullcontext():
+            done = server.run(reqs)
     print_request_lines(done)
-    print(f"# paged kv stats: {engine.stats()}", file=sys.stderr)
+    if args.kv == "paged":
+        print(f"# paged kv stats: {server.stats()}", file=sys.stderr)
     return done
 
 

@@ -11,10 +11,13 @@ Python loop over the per-layer dicts.  Entry points:
   are returned, for bucket-padded prompts),
 * :func:`prefill_to_pages` — scatter a batch-1 prefill cache into the
   page pools (in place),
-* :func:`decode_step` — one (or a few) tokens against the page pools.
+* :func:`init_cache` / :func:`mask_cache_after` — dense ring-buffer
+  caches for the dense ``Server``,
+* :func:`decode_step` — one (or a few) tokens against dense caches or
+  the page pools.
 
-Only the configuration features of the dense family the paged serving
-stack runs are ported; any other raises ``NotImplementedError`` naming
+Only the configuration features of the dense family the serving stacks
+run are ported; any other raises ``NotImplementedError`` naming
 it (MoE, recurrent mixers, local windows, layernorm, learned positions,
 front ends, post-block norms).
 """
@@ -62,7 +65,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: the port runs dense global-attention decoders only; "
-            f"unsupported: {', '.join(bad)}")
+            f"unsupported: {', '.join(bad)} (other model families and local-window "
+            f"rings: ROADMAP Queue 1 item 5)")
 
 
 def mlp_spec(cfg: ModelConfig):
@@ -109,13 +113,41 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device = DEFAUL
     return init_params(model_spec(cfg), seed=seed, device=resolve(device))
 
 
+def _check_kv_dtype(kv_dtype: str) -> None:
+    if kv_dtype == "int8":
+        raise NotImplementedError("kv_dtype='int8': quantised KV is not ported "
+                                  "(ROADMAP Queue 1 item 1)")
+    if kv_dtype != "bf16":
+        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the port's caches are bf16")
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, kv_dtype: str = "bf16", *,
+               device: str | torch.device = DEFAULT):
+    """Dense decode caches, one :class:`KvCache` ring of ``cache_len``
+    slots per layer (the JAX package stacks them by layer; here axis 0 of
+    each tensor is the batch)."""
+    check_supported(cfg)
+    _check_kv_dtype(kv_dtype)
+    dev = resolve(device)
+    return [attn_mod.init_cache(batch, cache_len, cfg.attn, device=dev)
+            for _ in range(cfg.n_layers)]
+
+
+def mask_cache_after(caches, length):
+    """Mark every cache position at or past ``length`` empty (pos = -1):
+    the fix-up that makes right-padded bucket prefills exact — the padded
+    tail's K/V rows stay in the ring but can never be attended to.
+    Returns new cache tuples; page pools pass through."""
+    return [c._replace(pos=torch.where(c.pos >= length, -1, c.pos))
+            if isinstance(c, KvCache) else c for c in caches]
+
+
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      kv_dtype: str = "bf16", *, device: str | torch.device = DEFAULT):
     """One page pool per layer, all indexed by the same host-managed
     block tables."""
     check_supported(cfg)
-    if kv_dtype != "bf16":
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the port's page pools are bf16")
+    _check_kv_dtype(kv_dtype)
     dev = resolve(device)
     return [attn_mod.init_paged_cache(num_pages, page_size, cfg.attn, device=dev)
             for _ in range(cfg.n_layers)]
@@ -201,21 +233,24 @@ def prefill_to_pages(dense_caches, paged_caches, block_table: torch.Tensor, leng
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *,
-                block_table: torch.Tensor, lengths: torch.Tensor):
+                block_table: torch.Tensor | None = None,
+                lengths: torch.Tensor | None = None):
     """One decode step (or a few: suffix prefills pass s_new > 1) against
-    the page pools, which are updated in place.
+    dense caches or the page pools, which are updated in place.
 
     tokens: (batch, s_new); index: absolute position of the first new
-    token (scalar or (batch,)); ``block_table`` (batch, pages) and
-    ``lengths`` (batch,) = valid tokens after this call's writes.
-    Returns (logits (batch, s_new, vocab), caches)."""
+    token (scalar or (batch,)).  Page pools also take ``block_table``
+    (batch, pages) and ``lengths`` (batch,) = valid tokens after this
+    call's writes.  Returns (logits (batch, s_new, vocab), caches)."""
     x = _embed_inputs(params, cfg, tokens)
     for p, cache in zip(params["layers"], caches):
-        if not isinstance(cache, PagedKvCache):
-            raise NotImplementedError("decode_step: the port decodes against page pools only")
-        m, _ = attn_mod.paged_decode_attention(
-            p["attn"], rmsnorm(p["norm1"], x), cache, cfg.attn, index=index,
-            block_table=block_table, lengths=lengths)
+        h = rmsnorm(p["norm1"], x)
+        if isinstance(cache, PagedKvCache):
+            m, _ = attn_mod.paged_decode_attention(
+                p["attn"], h, cache, cfg.attn, index=index, block_table=block_table,
+                lengths=lengths)
+        else:
+            m, _ = attn_mod.decode_attention(p["attn"], h, cache, cfg.attn, index=index)
         x = _mlp_half(p, cfg, x + m)
     x = rmsnorm(params["final_norm"], x)
     return _logits(params, cfg, x), caches

@@ -1,14 +1,15 @@
 """Grouped-query attention with RoPE and QKV bias over dense or paged KV.
 
 The port of the JAX package's ``nn/attention.py`` for the paths the
-paged serving stack runs: full-sequence attention (prefill, through
-:func:`memeff_attention`) and decode / suffix prefill against a page
-pool (:func:`paged_decode_attention`, through the paged-attention
-kernels).  Projection weights are 2-D: ``wq`` (d_model, heads*head_dim),
-``wo`` (heads*head_dim, d_model).
+serving stacks run: full-sequence attention (prefill, through
+:func:`memeff_attention`), decode against a dense ring-buffer cache
+(:func:`decode_attention`, the dense ``Server``) and decode / suffix
+prefill against a page pool (:func:`paged_decode_attention`, through
+the paged-attention kernels).  Projection weights are 2-D: ``wq``
+(d_model, heads*head_dim), ``wo`` (heads*head_dim, d_model).
 
-Page pools are updated **in place** (the JAX package returns new
-arrays and relies on buffer donation to avoid the copy).
+Caches and page pools are updated **in place** (the JAX package
+returns new arrays and relies on buffer donation to avoid the copy).
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs.base import AttnConfig
 from repro_torch.nn.memeff import memeff_attention
-from repro_torch.nn.module import rope
+from repro_torch.nn.module import rope, softcap
 from repro_torch.nn.spec import ParamSpec
+
+NEG_INF = -(2.0**30)  # large-negative in fp32, as the reference
 
 
 def attn_spec(d_model: int, cfg: AttnConfig):
@@ -43,11 +46,22 @@ def attn_spec(d_model: int, cfg: AttnConfig):
 
 
 class KvCache(NamedTuple):
-    """Dense prefill cache: what :func:`prefill` hands to the page scatter."""
+    """Position-explicit dense KV cache (a ring buffer over ``slots``):
+    what :func:`prefill` returns and the dense ``Server`` decodes against."""
 
     k: torch.Tensor  # (batch, slots, kv_heads, head_dim)
     v: torch.Tensor
     pos: torch.Tensor  # (batch, slots) int32, -1 = empty
+
+
+def init_cache(batch: int, slots: int, cfg: AttnConfig, *, dtype=torch.bfloat16,
+               device) -> KvCache:
+    shape = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
+    return KvCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, slots), -1, dtype=torch.int32, device=device),
+    )
 
 
 class PagedKvCache(NamedTuple):
@@ -104,6 +118,28 @@ def _qkv(params, x, cfg: AttnConfig, positions):
     return q, k, v
 
 
+def _gqa_scores(q, k, cfg: AttnConfig):
+    """(b, s, h, hd) x (b, t, kv, hd) -> (b, kv, g, s, t) fp32 logits.
+    The reference's einsum of bf16 operands returns bf16, so the scores
+    round to the operand dtype before the fp32 scale and softcap."""
+    b, s, h, hd = q.shape
+    kv = cfg.n_kv_heads
+    q5 = q.reshape(b, s, kv, h // kv, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", q5.float(), k.float())
+    logits = logits.to(torch.result_type(q, k)).float() / math.sqrt(hd)
+    return softcap(logits, cfg.logit_softcap)
+
+
+def _attend(q, k, v, mask, cfg: AttnConfig):
+    """Masked softmax attention; the probabilities are cast to the V
+    dtype before the PV product, whose result rounds to that dtype too."""
+    logits = torch.where(mask, _gqa_scores(q, k, cfg), NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    b, s = q.shape[0], q.shape[1]
+    out = torch.einsum("bkgst,btkh->bskgh", probs.float(), v.float())
+    return out.to(torch.result_type(probs, v)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+
+
 def _proj_out(params, o, cfg: AttnConfig):
     b, s = o.shape[0], o.shape[1]
     return kernels.linear(o.reshape(b, s, cfg.n_heads * cfg.head_dim), params["wo"],
@@ -121,6 +157,32 @@ def attention(params, x, cfg: AttnConfig, *, positions=None):
     pos = positions.expand(b, s).to(torch.int32)
     o = memeff_attention(q, k, v, pos, pos, causal=True, softcap=cfg.logit_softcap)
     return _proj_out(params, o, cfg), (k, v)
+
+
+def decode_attention(params, x, cache: KvCache, cfg: AttnConfig, *, index):
+    """One (or a few) decode steps against a dense ring-buffer cache,
+    which is updated in place.
+
+    ``x``: (b, s_new, d_model); ``index`` is the absolute position of the
+    first new token — a scalar, or (b,) for ragged continuous batching
+    (every slot at its own position).  New K/V rows land at slot
+    ``position % slots``; a key is visible when its stored position is
+    set and not after the query's."""
+    b, s_new = x.shape[0], x.shape[1]
+    slots = cache.k.shape[1]
+    index = torch.as_tensor(index, device=x.device).reshape(-1).long()
+    positions = (index[:, None] + torch.arange(s_new, device=x.device)[None, :])
+    positions = positions.expand(b, s_new)
+    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    write = positions % slots
+    bidx = torch.arange(b, device=x.device)[:, None].expand(b, s_new)
+    cache.k[bidx, write] = k_new.to(cache.k.dtype)
+    cache.v[bidx, write] = v_new.to(cache.v.dtype)
+    cache.pos[bidx, write] = positions.to(torch.int32)
+    qp = positions[:, None, None, :, None]  # (b, 1, 1, s_new, 1)
+    kp = cache.pos[:, None, None, None, :]  # (b, 1, 1, 1, slots)
+    o = _attend(q, cache.k, cache.v, (kp >= 0) & (kp <= qp), cfg)
+    return _proj_out(params, o, cfg), cache
 
 
 def paged_decode_attention(params, x, cache: PagedKvCache, cfg: AttnConfig, *,

@@ -9,7 +9,7 @@ the code says, so with the flag the two agree to float32 round-off.
 Every kernel runs under ``backend=pallas`` (interpret mode on the CPU),
 the numerics the port's kernels implement.
 
-    python tests/_torch_jax_ref.py {model|serve} OUT.npz
+    python tests/_torch_jax_ref.py {model|serve|dense} OUT.npz
 """
 from __future__ import annotations
 
@@ -62,6 +62,23 @@ SERVE_RUNS = {
 LAUNCH_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--requests", "6",
                "--max-new", "8", "--shared-prefix", "24", "--seed", str(SEED)]
 
+#: kernel policies the dense ``Server`` is held to the JAX launcher under
+DENSE_POLICIES = ("backend=pallas", "mcast", "unicast")
+
+
+def dense_runs() -> dict[str, list[str]]:
+    """The JAX launcher runs of the ``dense`` reference, by name: the
+    dense server under every policy, and both KV backends on cold prompts
+    and on the shared-prefix workload under ``backend=pallas``."""
+    cold = [a for a in LAUNCH_ARGS if a not in ("--shared-prefix", "24")]
+    runs = {f"dense {p}": [*LAUNCH_ARGS, "--kv", "dense", "--kernel-policy", p]
+            for p in DENSE_POLICIES}
+    runs["paged backend=pallas"] = [*LAUNCH_ARGS, "--kv", "paged",
+                                    "--kernel-policy", "backend=pallas"]
+    for kv in ("dense", "paged"):
+        runs[f"cold {kv}"] = [*cold, "--kv", kv, "--kernel-policy", "backend=pallas"]
+    return runs
+
 
 def _model(out: dict) -> None:
     import jax.numpy as jnp
@@ -100,7 +117,6 @@ def _model(out: dict) -> None:
 
 def _serve(out: dict) -> None:
     from repro import kernels
-    from repro.launch import serve as jax_serve
     from repro.serve import PagedEngine, Request
 
     cfg, params = _setup()
@@ -114,18 +130,31 @@ def _serve(out: dict) -> None:
             streams[name] = {"out": {str(r.rid): [int(t) for t in r.out] for r in done},
                              "stats": {k: eng.stats()[k] for k in
                                        ("prefix_hit_tokens", "preempted", "cow_copies")}}
+    streams["launcher_stdout"] = _launch([*LAUNCH_ARGS, "--kv", "paged",
+                                          "--kernel-policy", "backend=pallas"])
+    out["serve_json"] = np.asarray(json.dumps(streams))
+
+
+def _launch(args: list[str]) -> str:
+    """stdout of one ``python -m repro.launch.serve ARGS`` run, in process."""
+    from repro import kernels
+    from repro.launch import serve as jax_serve
+
     buf = io.StringIO()
     argv = sys.argv
-    sys.argv = ["repro.launch.serve", *LAUNCH_ARGS, "--kv", "paged",
-                "--kernel-policy", "backend=pallas"]
+    sys.argv = ["repro.launch.serve", *args]
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
             jax_serve.main()
     finally:
         sys.argv = argv
-        kernels.set_policy(None)
-    streams["launcher_stdout"] = buf.getvalue()
-    out["serve_json"] = np.asarray(json.dumps(streams))
+        kernels.set_policy(None)  # the launcher sets the global policy
+    return buf.getvalue()
+
+
+def _dense(out: dict) -> None:
+    out["dense_json"] = np.asarray(json.dumps(
+        {name: _launch(args) for name, args in dense_runs().items()}))
 
 
 def _setup():
@@ -140,7 +169,7 @@ def _setup():
 
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    {"model": _model, "serve": _serve}[mode](out)
+    {"model": _model, "serve": _serve, "dense": _dense}[mode](out)
     _, params = _setup()
     out["params_checksum"] = np.asarray(params_checksum(params))
     np.savez(path, **out)

@@ -1,0 +1,157 @@
+"""The port's dispatch layer (``kernels/api.py``, ``kernels/autotune.py``)
+against the JAX package's: the same policy syntax, and the same schedule
+picked for every (shape, dtype, policy) of a grid that covers the
+serving shapes, the exact tie at M <= 2048 (``tiled`` listed first
+wins) and the one shape where ``mcast`` is cheaper (M = 2049).  A forced
+matmul schedule cannot reach paged attention in either package, and the
+port refuses the unported ``reference`` backend.
+
+Both registries run in this process; nothing executes a kernel except
+the paged-engine run, which uses the plain CPU path."""
+import dataclasses
+import itertools
+
+import jax
+import pytest
+import torch
+
+from _torch_jax_ref import SEED
+from repro import kernels as jax_kernels
+from repro.configs import get_config as jax_config
+from repro.kernels import api as jax_api
+from repro.models import lm as jax_lm
+from repro_torch import kernels
+from repro_torch.configs import get_config
+from repro_torch.kernels import api
+from repro_torch.serve import PagedEngine, Request, ServeConfig
+from repro_torch.weights import from_jax_params
+
+
+@pytest.fixture(autouse=True)
+def _autotune_cache(tmp_path, monkeypatch):
+    """JAX's ``resolve`` consults its autotune cache: keep it per test."""
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+
+
+@pytest.mark.parametrize("text", ["tiled", "mcast", "backend=pallas",
+                                  "schedule=unicast,autotune=off", "", "reference",
+                                  "backend=pallas,autotune=0"])
+def test_policy_parse_matches_jax_field_by_field(text):
+    """Every field the port keeps parses as JAX's does; JAX's ``autotune``
+    is accepted and dropped (the CUDA kernels' tiles are fixed)."""
+    want = dataclasses.asdict(jax_api.DispatchPolicy.parse(text))
+    got = dataclasses.asdict(api.DispatchPolicy.parse(text))
+    assert got == {field: want[field] for field in got}
+    assert set(want) - set(got) == {"autotune"}
+
+
+def test_policy_parse_rejects_what_jax_rejects():
+    for bad in ("colour=red", "backend=tpu"):
+        with pytest.raises(ValueError):
+            jax_api.DispatchPolicy.parse(bad)
+        with pytest.raises(ValueError):
+            api.DispatchPolicy.parse(bad)
+
+
+MS = (1, 4, 48, 256, 2048, 2049, 4096)
+KNS = ((1024, 1024), (1024, 2816), (2816, 1024))
+POLICIES = (None, "tiled", "mcast", "unicast", "backend=pallas,autotune=off")
+GRID = [(m, k, n, dt) for m, (k, n), dt in itertools.product(MS, KNS, ("bfloat16", "float32"))]
+GRID += [(m, 1024, 151936, "float32") for m in (1, 4, 48)]  # the tied fp32 logits
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=str)
+def test_resolve_picks_the_jax_schedule_over_the_grid(policy):
+    """The port's default is the JAX package's default on a TPU:
+    ``backend=pallas``, cheapest available schedule."""
+    jax_policy = policy or "backend=pallas"
+    torch_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for m, k, n, dt in GRID:
+        want = jax_kernels.resolve("matmul", (m, k, n), dt, jax_policy).schedule
+        got = kernels.resolve("matmul", (m, k, n), torch_dtype[dt], policy)
+        assert got.schedule == want, (m, k, n, dt, policy)
+        assert got.backend == "pallas"
+    if policy is None:  # the two sides of the M = 2048 tie
+        assert kernels.resolve("matmul", (2049, 1024, 2816), torch.bfloat16).schedule == "mcast"
+        assert kernels.resolve("matmul", (2048, 1024, 2816), torch.bfloat16).schedule == "tiled"
+
+
+def test_resolve_follows_set_policy_and_the_environment(monkeypatch):
+    shape = (4, 1024, 1024)
+    assert kernels.resolve("matmul", shape, torch.bfloat16).schedule == "tiled"
+    monkeypatch.setenv(api.POLICY_ENV_VAR, "unicast")
+    assert kernels.resolve("matmul", shape, torch.bfloat16).schedule == "unicast"
+    with kernels.use_policy("mcast"):  # global beats the environment
+        assert kernels.resolve("matmul", shape, torch.bfloat16).schedule == "mcast"
+        # and a per-call policy beats both
+        assert kernels.resolve("matmul", shape, torch.bfloat16, "tiled").schedule == "tiled"
+    assert kernels.get_policy() == api.DispatchPolicy(schedule="unicast")
+    monkeypatch.setenv(api.POLICY_ENV_VAR, "mcast")  # a memoised pick follows a new value
+    assert kernels.resolve("matmul", shape, torch.bfloat16).schedule == "mcast"
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 1, 16, 16, 16, 16, 64, 0),   # decode
+    (1, 16, 16, 16, 16, 16, 64, 0),  # suffix prefill
+    (1, 5, 16, 4, 16, 16, 64, 0),    # ragged suffix, GQA
+    (2, 1, 16, 16, 16, 16, 64, 2),   # int8 pools
+])
+@pytest.mark.parametrize("policy", [None, "pallas_prefill"], ids=str)
+def test_paged_attention_resolve_matches_jax(shape, policy):
+    want = jax_kernels.resolve("paged_attention", shape, "bfloat16",
+                               policy or "backend=pallas").schedule
+    assert kernels.resolve("paged_attention", shape, torch.bfloat16, policy).schedule == want
+
+
+@pytest.mark.parametrize("schedule", ["mcast", "unicast", "tiled"])
+def test_forced_matmul_schedule_cannot_reach_paged_attention(schedule):
+    shape = (4, 1, 16, 16, 16, 16, 64, 0)
+    msg = f"kernel op 'paged_attention' has no schedule '{schedule}'"
+    with pytest.raises(ValueError, match=msg):
+        jax_kernels.resolve("paged_attention", shape, "bfloat16", schedule)
+    with pytest.raises(ValueError, match=msg):
+        kernels.resolve("paged_attention", shape, torch.bfloat16, schedule)
+
+
+def test_forced_mcast_on_the_paged_engine_raises():
+    """``--kv paged --kernel-policy mcast`` fails in the JAX launcher with
+    this ValueError; the port's engine fails the same way."""
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    jparams = jax_lm.init(jax_config("qwen1.5-0.5b", reduced=True), jax.random.PRNGKey(SEED))
+    params = from_jax_params(jax.device_get(jparams), device="cpu")
+    eng = PagedEngine(cfg, params, device="cpu",
+                      config=ServeConfig(max_slots=2, cache_len=64, page_size=8))
+    with kernels.use_policy("mcast"), \
+            pytest.raises(ValueError, match="kernel op 'paged_attention' has no schedule 'mcast'"):
+        eng.run([Request(rid=0, prompt=list(range(1, 12)), max_new=2)])
+
+
+@pytest.mark.parametrize("policy", ["backend=reference", "reference", "schedule=reference"])
+def test_reference_backend_is_not_ported(policy):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
+        kernels.resolve("matmul", (4, 64, 64), torch.bfloat16, policy)
+    with kernels.use_policy(policy), pytest.raises(NotImplementedError, match="reference"):
+        kernels.linear(torch.zeros(2, 8), torch.zeros(8, 4))
+
+
+def test_unknown_schedule_raises_like_jax():
+    with pytest.raises(ValueError, match="has no schedule 'split_k'"):
+        kernels.resolve("matmul", (4, 64, 64), torch.bfloat16, "split_k")
+    with pytest.raises(ValueError, match="unknown kernel op"):
+        kernels.op("flash_attention")
+
+
+def test_autotune_candidates_match_jax():
+    """The copied selection model: same configs, budgets and costs."""
+    from repro.kernels import autotune as jax_autotune
+    from repro_torch.kernels import autotune
+
+    for sched, shape in (("mcast", (2049, 1024, 2816)), ("tiled", (4, 1024, 151936)),
+                         ("unicast", (48, 2816, 1024))):
+        for dt in ("bfloat16", "float32"):
+            want = jax_autotune.candidates("matmul", shape, dt, schedule=sched)
+            got = autotune.candidates("matmul", shape, dt, schedule=sched)
+            assert [(c.config, c.vmem_bytes, c.grid_steps, c.hbm_bytes) for c in got] == \
+                [(c.config, c.vmem_bytes, c.grid_steps, c.hbm_bytes) for c in want]
+    assert autotune.VMEM_BUDGET == jax_autotune.VMEM_BUDGET
+    assert autotune.STEP_OVERHEAD_BYTES == jax_autotune.STEP_OVERHEAD_BYTES

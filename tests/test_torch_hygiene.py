@@ -46,6 +46,23 @@ def test_no_jax_and_no_reference_package_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
+def test_scan_covers_every_port_module():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("kernels/api.py", "kernels/autotune.py", "kernels/matmul/matmul.py",
+                "nn/attention.py", "models/lm.py", "launch/serve.py"):
+        assert f"src/repro_torch/{rel}" in names, rel
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """Each CUDA source has a build entry, and each built kernel a wrapper
+    with a launch counter in the dispatch layer."""
+    from repro_torch.kernels import _build
+
+    sources = {p.name for p in _build.CSRC.glob("*.cu")}
+    assert sources == {src for src, _, _ in _build.KERNELS.values()}
+    assert set(_build.KERNELS) == set(kernels.KERNELS)
+
+
 def test_scan_sees_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\nfrom repro.models import lm\n"
@@ -56,9 +73,12 @@ def test_scan_sees_forbidden_imports(tmp_path):
 ENTRY_POINTS = [
     lambda cfg: lm.init(cfg),
     lambda cfg: lm.init_paged_cache(cfg, 4, 8),
+    lambda cfg: lm.init_cache(cfg, 2, 8),
+    lambda cfg: launcher.Server(cfg, lm.init(cfg, device="cpu")),
     lambda cfg: from_jax_params({}),
     lambda cfg: PagedEngine(cfg, lm.init(cfg, device="cpu")),
     lambda cfg: launcher.main(["--reduced"]),
+    lambda cfg: launcher.main(["--reduced", "--kv", "paged"]),
 ]
 
 
@@ -72,7 +92,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(call):
 
 
 def test_entry_point_signatures_default_to_cuda():
-    for fn in (lm.init, lm.init_paged_cache, from_jax_params, PagedEngine.__init__):
+    for fn in (lm.init, lm.init_paged_cache, lm.init_cache, from_jax_params,
+               PagedEngine.__init__, launcher.Server.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert launcher.parser().parse_args([]).device == "cuda"
 
@@ -87,15 +108,17 @@ def test_plain_path_leaves_launch_counters_at_zero():
     assert len(done) == 3 and eng.stats()["prefix_hit_tokens"] > 0
     assert eng.kernel_calls["decode"] and eng.kernel_calls["suffix_prefill"]
     assert kernels.launch_counts() == {
-        "matmul_tiled": 0, "paged_attention_decode": 0, "paged_attention_prefill": 0}
+        "matmul_tiled": 0, "matmul_mcast": 0, "matmul_unicast": 0,
+        "paged_attention_decode": 0, "paged_attention_prefill": 0}
 
 
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     """A tensor on any other device than the CPU never runs the plain
     version: here (a ``meta`` tensor) the wrappers refuse it."""
     meta = dict(device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        kernels.linear(torch.zeros(2, 3, **meta), torch.zeros(3, 4, **meta))
+    for policy in ("tiled", "mcast", "unicast"):
+        with kernels.use_policy(policy), pytest.raises(ValueError, match="CUDA"):
+            kernels.linear(torch.zeros(2, 3, **meta), torch.zeros(3, 4, **meta))
     q = torch.zeros(1, 1, 2, 16, **meta)
     pages = torch.zeros(2, 4, 8, 16, **meta)
     table = torch.zeros(1, 2, dtype=torch.int32, **meta)

@@ -1,8 +1,10 @@
-"""K1 (tiled multicast matmul) of the port against the JAX package's
-``matmul_mcast_tiled`` Pallas kernel, run in interpret mode.
+"""The port's three matmul schedules against the JAX package's Pallas
+kernels, run in interpret mode: K1 (``matmul_mcast_tiled``), K4
+(``matmul_mcast``) and K5 (``matmul_unicast``), and ``linear`` under each
+forced policy against JAX ``linear`` under the same policy.
 
 The same numpy-seeded inputs go to both sides.  The comparison is with
-the Pallas kernel itself, not with JAX's CPU default backend, whose
+the Pallas kernels themselves, not with JAX's CPU default backend, whose
 epilogue rounds to ``out_dtype`` before the bias add."""
 import jax.numpy as jnp
 import numpy as np
@@ -10,13 +12,20 @@ import pytest
 import torch
 
 from _torch_util import close, t
+from repro import kernels as jax_kernels
+from repro.kernels.matmul.matmul import hbm_traffic_model as jax_traffic
+from repro.kernels.matmul.matmul import matmul_mcast as jax_mcast
 from repro.kernels.matmul.matmul import matmul_mcast_tiled
+from repro.kernels.matmul.matmul import matmul_unicast as jax_unicast
 from repro_torch import kernels
 from repro_torch.kernels.matmul import (
     ACTIVATIONS,
+    hbm_traffic_model,
+    matmul_mcast,
     matmul_ref,
     matmul_tiled,
     matmul_tiled_plain,
+    matmul_unicast,
 )
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -113,3 +122,72 @@ def test_cpu_wrapper_rejects_bad_inputs():
         matmul_tiled(a, torch.zeros(5, 2))
     with pytest.raises(TypeError):
         matmul_tiled(a.half(), torch.zeros(4, 2).half())
+
+
+FLAT = {"mcast": (matmul_mcast, jax_mcast), "unicast": (matmul_unicast, jax_unicast)}
+
+
+@pytest.mark.parametrize("name", sorted(FLAT))
+@pytest.mark.parametrize("shape", [(5, 70, 33), (1, 130, 257), (37, 9, 3), (24, 96, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_plain_matches_pallas_ragged_shapes(name, shape, dtype):
+    """K4/K5 return the bare product in a.dtype, as the TPU kernels do."""
+    fn, jfn = FLAT[name]
+    a, b, _ = _inputs(*shape, dtype, seed=6, bias=False)
+    want = jfn(a, b, interpret=True)
+    got = fn(t(a), t(b))
+    assert got.dtype == dtype and got.shape == shape[::2]
+    close(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(FLAT))
+def test_flat_plain_mixed_dtypes_output_in_a_dtype(name):
+    """fp32 activations x a bf16 table view (the tied logits under a
+    forced flat schedule): the product comes back in fp32."""
+    fn, jfn = FLAT[name]
+    rng = np.random.default_rng(7)
+    x = jnp.asarray(rng.standard_normal((3, 64)), jnp.float32)
+    table = jnp.asarray(rng.standard_normal((50, 64)) * 0.02, jnp.bfloat16)
+    want = jfn(x, table.T.astype(jnp.float32), interpret=True)
+    got = fn(t(x), t(table).t())
+    assert got.dtype == torch.float32
+    close(got, want)
+
+
+@pytest.mark.parametrize("policy", ["mcast", "unicast", "tiled"])
+@pytest.mark.parametrize("bias,activation", [(True, "silu"), (True, "none"), (False, "gelu")])
+def test_linear_under_policy_matches_jax_linear(policy, bias, activation):
+    """``linear`` under a forced schedule rounds where JAX's does: K4/K5
+    round the product to bf16, then bias and activation run in fp32 and
+    round again (``_mm_flat``); K1 fuses them and rounds once."""
+    a, b, bb = _inputs(6, 48, 40, torch.bfloat16, seed=8, bias=bias)
+    with jax_kernels.use_policy(policy):
+        want = jax_kernels.linear(a, b, bias=bb, activation=activation)
+    with kernels.use_policy(policy):
+        got = kernels.linear(t(a), t(b), bias=None if bb is None else t(bb),
+                             activation=activation)
+    assert got.dtype == torch.bfloat16
+    close(got, want)
+    # the per-call policy= picks the same schedule as the global one
+    assert torch.equal(kernels.linear(t(a), t(b), bias=None if bb is None else t(bb),
+                                      activation=activation, policy=policy), got)
+
+
+def test_flat_schedules_round_twice():
+    """The double rounding is real: on these inputs the unfused epilogue
+    gives other bf16 values than K1's fused one, and JAX agrees."""
+    a, b, bb = _inputs(16, 64, 48, torch.bfloat16, seed=9)
+    with kernels.use_policy("tiled"):
+        fused = kernels.linear(t(a), t(b), bias=t(bb), activation="silu")
+    with kernels.use_policy("mcast"):
+        flat = kernels.linear(t(a), t(b), bias=t(bb), activation="silu")
+    assert not torch.equal(fused, flat)
+    with jax_kernels.use_policy("mcast"):
+        want = jax_kernels.linear(a, b, bias=bb, activation="silu")
+    close(flat, want)
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 1024, 1024), (2049, 2816, 1024), (256, 151936, 1024)])
+def test_hbm_traffic_model_is_the_jax_model(m, n, k):
+    kw = dict(bm=64, bn=64, bk=32, gm=512, dtype_bytes=2)
+    assert hbm_traffic_model(m, n, k, **kw) == jax_traffic(m, n, k, **kw)

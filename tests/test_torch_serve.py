@@ -71,7 +71,7 @@ def test_launcher_stdout_matches_jax_launcher(model, ref):
     _, _, params = model
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
-        launcher.main([*LAUNCH_ARGS, "--device", "cpu"], params=params)
+        launcher.main([*LAUNCH_ARGS, "--kv", "paged", "--device", "cpu"], params=params)
     want = ref["launcher_stdout"].splitlines()
     assert [ln for ln in want if ln.startswith("req ")]  # six request lines to diff
     assert buf.getvalue().splitlines() == want
