@@ -14,6 +14,17 @@ each fatal on failure (nothing is caught):
    each matmul shape also the three schedules side by side — K1 tiled,
    K4 mcast, K5 unicast on the same inputs — with the B bytes the
    schedules' traffic model gives each (the paper's comparison);
+2b. gradients: K6, K7 and K8 (flash attention forward, dQ, dK/dV) each
+   against its plain version at five shapes — qwen1.5-0.5b and gemma2-9b's
+   local layers at full width, the kernel benchmark's flash row and two
+   ragged cross-attention cases, one with rows that see no key — timed
+   as in phase 2; then the differentiated path, ``torch.autograd.grad``
+   through ``op("flash_attention")`` at the two full-width shapes, every
+   launch count at 0 before it, against the same graph on the plain
+   versions (one forward must launch K6 once, one backward K7 and K8
+   once each); then ``grad(linear)`` at qwen's gate projection over
+   2 x 2048 tokens under ``tiled``, ``mcast`` and ``unicast`` (one
+   forward matmul launch, then z, dA and dB);
 3. build qwen1.5-0.5b at full width from a seed and compare one prefill
    and one decode step run through the kernels with the same run through
    the plain versions: paged decode under the default policy, and dense
@@ -28,9 +39,10 @@ each fatal on failure (nothing is caught):
    other matmul kernel — was launched.
 
 It prints one JSON line per check, then the card line, the kernel
-summary and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or run outside a checkout of the repository, it exits non-zero
-and prints no result.
+summary (launches: phase 4's serving runs for K1–K5, phase 2b's
+autograd path for K6–K8) and, last, ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or run outside a checkout of the repository, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
@@ -57,6 +70,14 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import api  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_plain,
+)
 from repro_torch.kernels.matmul import (  # noqa: E402
     hbm_traffic_model,
     kernel_blocks,
@@ -92,6 +113,15 @@ HBM_BYTES_PER_S = 3.35e12
 # outputs of K1 (the logits): 1e-4, the reordered fp32 sum over K=1024.
 TOL_BF16 = 2e-2
 TOL_FP32 = 1e-4
+# K6-K8 outputs (attention averages and their gradients) are small where
+# a row averages thousands of keys (|o| ~ 0.03 at gemma2's window), so a
+# fixed 2e-2 floor would pass almost anything there.  Their absolute term
+# is the tolerance times the RMS of the element's row (its last axis)
+# instead: |got - want| <= tol * (|want| + rms(want's row)).  The rounding
+# gap it must admit is K6's: the kernel rounds p to bf16 against the
+# running row max, the plain version against the final one, two
+# independent roundings of up to 2^-9 relative per kept key, whose sum
+# over a row stays within a few 2^-9 of the row's RMS.
 # whole-model logits: fp32, but built on 24 layers of bf16 activations in
 # which such ties recur; held to 2e-2 of the largest logit.
 TOL_MODEL = 2e-2
@@ -107,6 +137,12 @@ KERNEL_META = {
                                "src/repro/kernels/paged_attention/paged_attention.py:105"),
     "paged_attention_prefill": ("src/repro_torch/csrc/paged_attention_prefill.cu",
                                 "src/repro/kernels/paged_attention/paged_attention.py:240"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_fwd.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:96"),
+    "flash_attention_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd_dq.cu",
+                               "src/repro/kernels/flash_attention/flash_attention.py:248"),
+    "flash_attention_bwd_dkv": ("src/repro_torch/csrc/flash_attention_bwd_dkv.cu",
+                                "src/repro/kernels/flash_attention/flash_attention.py:281"),
 }
 POLICIES = ("tiled", "mcast", "unicast")
 MATMULS = ("matmul_tiled", "matmul_mcast", "matmul_unicast")
@@ -169,19 +205,43 @@ def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.float() - want.float()).abs().max())
+    return float((got.detach().float() - want.detach().float()).abs().max())
 
 
 def check_close(name: str, got, want, tol: float) -> float:
     """|got - want| <= tol + tol * |want| elementwise (rtol = atol = tol)."""
     torch.cuda.synchronize()
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     ok = bool(torch.isfinite(g).all()) and bool(((g - w).abs() <= tol + tol * w.abs()).all())
     err = max_err(got, want)
     if not ok:
         raise AssertionError(f"{name}: kernel and plain version disagree beyond rtol=atol="
                              f"{tol} (max abs err {err})")
     return err
+
+
+def flash_atol(want: torch.Tensor, tol: float) -> torch.Tensor:
+    """The flash checks' absolute term: ``tol`` times the RMS of each
+    element's row (the last axis: a query's output or dQ, a key's dK/dV)."""
+    return tol * want.detach().float().square().mean(dim=-1, keepdim=True).sqrt()
+
+
+def check_flash_close(name: str, got, want, tol: float) -> tuple[float, float]:
+    """|got - want| <= flash_atol(want) + tol * |want| elementwise; returns
+    (max abs err, the largest |got - want| over its allowance — <= 1
+    passes — and the least fixed absolute term that would pass at
+    rtol = tol)."""
+    torch.cuda.synchronize()
+    g, w = got.detach().float(), want.detach().float()
+    diff, allow = (g - w).abs(), flash_atol(w, tol) + tol * w.abs()
+    ok = bool(torch.isfinite(g).all()) and bool((diff <= allow).all())
+    ratio = float(torch.where(diff > 0, diff / allow, torch.zeros_like(diff)).max())
+    err, fixed = float(diff.max()), float((diff - tol * w.abs()).clamp(min=0).max())
+    if not ok:
+        raise AssertionError(f"{name}: kernel and plain version disagree beyond "
+                             f"tol={tol} x (|want| + row rms) (max abs err {err}, "
+                             f"worst err / allowance {ratio:.3g})")
+    return err, ratio, fixed
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +451,274 @@ def check_prefill(gen, *, b=1, s=16, h=16, kvh=16, d=64, ps=16, n=16, lengths=(4
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: gradients — K6, K7, K8 and the differentiated paths
+# ---------------------------------------------------------------------------
+
+
+class FlashShape(NamedTuple):
+    label: str
+    b: int
+    h: int
+    kvh: int
+    sq: int
+    sk: int
+    d: int
+    dtype: torch.dtype
+    causal: bool
+    window: int | None
+    softcap: float | None
+    runs: int  # timed runs of each function
+
+
+FLASH_SHAPES = (
+    FlashShape("qwen1.5-0.5b", 2, 16, 16, 2048, 2048, 64, torch.bfloat16, True, None, None, 10),
+    FlashShape("gemma2-9b local layer", 1, 16, 8, 8192, 8192, 256, torch.bfloat16, True, 4096,
+               50.0, 3),
+    FlashShape("bench_kernels flash row", 1, 4, 2, 512, 512, 64, torch.float32, True, None,
+               None, 25),
+    FlashShape("ragged cross", 3, 8, 1, 77, 200, 128, torch.bfloat16, False, None, None, 25),
+    FlashShape("ragged, keyless rows", 3, 8, 1, 200, 77, 128, torch.bfloat16, True, 16, None,
+               25),
+)
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def flash_pairs(c: FlashShape) -> int:
+    """The (query, key) pairs the masks keep, over all heads: the work
+    this data needs (a row that sees no key needs only the mean of V)."""
+    qp = np.arange(c.sq)
+    lo = np.maximum(0, qp - c.window + 1) if c.window else np.zeros(c.sq, np.int64)
+    hi = np.minimum(qp, c.sk - 1) if c.causal else np.full(c.sq, c.sk - 1)
+    return c.b * c.h * int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bounds(c: FlashShape) -> dict[str, tuple[float, str]]:
+    """Each kernel's least time: its inputs read and outputs written once,
+    against 2 d FLOPs per kept pair per product (K6 2, K7 3, K8 4
+    products) at the card's peak for the operands' type."""
+    es = torch.tensor([], dtype=c.dtype).element_size()
+    pairs, peak = flash_pairs(c), PEAK_BF16 if c.dtype == torch.bfloat16 else PEAK_FP32
+    q_bytes, kv_bytes = c.b * c.h * c.sq * c.d * es, c.b * c.kvh * c.sk * c.d * es
+    rows = c.b * c.h * c.sq * 4  # one fp32 per query row: lse, delta
+    return {
+        "flash_attention": bound(2 * 2 * c.d * pairs, 2 * q_bytes + 2 * kv_bytes + rows, peak),
+        "flash_attention_bwd_dq": bound(3 * 2 * c.d * pairs,
+                                        3 * q_bytes + 2 * kv_bytes + 2 * rows, peak),
+        "flash_attention_bwd_dkv": bound(4 * 2 * c.d * pairs,
+                                         2 * q_bytes + 2 * kv_bytes + 2 * rows
+                                         + 2 * c.b * c.h * c.sk * c.d * es, peak),
+    }
+
+
+def _sdpa(c: FlashShape):
+    """One SDPA call computing K6's function, or None: a window or a
+    softcap is not SDPA's (its causal mask, top-left aligned, is ours)."""
+    if c.window is not None or c.softcap is not None:
+        return None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if c.h == c.kvh:
+        return lambda q, k, v: sdpa(q, k, v, is_causal=c.causal)
+    return lambda q, k, v: sdpa(q, k, v, is_causal=c.causal, enable_gqa=True)
+
+
+def _sdpa_backward(c: FlashShape, q, k, v, do):
+    """One aten call computing K7's and K8's functions together — dQ, dK
+    and dV from a saved forward and log-sum-exp (FlashAttention-2's
+    backward) — or None where that kernel does not take the case (GQA,
+    fp32, a window or a softcap).  Its forward runs here, untimed."""
+    if _sdpa(c) is None or c.h != c.kvh or c.dtype != torch.bfloat16:
+        return None
+    aten = torch.ops.aten
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(q, k, v, 0.0, c.causal)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, c.causal, seed, offset)
+
+
+def _flash_inputs(gen, c: FlashShape):
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(c.dtype)
+    return (rand(c.b, c.h, c.sq, c.d), rand(c.b, c.kvh, c.sk, c.d), rand(c.b, c.kvh, c.sk, c.d),
+            rand(c.b, c.h, c.sq, c.d))
+
+
+def check_flash(gen, c: FlashShape) -> dict[str, dict]:
+    """K6, K7 and K8 against their plain versions on the same inputs
+    (the backward ones fed K6's lse and delta), each timed."""
+    q, k, v, do = _flash_inputs(gen, c)
+    kw = dict(causal=c.causal, window=c.window, softcap=c.softcap)
+    tol = TOL_BF16 if c.dtype == torch.bfloat16 else TOL_FP32
+    before = kernels.launch_counts()
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    errs = {"flash_attention": check_flash_close(f"flash_attention {c.label}", o, o_p, tol)}
+    check_close(f"flash_attention lse {c.label}", lse, lse_p, TOL_FP32)
+    delta = (do.float() * o.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta)
+    errs["flash_attention_bwd_dq"] = check_flash_close(
+        f"flash_attention_bwd_dq {c.label}", flash_attention_bwd_dq(*bwd, **kw),
+        flash_attention_bwd_dq_plain(*bwd, **kw), tol)
+    (dk, dv), (dk_p, dv_p) = flash_attention_bwd_dkv(*bwd, **kw), \
+        flash_attention_bwd_dkv_plain(*bwd, **kw)
+    errs["flash_attention_bwd_dkv"] = tuple(map(max, zip(
+        check_flash_close(f"flash_attention_bwd_dkv dk {c.label}", dk, dk_p, tol),
+        check_flash_close(f"flash_attention_bwd_dkv dv {c.label}", dv, dv_p, tol))))
+    after = kernels.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in FLASH_KERNELS), (before, after)
+    del o_p, lse_p, dk_p, dv_p
+
+    warm = 1 if c.runs < 10 else 3
+    timed = {
+        "flash_attention": (lambda: flash_attention(q, k, v, return_lse=True, **kw),
+                            lambda: flash_attention_plain(q, k, v, return_lse=True, **kw)),
+        "flash_attention_bwd_dq": (lambda: flash_attention_bwd_dq(*bwd, **kw),
+                                   lambda: flash_attention_bwd_dq_plain(*bwd, **kw)),
+        "flash_attention_bwd_dkv": (lambda: flash_attention_bwd_dkv(*bwd, **kw),
+                                    lambda: flash_attention_bwd_dkv_plain(*bwd, **kw)),
+    }
+    sdpa, sdpa_bwd = _sdpa(c), _sdpa_backward(c, q, k, v, do)
+    library = {"flash_attention": ("scaled_dot_product_attention", sdpa and
+                                   (lambda: sdpa(q, k, v)))}
+    for name in FLASH_KERNELS[1:]:  # one call computes dQ, dK and dV: K7 and K8 jointly
+        library[name] = ("aten._scaled_dot_product_flash_attention_backward (dQ, dK, dV "
+                         "jointly)", sdpa_bwd)
+    lib_ms = {fn: time_ms(fn, c.runs, warm)[0] for _, fn in library.values() if fn}
+    bounds = flash_bounds(c)
+    recs = {}
+    for name, (fn, plain) in timed.items():
+        k_ms, k_host = time_ms(fn, c.runs, warm)
+        b_ms, b_by = bounds[name]
+        lib_name, lib_fn = library[name]
+        recs[name] = dict(
+            check="kernel", name=name, case=c.label, b=c.b, h=c.h, kvh=c.kvh, sq=c.sq, sk=c.sk,
+            d=c.d, dtype=str(c.dtype), causal=c.causal, window=c.window, softcap=c.softcap,
+            kept_pairs=flash_pairs(c), kernel_ms=k_ms, host_ms=k_host,
+            plain_ms=time_ms(plain, c.runs, warm)[0],
+            library=lib_name if lib_fn else None, library_ms=lib_ms.get(lib_fn),
+            bound_ms=b_ms, bound_by=b_by, max_err=errs[name][0], err_over_allowance=errs[name][1],
+            least_fixed_atol=errs[name][2], tol=f"{tol} x (|want| + row rms)")
+        emit(recs[name])
+    return recs
+
+
+def check_flash_path(gen, c: FlashShape) -> dict[str, int]:
+    """The differentiated path: ``torch.autograd.grad`` of
+    ``(op("flash_attention")(q, k, v).float() * w).sum()`` with respect to
+    q, k and v, every launch count set to 0 just before and read just
+    after, against the same graph on the plain versions; then timed
+    beside SDPA's forward + backward where SDPA computes the function."""
+    q, k, v, _ = _flash_inputs(gen, c)
+    w = torch.randn(c.b, c.h, c.sq, c.d, device="cuda", generator=gen)
+    kw = dict(causal=c.causal, window=c.window, softcap=c.softcap)
+    fa = kernels.op("flash_attention")
+
+    def path():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fa(*leaves, **kw)
+        return (out, *torch.autograd.grad((out.float() * w).sum(), leaves))
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = fa(*leaves, **kw)
+    fwd = kernels.launch_counts()
+    grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+    torch.cuda.synchronize()
+    total = kernels.launch_counts()
+    bwd = {n: total[n] - fwd[n] for n in total}
+    if fwd["flash_attention"] != 1 or sum(fwd.values()) != 1 \
+            or bwd["flash_attention_bwd_dq"] != 1 or bwd["flash_attention_bwd_dkv"] != 1 \
+            or sum(bwd.values()) != 2:
+        raise AssertionError(f"flash path {c.label}: forward launched {fwd}, backward {bwd}")
+    with plain_versions():
+        want = path()
+    tol = TOL_BF16 if c.dtype == torch.bfloat16 else TOL_FP32
+    errs = [check_flash_close(f"flash path {c.label} {name}", got, ref, tol)
+            for name, got, ref in zip(("o", "dq", "dk", "dv"), (out, *grads), want)]
+    del want
+    warm = 1 if c.runs < 10 else 3
+    sdpa = _sdpa(c)
+
+    def sdpa_path():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = sdpa(*leaves)
+        return torch.autograd.grad((o.float() * w).sum(), leaves)
+
+    k_ms, k_host = time_ms(path, c.runs, warm, max_spin_s=0.5)
+    with plain_versions():
+        plain_ms = time_ms(path, c.runs, warm, max_spin_s=0.5)[0]
+    emit(dict(check="grad_path", case=c.label, b=c.b, h=c.h, kvh=c.kvh, sq=c.sq, sk=c.sk, d=c.d,
+              dtype=str(c.dtype), causal=c.causal, window=c.window, softcap=c.softcap,
+              forward_launches={n: v for n, v in fwd.items() if v},
+              backward_launches={n: v for n, v in bwd.items() if v},
+              fwd_bwd_ms=k_ms, host_ms=k_host, plain_fwd_bwd_ms=plain_ms,
+              library="scaled_dot_product_attention forward + backward" if sdpa else None,
+              library_fwd_bwd_ms=None if sdpa is None else time_ms(sdpa_path, c.runs, warm)[0],
+              max_err_o_dq_dk_dv=[e[0] for e in errs],
+              err_over_allowance_o_dq_dk_dv=[e[1] for e in errs],
+              least_fixed_atol_o_dq_dk_dv=[e[2] for e in errs],
+              tol=f"{tol} x (|want| + row rms)"))
+    return total
+
+
+def check_linear_grad(gen, policy: str, m: int = 4096, k: int = 1024, n: int = 2816) -> None:
+    """``grad(linear)`` with bias and silu (qwen's gate projection over
+    2 x 2048 tokens) under a forced schedule: one matmul launch forward,
+    then z, dA and dB backward, against the same graph on the plain
+    versions."""
+    a = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    b = (torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+    bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(m, n, device="cuda", generator=gen)
+
+    def path():
+        leaves = [t.detach().requires_grad_() for t in (a, b, bias)]
+        y = kernels.linear(leaves[0], leaves[1], bias=leaves[2], activation="silu",
+                           policy=policy)
+        return (y, *torch.autograd.grad((y.float() * w).sum(), leaves))
+
+    leaves = [t.detach().requires_grad_() for t in (a, b, bias)]
+    kernels.reset_launch_counts()
+    y = kernels.linear(leaves[0], leaves[1], bias=leaves[2], activation="silu", policy=policy)
+    fwd = kernels.launch_counts()
+    grads = torch.autograd.grad((y.float() * w).sum(), leaves)
+    torch.cuda.synchronize()
+    bwd = {name: cnt - fwd[name] for name, cnt in kernels.launch_counts().items()}
+    forced = dict(zip(POLICIES, MATMULS))[policy]
+    if fwd[forced] != 1 or sum(fwd.values()) != 1 or sum(bwd.values()) != 3 \
+            or any(bwd[name] for name in bwd if name not in MATMULS):
+        raise AssertionError(f"grad(linear) {policy}: forward launched {fwd}, backward {bwd}")
+    with plain_versions():
+        want = path()
+    errs = [check_close(f"grad(linear) {policy} {name}", got, ref, TOL_BF16)
+            for name, got, ref in zip(("y", "da", "db", "dbias"), (y, *grads), want)]
+    k_ms, k_host = time_ms(path, 10, max_spin_s=0.5)
+    with plain_versions():
+        plain_ms = time_ms(path, 10, max_spin_s=0.5)[0]
+    emit(dict(check="linear_grad", policy=policy, shape=[m, k, n], activation="silu", bias=True,
+              forward_launches={n_: v for n_, v in fwd.items() if v},
+              backward_launches={n_: v for n_, v in bwd.items() if v},
+              fwd_bwd_ms=k_ms, host_ms=k_host, plain_fwd_bwd_ms=plain_ms,
+              max_err_y_da_db_dbias=errs, tol=TOL_BF16))
+
+
+def check_gradients(gen, summary: dict) -> dict[str, int]:
+    """Phase 2b; returns each kernel's launches over the two autograd
+    path runs (the main path of K6, K7 and K8)."""
+    for i, c in enumerate(FLASH_SHAPES):
+        recs = check_flash(gen, c)
+        if i == 0:  # the kernels line reports qwen1.5-0.5b's shape
+            summary.update(recs)
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    for c in FLASH_SHAPES[:2]:  # the two full-width shapes
+        for name, cnt in check_flash_path(gen, c).items():
+            launches[name] += cnt
+    for policy in POLICIES:
+        check_linear_grad(gen, policy)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the full model through the kernels and through the plain versions
 # ---------------------------------------------------------------------------
 
@@ -403,7 +731,10 @@ def plain_versions():
             mock.patch.object(api, "matmul_mcast", matmul_mcast_plain), \
             mock.patch.object(api, "matmul_unicast", matmul_unicast_plain), \
             mock.patch.object(api, "paged_attention_decode", paged_attention_decode_plain), \
-            mock.patch.object(api, "paged_attention_prefill", paged_attention_prefill_plain):
+            mock.patch.object(api, "paged_attention_prefill", paged_attention_prefill_plain), \
+            mock.patch.object(api, "flash_attention", flash_attention_plain), \
+            mock.patch.object(api, "flash_attention_bwd_dq", flash_attention_bwd_dq_plain), \
+            mock.patch.object(api, "flash_attention_bwd_dkv", flash_attention_bwd_dkv_plain):
         yield
 
 
@@ -677,11 +1008,13 @@ def main() -> None:
     summary["paged_attention_prefill"] = check_prefill(gen)
     check_prefill(gen, s=5, lengths=(37,), kvh=4)                # ragged suffix, GQA
     check_prefill(gen, quant=True)                               # int8 pools
+    grad_launches = check_gradients(gen, summary)
 
     cfg = get_config("qwen1.5-0.5b")
     params = lm.init(cfg, seed=0, device="cuda")
     check_model(cfg, params)
-    launches = check_serving(cfg, params)
+    serve_launches = check_serving(cfg, params)
+    launches = {k: serve_launches[k] + grad_launches[k] for k in kernels.KERNELS}
 
     kernels_line = []
     for kname in kernels.KERNELS:

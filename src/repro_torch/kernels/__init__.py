@@ -13,3 +13,12 @@ from repro_torch.kernels.api import (  # noqa: F401
     set_policy,
     use_policy,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    attention_ref,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_plain,
+)

@@ -74,6 +74,27 @@ KERNELS = {
         _F, _F,                    # scale, softcap
         _P,                        # stream
     ]),
+    "flash_attention": ("flash_attention_fwd.cu", "flash_attention_fwd", [
+        _P, _P, _P, _I,            # q, k, v, dtype
+        _P, _P,                    # out, lse (fp32 or null)
+        _I, _I, _I, _I, _I, _I,    # batch, heads, kv heads, sq, sk, head dim
+        _F, _F, _I, _I,            # scale, softcap, causal, window
+        _P,                        # stream
+    ]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd_dq.cu", "flash_attention_bwd_dq", [
+        _P, _P, _P, _P, _P, _P,    # q, k, v, dO, lse, delta
+        _I, _P,                    # dtype, dQ
+        _I, _I, _I, _I, _I, _I,    # batch, heads, kv heads, sq, sk, head dim
+        _F, _F, _I, _I,            # scale, softcap, causal, window
+        _P,                        # stream
+    ]),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv.cu", "flash_attention_bwd_dkv", [
+        _P, _P, _P, _P, _P, _P,    # q, k, v, dO, lse, delta
+        _I, _P, _P,                # dtype, dK, dV (per query head)
+        _I, _I, _I, _I, _I, _I,    # batch, heads, kv heads, sq, sk, head dim
+        _F, _F, _I, _I,            # scale, softcap, causal, window
+        _P,                        # stream
+    ]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -1,14 +1,15 @@
 """The kernel layer's entry points: a ``KernelOp`` registry with
-schedule dispatch, ``linear`` and ``op(name)``.
+schedule dispatch, ``linear`` and ``op(name)``, differentiable both ways.
 
-The port of the JAX package's ``kernels/api.py`` for the two families
-the serving paths run.  Every family registers its schedules as
-:class:`Schedule` entries; dispatch picks one the way the JAX package
-does — from the problem's shape and dtype under a policy — so a policy
-string written for the JAX launcher means the same here::
+The port of the JAX package's ``kernels/api.py`` for the families the
+port runs.  Every family registers its schedules as :class:`Schedule`
+entries; dispatch picks one the way the JAX package does — from the
+problem's shape and dtype under a policy — so a policy string written
+for the JAX launcher means the same here::
 
-    matmul           tiled (K1) | mcast (K4) | unicast (K5)
-    paged_attention  pallas (K2 decode) | pallas_prefill (K3)
+    matmul           tiled (K1) | mcast (K4) | unicast (K5)     vjp
+    flash_attention  pallas (K6; backward K7 + K8)               vjp
+    paged_attention  pallas (K2 decode) | pallas_prefill (K3)    no vjp
 
 In the port the backend name ``pallas`` means "the hand-written
 kernels", and every schedule is one.  Dispatch resolves, in order: the
@@ -19,25 +20,41 @@ TPU: backend ``pallas``, cheapest available schedule by the cost model
 of :mod:`repro_torch.kernels.autotune`.  Ties go to the first schedule
 listed, which is why ``tiled`` comes before ``mcast`` and ``unicast``:
 their costs tie exactly for M <= 2048.  A pick is memoised on (family,
-problem, effective policy): the JAX package resolves once per trace,
-and the port, which has no trace, once per distinct key rather than
-once per launch.
+problem, effective policy, differentiated): the JAX package resolves
+once per trace, and the port, which has no trace, once per distinct key
+rather than once per launch.
 
 Every schedule launches its CUDA kernel for CUDA tensors and runs the
 kernel's plain PyTorch version for CPU tensors.  The ``reference``
-backend (the JAX package's pure-XLA oracle) is not ported: forcing it
-raises ``NotImplementedError``.
+backend (the JAX package's pure-XLA oracle) is not ported: forcing it,
+or a dispatch that would fall back to it, raises ``NotImplementedError``.
+
+**Gradients.**  A call is differentiated when ``torch.is_grad_enabled()``
+and one of its inputs ``requires_grad``.  Such a call runs a vjp-capable
+schedule through a ``torch.autograd.Function`` whose backward is kernels
+too, as the JAX package's custom VJPs are: the matmul backward re-enters
+:func:`linear` for the pre-activation ``z`` (only with an activation),
+``dA = dz @ B^T`` and ``dB = A^T @ dz`` (strided views, no transposed
+copy); the flash backward runs K7 and K8 from the forward's saved
+log-sum-exp.  Under differentiation auto-dispatch skips schedules
+without a VJP, and forcing one raises the JAX package's ``ValueError``.
+A forward whose schedule was forced does not force its backward: the
+backward resolves under ``backend=pallas`` (the cheapest kernel for its
+own shapes), as JAX's ``_bwd_policy_token`` does.
 
 * :func:`linear` — ``act(x @ w + bias)`` for every projection.  K1
   fuses bias and activation into its epilogue; K4 and K5 return the bare
   product in ``x.dtype`` and the epilogue runs after them, unfused, in
   fp32 — the JAX package's ``_mm_flat``, whose double rounding makes
   ``mcast``/``unicast`` streams differ from ``tiled`` ones.
-* :func:`op` — ``op("paged_attention")(q, k_pages, v_pages, table, start,
-  lengths, *scales, softcap=...)``, ``op("matmul")(a, b[, bias], ...)``.
-* :func:`resolve` — which schedule a call would pick; runs nothing.
-  (The JAX package's resolve also reports an autotuned block config;
-  the CUDA kernels' tiles are fixed, so the port reports none.)
+* :func:`op` — ``op("flash_attention")(q, k, v, causal=..., window=...,
+  softcap=...)``, ``op("paged_attention")(q, k_pages, v_pages, table,
+  start, lengths, *scales, softcap=...)``, ``op("matmul")(a, b[, bias],
+  ...)``.
+* :func:`resolve` — which schedule a call would pick (``needs_vjp=True``:
+  a differentiated call); runs nothing.  (The JAX package's resolve also
+  reports an autotuned block config; the CUDA kernels' tiles are fixed,
+  so the port reports none.)
 * :func:`launch_counts` / :func:`reset_launch_counts` — one launch
   counter per kernel; the plain CPU path never moves them.
 """
@@ -53,6 +70,11 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch.kernels import autotune
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+)
 from repro_torch.kernels.matmul.matmul import (
     ACTIVATIONS,
     matmul_mcast,
@@ -79,6 +101,9 @@ KERNELS = {
     "matmul_unicast": matmul_unicast,
     "paged_attention_decode": paged_attention_decode,
     "paged_attention_prefill": paged_attention_prefill,
+    "flash_attention": flash_attention,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
 }
 
 
@@ -170,6 +195,14 @@ def get_policy() -> DispatchPolicy:
     return DispatchPolicy()
 
 
+def _needs_vjp(*tensors) -> bool:
+    """True when the call is being differentiated: autograd is recording
+    and some input requires a gradient (the port's counterpart of the JAX
+    package's JVP-tracer test)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 @contextlib.contextmanager
 def use_policy(policy: DispatchPolicy | str | None):
     """Context manager form of :func:`set_policy`."""
@@ -197,12 +230,17 @@ class Problem:
 
 @dataclasses.dataclass(frozen=True)
 class Schedule:
-    """One way to run a kernel family: ``fn(*tensors, **opts)``."""
+    """One way to run a kernel family: ``fn(*tensors, **opts)``.
+
+    ``vjp``: the family's autograd function can differentiate it (its
+    backward is kernels too).  Under differentiation, dispatch skips
+    schedules without one and refuses to force them."""
 
     name: str
     fn: Callable[..., torch.Tensor]
     cost: Callable[[Problem], float]  # lower wins
     available: Callable[[Problem], bool] = lambda p: True
+    vjp: bool = False
 
 
 def _no_reference(what: str) -> NotImplementedError:
@@ -228,23 +266,38 @@ class KernelOp:
             f"kernel op {self.name!r} has no schedule {name!r} "
             f"(have {[s.name for s in self.schedules]})")
 
-    def resolve(self, problem: Problem, policy: DispatchPolicy | str | None = None) -> Schedule:
-        """Pick the schedule for a problem under a policy (memoised)."""
-        return _pick(self.name, problem, as_policy(policy) or get_policy())
+    def resolve(self, problem: Problem, policy: DispatchPolicy | str | None = None, *,
+                needs_vjp: bool = False) -> Schedule:
+        """Pick the schedule for a problem under a policy (memoised);
+        ``needs_vjp`` marks a differentiated call."""
+        return _pick(self.name, problem, as_policy(policy) or get_policy(), needs_vjp)
 
-    def pick(self, problem: Problem, pol: DispatchPolicy) -> Schedule:
+    def pick(self, problem: Problem, pol: DispatchPolicy, needs_vjp: bool = False) -> Schedule:
         """:meth:`resolve` without the memo."""
         if pol.backend == "reference" or pol.schedule == "reference":
             raise _no_reference(f"kernel op {self.name!r}")
         if pol.schedule is not None:
-            return self.schedule(pol.schedule)
-        avail = [s for s in self.schedules if s.available(problem)]
+            sched = self.schedule(pol.schedule)
+            if needs_vjp and not sched.vjp:
+                raise ValueError(
+                    f"kernel op {self.name!r}: schedule {sched.name!r} has no "
+                    f"VJP but the call is being differentiated (jax.grad / "
+                    f"jax.vjp); force a vjp-capable schedule "
+                    f"({[s.name for s in self.schedules if s.vjp]}) or drop "
+                    f"the forced policy and let dispatch pick one")
+            return sched
+        scheds = [s for s in self.schedules if s.vjp or not needs_vjp]
+        if not scheds and pol.backend is not None:
+            raise ValueError(f"kernel op {self.name!r}: no {pol.backend!r} schedule "
+                             f"has a VJP but the call is being differentiated")
+        avail = [s for s in scheds if s.available(problem)]
         if pol.backend is not None:
             # a forced backend is honoured even when every availability
             # predicate fails (they are conservative models)
-            avail = avail or list(self.schedules)
+            avail = avail or scheds
         elif not avail:  # the JAX package falls back to its reference backend
-            raise _no_reference(f"kernel op {self.name!r} at {problem}")
+            raise _no_reference(f"kernel op {self.name!r} at {problem}"
+                                + (" under differentiation" if needs_vjp else ""))
         return min(avail, key=lambda s: s.cost(problem))  # ties: the first listed
 
     def __call__(self, *tensors: torch.Tensor, **opts) -> torch.Tensor:
@@ -254,7 +307,12 @@ class KernelOp:
                 raise TypeError(f"{self.name}() got unexpected option {key!r}")
             full[key] = val
         problem = Problem(tuple(self.problem(*tensors)), autotune.dtype_name(tensors[0].dtype))
-        return self.resolve(problem).fn(*tensors, **full)
+        pol = get_policy()
+        needs_vjp = _needs_vjp(*tensors)
+        sched = self.resolve(problem, pol, needs_vjp=needs_vjp)
+        if needs_vjp:
+            return _VJP[self.name].apply(sched, _bwd_policy_token(pol), full, *tensors)
+        return sched.fn(*tensors, **full)
 
 
 _REGISTRY: dict[str, KernelOp] = {}
@@ -267,8 +325,8 @@ def register(kernel_op: KernelOp) -> KernelOp:
 
 
 @functools.lru_cache(maxsize=4096)
-def _pick(name: str, problem: Problem, pol: DispatchPolicy) -> Schedule:
-    return _REGISTRY[name].pick(problem, pol)
+def _pick(name: str, problem: Problem, pol: DispatchPolicy, needs_vjp: bool) -> Schedule:
+    return _REGISTRY[name].pick(problem, pol, needs_vjp)
 
 
 def op(name: str) -> KernelOp:
@@ -280,19 +338,37 @@ def op(name: str) -> KernelOp:
 
 
 class Resolution(NamedTuple):
-    """What :func:`resolve` reports: the picked schedule and its backend
-    (always ``pallas``, the hand-written kernels)."""
+    """What :func:`resolve` reports: the picked schedule, its backend
+    (always ``pallas``, the hand-written kernels) and whether it can be
+    differentiated."""
 
     schedule: str
     backend: str
+    vjp: bool
 
 
 def resolve(name: str, shape: Sequence[int], dtype,
-            policy: DispatchPolicy | str | None = None) -> Resolution:
-    """Which (schedule, backend) a call would dispatch to; runs nothing."""
+            policy: DispatchPolicy | str | None = None, *,
+            needs_vjp: bool = False) -> Resolution:
+    """Which (schedule, backend) a call would dispatch to; runs nothing.
+    ``needs_vjp=True``: what a differentiated call would pick."""
     sched = op(name).resolve(
-        Problem(tuple(int(s) for s in shape), autotune.dtype_name(dtype)), policy)
-    return Resolution(sched.name, "pallas")
+        Problem(tuple(int(s) for s in shape), autotune.dtype_name(dtype)), policy,
+        needs_vjp=needs_vjp)
+    return Resolution(sched.name, "pallas", sched.vjp)
+
+
+def _bwd_policy_token(pol: DispatchPolicy) -> str | None:
+    """How the backward re-dispatches, from the forward's effective
+    policy (the JAX package's rule): a forced schedule must not leak to
+    the backward problems (dA and dB have other shapes; a forced ``mcast``
+    at dB = A^T dz would run with M = the old K), so forcing a schedule
+    or the pallas backend pins the backward to the cheapest pallas
+    schedule; otherwise the backward resolves under the policy in force
+    when it runs."""
+    if pol.schedule is not None or pol.backend == "pallas":
+        return "backend=pallas"
+    return None
 
 
 def _fits(kernel: str, schedule: str = "default") -> Callable[[Problem], bool]:
@@ -348,10 +424,10 @@ register(KernelOp(
     opt_defaults=(("activation", "none"), ("out_dtype", None)),
     # ties go to the first: tiled, mcast, unicast (the JAX package's order)
     schedules=(
-        Schedule("tiled", _mm_tiled, _model_cost("matmul", "tiled")),
+        Schedule("tiled", _mm_tiled, _model_cost("matmul", "tiled"), vjp=True),
         Schedule("mcast", _mm_mcast, _model_cost("matmul", "mcast"),
-                 available=_fits("matmul", "mcast")),
-        Schedule("unicast", _mm_unicast, _model_cost("matmul", "unicast")),
+                 available=_fits("matmul", "mcast"), vjp=True),
+        Schedule("unicast", _mm_unicast, _model_cost("matmul", "unicast"), vjp=True),
     ),
 ))
 
@@ -371,10 +447,115 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None
                          f"{tuple(w.shape)} over {contract_dims} dims")
     lead = x.shape[: x.ndim - contract_dims]
     m, k, n = math.prod(lead), math.prod(k_dims), math.prod(out_dims)
-    sched = op("matmul").resolve(Problem((m, k, n), autotune.dtype_name(x.dtype)), policy)
-    y = sched.fn(x.reshape(m, k), w.reshape(k, n), None if bias is None else bias.reshape(n),
-                 activation=activation or "none", out_dtype=out_dtype)
+    pol = as_policy(policy) or get_policy()
+    needs_vjp = _needs_vjp(x, w, bias)
+    sched = op("matmul").resolve(Problem((m, k, n), autotune.dtype_name(x.dtype)), pol,
+                                 needs_vjp=needs_vjp)
+    opts = dict(activation=activation or "none", out_dtype=out_dtype)
+    args = (x.reshape(m, k), w.reshape(k, n)) + (() if bias is None else (bias.reshape(n),))
+    if needs_vjp:
+        y = _LinearFunction.apply(sched, _bwd_policy_token(pol), opts, *args)
+    else:
+        y = sched.fn(*args, **opts)
     return y.reshape(*lead, *out_dims)
+
+
+class _LinearFunction(torch.autograd.Function):
+    """The matmul VJP (JAX ``_matmul_vjp_fwd`` / ``_matmul_vjp_bwd``):
+    the forward runs the dispatched schedule and saves its inputs; the
+    backward re-enters :func:`linear` — for ``z`` only with an
+    activation, then ``dA = dz @ B^T`` and ``dB = A^T @ dz`` — under the
+    backward policy token, casting where the JAX package casts."""
+
+    @staticmethod
+    def forward(ctx, sched, bwd_policy, opts, a, b, bias=None):
+        ctx.bwd_policy, ctx.activation = bwd_policy, opts["activation"]
+        ctx.save_for_backward(a, b, bias)
+        return sched.fn(a, b, bias, **opts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b, bias = ctx.saved_tensors
+        pol, g32 = ctx.bwd_policy, g.float()
+        if ctx.activation != "none":
+            # recompute the pre-activation (one more dispatched matmul)
+            # rather than keep an (M, N) fp32 residual from the forward
+            z = linear(a, b, out_dtype=torch.float32, policy=pol)
+            if bias is not None:
+                z = z + bias.float()
+            with torch.enable_grad():
+                z = z.requires_grad_()
+                dz, = torch.autograd.grad(ACTIVATIONS[ctx.activation](z), z, g32)
+        else:
+            dz = g32
+        dz_a = dz.to(a.dtype)
+        da = linear(dz_a, b.t(), policy=pol).to(a.dtype)  # g . B^T
+        db = linear(a.t(), dz_a, policy=pol).to(b.dtype)  # A^T . g
+        dbias = None if bias is None else dz.sum(dim=0).to(bias.dtype)
+        return None, None, None, da, db, dbias
+
+
+# ---------------------------------------------------------------------------
+# flash attention family
+# ---------------------------------------------------------------------------
+
+
+def _flash_pallas(q, k, v, *, causal, window, softcap, return_lse=False):
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                           window=window, softcap=softcap, return_lse=return_lse)
+
+
+register(KernelOp(
+    name="flash_attention",
+    # q (b, h, sq, d); k/v (b, kvh, sk, d) -> (b, h, sq, sk, d)
+    problem=lambda q, k, v: (*q.shape[:3], k.shape[2], q.shape[3]),
+    opt_defaults=(("causal", True), ("window", None), ("softcap", None)),
+    # Always available, unlike the JAX schedule, whose blocks must divide
+    # the sequence and fit VMEM (JAX falls back to its reference beyond
+    # that): the CUDA tiles are fixed and mask ragged edges, so every
+    # (sq, sk, d <= 256) runs.  The one schedule's cost decides nothing.
+    schedules=(
+        Schedule("pallas", _flash_pallas, _model_cost("flash_attention"), vjp=True),
+    ),
+))
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The flash-attention VJP (JAX ``_flash_vjp_fwd`` /
+    ``_flash_vjp_bwd``): K6 with the row log-sum-exp forward; backward
+    ``delta = rowsum(dO * O)`` in fp32, K7 for dQ and K8 for dK/dV per
+    query head, then the GQA group sum of the rounded per-head values.
+    The forward runs the dispatched schedule; the backward dispatches
+    nothing (K7 and K8 are the only backward), so ``bwd_policy`` goes
+    unused."""
+
+    @staticmethod
+    def forward(ctx, sched, bwd_policy, opts, q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = sched.fn(q, k, v, return_lse=True, **opts)
+        ctx.opts = opts
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, h, sq, d = q.shape
+        kvh, sk = k.shape[1], k.shape[2]
+        g = g.contiguous()
+        delta = (g.float() * o.float()).sum(dim=-1)
+        dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **ctx.opts)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **ctx.opts)
+        if h != kvh:  # GQA: the per-query-head gradients sum onto the kv heads
+            dk = dk.reshape(b, kvh, h // kvh, sk, d).sum(dim=2)
+            dv = dv.reshape(b, kvh, h // kvh, sk, d).sum(dim=2)
+        return None, None, None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+#: each vjp-capable family's autograd function (JAX ``_VJP_FWD``/``_VJP_BWD``)
+_VJP = {"matmul": _LinearFunction, "flash_attention": _FlashFunction}
 
 
 # ---------------------------------------------------------------------------

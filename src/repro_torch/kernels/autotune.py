@@ -2,7 +2,8 @@
 
 A copy of the part of ``repro.kernels.autotune`` that decides *which
 schedule* a kernel call dispatches to: the candidate block
-configurations of the matmul and paged-attention families, each with
+configurations of the matmul, paged-attention and flash-attention
+families, each with
 its modeled working set (``vmem_bytes``), grid steps and HBM traffic,
 pruned to a budget and sorted best cost first.  ``kernels.api`` reads
 it through the availability predicates (some candidate fits the budget)
@@ -13,7 +14,12 @@ same schedule as the JAX package for every (shape, dtype, policy).
 a TPU core's 16 MiB VMEM), kept verbatim so the two packages agree.  It
 is not a model of Hopper's shared memory: the CUDA kernels use fixed
 tile sizes of their own, and the block configurations here only rank
-schedules.
+schedules and decide availability.  The flash family is modelled in the
+forward direction only and for its cost alone: its one schedule is
+always available in the port (the CUDA tiles mask ragged edges, so no
+block has to divide the sequence), and the JAX package's ``"bwd"``
+candidates choose backward blocks the port fixes as well
+(``csrc/flash_attention_bwd_*.cu``).
 
 Not copied: the measured timing sweep and the on-disk cache (ROADMAP
 Queue 1 item 10) — the cost model alone decides, as it does in the JAX
@@ -63,6 +69,11 @@ def _mk(config: dict[str, int], vmem: int, steps: int, hbm: float = 0.0) -> Cand
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _divisors(total: int, options: Iterable[int]) -> list[int]:
+    out = [o for o in options if o <= total and total % o == 0]
+    return out or [total]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -116,6 +127,24 @@ def _matmul_candidates(schedule: str, shape: Sequence[int], dsize: int) -> list[
     return out
 
 
+_FA_BLOCKS = (64, 128, 256, 512)
+
+
+def _flash_candidates(shape: Sequence[int], dsize: int) -> list[Candidate]:
+    """Shape key: (b, h, sq, sk, d).  The JAX kernel's (bq, bk) blocks
+    must divide the sequences; a sequence no option divides is one block.
+    These blocks model the TPU kernel's working set and grid steps (the
+    schedule's cost); the CUDA kernels' tiles do not follow them."""
+    b, h, sq, sk, d = shape
+    out = []
+    for bq, bk in itertools.product(_divisors(sq, _FA_BLOCKS), _divisors(sk, _FA_BLOCKS)):
+        # q/k/v/o blocks double-buffered + fp32 softmax state scratch
+        vmem = 2 * (bq * d + 2 * bk * d + bq * d) * dsize + bq * (2 + d) * 4
+        steps = b * h * _cdiv(sq, bq) * _cdiv(sk, bk)
+        out.append(_mk({"bq": bq, "bk": bk}, vmem, steps))
+    return out
+
+
 _PAGED_QC = (8, 16, 32, 64, 128)
 
 
@@ -156,6 +185,7 @@ def _paged_attention_candidates(schedule: str, shape: Sequence[int],
 _GENERATORS = {
     "matmul": _matmul_candidates,
     "paged_attention": _paged_attention_candidates,
+    "flash_attention": lambda schedule, shape, dsize: _flash_candidates(shape, dsize),
 }
 
 

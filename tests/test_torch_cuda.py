@@ -187,3 +187,180 @@ def test_dense_server_on_card_launches_its_policys_kernel(cuda_device, policy, k
     counts = kernels.launch_counts()
     assert counts[kernel] > 0, counts
     assert sum(counts.values()) == counts[kernel], counts
+
+
+# ---------------------------------------------------------------------------
+# K6, K7, K8: flash attention and its gradient
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_plain,
+)
+
+# (b, h, kvh, sq, sk, d, causal, window, softcap): every head-dim tile
+# (32, 64, 128, 256), GQA and MQA, ragged edges, sq != sk both ways, and
+# rows that see no key (sq > sk + window - 1)
+FLASH_CASES = [
+    (1, 4, 4, 64, 64, 16, True, None, None),
+    (2, 4, 2, 100, 100, 64, True, None, None),
+    (1, 4, 1, 96, 160, 64, False, 24, None),
+    (2, 8, 2, 130, 70, 128, True, 16, None),
+    (1, 4, 2, 200, 77, 128, True, 16, 30.0),
+    (1, 2, 1, 150, 150, 256, True, 40, 50.0),
+    (1, 2, 2, 33, 300, 256, False, None, 8.0),
+]
+
+
+def _flash_close(got, want, tol):
+    """|got - want| <= tol * (|want| + the RMS of want's row): attention
+    averages are small where a row sees many keys, so the absolute term
+    follows the row (the last axis) rather than a fixed floor."""
+    g, w = got.float(), want.float()
+    allow = tol * (w.abs() + w.square().mean(dim=-1, keepdim=True).sqrt())
+    diff = (g - w).abs()
+    assert torch.isfinite(g).all(), "non-finite output"
+    assert (diff <= allow).all(), f"worst err / allowance {float((diff / allow).max()):.3g}"
+
+
+def _flash_inputs(gen, b, h, kvh, sq, sk, d, dtype):
+    q = _rand(gen, b, h, sq, d, dtype=dtype)
+    k = _rand(gen, b, kvh, sk, d, dtype=dtype)
+    v = _rand(gen, b, kvh, sk, d, dtype=dtype)
+    do = _rand(gen, b, h, sq, d, dtype=dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_kernels_match_plain(cuda_device, case, dtype):
+    """K6, K7 and K8 each against its plain version on the same inputs
+    (fp32: 1e-4 of the element and of its row's RMS, the reordered sums;
+    bf16: 2e-2 of each, two ulps)."""
+    b, h, kvh, sq, sk, d, causal, window, softcap = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * sk + d)
+    q, k, v, do = _flash_inputs(gen, b, h, kvh, sq, sk, d, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = kernels.launch_counts()
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    _flash_close(o, o_p, tol)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq_p = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == dtype
+        _flash_close(got, want, tol)
+    after = kernels.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+
+
+def test_flash_keyless_rows_average_v(cuda_device):
+    """A row that sees no key returns the mean of V with lse = NEG_INF."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = _rand(gen, 1, 1, 8, 4, dtype=torch.float32)
+    k = _rand(gen, 1, 1, 2, 4, dtype=torch.float32)
+    v = _rand(gen, 1, 1, 2, 4, dtype=torch.float32)
+    o, lse = flash_attention(q, k, v, causal=True, window=2, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o[0, 0, 3:], v.mean(dim=2)[0].expand(5, 4), rtol=1e-6, atol=1e-6)
+    assert (lse[0, 0, 3:] == -(2.0**30)).all()
+
+
+@pytest.mark.parametrize("case", [c for c in FLASH_CASES if c[7] is None or c[3] < c[4] + c[7]],
+                         ids=str)
+def test_flash_function_matches_autograd_through_attention_ref(cuda_device, case):
+    """The autograd function (K6 forward, K7 + K8 backward, GQA group
+    sum) against PyTorch's autograd through the oracle, fp32, on cases
+    where every row sees a key (a keyless row's kernel gradient uses
+    p = 1, as the JAX kernels do, not the oracle's softmax)."""
+    b, h, kvh, sq, sk, d, causal, window, softcap = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + sk)
+    q, k, v, _ = _flash_inputs(gen, b, h, kvh, sq, sk, d, torch.float32)
+    w = _rand(gen, b, h, sq, d, dtype=torch.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    grads = []
+    for fn in (kernels.op("flash_attention"), attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, **kw)
+        grads.append((out, *torch.autograd.grad((out * w).sum(), leaves)))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_op_runs_where_the_tpu_blocks_do_not_fit(cuda_device):
+    """s = 1400 at d = 256 in fp32: no TPU block divides it and one
+    whole-sequence block overflows the JAX package's VMEM budget; the
+    CUDA tiles mask the ragged edge, so dispatch launches K6 all the same."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v, _ = _flash_inputs(gen, 1, 2, 1, 1400, 1400, 256, torch.float32)
+    kernels.reset_launch_counts()
+    out = kernels.op("flash_attention")(q, k, v)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    _flash_close(out, flash_attention_plain(q, k, v), 1e-4)
+
+
+def test_flash_autograd_launches_each_kernel_once(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, _ = _flash_inputs(gen, 2, 4, 2, 64, 64, 64, torch.bfloat16)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = kernels.op("flash_attention")(*leaves)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    torch.autograd.grad(out.float().sum(), leaves)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 1, counts
+    assert sum(counts.values()) == 3, counts
+
+
+@pytest.mark.parametrize("policy", ["tiled", "mcast", "unicast"])
+def test_linear_grad_on_card_matches_plain(cuda_device, policy):
+    """grad(linear): one forward launch, then z, dA and dB — each a
+    kernel launch — against the same graph on the plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    a, b = _rand(gen, 96, 200), _rand(gen, 200, 72, scale=200 ** -0.5)
+    bias = _rand(gen, 72)
+    w = _rand(gen, 96, 72, dtype=torch.float32)
+    kernels.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (a, b, bias)]
+    y = kernels.linear(leaves[0], leaves[1], bias=leaves[2], activation="silu", policy=policy)
+    assert sum(kernels.launch_counts().values()) == 1
+    got = torch.autograd.grad((y.float() * w).sum(), leaves)
+    assert sum(kernels.launch_counts().values()) == 4
+    cpu = [t.detach().cpu().requires_grad_() for t in (a, b, bias)]
+    y = kernels.linear(cpu[0], cpu[1], bias=cpu[2], activation="silu", policy=policy)
+    want = torch.autograd.grad((y.float() * w.cpu()).sum(), cpu)
+    for g, ww in zip(got, want):
+        close(g.cpu(), ww.float())
+
+
+def test_flash_kernels_reject_bad_inputs(cuda_device):
+    q = torch.zeros(1, 4, 8, 16, device=cuda_device)
+    kv = torch.zeros(1, 2, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, torch.zeros(1, 3, 8, 16, device=cuda_device),
+                        torch.zeros(1, 3, 8, 16, device=cuda_device))
+    with pytest.raises(TypeError):
+        flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3), kv.transpose(2, 3), kv.transpose(2, 3))
+    lse = torch.zeros(1, 4, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="fp32"):
+        flash_attention_bwd_dq(q, kv, kv, q, lse.bfloat16(), lse)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_bwd_dkv(q, kv, kv, q, lse[:, :, :4], lse)

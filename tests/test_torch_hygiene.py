@@ -49,6 +49,7 @@ def test_no_jax_and_no_reference_package_imports(path):
 def test_scan_covers_every_port_module():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for rel in ("kernels/api.py", "kernels/autotune.py", "kernels/matmul/matmul.py",
+                "kernels/flash_attention/flash_attention.py", "kernels/flash_attention/ref.py",
                 "nn/attention.py", "models/lm.py", "launch/serve.py"):
         assert f"src/repro_torch/{rel}" in names, rel
 
@@ -61,6 +62,9 @@ def test_every_kernel_source_is_built_and_counted():
     sources = {p.name for p in _build.CSRC.glob("*.cu")}
     assert sources == {src for src, _, _ in _build.KERNELS.values()}
     assert set(_build.KERNELS) == set(kernels.KERNELS)
+    for name, wrapper in kernels.KERNELS.items():
+        assert (_build.CSRC / _build.KERNELS[name][0]).is_file(), name
+        assert wrapper.launches >= 0, name
 
 
 def test_scan_sees_forbidden_imports(tmp_path):
@@ -109,7 +113,8 @@ def test_plain_path_leaves_launch_counters_at_zero():
     assert eng.kernel_calls["decode"] and eng.kernel_calls["suffix_prefill"]
     assert kernels.launch_counts() == {
         "matmul_tiled": 0, "matmul_mcast": 0, "matmul_unicast": 0,
-        "paged_attention_decode": 0, "paged_attention_prefill": 0}
+        "paged_attention_decode": 0, "paged_attention_prefill": 0, "flash_attention": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
@@ -127,3 +132,24 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA"):
             kernels.op("paged_attention")(q.expand(1, s, 2, 16), pages, pages, table,
                                           lengths - 1, lengths)
+    qf, kv = torch.zeros(1, 2, 8, 16, **meta), torch.zeros(1, 1, 8, 16, **meta)
+    rows = torch.zeros(1, 2, 8, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.op("flash_attention")(qf, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.flash_attention_bwd_dq(qf, kv, kv, qf, rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.flash_attention_bwd_dkv(qf, kv, kv, qf, rows, rows)
+
+
+def test_cpu_autograd_runs_the_plain_versions():
+    """Differentiating on the CPU takes the autograd functions through the
+    plain versions: gradients flow, and no launch is counted."""
+    kernels.reset_launch_counts()
+    q, k, v = (torch.randn(1, 2, 8, 16, requires_grad=True) for _ in range(3))
+    out = kernels.op("flash_attention")(q, k, v)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    a, b = torch.randn(4, 8, requires_grad=True), torch.randn(8, 3, requires_grad=True)
+    grads += torch.autograd.grad(kernels.linear(a, b, activation="relu").sum(), (a, b))
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert set(kernels.launch_counts().values()) == {0}
