@@ -25,6 +25,16 @@ each fatal on failure (nothing is caught):
    once each); then ``grad(linear)`` at qwen's gate projection over
    2 x 2048 tokens under ``tiled``, ``mcast`` and ``unicast`` (one
    forward matmul launch, then z, dA and dB);
+2c. scans: K9 and K10 (the SSD chunked scan with its checkpoints, and its
+   reverse-chunk adjoint) at four shapes — mamba2-780m's SSD layer at full
+   width, the kernel benchmark's row, a ragged sequence and a 256 KB
+   state — and K11 and K12 (the RG-LRU recurrence and its adjoint) at
+   three — recurrentgemma-2b's at full width, the benchmark's row and a
+   ragged one — each against its plain version and timed as in phase 2;
+   then ``torch.autograd.grad`` through ``op("ssd")`` and ``op("rglru")``
+   at the full-width shapes, every launch count at 0 before each (one
+   forward must launch K9 / K11 once, one backward K10 / K12 once),
+   against PyTorch's autograd through the plain forward;
 3. build qwen1.5-0.5b at full width from a seed and compare one prefill
    and one decode step run through the kernels with the same run through
    the plain versions: paged decode under the default policy, and dense
@@ -40,7 +50,8 @@ each fatal on failure (nothing is caught):
 
 It prints one JSON line per check, then the card line, the kernel
 summary (launches: phase 4's serving runs for K1–K5, phase 2b's
-autograd path for K6–K8) and, last, ``{"ok": true, "device": {...}}``.
+autograd paths for K6–K8, phase 2c's for K9–K12) and, last,
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
@@ -96,6 +107,21 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_prefill_plain,
 )
 from repro_torch.kernels.paged_attention.paged_attention import prefill_chunk  # noqa: E402
+from repro_torch.kernels.rglru import (  # noqa: E402
+    rglru_scan,
+    rglru_scan_bwd,
+    rglru_scan_bwd_plain,
+    rglru_scan_plain,
+    rglru_scan_ref,
+)
+from repro_torch.kernels.ssd import (  # noqa: E402
+    SSD_CHUNK,
+    ssd_lcum,
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_plain,
+    ssd_scan_plain,
+)
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import PagedEngine, Request, ServeConfig  # noqa: E402
@@ -122,6 +148,10 @@ TOL_FP32 = 1e-4
 # running row max, the plain version against the final one, two
 # independent roundings of up to 2^-9 relative per kept key, whose sum
 # over a row stays within a few 2^-9 of the row's RMS.
+# K9-K12 outputs (fp32 scans) are held the same way at TOL_SCAN: kernel
+# and plain version sum the same fp32 terms in other orders; the row is
+# the last axis (P, N or d), and the sequence for d log a.
+TOL_SCAN = 1e-4
 # whole-model logits: fp32, but built on 24 layers of bf16 activations in
 # which such ties recur; held to 2e-2 of the largest logit.
 TOL_MODEL = 2e-2
@@ -143,6 +173,12 @@ KERNEL_META = {
                                "src/repro/kernels/flash_attention/flash_attention.py:248"),
     "flash_attention_bwd_dkv": ("src/repro_torch/csrc/flash_attention_bwd_dkv.cu",
                                 "src/repro/kernels/flash_attention/flash_attention.py:281"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan_fwd.cu", "src/repro/kernels/ssd/ssd.py:76"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu", "src/repro/kernels/ssd/ssd.py:218"),
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan_fwd.cu",
+                   "src/repro/kernels/rglru/rglru.py:49"),
+    "rglru_scan_bwd": ("src/repro_torch/csrc/rglru_scan_bwd.cu",
+                       "src/repro/kernels/rglru/rglru.py:98"),
 }
 POLICIES = ("tiled", "mcast", "unicast")
 MATMULS = ("matmul_tiled", "matmul_mcast", "matmul_unicast")
@@ -719,6 +755,247 @@ def check_gradients(gen, summary: dict) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: scans — K9, K10, K11, K12 and their differentiated paths
+# ---------------------------------------------------------------------------
+
+
+class SsdShape(NamedTuple):
+    label: str
+    b: int
+    h: int
+    s: int
+    p: int
+    n: int
+    slow_decay: bool  # mamba2's dt and A: log a in [-0.1, -0.001]
+    runs: int
+
+
+class LruShape(NamedTuple):
+    label: str
+    b: int
+    s: int
+    d: int
+    runs: int
+
+
+SSD_SHAPES = (
+    # d_model 1536 x expand 2 = 48 heads of P 64, d_state 128
+    SsdShape("mamba2-780m", 2, 48, 2048, 64, 128, True, 10),
+    SsdShape("bench_kernels ssd row", 1, 4, 1024, 64, 64, False, 25),
+    SsdShape("ragged", 1, 3, 200, 32, 16, False, 25),  # s: no divisor in 32..256
+    SsdShape("wide state", 1, 2, 256, 64, 1024, False, 25),  # a 256 KB fp32 state
+)
+LRU_SHAPES = (
+    LruShape("recurrentgemma-2b", 2, 2048, 2560, 10),  # d_rnn 2560
+    LruShape("bench_kernels rglru row", 1, 512, 512, 25),
+    LruShape("ragged", 3, 77, 192, 25),
+)
+SCAN_KERNELS = ("ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
+
+
+def _ssd_inputs(gen, c: SsdShape):
+    """xdt, B, C ~ 0.5 N(0, 1), log a = -softplus(N(0, 1)) (the JAX
+    tests' draws) or uniform in [-0.1, -0.001], dy ~ N(0, 1); fp32."""
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+    xdt, bm, cm = rand(c.b, c.h, c.s, c.p, scale=0.5), rand(c.b, c.s, c.n, scale=0.5), \
+        rand(c.b, c.s, c.n, scale=0.5)
+    if c.slow_decay:
+        log_a = -0.001 - 0.099 * torch.rand(c.b, c.h, c.s, device="cuda", generator=gen)
+    else:
+        log_a = -torch.nn.functional.softplus(rand(c.b, c.h, c.s))
+    return xdt, bm, cm, log_a, rand(c.b, c.h, c.s, c.p)
+
+
+def _lru_inputs(gen, c: LruShape):
+    """a = 0.8 + 0.2 sigmoid(N(0, 1)), b ~ N(0, 1), dh ~ N(0, 1); fp32."""
+    def rand():
+        return torch.randn(c.b, c.s, c.d, device="cuda", generator=gen)
+    return 0.8 + 0.2 * torch.sigmoid(rand()), rand(), rand()
+
+
+def ssd_bounds(c: SsdShape) -> dict[str, tuple[float, str]]:
+    """K9 and K10's least times: the recurrence's own flops — 4 P N a step
+    a head forward (state update and readout), 12 backward (the carried
+    adjoint, dxdt, dB, dC, d log a and the recomputed state) — whatever
+    the chunk, against each input read and each output written once."""
+    steps, nc = c.b * c.h * c.s, -(-c.s // SSD_CHUNK)
+    x_bytes, bc_bytes, l_bytes = steps * c.p * 4, 2 * c.b * c.s * c.n * 4, steps * 4
+    states = c.b * c.h * nc * c.p * c.n * 4
+    return {
+        "ssd_scan": bound(4.0 * c.p * c.n * steps, 2 * x_bytes + bc_bytes + l_bytes, PEAK_FP32),
+        "ssd_scan_bwd": bound(12.0 * c.p * c.n * steps,
+                              3 * x_bytes + bc_bytes + 2 * l_bytes + states
+                              + 2 * steps * c.n * 4, PEAK_FP32),
+    }
+
+
+def lru_bounds(c: LruShape) -> dict[str, tuple[float, str]]:
+    """K11: a and b read, h written, 2 flops a step a channel; K12: a,
+    h_prev and dh read, da and db written, 3 flops."""
+    elems = c.b * c.s * c.d
+    return {"rglru_scan": bound(2.0 * elems, 3 * elems * 4, PEAK_FP32),
+            "rglru_scan_bwd": bound(3.0 * elems, 5 * elems * 4, PEAK_FP32)}
+
+
+def _scan_record(name, case, shape, errs, fn, plain, bounds, runs, tol):
+    warm = 1 if runs < 10 else 3
+    k_ms, k_host = time_ms(fn, runs, warm)
+    b_ms, b_by = bounds[name]
+    rec = dict(check="kernel", name=name, case=case, shape=shape, dtype="torch.float32",
+               kernel_ms=k_ms, host_ms=k_host,
+               # a plain recurrence enqueues thousands of small ops: a longer
+               # spin keeps the events on device work
+               plain_ms=time_ms(plain, runs, warm, max_spin_s=0.2)[0],
+               library=None, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               max_err=errs[0], err_over_allowance=errs[1], least_fixed_atol=errs[2],
+               tol=f"{tol} x (|want| + row rms)")
+    emit(rec)
+    return rec
+
+
+def _worst(*errs):
+    return tuple(map(max, zip(*errs)))
+
+
+def check_ssd(gen, c: SsdShape) -> dict[str, dict]:
+    """K9 (with its checkpoints) and K10 against their plain versions on
+    the same inputs (K10 fed K9's states), each timed beside its bound.
+    No single PyTorch call computes a chunked scan: no library time."""
+    xdt, bm, cm, log_a, dy = _ssd_inputs(gen, c)
+    lcum = ssd_lcum(log_a, SSD_CHUNK)
+    before = kernels.launch_counts()
+    y, st = ssd_scan(xdt, bm, cm, lcum, return_states=True)
+    y_p, st_p = ssd_scan_plain(xdt, bm, cm, lcum, return_states=True)
+    errs = {"ssd_scan": _worst(check_flash_close(f"ssd_scan y {c.label}", y, y_p, TOL_SCAN),
+                               check_flash_close(f"ssd_scan states {c.label}", st, st_p,
+                                                 TOL_SCAN))}
+    del y, y_p, st_p
+    bwd = (xdt, bm, cm, lcum, st, dy)
+    got, want = ssd_scan_bwd(*bwd), ssd_scan_bwd_plain(*bwd)
+    errs["ssd_scan_bwd"] = _worst(*(
+        check_flash_close(f"ssd_scan_bwd {name} {c.label}", g, w, TOL_SCAN)
+        for name, g, w in zip(("dx", "db", "dc"), got[:3], want[:3])),
+        check_flash_close(f"ssd_scan_bwd dl {c.label}", got[3][..., 0], want[3][..., 0],
+                          TOL_SCAN))
+    after = kernels.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in SCAN_KERNELS[:2]), (before, after)
+    del got, want
+    bounds, shape = ssd_bounds(c), [c.b, c.h, c.s, c.p, c.n]
+    return {
+        "ssd_scan": _scan_record(
+            "ssd_scan", c.label, shape, errs["ssd_scan"],
+            lambda: ssd_scan(xdt, bm, cm, lcum), lambda: ssd_scan_plain(xdt, bm, cm, lcum),
+            bounds, c.runs, TOL_SCAN),
+        "ssd_scan_bwd": _scan_record(
+            "ssd_scan_bwd", c.label, shape, errs["ssd_scan_bwd"],
+            lambda: ssd_scan_bwd(*bwd), lambda: ssd_scan_bwd_plain(*bwd), bounds, c.runs,
+            TOL_SCAN),
+    }
+
+
+def check_lru(gen, c: LruShape) -> dict[str, dict]:
+    """K11 and K12 against their plain versions (K12 fed the h_prev of
+    K11's output), each timed beside its bound; no library time."""
+    a, x, dh = _lru_inputs(gen, c)
+    before = kernels.launch_counts()
+    h = rglru_scan(a, x)
+    errs = {"rglru_scan": check_flash_close(f"rglru_scan {c.label}", h, rglru_scan_plain(a, x),
+                                            TOL_SCAN)}
+    h_prev = torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
+    (da, db), (da_p, db_p) = rglru_scan_bwd(a, h_prev, dh), rglru_scan_bwd_plain(a, h_prev, dh)
+    errs["rglru_scan_bwd"] = _worst(
+        check_flash_close(f"rglru_scan_bwd da {c.label}", da, da_p, TOL_SCAN),
+        check_flash_close(f"rglru_scan_bwd db {c.label}", db, db_p, TOL_SCAN))
+    after = kernels.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in SCAN_KERNELS[2:]), (before, after)
+    bounds, shape = lru_bounds(c), [c.b, c.s, c.d]
+    return {
+        "rglru_scan": _scan_record(
+            "rglru_scan", c.label, shape, errs["rglru_scan"], lambda: rglru_scan(a, x),
+            lambda: rglru_scan_plain(a, x), bounds, c.runs, TOL_SCAN),
+        "rglru_scan_bwd": _scan_record(
+            "rglru_scan_bwd", c.label, shape, errs["rglru_scan_bwd"],
+            lambda: rglru_scan_bwd(a, h_prev, dh), lambda: rglru_scan_bwd_plain(a, h_prev, dh),
+            bounds, c.runs, TOL_SCAN),
+    }
+
+
+def check_scan_path(label: str, family: str, inputs, plain_forward, runs: int,
+                    names: tuple[str, ...]) -> dict[str, int]:
+    """The differentiated path: ``torch.autograd.grad`` of
+    ``(op(family)(*inputs) * w).sum()`` with respect to every input,
+    every launch count set to 0 just before and read just after: one
+    forward must launch the family's forward kernel once and one backward
+    its backward kernel once.  Held against PyTorch's autograd through
+    ``plain_forward`` — an independent derivation of the hand-written
+    adjoint — then timed beside that plain path."""
+    fn = kernels.op(family)
+    fwd_kernel, bwd_kernel = {"ssd": SCAN_KERNELS[:2], "rglru": SCAN_KERNELS[2:]}[family]
+    # both families' output has the shape of their first input (xdt, a)
+    w = torch.randn(inputs[0].shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+
+    def path(forward):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = forward(*leaves)
+        return (out, *torch.autograd.grad((out * w).sum(), leaves))
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = fn(*leaves)
+    fwd = kernels.launch_counts()
+    grads = torch.autograd.grad((out * w).sum(), leaves)
+    torch.cuda.synchronize()
+    total = kernels.launch_counts()
+    bwd = {n: total[n] - fwd[n] for n in total}
+    if fwd[fwd_kernel] != 1 or sum(fwd.values()) != 1 or bwd[bwd_kernel] != 1 \
+            or sum(bwd.values()) != 1:
+        raise AssertionError(f"{family} path {label}: forward launched {fwd}, backward {bwd}")
+    want = path(plain_forward)
+    # rows: the last axis — P, N or d, and the sequence for d log a (b, h, s)
+    errs = [check_flash_close(f"{family} path {label} {name}", got, ref, TOL_SCAN)
+            for name, got, ref in zip(names, (out, *grads), want)]
+    del want
+    k_ms, k_host = time_ms(lambda: path(fn), runs, max_spin_s=0.5)
+    plain_ms = time_ms(lambda: path(plain_forward), max(3, runs // 3), 1, max_spin_s=0.5)[0]
+    emit(dict(check="scan_grad_path", family=family, case=label,
+              shapes=[list(t.shape) for t in inputs],
+              forward_launches={n: v for n, v in fwd.items() if v},
+              backward_launches={n: v for n, v in bwd.items() if v},
+              fwd_bwd_ms=k_ms, host_ms=k_host, plain_fwd_bwd_ms=plain_ms, library=None,
+              outputs=list(names), max_err=[e[0] for e in errs],
+              err_over_allowance=[e[1] for e in errs],
+              least_fixed_atol=[e[2] for e in errs], tol=f"{TOL_SCAN} x (|want| + row rms)"))
+    return total
+
+
+def _ssd_plain_forward(xdt, bm, cm, log_a):
+    return ssd_scan_plain(xdt, bm, cm, ssd_lcum(log_a, SSD_CHUNK))
+
+
+def check_scans(gen, summary: dict) -> dict[str, int]:
+    """Phase 2c; returns each kernel's launches over the two autograd
+    path runs (the main path of K9-K12)."""
+    for i, c in enumerate(SSD_SHAPES):
+        recs = check_ssd(gen, c)
+        if i == 0:  # the kernels line reports the full-width cells
+            summary.update(recs)
+    for i, c in enumerate(LRU_SHAPES):
+        recs = check_lru(gen, c)
+        if i == 0:
+            summary.update(recs)
+    c = SSD_SHAPES[0]
+    ssd = check_scan_path(c.label, "ssd", _ssd_inputs(gen, c)[:4], _ssd_plain_forward, c.runs,
+                          ("y", "dxdt", "dB", "dC", "dlog_a"))
+    c = LRU_SHAPES[0]
+    lru = check_scan_path(c.label, "rglru", _lru_inputs(gen, c)[:2], rglru_scan_ref, c.runs,
+                          ("h", "da", "db"))
+    return {k: ssd[k] + lru[k] for k in kernels.KERNELS}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the full model through the kernels and through the plain versions
 # ---------------------------------------------------------------------------
 
@@ -734,7 +1011,11 @@ def plain_versions():
             mock.patch.object(api, "paged_attention_prefill", paged_attention_prefill_plain), \
             mock.patch.object(api, "flash_attention", flash_attention_plain), \
             mock.patch.object(api, "flash_attention_bwd_dq", flash_attention_bwd_dq_plain), \
-            mock.patch.object(api, "flash_attention_bwd_dkv", flash_attention_bwd_dkv_plain):
+            mock.patch.object(api, "flash_attention_bwd_dkv", flash_attention_bwd_dkv_plain), \
+            mock.patch.object(api, "ssd_scan", ssd_scan_plain), \
+            mock.patch.object(api, "ssd_scan_bwd", ssd_scan_bwd_plain), \
+            mock.patch.object(api, "rglru_scan", rglru_scan_plain), \
+            mock.patch.object(api, "rglru_scan_bwd", rglru_scan_bwd_plain):
         yield
 
 
@@ -1009,12 +1290,14 @@ def main() -> None:
     check_prefill(gen, s=5, lengths=(37,), kvh=4)                # ragged suffix, GQA
     check_prefill(gen, quant=True)                               # int8 pools
     grad_launches = check_gradients(gen, summary)
+    scan_launches = check_scans(gen, summary)
 
     cfg = get_config("qwen1.5-0.5b")
     params = lm.init(cfg, seed=0, device="cuda")
     check_model(cfg, params)
     serve_launches = check_serving(cfg, params)
-    launches = {k: serve_launches[k] + grad_launches[k] for k in kernels.KERNELS}
+    launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
+                for k in kernels.KERNELS}
 
     kernels_line = []
     for kname in kernels.KERNELS:

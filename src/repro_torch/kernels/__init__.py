@@ -22,3 +22,17 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_bwd_dq_plain,
     flash_attention_plain,
 )
+from repro_torch.kernels.rglru import (  # noqa: F401
+    rglru_scan,
+    rglru_scan_bwd,
+    rglru_scan_bwd_plain,
+    rglru_scan_plain,
+    rglru_scan_ref,
+)
+from repro_torch.kernels.ssd import (  # noqa: F401
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_plain,
+    ssd_scan_plain,
+    ssd_scan_ref,
+)

@@ -95,6 +95,28 @@ KERNELS = {
         _F, _F, _I, _I,            # scale, softcap, causal, window
         _P,                        # stream
     ]),
+    "ssd_scan": ("ssd_scan_fwd.cu", "ssd_scan_fwd", [
+        _P, _P, _P, _P,            # xdt, b, c, lcum
+        _P, _P, _I,                # y, states (or a per-head scratch), return_states
+        _I, _I, _I, _I, _I,        # batch, heads, seq, P, N
+        _P,                        # stream
+    ]),
+    "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan_bwd", [
+        _P, _P, _P, _P, _P, _P,    # xdt, b, c, lcum, states, dy
+        _P, _P, _P, _P, _P,        # dx, db, dc, dl (per head), carried-adjoint scratch
+        _I, _I, _I, _I, _I,        # batch, heads, seq, P, N
+        _P,                        # stream
+    ]),
+    "rglru_scan": ("rglru_scan_fwd.cu", "rglru_scan_fwd", [
+        _P, _P, _P,                # a, b, h
+        _I, _I, _I,                # batch, seq, d
+        _P,                        # stream
+    ]),
+    "rglru_scan_bwd": ("rglru_scan_bwd.cu", "rglru_scan_bwd", [
+        _P, _P, _P, _P, _P,        # a, h_prev, dh, da, db
+        _I, _I, _I,                # batch, seq, d
+        _P,                        # stream
+    ]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -182,3 +204,4 @@ def check(rc: int, name: str) -> None:
     """Raise when a kernel's C entry reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+

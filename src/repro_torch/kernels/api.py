@@ -10,6 +10,8 @@ for the JAX launcher means the same here::
     matmul           tiled (K1) | mcast (K4) | unicast (K5)     vjp
     flash_attention  pallas (K6; backward K7 + K8)               vjp
     paged_attention  pallas (K2 decode) | pallas_prefill (K3)    no vjp
+    ssd              pallas (K9; backward K10)                   vjp
+    rglru            pallas (K11; backward K12)                  vjp
 
 In the port the backend name ``pallas`` means "the hand-written
 kernels", and every schedule is one.  Dispatch resolves, in order: the
@@ -36,9 +38,12 @@ too, as the JAX package's custom VJPs are: the matmul backward re-enters
 :func:`linear` for the pre-activation ``z`` (only with an activation),
 ``dA = dz @ B^T`` and ``dB = A^T @ dz`` (strided views, no transposed
 copy); the flash backward runs K7 and K8 from the forward's saved
-log-sum-exp.  Under differentiation auto-dispatch skips schedules
-without a VJP, and forcing one raises the JAX package's ``ValueError``.
-A forward whose schedule was forced does not force its backward: the
+log-sum-exp; the SSD backward runs K10 from the chunk-initial states K9
+checkpointed, and the RG-LRU backward K12 from K11's output.  Under
+differentiation auto-dispatch skips schedules without a VJP, and forcing
+one raises the JAX package's ``ValueError``.
+Only the matmul backward dispatches again (the others are each one fixed
+kernel), and a forward whose schedule was forced does not force it: the
 backward resolves under ``backend=pallas`` (the cheapest kernel for its
 own shapes), as JAX's ``_bwd_policy_token`` does.
 
@@ -50,7 +55,8 @@ own shapes), as JAX's ``_bwd_policy_token`` does.
 * :func:`op` — ``op("flash_attention")(q, k, v, causal=..., window=...,
   softcap=...)``, ``op("paged_attention")(q, k_pages, v_pages, table,
   start, lengths, *scales, softcap=...)``, ``op("matmul")(a, b[, bias],
-  ...)``.
+  ...)``, ``op("ssd")(xdt, b, c, log_a)`` -> y fp32, ``op("rglru")(a, b)``
+  -> h fp32.
 * :func:`resolve` — which schedule a call would pick (``needs_vjp=True``:
   a differentiated call); runs nothing.  (The JAX package's resolve also
   reports an autotuned block config; the CUDA kernels' tiles are fixed,
@@ -85,6 +91,8 @@ from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_decode,
     paged_attention_prefill,
 )
+from repro_torch.kernels.rglru.rglru import rglru_scan, rglru_scan_bwd
+from repro_torch.kernels.ssd.ssd import SSD_CHUNK, ssd_lcum, ssd_scan, ssd_scan_bwd
 
 __all__ = ["ACTIVATIONS", "BACKENDS", "DispatchPolicy", "KERNELS", "KernelOp",
            "POLICY_ENV_VAR", "Problem", "Resolution", "Schedule", "as_policy",
@@ -104,6 +112,10 @@ KERNELS = {
     "flash_attention": flash_attention,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "ssd_scan": ssd_scan,
+    "ssd_scan_bwd": ssd_scan_bwd,
+    "rglru_scan": rglru_scan,
+    "rglru_scan_bwd": rglru_scan_bwd,
 }
 
 
@@ -311,7 +323,9 @@ class KernelOp:
         needs_vjp = _needs_vjp(*tensors)
         sched = self.resolve(problem, pol, needs_vjp=needs_vjp)
         if needs_vjp:
-            return _VJP[self.name].apply(sched, _bwd_policy_token(pol), full, *tensors)
+            if self.name == "matmul":  # the one backward that dispatches again
+                return _LinearFunction.apply(sched, _bwd_policy_token(pol), full, *tensors)
+            return _VJP[self.name].apply(sched, full, *tensors)
         return sched.fn(*tensors, **full)
 
 
@@ -527,11 +541,10 @@ class _FlashFunction(torch.autograd.Function):
     ``delta = rowsum(dO * O)`` in fp32, K7 for dQ and K8 for dK/dV per
     query head, then the GQA group sum of the rounded per-head values.
     The forward runs the dispatched schedule; the backward dispatches
-    nothing (K7 and K8 are the only backward), so ``bwd_policy`` goes
-    unused."""
+    nothing (K7 and K8 are the only backward)."""
 
     @staticmethod
-    def forward(ctx, sched, bwd_policy, opts, q, k, v):
+    def forward(ctx, sched, opts, q, k, v):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o, lse = sched.fn(q, k, v, return_lse=True, **opts)
         ctx.opts = opts
@@ -551,11 +564,7 @@ class _FlashFunction(torch.autograd.Function):
         if h != kvh:  # GQA: the per-query-head gradients sum onto the kv heads
             dk = dk.reshape(b, kvh, h // kvh, sk, d).sum(dim=2)
             dv = dv.reshape(b, kvh, h // kvh, sk, d).sum(dim=2)
-        return None, None, None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-#: each vjp-capable family's autograd function (JAX ``_VJP_FWD``/``_VJP_BWD``)
-_VJP = {"matmul": _LinearFunction, "flash_attention": _FlashFunction}
+        return None, None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -600,3 +609,100 @@ register(KernelOp(
                  available=_fits("paged_attention", "prefill")),
     ),
 ))
+
+
+# ---------------------------------------------------------------------------
+# ssd family
+# ---------------------------------------------------------------------------
+
+
+def _ssd_pallas(xdt, b, c, log_a, *, return_states=False):
+    """K9 on fp32 copies of the inputs, at the kernel's chunk; the
+    within-chunk cumsum of the log-decays runs outside it, in fp32 (the
+    JAX package cumsums in the input dtype)."""
+    return ssd_scan(xdt.float().contiguous(), b.float().contiguous(), c.float().contiguous(),
+                    ssd_lcum(log_a, SSD_CHUNK), chunk=SSD_CHUNK, return_states=return_states)
+
+
+register(KernelOp(
+    name="ssd",
+    # xdt (b, h, s, P); b/c (b, s, N); log_a (b, h, s) -> (b, h, s, P, N)
+    problem=lambda xdt, b, c, log_a: (*xdt.shape, b.shape[-1]),
+    # Always available, unlike the JAX schedule, whose chunk must divide
+    # the sequence and whose (P, N) state must fit VMEM: the CUDA kernels
+    # run a short last chunk and stream the state through N tiles.
+    schedules=(Schedule("pallas", _ssd_pallas, _model_cost("ssd"), vjp=True),),
+))
+
+
+class _SsdFunction(torch.autograd.Function):
+    """The SSD VJP (JAX ``_ssd_vjp_fwd`` / ``_ssd_vjp_bwd``): K9 forward
+    with its chunk-initial states checkpointed; backward K10 on the same
+    chunk grid (one state per forward chunk), dB and dC summed over the
+    heads (B and C are head-shared), each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, sched, opts, xdt, b, c, log_a):
+        y, states = sched.fn(xdt, b, c, log_a, return_states=True, **opts)
+        ctx.dtypes = tuple(t.dtype for t in (xdt, b, c, log_a))
+        ctx.save_for_backward(xdt, b, c, log_a, states)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xdt, b, c, log_a, states = ctx.saved_tensors
+        dx, db, dc, dl = ssd_scan_bwd(
+            xdt.float().contiguous(), b.float().contiguous(), c.float().contiguous(),
+            ssd_lcum(log_a, SSD_CHUNK), states, g.float().contiguous(), chunk=SSD_CHUNK)
+        grads = (dx, db.sum(dim=1), dc.sum(dim=1), dl[..., 0])
+        return (None, None, *(d.to(dt) for d, dt in zip(grads, ctx.dtypes)))
+
+
+# ---------------------------------------------------------------------------
+# rglru family
+# ---------------------------------------------------------------------------
+
+
+def _rglru_pallas(a, b):
+    """K11 on fp32 copies: the recurrence runs in fp32 whatever the inputs'
+    dtype, as the JAX kernel's fp32 state does."""
+    return rglru_scan(a.float().contiguous(), b.float().contiguous())
+
+
+register(KernelOp(
+    name="rglru",
+    problem=lambda a, b: a.shape,
+    # Always available: the JAX schedule is not where its sequence block
+    # must be the whole (prime) sequence and overflows VMEM; one CUDA
+    # thread per channel walks any length.
+    schedules=(Schedule("pallas", _rglru_pallas, _model_cost("rglru"), vjp=True),),
+))
+
+
+class _RglruFunction(torch.autograd.Function):
+    """The RG-LRU VJP (JAX ``_rglru_vjp_fwd`` / ``_rglru_vjp_bwd``): K11
+    forward, saving ``a`` and h; backward K12 on ``h_prev`` (h shifted
+    right one step, zero first).  Both gradients come back in a's dtype,
+    as the JAX package returns them (the kernel streams a and b as one
+    fp32 recurrence)."""
+
+    @staticmethod
+    def forward(ctx, sched, opts, a, b):
+        h = sched.fn(a, b, **opts)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        h_prev = torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
+        da, db = rglru_scan_bwd(a.float().contiguous(), h_prev, g.float().contiguous())
+        return None, None, da.to(a.dtype), db.to(a.dtype)
+
+
+#: the autograd function of each vjp-capable family whose backward is a
+#: fixed kernel (JAX ``_VJP_FWD``/``_VJP_BWD``); matmul's is
+#: :class:`_LinearFunction`, which also takes the backward policy
+_VJP = {"flash_attention": _FlashFunction, "ssd": _SsdFunction, "rglru": _RglruFunction}

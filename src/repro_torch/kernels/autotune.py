@@ -2,10 +2,10 @@
 
 A copy of the part of ``repro.kernels.autotune`` that decides *which
 schedule* a kernel call dispatches to: the candidate block
-configurations of the matmul, paged-attention and flash-attention
-families, each with
-its modeled working set (``vmem_bytes``), grid steps and HBM traffic,
-pruned to a budget and sorted best cost first.  ``kernels.api`` reads
+configurations of the matmul, paged-attention, flash-attention, SSD and
+RG-LRU families, each with its modeled working set (``vmem_bytes``),
+grid steps and HBM traffic, pruned to a budget and sorted best cost
+first.  ``kernels.api`` reads
 it through the availability predicates (some candidate fits the budget)
 and the cost hooks (the best candidate's cost), so the port picks the
 same schedule as the JAX package for every (shape, dtype, policy).
@@ -14,12 +14,12 @@ same schedule as the JAX package for every (shape, dtype, policy).
 a TPU core's 16 MiB VMEM), kept verbatim so the two packages agree.  It
 is not a model of Hopper's shared memory: the CUDA kernels use fixed
 tile sizes of their own, and the block configurations here only rank
-schedules and decide availability.  The flash family is modelled in the
-forward direction only and for its cost alone: its one schedule is
-always available in the port (the CUDA tiles mask ragged edges, so no
-block has to divide the sequence), and the JAX package's ``"bwd"``
-candidates choose backward blocks the port fixes as well
-(``csrc/flash_attention_bwd_*.cu``).
+schedules and decide availability.  The flash, SSD and RG-LRU families
+are modelled for their cost alone: each has one schedule, always
+available in the port (the CUDA kernels mask ragged edges and tile the
+SSD state, so no block has to divide the sequence or fit VMEM).  The
+JAX package's ``"bwd"`` candidates are not copied: they choose backward
+blocks, and the port's backward kernels fix their own tiles.
 
 Not copied: the measured timing sweep and the on-disk cache (ROADMAP
 Queue 1 item 10) — the cost model alone decides, as it does in the JAX
@@ -145,6 +145,23 @@ def _flash_candidates(shape: Sequence[int], dsize: int) -> list[Candidate]:
     return out
 
 
+_SSD_CHUNKS = (32, 64, 128, 256)
+
+
+def _ssd_candidates(shape: Sequence[int], dsize: int) -> list[Candidate]:
+    """Shape key: (b, h, s, P, N).  The JAX kernel's chunk must divide the
+    sequence (a sequence no option divides is one chunk) and its (P, N)
+    state sits in VMEM; the CUDA kernels use a chunk of their own."""
+    b, h, s, p, n = shape
+    out = []
+    for chunk in _divisors(s, _SSD_CHUNKS):
+        # xdt/b/c/lcum/o blocks double-buffered + (P, N) state + (Q, Q) scores
+        vmem = 2 * (2 * chunk * p + 2 * chunk * n + chunk) * 4 + (p * n + chunk * chunk) * 4
+        steps = b * h * _cdiv(s, chunk)
+        out.append(_mk({"chunk": chunk}, vmem, steps))
+    return out
+
+
 _PAGED_QC = (8, 16, 32, 64, 128)
 
 
@@ -182,10 +199,27 @@ def _paged_attention_candidates(schedule: str, shape: Sequence[int],
     return [_mk({}, vmem, steps, hbm)]
 
 
+_LRU_BLOCKS = (128, 256, 512)
+
+
+def _rglru_candidates(shape: Sequence[int], dsize: int) -> list[Candidate]:
+    """Shape key: (b, s, d); the JAX kernel's (bs, bd) blocks divide the
+    sequence and the channels, else span them whole."""
+    b, s, d = shape
+    out = []
+    for bs, bd in itertools.product(_divisors(s, _LRU_BLOCKS), _divisors(d, _LRU_BLOCKS)):
+        vmem = 2 * 3 * bs * bd * 4 + bd * 4  # a/b/h blocks double-buffered + the carry
+        steps = b * _cdiv(d, bd) * _cdiv(s, bs)
+        out.append(_mk({"bd": bd, "bs": bs}, vmem, steps))
+    return out
+
+
 _GENERATORS = {
     "matmul": _matmul_candidates,
     "paged_attention": _paged_attention_candidates,
     "flash_attention": lambda schedule, shape, dsize: _flash_candidates(shape, dsize),
+    "ssd": lambda schedule, shape, dsize: _ssd_candidates(shape, dsize),
+    "rglru": lambda schedule, shape, dsize: _rglru_candidates(shape, dsize),
 }
 
 

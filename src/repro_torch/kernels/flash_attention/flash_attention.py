@@ -32,6 +32,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._operands import on_cpu
 
 NEG_INF = -(2.0**30)
 MAX_HEAD_DIM = 256
@@ -55,10 +56,6 @@ def _check_shapes(name, q, k, v, window, *per_query):
     for t, shape in per_query:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-
-
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _check_kernel(name, q, k, v, *, same=(), rows=()) -> torch.device:
@@ -198,7 +195,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, return_l
     """Blockwise attention: O (b, h, sq, d) in q's dtype, and with
     ``return_lse`` also lse (b, h, sq) fp32.  The CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if _on_cpu(q, k, v):
+    if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
                                      return_lse=return_lse)
     _check_shapes("flash_attention", q, k, v, window)
@@ -239,7 +236,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=None,
     """dQ of :func:`flash_attention` from the saved ``lse`` and
     ``delta = rowsum(do * o)``, in q's dtype: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if _on_cpu(q, k, v, do, lse, delta):
+    if on_cpu(q, k, v, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=causal,
                                             window=window, softcap=softcap)
     dq = torch.empty_like(q)
@@ -254,7 +251,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=None
     (b, h, sk, d) in k's and v's dtype; under GQA the caller sums each
     group of ``h // kvh`` heads.  The CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    if _on_cpu(q, k, v, do, lse, delta):
+    if on_cpu(q, k, v, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal,
                                              window=window, softcap=softcap)
     b, h = q.shape[:2]

@@ -364,3 +364,133 @@ def test_flash_kernels_reject_bad_inputs(cuda_device):
         flash_attention_bwd_dq(q, kv, kv, q, lse.bfloat16(), lse)
     with pytest.raises(ValueError, match="shape"):
         flash_attention_bwd_dkv(q, kv, kv, q, lse[:, :, :4], lse)
+
+
+# ---------------------------------------------------------------------------
+# K9, K10, K11, K12: the scans and their adjoints
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.rglru import (  # noqa: E402
+    rglru_scan,
+    rglru_scan_bwd,
+    rglru_scan_bwd_plain,
+    rglru_scan_plain,
+    rglru_scan_ref,
+)
+from repro_torch.kernels.ssd import (  # noqa: E402
+    ssd_lcum,
+    ssd_scan,
+    ssd_scan_bwd,
+    ssd_scan_bwd_plain,
+    ssd_scan_plain,
+)
+
+
+def _ssd_inputs(gen, b, h, s, p, n):
+    xdt = _rand(gen, b, h, s, p, dtype=torch.float32, scale=0.5)
+    bm = _rand(gen, b, s, n, dtype=torch.float32, scale=0.5)
+    cm = _rand(gen, b, s, n, dtype=torch.float32, scale=0.5)
+    log_a = -torch.nn.functional.softplus(_rand(gen, b, h, s, dtype=torch.float32))
+    return xdt, bm, cm, log_a, _rand(gen, b, h, s, p, dtype=torch.float32)
+
+
+def _lru_inputs(gen, b, s, d):
+    a = 0.8 + 0.2 * torch.sigmoid(_rand(gen, b, s, d, dtype=torch.float32))
+    return a, _rand(gen, b, s, d, dtype=torch.float32), _rand(gen, b, s, d, dtype=torch.float32)
+
+
+# the ragged cell (no chunk in 32..256 divides s = 200; P 32, N 16 under
+# one tile), a 256 KB fp32 state, and a last chunk of one step
+@pytest.mark.parametrize("shape", [(1, 3, 200, 32, 16), (1, 2, 256, 64, 1024),
+                                   (2, 2, 65, 20, 40)], ids=str)
+def test_ssd_kernels_match_plain(cuda_device, shape):
+    """K9 (y and its checkpoints) and K10 (fed K9's states) against their
+    plain versions: 1e-4 of the element and of its row's RMS (fp32 sums in
+    another order; d log a's row is the sequence)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    xdt, bm, cm, log_a, dy = _ssd_inputs(gen, *shape)
+    lcum = ssd_lcum(log_a, 64)
+    before = kernels.launch_counts()
+    y, states = ssd_scan(xdt, bm, cm, lcum, return_states=True)
+    y_p, states_p = ssd_scan_plain(xdt, bm, cm, lcum, return_states=True)
+    torch.cuda.synchronize()
+    _flash_close(y, y_p, 1e-4)
+    _flash_close(states, states_p, 1e-4)
+    _flash_close(ssd_scan(xdt, bm, cm, lcum), y_p, 1e-4)  # through the scratch state
+    got = ssd_scan_bwd(xdt, bm, cm, lcum, states, dy)
+    want = ssd_scan_bwd_plain(xdt, bm, cm, lcum, states, dy)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        _flash_close(g, w, 1e-4)
+    _flash_close(got[3][..., 0], want[3][..., 0], 1e-4)
+    after = kernels.launch_counts()
+    assert after["ssd_scan"] == before["ssd_scan"] + 2
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+
+
+@pytest.mark.parametrize("shape", [(3, 77, 192), (1, 5, 7), (2, 512, 512)], ids=str)
+def test_rglru_kernels_match_plain_to_the_bit(cuda_device, shape):
+    """K11 and K12 do the plain versions' fp32 operations in their order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    a, x, dh = _lru_inputs(gen, *shape)
+    h = rglru_scan(a, x)
+    torch.testing.assert_close(h, rglru_scan_plain(a, x), rtol=0, atol=0)
+    h_prev = torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
+    for g, w in zip(rglru_scan_bwd(a, h_prev, dh), rglru_scan_bwd_plain(a, h_prev, dh)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_scan_autograd_launches_each_kernel_once(cuda_device):
+    """op("ssd") and op("rglru") under autograd: one forward launches K9
+    (K11) once, one backward K10 (K12) once, and the gradients hold to
+    autograd through the plain forward."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    cases = [("ssd", _ssd_inputs(gen, 1, 3, 130, 32, 16)[:4],
+              lambda xdt, bm, cm, la: ssd_scan_plain(xdt, bm, cm, ssd_lcum(la, 64)),
+              ("ssd_scan", "ssd_scan_bwd")),
+             ("rglru", _lru_inputs(gen, 2, 50, 96)[:2], rglru_scan_ref,
+              ("rglru_scan", "rglru_scan_bwd"))]
+    for family, inputs, plain, (fwd_name, bwd_name) in cases:
+        grads = []
+        for fn in (kernels.op(family), plain):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            kernels.reset_launch_counts()
+            out = fn(*leaves)
+            fwd = kernels.launch_counts()
+            w = torch.ones_like(out).cumsum(-1).sin()
+            grads.append((out, *torch.autograd.grad((out * w).sum(), leaves)))
+            total = kernels.launch_counts()
+            if fn is not plain:
+                assert fwd[fwd_name] == 1 and sum(fwd.values()) == 1, fwd
+                assert total[bwd_name] == 1 and sum(total.values()) == 2, total
+        torch.cuda.synchronize()
+        for got, want in zip(*grads):
+            _flash_close(got, want, 1e-4)
+
+
+def test_scan_kernels_reject_bad_inputs(cuda_device):
+    xdt, bc, lcum = (torch.zeros(1, 2, 64, 8, device=cuda_device),
+                     torch.zeros(1, 64, 4, device=cuda_device),
+                     torch.zeros(1, 2, 64, 1, device=cuda_device))
+    states, a = torch.zeros(1, 2, 1, 8, 4, device=cuda_device), \
+        torch.zeros(2, 16, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="fp32"):
+        ssd_scan(xdt.bfloat16(), bc, bc, lcum)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(xdt.transpose(2, 3).contiguous().transpose(2, 3), bc, bc, lcum)
+    with pytest.raises(ValueError, match="should be"):
+        ssd_scan(xdt, bc[:, :32], bc, lcum)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(xdt, bc, bc, lcum, chunk=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(xdt, bc.cpu(), bc, lcum)
+    with pytest.raises(ValueError, match="states"):
+        ssd_scan_bwd(xdt, bc, bc, lcum, states[:, :1], xdt)
+    with pytest.raises(TypeError, match="fp32"):
+        ssd_scan_bwd(xdt, bc, bc, lcum, states.half(), xdt)
+    with pytest.raises(TypeError, match="fp32"):
+        rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), a)
+    with pytest.raises(ValueError, match="one shape"):
+        rglru_scan_bwd(a, a, a[:, :8])

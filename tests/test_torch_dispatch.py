@@ -138,7 +138,7 @@ def test_unknown_schedule_raises_like_jax():
     with pytest.raises(ValueError, match="has no schedule 'split_k'"):
         kernels.resolve("matmul", (4, 64, 64), torch.bfloat16, "split_k")
     with pytest.raises(ValueError, match="unknown kernel op"):
-        kernels.op("ssd")  # not ported yet
+        kernels.op("conv2d")
 
 
 def test_autotune_candidates_match_jax():
@@ -155,3 +155,65 @@ def test_autotune_candidates_match_jax():
                 [(c.config, c.vmem_bytes, c.grid_steps, c.hbm_bytes) for c in want]
     assert autotune.VMEM_BUDGET == jax_autotune.VMEM_BUDGET
     assert autotune.STEP_OVERHEAD_BYTES == jax_autotune.STEP_OVERHEAD_BYTES
+
+
+# ---------------------------------------------------------------------------
+# the scan families: ssd and rglru
+# ---------------------------------------------------------------------------
+
+# the JAX dispatch tests' shapes, a ragged SSD sequence and a long RG-LRU one
+SCAN_SHAPES = [("ssd", (1, 2, 256, 64, 64)), ("ssd", (2, 48, 2048, 64, 128)),
+               ("ssd", (1, 3, 200, 32, 16)), ("rglru", (1, 256, 256)),
+               ("rglru", (2, 2048, 2560)), ("rglru", (3, 77, 192))]
+
+
+@pytest.mark.parametrize("name,shape", SCAN_SHAPES, ids=str)
+@pytest.mark.parametrize("policy", [None, "backend=pallas", "pallas"], ids=str)
+@pytest.mark.parametrize("needs_vjp", [False, True])
+def test_scan_resolve_matches_jax(name, shape, policy, needs_vjp):
+    want = jax_kernels.resolve(name, shape, "float32", policy or "backend=pallas",
+                               needs_vjp=needs_vjp)
+    got = kernels.resolve(name, shape, torch.float32, policy, needs_vjp=needs_vjp)
+    assert (got.schedule, got.backend, got.vjp) == (want.schedule, want.backend, want.vjp)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("ssd", (1, 1, 256, 2048, 2048)),  # a 16 MB (P, N) state: over the VMEM budget
+    ("rglru", (1, 4099, 256)),         # a prime sequence: one 4099-step block overflows
+])
+@pytest.mark.parametrize("needs_vjp", [False, True])
+def test_scan_dispatch_diverges_from_jax_where_the_tpu_blocks_do_not_fit(
+        monkeypatch, name, shape, needs_vjp):
+    """The documented divergence: JAX's auto-dispatch on a TPU (its
+    default backend ``pallas``, here by declaring the interpreter off)
+    finds its kernel unavailable and picks the reference backend; the
+    port's kernels tile the state and walk any length, so it picks its
+    kernel.  At every other shape the two agree (above)."""
+    monkeypatch.setattr(jax_api, "_interpret", lambda: False)
+    assert not jax_api.op(name).schedule("pallas").available(jax_api.Problem(shape, "float32"))
+    want = jax_kernels.resolve(name, shape, "float32", needs_vjp=needs_vjp)
+    assert (want.schedule, want.backend) == ("reference", "reference")
+    got = kernels.resolve(name, shape, torch.float32, needs_vjp=needs_vjp)
+    assert (got.schedule, got.backend, got.vjp) == ("pallas", "pallas", True)
+    for tidy in [s for n, s in SCAN_SHAPES if n == name]:  # a TPU agrees elsewhere
+        assert jax_kernels.resolve(name, tidy, "float32", needs_vjp=needs_vjp).schedule == \
+            kernels.resolve(name, tidy, torch.float32, needs_vjp=needs_vjp).schedule == "pallas"
+
+
+@pytest.mark.parametrize("kernel,shapes", [
+    ("ssd", [(1, 2, 384, 64, 32), (2, 48, 2048, 64, 128), (1, 3, 200, 32, 16)]),
+    ("rglru", [(2, 384, 256), (2, 2048, 2560), (3, 77, 192)]),
+    ("flash_attention", [(2, 16, 2048, 2048, 64), (3, 8, 77, 200, 128)]),
+])
+def test_scan_and_flash_candidates_match_jax(kernel, shapes):
+    """The copied forward candidates of the ssd, rglru and flash families
+    (the lone schedule's cost): same configs, working sets and costs."""
+    from repro.kernels import autotune as jax_autotune
+    from repro_torch.kernels import autotune
+
+    for shape in shapes:
+        for dt in ("bfloat16", "float32"):
+            want = jax_autotune.candidates(kernel, shape, dt)
+            got = autotune.candidates(kernel, shape, dt)
+            assert [(c.config, c.vmem_bytes, c.grid_steps, c.cost) for c in got] == \
+                [(c.config, c.vmem_bytes, c.grid_steps, c.cost) for c in want], (kernel, shape)

@@ -8,6 +8,12 @@ package's custom VJPs.
 * ``grad(linear)`` under forced ``tiled``, ``mcast`` and ``unicast``
   against JAX's ``linear(policy=...)``, with bias and silu, and with no
   epilogue but a bf16 ``out_dtype``;
+* ``torch.autograd.grad`` through ``op("ssd")`` (K9 forward with its
+  checkpoints, K10 backward, dB and dC summed over heads) and
+  ``op("rglru")`` (K11, K12) against ``jax.grad`` through JAX's
+  ``op(..., policy="pallas")``, at 2e-3 and 1e-3 (the JAX package's own
+  parity tolerances: its chunk and blocks differ from the port's, which
+  reorders the fp32 sums);
 * differentiation-aware dispatch: a forced forward schedule does not
   force the backward, paged attention cannot be differentiated, and
   ``resolve(..., needs_vjp=True)`` picks what JAX picks.
@@ -125,6 +131,98 @@ def test_flash_runs_where_the_tpu_blocks_do_not_fit():
     for fn in (kernels.op("flash_attention"), attention_ref):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         out = fn(*leaves, causal=True)
+        grads.append((out, *torch.autograd.grad((out * w).sum(), leaves)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# scans: ssd and rglru
+# ---------------------------------------------------------------------------
+
+
+def _ssd_args(s, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    xdt, bm, cm = (rng.standard_normal(shape) * 0.5 for shape in
+                   ((1, 2, s, 32), (1, s, 16), (1, s, 16)))
+    log_a = -np.logaddexp(0.0, rng.standard_normal((1, 2, s)))
+    return [jnp.asarray(x, JNP[dtype]) for x in (xdt, bm, cm, log_a)]
+
+
+def _rglru_args(s, d, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    a = 0.8 + 0.2 / (1.0 + np.exp(-rng.standard_normal((2, s, d))))
+    return [jnp.asarray(x, JNP[dtype]) for x in (a, rng.standard_normal((2, s, d)))]
+
+
+@pytest.mark.parametrize("s", [256, 192, 200])  # 192: JAX's chunk 64; 200: the port's is short
+def test_ssd_grad_matches_jax(s):
+    args = _ssd_args(s)
+    g = _arrays(98, [(1, 2, s, 32)], torch.float32)[0]
+    want = _jax_grads(lambda *a: jax_kernels.op("ssd")(*a, policy="pallas"), args, g)
+    got = _torch_grads(lambda *a: kernels.op("ssd")(*a), args, g)
+    assert [x.dtype for x in got] == [torch.float32] * 5
+    _assert_close(got, want, dict(rtol=2e-3, atol=2e-3))
+
+
+@pytest.mark.parametrize("s,d", [(256, 256), (192, 192)])
+def test_rglru_grad_matches_jax(s, d):
+    args = _rglru_args(s, d)
+    g = _arrays(97, [(2, s, d)], torch.float32)[0]
+    want = _jax_grads(lambda *a: jax_kernels.op("rglru")(*a, policy="pallas"), args, g)
+    got = _torch_grads(lambda *a: kernels.op("rglru")(*a), args, g)
+    _assert_close(got, want, dict(rtol=1e-3, atol=1e-3))
+
+
+def test_scan_grads_of_bf16_inputs_come_back_in_their_dtypes():
+    """bf16 inputs: the scans run in fp32 (outputs fp32), each gradient
+    comes back in its input's dtype, and RG-LRU's db in a's dtype.  The
+    port cumsums the SSD log-decays in fp32, where the JAX package
+    cumsums them in bf16, so the SSD values are held to JAX run on the
+    same bf16 values upcast to fp32; RG-LRU's to JAX run on the bf16
+    inputs themselves.  Tolerance: bf16's (one rounding of each grad)."""
+    args = _ssd_args(128, torch.bfloat16)
+    g = _arrays(96, [(1, 2, 128, 32)], torch.float32)[0]
+    got = _torch_grads(lambda *a: kernels.op("ssd")(*a), args, g)
+    assert [x.dtype for x in got] == [torch.float32] + [torch.bfloat16] * 4
+    want = _jax_grads(lambda *a: jax_kernels.op("ssd")(*a, policy="pallas"),
+                      [x.astype(jnp.float32) for x in args], g)
+    _assert_close(got, want, TOL[torch.bfloat16])
+
+    args = _rglru_args(128, 128, torch.bfloat16)
+    g = _arrays(95, [(2, 128, 128)], torch.float32)[0]
+    got = _torch_grads(lambda *a: kernels.op("rglru")(*a), args, g)
+    assert [x.dtype for x in got] == [torch.float32, torch.bfloat16, torch.bfloat16]
+    want = _jax_grads(lambda *a: jax_kernels.op("rglru")(*a, policy="pallas"), args, g)
+    _assert_close(got, want, TOL[torch.bfloat16])
+    # bf16 a, fp32 b: db is rounded to a's dtype (autograd then casts it
+    # back to b's fp32)
+    a, b = t(args[0]).requires_grad_(), t(args[1]).float().requires_grad_()
+    _, db = torch.autograd.grad(kernels.op("rglru")(a, b).sum(), (a, b))
+    assert db.dtype == torch.float32
+    torch.testing.assert_close(db, db.bfloat16().float(), rtol=0, atol=0)
+
+
+def test_ssd_runs_where_the_tpu_state_does_not_fit():
+    """(P, N) = (3072, 1024): a 12 MB fp32 state that overflows the VMEM
+    budget the JAX package dispatches by (JAX falls back to its reference
+    there); the port's kernels stream the state through N tiles, so
+    dispatch runs them.  Forward and gradients hold to autograd through
+    the sequential oracle."""
+    from repro_torch.kernels.ssd import ssd_scan_ref
+
+    b, h, s, p, n = 1, 1, 3, 3072, 1024
+    assert not api._fits("ssd")(api.Problem((b, h, s, p, n), "float32"))
+    rng = np.random.default_rng(9)
+    xdt = torch.from_numpy(rng.standard_normal((b, h, s, p), np.float32) * 0.5)
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, s, n), np.float32) * 0.05)
+              for _ in range(2))
+    log_a = -torch.rand(b, h, s, generator=torch.Generator().manual_seed(0))
+    w = torch.from_numpy(rng.standard_normal((b, h, s, p), np.float32))
+    grads = []
+    for fn in (kernels.op("ssd"), ssd_scan_ref):
+        leaves = [x.clone().requires_grad_() for x in (xdt, bm, cm, log_a)]
+        out = fn(*leaves)
         grads.append((out, *torch.autograd.grad((out * w).sum(), leaves)))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -48,9 +48,11 @@ def test_no_jax_and_no_reference_package_imports(path):
 
 def test_scan_covers_every_port_module():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
-    for rel in ("kernels/api.py", "kernels/autotune.py", "kernels/matmul/matmul.py",
+    for rel in ("kernels/api.py", "kernels/autotune.py", "kernels/_operands.py",
+                "kernels/matmul/matmul.py",
                 "kernels/flash_attention/flash_attention.py", "kernels/flash_attention/ref.py",
-                "nn/attention.py", "models/lm.py", "launch/serve.py"):
+                "kernels/ssd/ssd.py", "kernels/ssd/ref.py", "kernels/rglru/rglru.py",
+                "kernels/rglru/ref.py", "nn/attention.py", "models/lm.py", "launch/serve.py"):
         assert f"src/repro_torch/{rel}" in names, rel
 
 
@@ -114,7 +116,8 @@ def test_plain_path_leaves_launch_counters_at_zero():
     assert kernels.launch_counts() == {
         "matmul_tiled": 0, "matmul_mcast": 0, "matmul_unicast": 0,
         "paged_attention_decode": 0, "paged_attention_prefill": 0, "flash_attention": 0,
-        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "ssd_scan": 0,
+        "ssd_scan_bwd": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
 
 
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
@@ -140,6 +143,17 @@ def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
         kernels.flash_attention_bwd_dq(qf, kv, kv, qf, rows, rows)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.flash_attention_bwd_dkv(qf, kv, kv, qf, rows, rows)
+    xdt, bc, la = (torch.zeros(1, 2, 8, 4, **meta), torch.zeros(1, 8, 3, **meta),
+                   torch.zeros(1, 2, 8, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.op("ssd")(xdt, bc, bc, la)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ssd_scan_bwd(xdt, bc, bc, la[..., None], torch.zeros(1, 2, 1, 4, 3, **meta), xdt)
+    seq = torch.zeros(1, 8, 4, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.op("rglru")(seq, seq)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.rglru_scan_bwd(seq, seq, seq)
 
 
 def test_cpu_autograd_runs_the_plain_versions():
@@ -151,5 +165,12 @@ def test_cpu_autograd_runs_the_plain_versions():
     grads = torch.autograd.grad(out.sum(), (q, k, v))
     a, b = torch.randn(4, 8, requires_grad=True), torch.randn(8, 3, requires_grad=True)
     grads += torch.autograd.grad(kernels.linear(a, b, activation="relu").sum(), (a, b))
+    xdt, bm, cm = (torch.randn(*shape, requires_grad=True) for shape in
+                   ((1, 2, 70, 8), (1, 70, 4), (1, 70, 4)))
+    log_a = (-torch.rand(1, 2, 70)).requires_grad_()
+    grads += torch.autograd.grad(kernels.op("ssd")(xdt, bm, cm, log_a).sum(),
+                                 (xdt, bm, cm, log_a))
+    a, x = torch.rand(2, 9, 5, requires_grad=True), torch.randn(2, 9, 5, requires_grad=True)
+    grads += torch.autograd.grad(kernels.op("rglru")(a, x).sum(), (a, x))
     assert all(torch.isfinite(g).all() for g in grads)
     assert set(kernels.launch_counts().values()) == {0}
