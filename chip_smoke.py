@@ -18,7 +18,9 @@ each fatal on failure (nothing is caught):
    against its plain version at five shapes — qwen1.5-0.5b and gemma2-9b's
    local layers at full width, the kernel benchmark's flash row and two
    ragged cross-attention cases, one with rows that see no key — timed
-   as in phase 2; then the differentiated path, ``torch.autograd.grad``
+   as in phase 2, each record naming the design that ran (K6 and K7:
+   ``wgmma`` for bf16 with d % 8 == 0, else ``cuda-core``; K8
+   ``cuda-core``); then the differentiated path, ``torch.autograd.grad``
    through ``op("flash_attention")`` at the two full-width shapes, every
    launch count at 0 before it, against the same graph on the plain
    versions (one forward must launch K6 once, one backward K7 and K8
@@ -602,6 +604,11 @@ def check_flash(gen, c: FlashShape) -> dict[str, dict]:
     after = kernels.launch_counts()
     assert all(after[n] == before[n] + 1 for n in FLASH_KERNELS), (before, after)
     del o_p, lse_p, dk_p, dv_p
+    designs = {n: kernels.KERNELS[n].design for n in FLASH_KERNELS}
+    core = "wgmma" if c.dtype == torch.bfloat16 and c.d % 8 == 0 else "cuda-core"
+    if designs != {"flash_attention": core, "flash_attention_bwd_dq": core,
+                   "flash_attention_bwd_dkv": "cuda-core"}:
+        raise AssertionError(f"flash {c.label}: designs {designs}, expected K6 and K7 {core}")
 
     warm = 1 if c.runs < 10 else 3
     timed = {
@@ -628,7 +635,7 @@ def check_flash(gen, c: FlashShape) -> dict[str, dict]:
         recs[name] = dict(
             check="kernel", name=name, case=c.label, b=c.b, h=c.h, kvh=c.kvh, sq=c.sq, sk=c.sk,
             d=c.d, dtype=str(c.dtype), causal=c.causal, window=c.window, softcap=c.softcap,
-            kept_pairs=flash_pairs(c), kernel_ms=k_ms, host_ms=k_host,
+            design=designs[name], kept_pairs=flash_pairs(c), kernel_ms=k_ms, host_ms=k_host,
             plain_ms=time_ms(plain, c.runs, warm)[0],
             library=lib_name if lib_fn else None, library_ms=lib_ms.get(lib_fn),
             bound_ms=b_ms, bound_by=b_by, max_err=errs[name][0], err_over_allowance=errs[name][1],

@@ -1,13 +1,16 @@
 // Shared tile machinery of K6, K7 and K8 (flash attention forward, dQ,
-// dK/dV), for sm_90a.
+// dK/dV), for sm_90a: the masking of every design, and the CUDA-core
+// design's tiles (K6 and K7 also have a tensor-core design for bf16,
+// flash_hopper.cuh).
 //
-// Every kernel of the family runs 256 threads as a 16 x 16 grid: lane
-// group ty = tid / 16 owns score rows ty + 16 i, lane tx = tid % 16 owns
-// score columns tx + 16 j and output columns tx + 16 c.  A row's 16 lanes
-// share one warp, so row reductions are four shuffles.  Operand tiles are
-// staged in shared memory as fp32, head_dim padded with zeros to the
-// compile-time D (32, 64, 128 or 256) and rows padded to D + 1 floats so
-// that the 16 lanes reading 16 different rows hit 16 different banks.
+// Every CUDA-core kernel of the family runs 256 threads as a 16 x 16
+// grid: lane group ty = tid / 16 owns score rows ty + 16 i, lane
+// tx = tid % 16 owns score columns tx + 16 j and output columns tx + 16 c.
+// A row's 16 lanes share one warp, so row reductions are four shuffles.
+// Operand tiles are staged in shared memory as fp32, head_dim padded with
+// zeros to the compile-time D (32, 64, 128 or 256) and rows padded to
+// D + 1 floats so that the 16 lanes reading 16 different rows hit 16
+// different banks.
 //
 // Masking follows the JAX kernels: positions from 0 for q and k, causal
 // keeps k <= q, a window keeps q - k < window, a masked score is
@@ -95,9 +98,16 @@ struct Masking {
     if (keyless(sq - 1)) hi = sq;
   }
 
-  // The score the JAX kernels use: dot * scale, soft-capped, masked.
-  // *th receives tanh(dot * scale / softcap) (0 without softcap).
-  __device__ __forceinline__ float score(float dot, int q, int k, float* th) const {
+  // The one key row q sees, or -1 when it sees none or several.
+  __device__ __forceinline__ int only_key(int q) const {
+    const int lo = window > 0 ? max(0, q - window + 1) : 0;
+    const int hi = causal ? min(sk - 1, q) : sk - 1;
+    return lo == hi ? lo : -1;
+  }
+
+  // dot * scale, soft-capped; *th receives tanh(dot * scale / softcap)
+  // (0 without softcap).
+  __device__ __forceinline__ float cap(float dot, float* th) const {
     float s = dot * scale;
     float t = 0.f;
     if (softcap > 0.f) {
@@ -105,6 +115,18 @@ struct Masking {
       s = softcap * t;
     }
     *th = t;
+    return s;
+  }
+
+  // Do rows [q0, q1] see every key of [k0, k1]?  Then no score of the
+  // tile needs the mask.
+  __device__ __forceinline__ bool sees_all(int q0, int q1, int k0, int k1) const {
+    return k1 < sk && (!causal || k1 <= q0) && (window <= 0 || q1 - k0 < window);
+  }
+
+  // The score the JAX kernels use: dot * scale, soft-capped, masked.
+  __device__ __forceinline__ float score(float dot, int q, int k, float* th) const {
+    const float s = cap(dot, th);
     if (k >= sk) return -INFINITY;
     if ((causal && k > q) || (window > 0 && q - k >= window)) return NEG_INF;
     return s;

@@ -119,6 +119,13 @@ KERNELS = {
     ]),
 }
 
+# kernel library -> its C rule: (dtype code, head dim) -> 1 where the
+# entry runs the tensor-core design, 0 where it runs the CUDA-core one
+DESIGN_RULES = {
+    "flash_attention": "flash_attention_fwd_design",
+    "flash_attention_bwd_dq": "flash_attention_bwd_dq_design",
+}
+
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -196,6 +203,10 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, KERNELS[name][1])
             fn.argtypes = KERNELS[name][2]
             fn.restype = ctypes.c_int
+            if name in DESIGN_RULES:
+                rule = getattr(lib, DESIGN_RULES[name])
+                rule.argtypes = [_I, _I]
+                rule.restype = ctypes.c_int
             _LOADED[name] = lib
     return lib
 

@@ -17,11 +17,18 @@ gets ``p = 1`` for every key: the mean of V, with ``lse = NEG_INF``.
 
 Each wrapper launches its CUDA kernel (``csrc/flash_attention_*.cu``)
 for CUDA tensors and runs its plain version (``*_plain``) for CPU
-tensors; it never falls back from one to the other.  The plain versions
-do the kernels' arithmetic without the blocking: fp32 scores of the
-storage-dtype operands, the forward's probabilities rounded to the V
-dtype before the PV product while ``l`` sums them unrounded, the
-backward all in fp32 on upcast inputs with one rounding of each output.
+tensors; it never falls back from one to the other.  K6 and K7 have two
+designs, chosen by a fixed rule in their C entries: bf16 operands with
+``d % 8 == 0`` run on the tensor cores (``wgmma`` fed by TMA, which
+needs 16-byte rows and 16-byte-aligned base pointers: a misaligned one
+raises), everything else on CUDA cores.  Each wrapper's ``design`` says
+which ran at its last launch.
+
+The plain versions do the kernels' arithmetic without the blocking: fp32
+scores of the storage-dtype operands, the forward's probabilities
+rounded to the V dtype before the PV product while ``l`` sums them
+unrounded, the backward all in fp32 on upcast inputs with one rounding
+of each output (the bf16 K7 also rounds dS to bf16 before dS K).
 They work a few query heads at a time, so that no (sq, sk) fp32 buffer
 passes 2**28 elements.
 """
@@ -211,7 +218,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, return_l
             *_opts(d, causal, window, softcap), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, "flash_attention")
         flash_attention.launches += 1
+        flash_attention.design = _design("flash_attention", q)
     return (o, lse) if return_lse else o
+
+
+def _design(name, q):
+    """The design kernel ``name`` runs for q's dtype and head dim, by its C
+    entry's rule: "wgmma" or "cuda-core" (K8 has only the latter)."""
+    rule = _build.DESIGN_RULES.get(name)
+    if rule is not None and getattr(_build.load(name), rule)(_DTYPE_CODES[q.dtype], q.shape[3]):
+        return "wgmma"
+    return "cuda-core"
 
 
 def _bwd_launch(wrapper, entry, outs, q, k, v, do, lse, delta, causal, window, softcap):
@@ -229,6 +246,7 @@ def _bwd_launch(wrapper, entry, outs, q, k, v, do, lse, delta, causal, window, s
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, name)
     wrapper.launches += 1
+    wrapper.design = _design(name, q)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True, window=None,
@@ -265,3 +283,6 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, window=None
 flash_attention.launches = 0  # kernel launches since the last reset
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention.design = None  # the design of the last launch
+flash_attention_bwd_dq.design = None
+flash_attention_bwd_dkv.design = None

@@ -8,14 +8,20 @@ fault it copies ``src/`` and ``chip_smoke.py`` into a temporary
 directory, edits one line of a kernel source there (the checkout is
 never touched), builds the kernels of the copy and runs K6, K7 and K8
 against their plain versions at qwen1.5-0.5b's and gemma2-9b's local
-layers' shapes.  Each output is judged by ``chip_smoke.check_flash_close``
-in two forms: a fixed 2e-2 absolute term, and the row-RMS term the
+layers' shapes (bf16: K6 and K7 run their wgmma design, K8 its CUDA-core
+one).  Each output is judged as ``chip_smoke.check_flash_close`` judges
+it, in two forms: a fixed 2e-2 absolute term, and the row-RMS term the
 checks use.  One JSON line per (fault, shape, output, form) gives the
 verdict and the worst error over its allowance (> 1 fails).  K7 and K8
 are fed the plain version's lse, so a fault in K6 stays in K6.
+
+A fault must fail every output it touches by at least 10x under the
+row-RMS form, and every other output must pass; the script exits 1
+otherwise.
 """
 from __future__ import annotations
 
+import json
 import shutil
 import subprocess
 import sys
@@ -24,16 +30,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/csrc")
+QWEN, GEMMA = "qwen1.5-0.5b", "gemma2-9b local layer"
+ALL = ("o", "dq", "dk", "dv")
 
-# name -> (source, the line as written, the line with the fault)
+# name -> (source, the line as written, the line with the fault,
+#          {shape: the outputs the fault touches})
 FAULTS = {
+    # the mask every masked tile of K6, K7 (both designs) and K8 applies
     "window one key too wide": (
-        CSRC / "flash_common.cuh", "q - k >= window", "q - k > window"),
+        CSRC / "flash_common.cuh", "q - k >= window", "q - k > window", {GEMMA: ALL}),
+    # the bf16 K6's kv-tile walk, shared by its producer and consumers
     "first kv tile skipped from row 1024 (K6)": (
         CSRC / "flash_attention_fwd.cu",
-        "for (int k0 = lo / BK * BK; k0 < hi; k0 += BK) {",
-        "for (int k0 = lo / BK * BK + (q0 >= 1024 ? BK : 0); k0 < hi; k0 += BK) {"),
+        "const int t0 = lo / BK, t1 = (hi + BK - 1) / BK;",
+        "const int t0 = lo / BK + (q0 >= 1024), t1 = (hi + BK - 1) / BK;",
+        {QWEN: ("o",), GEMMA: ("o",)}),
+    # the bf16 K7's dS: p (dP - delta) becomes p dP
+    "delta dropped from dS (K7)": (
+        CSRC / "flash_attention_bwd_dq.cu", "* (dp - delta);", "* dp;",
+        {QWEN: ("dq",), GEMMA: ("dq",)}),
 }
+CATCH = 10.0  # a touched output fails by at least this much
 
 CHECK = r'''
 import json, sys, torch
@@ -55,29 +72,31 @@ for c in s.FLASH_SHAPES[:2]:
             "dq": (s.flash_attention_bwd_dq(*bwd, **kw),
                    s.flash_attention_bwd_dq_plain(*bwd, **kw)),
             "dk": (dk, dk_p), "dv": (dv, dv_p)}
+    designs = {n: s.kernels.KERNELS[n].design for n in s.FLASH_KERNELS}
     try:
         s.check_close("lse", lse, lse_p, s.TOL_FP32)
         lse_ok = True
     except AssertionError:
         lse_ok = False
     for name, (got, want) in outs.items():
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
         for form, atol in forms:
-            s.flash_atol = atol
-            rec = dict(fault=fault, case=c.label, output=name, form=form, lse_passes=lse_ok)
-            try:
-                rec["max_abs_err"], rec["err_over_allowance"], _ = s.check_flash_close(
-                    name, got, want, s.TOL_BF16)
-                rec["verdict"] = "passes"
-            except AssertionError as e:
-                rec["verdict"] = "fails: " + str(e).split(": ", 1)[1]
-            print(json.dumps(rec), flush=True)
+            allow = atol(w, s.TOL_BF16) + s.TOL_BF16 * w.abs()
+            ratio = float(torch.where(diff > 0, diff / allow, torch.zeros_like(diff)).max())
+            ok = bool(torch.isfinite(g).all()) and ratio <= 1
+            print(json.dumps(dict(fault=fault, case=c.label, output=name, form=form,
+                                  verdict="passes" if ok else "fails", err_over_allowance=ratio,
+                                  max_abs_err=float(diff.max()), lse_passes=lse_ok,
+                                  designs=designs)), flush=True)
     del outs, dk, dv, dk_p, dv_p, o_p, lse_p
     torch.cuda.empty_cache()
 '''
 
 
 def main() -> int:
-    for fault, (source, line, broken) in FAULTS.items():
+    wrong = []
+    for fault, (source, line, broken, touches) in FAULTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             copy = Path(tmp)
             shutil.copytree(ROOT / "src", copy / "src",
@@ -87,8 +106,19 @@ def main() -> int:
             if text.count(line) != 1:
                 sys.exit(f"{source}: expected the line {line!r} once")
             (copy / source).write_text(text.replace(line, broken))
-            subprocess.run([sys.executable, "-c", CHECK, fault], cwd=copy, check=True)
-    return 0
+            run = subprocess.run([sys.executable, "-c", CHECK, fault], cwd=copy, check=True,
+                                 capture_output=True, text=True)
+        for rec in map(json.loads, run.stdout.splitlines()):
+            print(json.dumps(rec), flush=True)
+            if rec["form"] != "row rms":
+                continue
+            touched = rec["output"] in touches.get(rec["case"], ())
+            caught = rec["verdict"] == "fails" and rec["err_over_allowance"] >= CATCH
+            if touched != caught or (not touched and rec["verdict"] != "passes"):
+                wrong.append((fault, rec["case"], rec["output"], rec["verdict"],
+                              rec["err_over_allowance"]))
+    print(json.dumps({"faults": len(FAULTS), "unexpected": wrong}), flush=True)
+    return 1 if wrong else 0
 
 
 if __name__ == "__main__":

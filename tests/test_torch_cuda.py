@@ -5,6 +5,8 @@ PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
@@ -193,6 +195,7 @@ def test_dense_server_on_card_launches_its_policys_kernel(cuda_device, policy, k
 # K6, K7, K8: flash attention and its gradient
 # ---------------------------------------------------------------------------
 
+from repro_torch.kernels.flash_attention.flash_attention import _mask  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref,
     flash_attention,
@@ -265,6 +268,111 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     after = kernels.launch_counts()
     for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1, name
+
+
+# bf16 cases of K6's and K7's wgmma design: every compile-time head dim
+# (d 32 and 72 on zero-filled columns), sq and sk off the 128-row query
+# tile and the 32-128-key kv tiles, GQA groups 1, 2 and 8, softcap,
+# window, and rows that see no key (sq > sk + window - 1)
+WGMMA_CASES = [
+    (1, 8, 8, 200, 200, 32, True, None, None),
+    (2, 8, 4, 130, 333, 64, False, None, None),
+    (1, 16, 2, 257, 250, 64, True, 100, 20.0),
+    (1, 8, 1, 300, 77, 128, True, 16, None),
+    (2, 4, 2, 190, 190, 128, True, None, 30.0),
+    (1, 4, 2, 100, 100, 72, True, None, None),
+    (1, 4, 4, 150, 260, 256, True, 40, 50.0),
+    (1, 16, 2, 33, 300, 256, False, None, None),
+]
+
+
+def _dq_close(dq, dq_p, q, k, v, do, causal, window):
+    """dQ against the plain version under the row-RMS allowance of 2e-2,
+    except on rows that see exactly one key: there p = 1 and dS = dP -
+    delta, two fp32 sums of the same d exact products, so dQ is 0 in
+    exact arithmetic and each side returns its own rounding of it (the
+    plain version's row may be exactly 0, where that allowance has no
+    width).  Those rows are held to the bound of that rounding: each sum
+    errs by at most d 2^-24 times the sum of its terms' magnitudes."""
+    b, h, sq, d = q.shape
+    group = h // k.shape[1]
+    mask = _mask(sq, k.shape[2], causal, window, q.device)
+    one = mask.sum(dim=-1) == 1
+    _flash_close(dq[:, :, ~one], dq_p[:, :, ~one], 2e-2)
+    key = mask.float().argmax(dim=-1)[one]
+    kc = k.repeat_interleave(group, dim=1).float()[:, :, key]
+    vc = v.repeat_interleave(group, dim=1).float()[:, :, key]
+    terms = (do.float()[:, :, one].abs() * vc.abs()).sum(dim=-1, keepdim=True)
+    bound = 2 * d * 2.0**-24 * terms * kc.abs() / math.sqrt(d) * 1.01
+    for t in (dq, dq_p):
+        assert (t[:, :, one].float().abs() <= bound).all()
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_flash_wgmma_design_matches_plain(cuda_device, case):
+    """K6 and K7 on bf16 with d % 8 == 0 run on the tensor cores (wgmma
+    fed by TMA) and agree with their plain versions within 2e-2 of the
+    element and of its row's RMS."""
+    b, h, kvh, sq, sk, d, causal, window, softcap = case
+    gen = torch.Generator(device=cuda_device).manual_seed(sq * 7 + sk + d)
+    q, k, v, do = _flash_inputs(gen, b, h, kvh, sq, sk, d, torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert flash_attention.design == "wgmma"
+    o_p, lse_p = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    _flash_close(o, o_p, 2e-2)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    assert flash_attention_bwd_dq.design == "wgmma"
+    dq_p = flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    _dq_close(dq, dq_p, q, k, v, do, causal, window)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 20)], ids=str)
+def test_flash_cuda_core_design_runs_fp32_and_unaligned_rows(cuda_device, dtype, d):
+    """fp32 operands, and bf16 rows of a length that is not a multiple of
+    16 bytes (d % 8 != 0, which TMA cannot read), run the CUDA-core K6
+    and K7: the C entries' fixed rule, not a fallback."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v, do = _flash_inputs(gen, 2, 4, 2, 100, 90, d, dtype)
+    kw = dict(causal=True, window=None, softcap=None)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert flash_attention.design == "cuda-core"
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    assert flash_attention_bwd_dq.design == "cuda-core"
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    o_p = flash_attention_plain(q, k, v, **kw)
+    dq_p = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    _flash_close(o, o_p, tol)
+    if dtype == torch.float32:
+        _flash_close(dq, dq_p, tol)
+    else:
+        _dq_close(dq, dq_p, q, k, v, do, True, None)
+
+
+def test_flash_wgmma_design_rejects_a_misaligned_base(cuda_device):
+    """TMA reads 16-byte-aligned tensors: a contiguous bf16 operand whose
+    base is 2 bytes off makes the C entry return an error, and the
+    wrapper raises; nothing launches and nothing falls back."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v, do = _flash_inputs(gen, 1, 4, 2, 64, 64, 64, torch.bfloat16)
+    lse = torch.zeros(1, 4, 64, device=cuda_device)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    before = kernels.launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError"):
+        flash_attention(shifted(q), k, v)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        flash_attention_bwd_dq(q, shifted(k), v, do, lse, lse)
+    assert kernels.launch_counts() == before
 
 
 def test_flash_keyless_rows_average_v(cuda_device):
