@@ -256,7 +256,6 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ con
     const int r0 = q0 + 64 * (threadIdx.x / 128);
     const int qr[2] = {r0 + frag_row(0), r0 + frag_row(2)};  // this thread's two rows
     const long long row0 = (long long)bh * mk.sq;
-    const int only[2] = {mk.only_key(qr[0]), mk.only_key(qr[1])};
     float lse_r[2], delta_r[2], acc[D / 2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -294,23 +293,11 @@ flash_bwd_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ con
           sc[j] = dscore(x, th, dp[j], lse_r[(j >> 1) & 1], delta_r[(j >> 1) & 1], mk);
         }
       } else {
-        // A row that sees one key has p = 1 and dS = dP - delta, two fp32
-        // sums of the same exact products: their rounding is the answer.
-        // The thread holding that key's column sums its dP in sequential
-        // FMA order, as the CUDA-core design sums every dP, not in the
-        // tensor cores' order.
-        float dp_one[2] = {0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int c = only[r] - k0;
-          if (c >= 0 && c < BK && c % 8 / 2 == threadIdx.x % 4)
-            dp_one[r] = dot_in_order<WG_BQ, BK>(dos, qr[r] - q0, vs + s * S::KV, c, d);
-        }
 #pragma unroll
         for (int j = 0; j < BK / 2; ++j) {
-          const int r = (j >> 1) & 1, key = k0 + frag_col(j);
-          const float x = mk.score(sc[j], qr[r], key, &th);
-          sc[j] = dscore(x, th, key == only[r] ? dp_one[r] : dp[j], lse_r[r], delta_r[r], mk);
+          const int r = (j >> 1) & 1;
+          const float x = mk.score(sc[j], qr[r], k0 + frag_col(j), &th);
+          sc[j] = dscore(x, th, dp[j], lse_r[r], delta_r[r], mk);
         }
       }
 

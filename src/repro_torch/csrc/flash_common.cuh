@@ -1,7 +1,7 @@
 // Shared tile machinery of K6, K7 and K8 (flash attention forward, dQ,
 // dK/dV), for sm_90a: the masking of every design, and the CUDA-core
-// design's tiles (K6 and K7 also have a tensor-core design for bf16,
-// flash_hopper.cuh).
+// design's tiles (each of the three also has a tensor-core design for
+// bf16, flash_hopper.cuh).
 //
 // Every CUDA-core kernel of the family runs 256 threads as a 16 x 16
 // grid: lane group ty = tid / 16 owns score rows ty + 16 i, lane
@@ -96,13 +96,6 @@ struct Masking {
     lo = causal ? k0 : 0;
     hi = window > 0 ? min(sq, k1 + window) : sq;
     if (keyless(sq - 1)) hi = sq;
-  }
-
-  // The one key row q sees, or -1 when it sees none or several.
-  __device__ __forceinline__ int only_key(int q) const {
-    const int lo = window > 0 ? max(0, q - window + 1) : 0;
-    const int hi = causal ? min(sk - 1, q) : sk - 1;
-    return lo == hi ? lo : -1;
   }
 
   // dot * scale, soft-capped; *th receives tanh(dot * scale / softcap)

@@ -54,10 +54,11 @@ KERNELS = {
         _P,                        # stream
     ]),
     "matmul_unicast": ("matmul_unicast.cu", "matmul_unicast", [
-        _P, _I, _LL, _LL,
-        _P, _I, _LL, _LL,
-        _P, _I, _I, _I,
-        _P,
+        _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
+        _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
+        _P, _I, _I, _I,            # out (a's dtype), M, N, K
+        _P, _P,                    # split-K workspace (fp32) and tile counters, or null
+        _P,                        # stream
     ]),
     "paged_attention_decode": ("paged_attention_decode.cu", "paged_attention_decode", [
         _P, _P, _P, _I,            # q, k pages, v pages, dtype
@@ -119,11 +120,21 @@ KERNELS = {
     ]),
 }
 
-# kernel library -> its C rule: (dtype code, head dim) -> 1 where the
-# entry runs the tensor-core design, 0 where it runs the CUDA-core one
+# kernel library -> its C rule (entry point, argtypes): the code of the
+# design the kernel's C entry runs for those arguments, 0 the CUDA-core one
+# (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K5: its
+# operands as the entry takes them -> 1 wgmma, 2 wgmma-swapab,
+# 3 wgmma-swapab-3xbf16)
 DESIGN_RULES = {
-    "flash_attention": "flash_attention_fwd_design",
-    "flash_attention_bwd_dq": "flash_attention_bwd_dq_design",
+    "flash_attention": ("flash_attention_fwd_design", [_I, _I]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd_dq_design", [_I, _I]),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv_design", [_I, _I]),
+    "matmul_unicast": ("matmul_unicast_design", [_P, _I, _LL, _LL, _P, _I, _LL, _LL,
+                                                 _I, _I, _I]),
+}
+# kernel library -> further C helpers: (entry point, argtypes)
+HELPERS = {
+    "matmul_unicast": [("matmul_unicast_splits", [_I, _I])],  # (N, K) -> K split
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -203,10 +214,11 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, KERNELS[name][1])
             fn.argtypes = KERNELS[name][2]
             fn.restype = ctypes.c_int
-            if name in DESIGN_RULES:
-                rule = getattr(lib, DESIGN_RULES[name])
-                rule.argtypes = [_I, _I]
-                rule.restype = ctypes.c_int
+            for entry, argtypes in ([DESIGN_RULES[name]] if name in DESIGN_RULES else []) \
+                    + HELPERS.get(name, []):
+                helper = getattr(lib, entry)
+                helper.argtypes = argtypes
+                helper.restype = ctypes.c_int
             _LOADED[name] = lib
     return lib
 

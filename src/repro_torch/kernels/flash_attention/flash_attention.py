@@ -17,8 +17,8 @@ gets ``p = 1`` for every key: the mean of V, with ``lse = NEG_INF``.
 
 Each wrapper launches its CUDA kernel (``csrc/flash_attention_*.cu``)
 for CUDA tensors and runs its plain version (``*_plain``) for CPU
-tensors; it never falls back from one to the other.  K6 and K7 have two
-designs, chosen by a fixed rule in their C entries: bf16 operands with
+tensors; it never falls back from one to the other.  Each kernel has two
+designs, chosen by a fixed rule in its C entry: bf16 operands with
 ``d % 8 == 0`` run on the tensor cores (``wgmma`` fed by TMA, which
 needs 16-byte rows and 16-byte-aligned base pointers: a misaligned one
 raises), everything else on CUDA cores.  Each wrapper's ``design`` says
@@ -28,7 +28,8 @@ The plain versions do the kernels' arithmetic without the blocking: fp32
 scores of the storage-dtype operands, the forward's probabilities
 rounded to the V dtype before the PV product while ``l`` sums them
 unrounded, the backward all in fp32 on upcast inputs with one rounding
-of each output (the bf16 K7 also rounds dS to bf16 before dS K).
+of each output (the bf16 K7 also rounds dS to bf16 before dS K, and the
+bf16 K8 P before Pᵀ dO).
 They work a few query heads at a time, so that no (sq, sk) fp32 buffer
 passes 2**28 elements.
 """
@@ -224,11 +225,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, return_l
 
 def _design(name, q):
     """The design kernel ``name`` runs for q's dtype and head dim, by its C
-    entry's rule: "wgmma" or "cuda-core" (K8 has only the latter)."""
-    rule = _build.DESIGN_RULES.get(name)
-    if rule is not None and getattr(_build.load(name), rule)(_DTYPE_CODES[q.dtype], q.shape[3]):
-        return "wgmma"
-    return "cuda-core"
+    entry's rule: "wgmma" or "cuda-core"."""
+    rule = getattr(_build.load(name), _build.DESIGN_RULES[name][0])
+    return "wgmma" if rule(_DTYPE_CODES[q.dtype], q.shape[3]) else "cuda-core"
 
 
 def _bwd_launch(wrapper, entry, outs, q, k, v, do, lse, delta, causal, window, softcap):

@@ -23,6 +23,13 @@ every row, so each B element is read once) and K5 ``matmul_unicast``
 do; ``kernels.api`` runs bias and activation after them.  Each has a
 wrapper (``csrc/matmul_mcast.cu``, ``csrc/matmul_unicast.cu``) and a
 plain version: the fp64 product rounded to fp32, then to ``a.dtype``.
+K5 runs one of four designs, by a fixed rule in its C entry (bf16 B
+that TMA can read; ``matmul_unicast.design`` names the last one):
+``wgmma`` (bf16 A, M > 64: 128 x 128 tiles on the tensor cores),
+``wgmma-swapab`` (bf16 A, M <= 64: Cᵀ = Bᵀ Aᵀ with K split until the
+grid fills the card, the partials summed inside the launch),
+``wgmma-swapab-3xbf16`` (fp32 A, M <= 64, the tied logits: A split into
+three bf16 pieces) and ``cuda-core`` (everything else).
 
 A and B may each be bf16 or fp32 and are read through their strides,
 so ``B`` can be a transposed view (the tied logits read the bf16
@@ -139,34 +146,36 @@ def matmul_unicast_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _flat_plain("matmul_unicast", a, b)
 
 
-def _flat_launch(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch K4 or K5 (same C interface): ``C = A @ B`` in ``a.dtype``;
-    counts the launch on ``wrapper``."""
-    kernel = wrapper.__name__
-    _check_operands(kernel, a, b)
-    dev = _check_device(kernel, a, b)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=a.dtype, device=dev)
-    if m == 0 or n == 0:
-        return out
-    rc = getattr(_build.load(kernel), kernel)(
-        a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1),
-        out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, kernel)
-    wrapper.launches += 1
-    return out
-
-
 def matmul_mcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K4, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
     read once per launch for M <= ``MCAST_RESIDENT_ROWS``), the plain
     version for CPU tensors."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_mcast_plain(a, b)
-    return _flat_launch(matmul_mcast, a, b)
+    _check_operands("matmul_mcast", a, b)
+    dev = _check_device("matmul_mcast", a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    rc = _build.load("matmul_mcast").matmul_mcast(
+        a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
+        b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1),
+        out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "matmul_mcast")
+    matmul_mcast.launches += 1
+    return out
+
+
+#: K5's designs by the code its C rule returns (csrc/matmul_unicast.cu ``Design``)
+UNICAST_DESIGNS = ("cuda-core", "wgmma", "wgmma-swapab", "wgmma-swapab-3xbf16")
+#: one split-K tile counter per 64-column tile of C, zero between launches
+#: (each launch's last CTA of a tile resets its counter); K is split only
+#: while the tiles number fewer than the card's 132 SMs
+_UNICAST_COUNTERS: dict[torch.device, torch.Tensor] = {}
+_UNICAST_TILES_MAX = 132
 
 
 def matmul_unicast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -174,11 +183,38 @@ def matmul_unicast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     re-read for every row block), the plain version for CPU tensors."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_unicast_plain(a, b)
-    return _flat_launch(matmul_unicast, a, b)
+    _check_operands("matmul_unicast", a, b)
+    dev = _check_device("matmul_unicast", a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = _build.load("matmul_unicast")
+    operands = (a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
+                b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1))
+    design = UNICAST_DESIGNS[lib.matmul_unicast_design(*operands, m, n, k)]
+    ws = counters = None
+    splits = lib.matmul_unicast_splits(n, k) if design.startswith("wgmma-swapab") else 1
+    if splits > 1:
+        ws = torch.empty(splits * m * n, dtype=torch.float32, device=dev)
+        counters = _UNICAST_COUNTERS.get(dev)
+        if counters is None:
+            counters = _UNICAST_COUNTERS[dev] = torch.zeros(_UNICAST_TILES_MAX,
+                                                            dtype=torch.int32, device=dev)
+    rc = lib.matmul_unicast(*operands, out.data_ptr(), m, n, k,
+                            None if ws is None else ws.data_ptr(),
+                            None if counters is None else counters.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "matmul_unicast")
+    matmul_unicast.launches += 1
+    matmul_unicast.design = design
+    return out
 
 
 matmul_mcast.launches = 0
 matmul_unicast.launches = 0
+matmul_unicast.design = None  # the design of the last launch
 
 #: rows K4 keeps resident in one pass (csrc/matmul_mcast.cu ``RESIDENT_ROWS``):
 #: up to this M every B element is read from global memory once per
@@ -191,16 +227,19 @@ def kernel_blocks(m: int) -> dict[str, dict[str, int]]:
     :func:`hbm_traffic_model`'s terms (rows ``bm``, columns ``bn``, depth
     ``bk``, supertile ``gm``): the constants of ``csrc/matmul_tiled.cu``
     (grouped raster of 8 row blocks), ``csrc/matmul_mcast.cu`` and
-    ``csrc/matmul_unicast.cu``.  Up to 64 rows K4 and K5 run the same
-    tile, one row block: unicast with a single row block is multicast."""
+    ``csrc/matmul_unicast.cu``.  K5's are its tensor-core designs' (bf16
+    B; ``SMALL_M_MAX``, ``SMALL_BN``, ``LARGE_BM``, ``LARGE_BN``, ``BK``):
+    up to 64 rows one row block of every row (one B fetch per launch, K
+    split across CTAs), beyond it 128 x 128 tiles.  Up to 64 rows K4 runs
+    one row block too: unicast with a single row block is multicast."""
     tiled = dict(bm=16, bn=32, bk=128) if m <= 16 else dict(bm=64, bn=64, bk=16)
     if m <= 16:
-        mcast = unicast = dict(bm=16, bn=64, bk=32)
+        mcast = dict(bm=16, bn=64, bk=32)
     elif m <= 64:
-        mcast = unicast = dict(bm=64, bn=64, bk=32)
+        mcast = dict(bm=64, bn=64, bk=32)
     else:
         mcast = dict(bm=MCAST_RESIDENT_ROWS, bn=64, bk=16)
-        unicast = dict(bm=64, bn=64, bk=32)
+    unicast = dict(bm=64, bn=64, bk=64) if m <= 64 else dict(bm=128, bn=128, bk=64)
     return {"tiled": dict(tiled, gm=8 * tiled["bm"]), "mcast": mcast, "unicast": unicast}
 
 

@@ -114,6 +114,91 @@ def test_flat_matmul_kernels_reject_bad_inputs(cuda_device):
             fn(a, torch.zeros(4, 2))
 
 
+def _shifted(t):
+    """t's values in a contiguous tensor whose base is one element (2 or 4
+    bytes) past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+# (m, k, n, form, design): K5's four designs by its C rule — bf16 A and B
+# at M <= 64 (swap AB, split K) and above it (128 x 128 tiles), A or B read
+# as a transposed view (A must be K-major below 65 rows), the fp32 x bf16
+# tied logits, and what stays on the CUDA cores (fp32 B, a misaligned
+# base, mixed dtypes above 64 rows)
+UNICAST_CASES = [
+    (1, 1024, 1024, "bf16", "wgmma-swapab"),
+    (4, 1024, 1024, "bf16", "wgmma-swapab"),
+    (4, 2816, 1024, "bf16", "wgmma-swapab"),
+    (16, 320, 200, "bf16", "wgmma-swapab"),
+    (48, 1024, 2816, "bf16", "wgmma-swapab"),
+    (64, 512, 136, "bf16", "wgmma-swapab"),
+    (65, 256, 200, "bf16", "wgmma"),
+    (256, 1024, 2816, "bf16", "wgmma"),
+    (2049, 1024, 2816, "bf16", "wgmma"),
+    (4, 1024, 2816, "a.t()", "cuda-core"),
+    (256, 1024, 2816, "a.t()", "wgmma"),
+    (4, 1024, 2816, "b.t()", "wgmma-swapab"),
+    (2049, 1024, 2816, "b.t()", "wgmma"),
+    (4, 1024, 151936, "logits", "wgmma-swapab-3xbf16"),
+    (48, 1000, 3000, "logits", "wgmma-swapab-3xbf16"),
+    (4, 1024, 1024, "misaligned a", "cuda-core"),
+    (256, 1024, 1024, "misaligned b", "cuda-core"),
+    (4, 1024, 1024, "fp32 b", "cuda-core"),
+    (65, 256, 200, "logits", "cuda-core"),
+]
+
+
+@pytest.mark.parametrize("case", UNICAST_CASES, ids=str)
+def test_unicast_designs_by_rule_match_plain(cuda_device, case):
+    """K5 runs the design its C entry's fixed rule names for the operands
+    (``matmul_unicast.design``) and agrees with its plain version: bf16
+    outputs within 2e-2; fp32 outputs within 1e-5, and the 3xbf16 logits
+    within chip_smoke's TOL_FP32 of 1e-4 (the tensor cores add the three
+    pieces' exact products in their own fp32 accumulation, not in IEEE
+    order: 2.8e-5 at most at |C| ~ 1-10 on an H100)."""
+    m, k, n, form, design = case
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a_dtype = torch.float32 if form == "logits" else torch.bfloat16
+    a = _rand(gen, k, m).t() if form == "a.t()" else _rand(gen, m, k, dtype=a_dtype,
+                                                          scale=4.0 if form == "logits" else 1.0)
+    if form in ("b.t()", "logits"):
+        b = _rand(gen, n, k, scale=0.02 if form == "logits" else k ** -0.5).t()
+    else:
+        b = _rand(gen, k, n, dtype=torch.float32 if form == "fp32 b" else torch.bfloat16,
+                  scale=k ** -0.5)
+    if form == "misaligned a":
+        a = _shifted(a)
+    if form == "misaligned b":
+        b = _shifted(b)
+    before = matmul_unicast.launches
+    got = matmul_unicast(a, b)
+    torch.cuda.synchronize()
+    assert matmul_unicast.launches == before + 1
+    assert matmul_unicast.design == design
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    want = matmul_unicast_plain(a, b).float().cpu()
+    if design == "wgmma-swapab-3xbf16":
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    else:
+        close(got.cpu(), want)
+
+
+def test_unicast_split_k_is_deterministic_and_leaves_its_counters_at_zero(cuda_device):
+    """wgmma-swapab splits K at 4 x 2816 x 1024 (16 column tiles): the last
+    CTA of each tile sums the partials in split order, so two launches give
+    the same bits, and resets the tile's counter for the next launch."""
+    from repro_torch.kernels.matmul import matmul as mm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    a, b = _rand(gen, 4, 2816), _rand(gen, 2816, 1024, scale=2816 ** -0.5)
+    first, second = matmul_unicast(a, b), matmul_unicast(a, b)
+    torch.cuda.synchronize()
+    assert matmul_unicast.design == "wgmma-swapab"
+    assert torch.equal(first, second)
+    assert int(mm._UNICAST_COUNTERS[a.device].abs().sum()) == 0
+
+
 @pytest.mark.parametrize("kvh", [16, 4, 1])
 @pytest.mark.parametrize("d", [64, 128])
 def test_paged_kernels_match_plain(cuda_device, kvh, d):
@@ -264,17 +349,26 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
         assert got.dtype == dtype
-        _flash_close(got, want, tol)
+    # bf16 dQ: the tensor-core K7 sums a single-key row's dP in its own
+    # order, so those rows are held to their rounding bound (_dq_close)
+    if dtype == torch.bfloat16:
+        _dq_close(dq, dq_p, q, k, v, do, causal, window, tol)
+    else:
+        _flash_close(dq, dq_p, tol)
+    _flash_close(dk, dk_p, tol)
+    _flash_close(dv, dv_p, tol)
     after = kernels.launch_counts()
     for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1, name
 
 
-# bf16 cases of K6's and K7's wgmma design: every compile-time head dim
-# (d 32 and 72 on zero-filled columns), sq and sk off the 128-row query
-# tile and the 32-128-key kv tiles, GQA groups 1, 2 and 8, softcap,
-# window, and rows that see no key (sq > sk + window - 1)
+# bf16 cases of K6's, K7's and K8's wgmma design: every compile-time head
+# dim (d 32 and 72 on zero-filled columns), sq and sk off the 128-row
+# query and key tiles and the 32-128-row ring tiles, GQA groups 1, 2 and
+# 8, softcap, window, rows that see no key (sq > sk + window - 1), and one
+# head of 128 whose row 0 sees one key
 WGMMA_CASES = [
+    (1, 1, 1, 128, 128, 64, True, None, None),
     (1, 8, 8, 200, 200, 32, True, None, None),
     (2, 8, 4, 130, 333, 64, False, None, None),
     (1, 16, 2, 257, 250, 64, True, 100, 20.0),
@@ -286,8 +380,8 @@ WGMMA_CASES = [
 ]
 
 
-def _dq_close(dq, dq_p, q, k, v, do, causal, window):
-    """dQ against the plain version under the row-RMS allowance of 2e-2,
+def _dq_close(dq, dq_p, q, k, v, do, causal, window, tol=2e-2):
+    """dQ against the plain version under the row-RMS allowance of tol,
     except on rows that see exactly one key: there p = 1 and dS = dP -
     delta, two fp32 sums of the same d exact products, so dQ is 0 in
     exact arithmetic and each side returns its own rounding of it (the
@@ -298,7 +392,7 @@ def _dq_close(dq, dq_p, q, k, v, do, causal, window):
     group = h // k.shape[1]
     mask = _mask(sq, k.shape[2], causal, window, q.device)
     one = mask.sum(dim=-1) == 1
-    _flash_close(dq[:, :, ~one], dq_p[:, :, ~one], 2e-2)
+    _flash_close(dq[:, :, ~one], dq_p[:, :, ~one], tol)
     key = mask.float().argmax(dim=-1)[one]
     kc = k.repeat_interleave(group, dim=1).float()[:, :, key]
     vc = v.repeat_interleave(group, dim=1).float()[:, :, key]
@@ -310,9 +404,10 @@ def _dq_close(dq, dq_p, q, k, v, do, causal, window):
 
 @pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
 def test_flash_wgmma_design_matches_plain(cuda_device, case):
-    """K6 and K7 on bf16 with d % 8 == 0 run on the tensor cores (wgmma
-    fed by TMA) and agree with their plain versions within 2e-2 of the
-    element and of its row's RMS."""
+    """K6, K7 and K8 on bf16 with d % 8 == 0 run on the tensor cores
+    (wgmma fed by TMA) and agree with their plain versions within 2e-2 of
+    the element and of its row's RMS (dQ's single-key rows: the rounding
+    bound of _dq_close; no case has a key fed only by such rows)."""
     b, h, kvh, sq, sk, d, causal, window, softcap = case
     gen = torch.Generator(device=cuda_device).manual_seed(sq * 7 + sk + d)
     q, k, v, do = _flash_inputs(gen, b, h, kvh, sq, sk, d, torch.bfloat16)
@@ -327,15 +422,20 @@ def test_flash_wgmma_design_matches_plain(cuda_device, case):
     dq = flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
     assert flash_attention_bwd_dq.design == "wgmma"
     dq_p = flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    assert flash_attention_bwd_dkv.design == "wgmma"
+    dk_p, dv_p = flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
     torch.cuda.synchronize()
     _dq_close(dq, dq_p, q, k, v, do, causal, window)
+    _flash_close(dk, dk_p, 2e-2)
+    _flash_close(dv, dv_p, 2e-2)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 20)], ids=str)
 def test_flash_cuda_core_design_runs_fp32_and_unaligned_rows(cuda_device, dtype, d):
     """fp32 operands, and bf16 rows of a length that is not a multiple of
-    16 bytes (d % 8 != 0, which TMA cannot read), run the CUDA-core K6
-    and K7: the C entries' fixed rule, not a fallback."""
+    16 bytes (d % 8 != 0, which TMA cannot read), run the CUDA-core K6,
+    K7 and K8: the C entries' fixed rule, not a fallback."""
     gen = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v, do = _flash_inputs(gen, 2, 4, 2, 100, 90, d, dtype)
     kw = dict(causal=True, window=None, softcap=None)
@@ -344,11 +444,16 @@ def test_flash_cuda_core_design_runs_fp32_and_unaligned_rows(cuda_device, dtype,
     delta = (do.float() * o.float()).sum(-1)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
     assert flash_attention_bwd_dq.design == "cuda-core"
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert flash_attention_bwd_dkv.design == "cuda-core"
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     o_p = flash_attention_plain(q, k, v, **kw)
     dq_p = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     _flash_close(o, o_p, tol)
+    _flash_close(dk, dk_p, tol)
+    _flash_close(dv, dv_p, tol)
     if dtype == torch.float32:
         _flash_close(dq, dq_p, tol)
     else:
@@ -372,6 +477,8 @@ def test_flash_wgmma_design_rejects_a_misaligned_base(cuda_device):
         flash_attention(shifted(q), k, v)
     with pytest.raises(RuntimeError, match="cudaError"):
         flash_attention_bwd_dq(q, shifted(k), v, do, lse, lse)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        flash_attention_bwd_dkv(q, k, v, shifted(do), lse, lse)
     assert kernels.launch_counts() == before
 
 

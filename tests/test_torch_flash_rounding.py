@@ -19,8 +19,8 @@ in exact arithmetic and every implementation returns its own rounding of
 it.  The row-RMS allowance has no width there (JAX's row may be exactly
 0), so those rows are held instead to the bound of that rounding: two
 fp32 sums of d terms each err by at most d 2^-24 times the sum of the
-terms' magnitudes.  (On the card, K7 sums that one dot product in
-sequential FMA order, as its CUDA-core design sums every dP.)
+terms' magnitudes, as ``chip_smoke.check_flash_close`` holds them on the
+card.
 
 The cases cover MHA, GQA and MQA, causal on and off, a window, a softcap,
 head dims 16 to 128, sq != sk both ways, and rows that see no key."""
