@@ -11,11 +11,16 @@ each fatal on failure (nothing is caught):
    the serving paths' shapes, timing kernel, plain version and a PyTorch
    library call with CUDA events (median of 25 runs, L2 flushed before
    each), beside the least time the card could take (``bound_ms``); for
-   each matmul shape also the three schedules side by side — K1 tiled,
-   K4 mcast, K5 unicast on the same inputs — with the B bytes the
-   schedules' traffic model gives each (the paper's comparison), K5
-   naming the design its rule picked and failing unless it is the
-   tensor-core one;
+   each matmul shape also the three schedules side by side — K1 tiled
+   (grouped raster: B reused through L2), K4 mcast (thread-block
+   clusters: B fetched once per cluster by TMA multicast), K5 unicast
+   (B once per row block) on the same inputs — with the B bytes the
+   schedules' traffic model gives each and how often each fetches B (the
+   paper's comparison); every K1, K4 and K5 record names the design its
+   kernel's rule picked and fails unless it is the tensor-core one
+   (``wgmma-swapab`` up to 64 rows, ``wgmma-swapab-3xbf16`` for the fp32
+   logits, above 64 rows ``wgmma``, for K4 ``wgmma-cluster`` with its
+   cluster size);
 2b. gradients: K6, K7 and K8 (flash attention forward, dQ, dK/dV) each
    against its plain version at six shapes — qwen1.5-0.5b and gemma2-9b's
    local layers at full width, the kernel benchmark's flash row, two
@@ -30,7 +35,7 @@ each fatal on failure (nothing is caught):
    versions (one forward must launch K6 once, one backward K7 and K8
    once each); then ``grad(linear)`` at qwen's gate projection over
    2 x 2048 tokens under ``tiled``, ``mcast`` and ``unicast`` (one
-   forward matmul launch, then z, dA and dB);
+   forward matmul launch, then z, dA and dB, each on K1's ``wgmma``);
 2c. scans: K9 and K10 (the SSD chunked scan with its checkpoints, and its
    reverse-chunk adjoint) at four shapes — mamba2-780m's SSD layer at full
    width, the kernel benchmark's row, a ragged sequence and a 256 KB
@@ -45,8 +50,8 @@ each fatal on failure (nothing is caught):
    and one decode step run through the kernels with the same run through
    the plain versions: paged decode under the default policy, and dense
    decode under each of ``tiled``, ``mcast`` and ``unicast``, each decode
-   step also timed, counted and profiled, and the host cost of one
-   schedule resolution;
+   step also timed, counted and profiled (device ops and their summed
+   ms), and the host cost of one schedule resolution;
 4. serve 8 requests (32-token shared prefix, 40-60-token prompts, 32 new
    tokens each) through ``PagedEngine`` under the default policy, and
    through the dense ``Server`` under the default policy, ``mcast`` and
@@ -54,9 +59,10 @@ each fatal on failure (nothing is caught):
    unless every request drained and every kernel of its path — and no
    other matmul kernel — was launched.
 
-It prints one JSON line per check, then the card line, the kernel
-summary (launches: phase 4's serving runs for K1–K5, phase 2b's
-autograd paths for K6–K8, phase 2c's for K9–K12) and, last,
+After the build it prints ptxas's registers, stack and spills for every
+kernel instantiation.  It prints one JSON line per check, then the card
+line, the kernel summary (launches: phase 4's serving runs for K1–K5,
+phase 2b's autograd paths for K6–K8, phase 2c's for K9–K12) and, last,
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -201,6 +207,31 @@ def emit(rec: dict) -> None:
     print(json.dumps(rec), flush=True)
 
 
+def ptxas_entries(log: str) -> list[tuple[str, str]]:
+    """(kernel entry, "N bytes stack frame, N bytes spill stores, N bytes
+    spill loads; Used N registers ...") for each entry of an nvcc -Xptxas
+    -v log, its name demangled where c++filt is found."""
+    out, entry, frame = [], None, ""
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            entry, frame = line.split("'")[1], ""
+        elif "bytes stack frame" in line:
+            frame = line.split(":", 1)[-1].strip() if ":" in line else line
+        elif "Used" in line and entry is not None:
+            out.append((entry, f"{frame}; {line.split(':', 1)[-1].strip()}"))
+            entry = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(e for e, _ in out),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [e for e, _ in out]
+    if len(names) != len(out):
+        names = [e for e, _ in out]
+    return [(name, props) for name, (_, props) in zip(names, out)]
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -257,11 +288,15 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.detach().float() - want.detach().float()).abs().max())
 
 
-def check_close(name: str, got, want, tol: float) -> float:
-    """|got - want| <= tol + tol * |want| elementwise (rtol = atol = tol)."""
+def check_close(name: str, got, want, tol: float, extra=None) -> float:
+    """|got - want| <= tol + tol * |want| elementwise (rtol = atol = tol),
+    plus ``extra`` (per element) where given: the computed effect of an
+    intermediate rounding that two correct runs may take either way
+    (:func:`check_linear_grad`)."""
     torch.cuda.synchronize()
     g, w = got.detach().float(), want.detach().float()
-    ok = bool(torch.isfinite(g).all()) and bool(((g - w).abs() <= tol + tol * w.abs()).all())
+    allow = tol + tol * w.abs() + (0.0 if extra is None else extra.float())
+    ok = bool(torch.isfinite(g).all()) and bool(((g - w).abs() <= allow).all())
     err = max_err(got, want)
     if not ok:
         raise AssertionError(f"{name}: kernel and plain version disagree beyond rtol=atol="
@@ -331,6 +366,7 @@ def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False):
     before = matmul_tiled.launches
     got = matmul_tiled(a, b, bb, activation=activation)
     assert matmul_tiled.launches == before + 1
+    design = expect_design("matmul_tiled", m, k, n, logits)
     want = matmul_tiled_plain(a, b, bb, activation=activation)
     tol = TOL_FP32 if got.dtype == torch.float32 else TOL_BF16
     err = check_close(f"matmul_tiled {m}x{k}x{n}", got, want, tol)
@@ -349,7 +385,8 @@ def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False):
     k_ms, k_host = time_ms(lambda: matmul_tiled(a, b, bb, activation=activation))
     rec = dict(check="kernel", name="matmul_tiled", shape=[m, k, n],
                a_dtype=str(a.dtype), b_dtype=str(b.dtype), out_dtype=str(got.dtype),
-               bias=bb is not None, activation=activation, kernel_ms=k_ms, host_ms=k_host,
+               bias=bb is not None, activation=activation, design=design, kernel_ms=k_ms,
+               host_ms=k_host,
                plain_ms=time_ms(lambda: matmul_tiled_plain(a, b, bb, activation=activation))[0],
                library=library, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                max_err=err, tol=tol)
@@ -357,12 +394,26 @@ def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False):
     return rec
 
 
+def expect_design(kernel: str, m: int, k: int, n: int, logits: bool) -> str:
+    """The design ``kernel`` just launched, checked against the
+    tensor-core one its rule gives these shapes (every matmul check here
+    has a bf16 B that TMA reads): fails otherwise."""
+    want = ("wgmma-swapab-3xbf16" if logits else "wgmma-swapab" if m <= 64
+            else "wgmma-cluster" if kernel == "matmul_mcast" else "wgmma")
+    got = kernels.KERNELS[kernel].design
+    if got != want:
+        raise AssertionError(f"{kernel} {m}x{k}x{n}: design {got}, expected {want}")
+    return got
+
+
 def check_schedules(gen, m, k, n, *, logits=False):
     """K1, K4 and K5 on the same inputs computing the same function,
     ``C = A @ B`` in a's dtype with no epilogue: each against the plain
     version, each timed, with the traffic model's B bytes for each
-    schedule at the kernels' own tile sizes.  Emits one kernel record for
-    K4 and one for K5, then the side-by-side record."""
+    schedule at the kernels' own tile sizes and how often each fetches B
+    from global memory (K4: once per cluster of CL row blocks, CL from its
+    C rule).  Emits one kernel record for K4 and one for K5, then the
+    side-by-side record."""
     dev = "cuda"
     if logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
         a = torch.randn(m, k, device=dev, generator=gen) * 4
@@ -380,36 +431,39 @@ def check_schedules(gen, m, k, n, *, logits=False):
     library, lib_ms = (None, None) if logits else \
         ("torch.matmul", time_ms(lambda: torch.matmul(a, b))[0])
     blocks = kernel_blocks(m)
-    # K5's design by its rule (csrc/matmul_unicast.cu): every shape here
-    # has a bf16 B that TMA reads
-    unicast_design = "wgmma-swapab-3xbf16" if logits else \
-        "wgmma-swapab" if m <= 64 else "wgmma"
+    cluster = resident = None
+    if m > 64:  # K4's cluster size by its C rule, as kernel_blocks reports it
+        k4 = _build.load("matmul_mcast")
+        cluster, resident = k4.matmul_mcast_cluster(m), k4.matmul_mcast_active_clusters(m)
+        if 128 * cluster != blocks["mcast"]["bm"]:
+            raise AssertionError(f"matmul_mcast {m}x{k}x{n}: cluster {cluster} x 128 rows "
+                                 f"!= kernel_blocks bm {blocks['mcast']['bm']}")
     rec = dict(check="schedules", shape=[m, k, n], a_dtype=str(a.dtype), b_dtype=str(b.dtype),
                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, blocks=blocks,
-               unicast_design=unicast_design)
+               mcast_cluster=cluster, mcast_clusters_resident=resident)
     out = {}
     for sched, fn in zip(POLICIES, (matmul_tiled, matmul_mcast, matmul_unicast)):
         before = fn.launches
         got = fn(a, b)
         assert fn.launches == before + 1, sched
-        if fn is matmul_unicast and fn.design != unicast_design:
-            raise AssertionError(f"matmul_unicast {m}x{k}x{n}: design {fn.design}, "
-                                 f"expected {unicast_design}")
+        design = expect_design(fn.__name__, m, k, n, logits)
         err = check_close(f"{fn.__name__} {m}x{k}x{n}", got, want, tol)
         k_ms, k_host = time_ms(lambda: fn(a, b))
         traffic = hbm_traffic_model(m, n, k, dtype_bytes=b.element_size(), **blocks[sched])
         # how often the kernel requests each B element from global memory
         reads = -(-m // blocks[sched]["bm"])
-        rec.update({f"{sched}_ms": k_ms, f"{sched}_b_bytes": traffic[f"{sched}_b_bytes"],
+        rec.update({f"{sched}_design": design, f"{sched}_ms": k_ms,
+                    f"{sched}_b_bytes": traffic[f"{sched}_b_bytes"],
                     f"{sched}_b_reads": reads, f"{sched}_max_err": err})
         if sched != "tiled":
             out[fn.__name__] = dict(
                 check="kernel", name=fn.__name__, shape=[m, k, n], a_dtype=str(a.dtype),
-                b_dtype=str(b.dtype), out_dtype=str(got.dtype), kernel_ms=k_ms,
-                host_ms=k_host, plain_ms=plain_ms, library=library, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol)
-            if fn is matmul_unicast:
-                out[fn.__name__]["design"] = fn.design
+                b_dtype=str(b.dtype), out_dtype=str(got.dtype), design=design,
+                kernel_ms=k_ms, host_ms=k_host, plain_ms=plain_ms, library=library,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol)
+            if fn is matmul_mcast:
+                out[fn.__name__].update(cluster=cluster, clusters_resident=resident,
+                                        b_reads=reads)
             emit(out[fn.__name__])
     emit(rec)
     return out
@@ -796,8 +850,18 @@ def check_flash_path(gen, c: FlashShape) -> dict[str, int]:
 def check_linear_grad(gen, policy: str, m: int = 4096, k: int = 1024, n: int = 2816) -> None:
     """``grad(linear)`` with bias and silu (qwen's gate projection over
     2 x 2048 tokens) under a forced schedule: one matmul launch forward,
-    then z, dA and dB backward, against the same graph on the plain
-    versions."""
+    then z, dA and dB backward, each on K1's ``wgmma`` design.  Each
+    backward launch is held against its plain version on its own inputs,
+    and the gradients against the same graph on the plain versions.
+
+    The backward rounds dz to bf16 before the dA and dB products, and z
+    comes from an fp32 product whose last bits depend on the summation
+    order: where dz lies near a bf16 rounding boundary, the kernel run and
+    the plain run round it to neighbouring values (about 5,800 of 11.5 M
+    elements at this shape on an H100), and a dB element sums 4,096 such
+    terms.  So dA and dB are held to TOL_BF16 plus the exact effect of the
+    elements of bf16 dz in which the two runs differ, |Δdz| |B|ᵀ and |A|ᵀ
+    |Δdz| (zero wherever they agree)."""
     a = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
     b = (torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)).to(torch.bfloat16)
     bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
@@ -809,29 +873,62 @@ def check_linear_grad(gen, policy: str, m: int = 4096, k: int = 1024, n: int = 2
                            policy=policy)
         return (y, *torch.autograd.grad((y.float() * w).sum(), leaves))
 
+    def noting(fn, calls):
+        """fn, noting each call's arguments, output and K1 design"""
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((args, kw, out, matmul_tiled.design if fn is matmul_tiled else None))
+            return out
+        return run
+
     leaves = [t.detach().requires_grad_() for t in (a, b, bias)]
+    forced = dict(zip(POLICIES, MATMULS))[policy]
     kernels.reset_launch_counts()
     y = kernels.linear(leaves[0], leaves[1], bias=leaves[2], activation="silu", policy=policy)
     fwd = kernels.launch_counts()
-    grads = torch.autograd.grad((y.float() * w).sum(), leaves)
+    fwd_design = kernels.KERNELS[forced].design
+    calls, plain_calls = [], []
+    with mock.patch.object(api, "matmul_tiled", noting(matmul_tiled, calls)):
+        grads = torch.autograd.grad((y.float() * w).sum(), leaves)
     torch.cuda.synchronize()
     bwd = {name: cnt - fwd[name] for name, cnt in kernels.launch_counts().items()}
-    forced = dict(zip(POLICIES, MATMULS))[policy]
+    bwd_designs = [c[3] for c in calls]
+    want_fwd = "wgmma-cluster" if forced == "matmul_mcast" else "wgmma"
     if fwd[forced] != 1 or sum(fwd.values()) != 1 or sum(bwd.values()) != 3 \
             or any(bwd[name] for name in bwd if name not in MATMULS):
         raise AssertionError(f"grad(linear) {policy}: forward launched {fwd}, backward {bwd}")
-    with plain_versions():
+    if fwd_design != want_fwd or bwd_designs != ["wgmma"] * 3:
+        raise AssertionError(f"grad(linear) {policy}: forward design {fwd_design}, backward "
+                             f"K1 designs {bwd_designs}; expected {want_fwd}, then wgmma x 3")
+    launch_errs = [check_close(f"grad(linear) {policy} {name} launch", out,
+                               matmul_tiled_plain(*args, **kw),
+                               TOL_FP32 if out.dtype == torch.float32 else TOL_BF16)
+                   for name, (args, kw, out, _) in zip(("z", "da", "db"), calls)]
+    with plain_versions(), mock.patch.object(api, "matmul_tiled",
+                                             noting(matmul_tiled_plain, plain_calls)):
         want = path()
-    errs = [check_close(f"grad(linear) {policy} {name}", got, ref, TOL_BF16)
-            for name, got, ref in zip(("y", "da", "db", "dbias"), (y, *grads), want)]
+    # bf16 dz, the first operand of the dA product, in each run
+    flips = (calls[1][0][0].double() - plain_calls[-2][0][0].double()).abs()
+    flips_n = int((flips > 0).sum())
+    extra = {"da": flips @ b.double().abs().t(), "db": a.double().abs().t() @ flips}
+    errs, ratios = [], []
+    for name, got, ref in zip(("y", "da", "db", "dbias"), (y, *grads), want):
+        errs.append(check_close(f"grad(linear) {policy} {name}", got, ref, TOL_BF16,
+                                extra.get(name)))
+        allow = TOL_BF16 * (1 + ref.detach().float().abs()) + extra.get(name, 0.0)
+        ratios.append(float(((got.detach().float() - ref.detach().float()).abs() / allow).max()))
+    del extra, flips
     k_ms, k_host = time_ms(path, 10, max_spin_s=0.5)
     with plain_versions():
         plain_ms = time_ms(path, 10, max_spin_s=0.5)[0]
     emit(dict(check="linear_grad", policy=policy, shape=[m, k, n], activation="silu", bias=True,
               forward_launches={n_: v for n_, v in fwd.items() if v},
               backward_launches={n_: v for n_, v in bwd.items() if v},
+              forward_design=fwd_design, backward_designs=bwd_designs,
               fwd_bwd_ms=k_ms, host_ms=k_host, plain_fwd_bwd_ms=plain_ms,
-              max_err_y_da_db_dbias=errs, tol=TOL_BF16))
+              launch_max_err_z_da_db=launch_errs, dz_bf16_elements_differing=flips_n,
+              max_err_y_da_db_dbias=errs, err_over_allowance_y_da_db_dbias=ratios,
+              tol=TOL_BF16))
 
 
 def check_gradients(gen, summary: dict) -> dict[str, int]:
@@ -1361,9 +1458,8 @@ def main() -> None:
     build_s = _build.build_all()
     emit(dict(check="build", seconds=build_s, flags=" ".join(_build.NVCC_FLAGS)))
     for kname in _build.KERNELS:
-        for line in _build.ptxas_report(kname).splitlines():
-            if "Used" in line:
-                print(f"# ptxas {kname}: {line.strip()}", flush=True)
+        for entry, props in ptxas_entries(_build.ptxas_report(kname)):
+            print(f"# ptxas {kname}: {entry}: {props}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}

@@ -1,7 +1,8 @@
-// Hopper machinery shared by the port's tensor-core kernels (K5 matmul,
-// K6-K8 flash attention), for sm_90a: mbarriers, TMA tensor maps and
-// loads, wgmma descriptors and instructions, and the accumulator
-// fragment's layout.
+// Hopper machinery shared by the port's tensor-core kernels (K1, K4, K5
+// matmul, K6-K8 flash attention), for sm_90a: mbarriers, TMA tensor maps
+// and loads (multicast into a thread-block cluster too), the cluster's
+// rank and barrier, wgmma descriptors and instructions, and the
+// accumulator fragment's layout.
 //
 // Operand tiles live in shared memory as TMA writes them with 128-byte
 // swizzle: a tile of R rows x C bf16 columns is C / 64 panels, each R rows
@@ -92,6 +93,32 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// ---- thread-block clusters --------------------------------------------------
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster that has not exited arrives (release) and
+// waits (acquire): barriers initialised before it are visible cluster-wide
+// after it, and no CTA passes it while a peer may still write to it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
+}
+// Arrive on the mbarrier at bar's offset in the shared memory of the
+// cluster's CTA `cta` (this one included), with the instruction's default
+// semantics (release, CTA scope), as CUTLASS's ClusterBarrier does.
+__device__ __forceinline__ void bar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // One box of map at (c0, c1), completing on bar.
@@ -110,6 +137,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of map at (c0, c1), written at dst's offset into the shared
+// memory of every cluster CTA in `ctas` (bit i: rank i), completing on the
+// mbarrier at bar's offset in each.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t ctas) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(ctas)
       : "memory");
 }
 

@@ -1,8 +1,8 @@
 // The TMA + wgmma GEMM mainloop of the port's matmul kernels, for sm_90a
-// (K5 now; K1's grouped raster and K4's cluster multicast are to be built
-// on it).  It knows nothing of rasters or epilogues: a caller picks the
-// tile coordinate and the K range, runs the producer and the consumers,
-// and stores the fp32 accumulator fragment as it likes.
+// (matmul_wgmma.cuh builds K1's, K4's and K5's tensor-core kernels on
+// it).  It knows nothing of rasters or epilogues: a caller picks the tile
+// coordinate and the K range, runs the producer and the consumers, and
+// stores the fp32 accumulator fragment as it likes.
 //
 //   * Operands are read through their strides with no copy: a 2-D tensor
 //     map describes the underlying layout, and the operand's major-ness
@@ -19,6 +19,11 @@
 //     and an empty one (every consumer warp is done with the slot).
 //   * One producer thread issues every load; each consumer warpgroup
 //     issues wgmma.m64nNk16 over the slots in order.
+//   * In a cluster of CL CTAs that share an operand tile (K4), each CTA
+//     loads 1/CL of it, multicast into all CL (load_slice), and a slot is
+//     empty once every consumer warp of every CTA released it: the empty
+//     barrier counts CL x the consumer warps, and each warp arrives on
+//     the barrier of every CTA of the cluster.
 #pragma once
 
 #include "hopper_common.cuh"
@@ -31,9 +36,11 @@ typedef __nv_bfloat16 bf16;
 constexpr int BK = 64;  // the depth of a k-tile: one 128-byte panel of bf16
 
 // The map of a bf16 operand with rows R and depth K (see above), boxes of
-// ROWS rows (K-major) or 64 rows (MN-major) per load.  0 or a cudaError.
+// 64 k x box_rows rows (K-major) or 64 rows x box_depth k (MN-major) per
+// load.  0 or a cudaError.
 __host__ inline int operand_map(CUtensorMap* map, const void* base, bool kmajor, long long rows,
-                                long long depth, long long ld, int box_rows) {
+                                long long depth, long long ld, int box_rows,
+                                int box_depth = BK) {
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   if (kmajor) {
     const cuuint64_t dims[2] = {(cuuint64_t)depth, (cuuint64_t)rows};
@@ -41,7 +48,7 @@ __host__ inline int operand_map(CUtensorMap* map, const void* base, bool kmajor,
     return encode_bf16(map, base, 2, dims, strides, box);
   }
   const cuuint64_t dims[2] = {(cuuint64_t)rows, (cuuint64_t)depth};
-  const cuuint32_t box[2] = {64, BK};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_depth};
   return encode_bf16(map, base, 2, dims, strides, box);
 }
 
@@ -77,6 +84,26 @@ __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, uin
   }
 }
 
+// Slice `slice` of CL of the k-tile load_tile<KMAJOR, ROWS> would load,
+// multicast into dst of every CTA of the cluster.  The k-tile is ROWS
+// 128-byte rows of shared memory either way (K-major: the operand rows;
+// MN-major: the 64 k rows of each 64-row panel in turn), and the slice
+// is ROWS / CL of them, inside one panel: the operand's map has boxes of
+// 64 x ROWS / CL (operand_map's box_rows, or box_depth for MN-major).
+template <bool KMAJOR, int ROWS, int CL>
+__device__ __forceinline__ void load_slice(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int r0, int k0, int slice) {
+  constexpr int PER = ROWS / CL;
+  static_assert(CL > 1 && PER * CL == ROWS && PER <= BK && PER % 8 == 0,
+                "a slice is whole swizzle atoms of one panel");
+  const int u0 = slice * PER;
+  if constexpr (KMAJOR)
+    tma_load_2d_multicast(dst + u0 * 64, map, bar, k0, r0 + u0, (1u << CL) - 1);
+  else
+    tma_load_2d_multicast(dst + u0 * 64, map, bar, r0 + u0 / BK * 64, k0 + u0 % BK,
+                          (1u << CL) - 1);
+}
+
 // The descriptor of k16 step kk of the operand rows starting at r (a
 // multiple of 64 for MN-major) of a ROWS-row k-tile.
 template <bool KMAJOR, int ROWS>
@@ -98,8 +125,9 @@ __device__ __forceinline__ void mma_ktile(float (&acc)[N / 2], const bf16* a, in
 
 // ---- the ring -------------------------------------------------------------
 
-// full[s] completes when the producer's loads of slot s land (one arrival
-// and the bytes); empty[s] when all `consumer_warps` warps released it.
+// full[s] completes when the loads of slot s land (the producer's one
+// arrival and the bytes); empty[s] when all `consumer_warps` warps (of
+// every CTA of a cluster) released it.
 template <int STAGES>
 __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int consumer_warps) {
   for (int s = 0; s < STAGES; ++s) {
@@ -127,10 +155,17 @@ template <int STAGES>
 __device__ __forceinline__ void ring_wait(uint64_t* full, int i) {
   bar_wait(&full[i % STAGES], (i / STAGES) & 1);
 }
-template <int STAGES>
+// In a cluster of CL CTAs the warp releases the slot in every CTA: lane c
+// arrives on CTA c's barrier, the CL arrivals issued side by side.
+template <int STAGES, int CL = 1>
 __device__ __forceinline__ void ring_release(uint64_t* empty, int i) {
   __syncwarp();
-  if (threadIdx.x % 32 == 0) bar_arrive(&empty[i % STAGES]);
+  const int lane = threadIdx.x % 32;
+  if constexpr (CL == 1) {
+    if (lane == 0) bar_arrive(&empty[i % STAGES]);
+  } else {
+    if (lane < CL) bar_arrive_cluster(&empty[i % STAGES], lane);
+  }
 }
 
 }  // namespace mm90

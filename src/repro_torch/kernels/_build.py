@@ -43,14 +43,16 @@ KERNELS = {
     "matmul_tiled": ("matmul_tiled.cu", "matmul_tiled", [
         _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
         _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
-        _P, _P, _I,                # bias (fp32 or null), out, out dtype
+        _P, _I, _P, _I,            # bias (or null), bias dtype, out, out dtype
         _I, _I, _I, _I,            # M, N, K, activation
+        _P, _P,                    # split-K workspace (fp32) and tile counters, or null
         _P,                        # stream
     ]),
     "matmul_mcast": ("matmul_mcast.cu", "matmul_mcast", [
         _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
         _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
         _P, _I, _I, _I,            # out (a's dtype), M, N, K
+        _P, _P,                    # split-K workspace (fp32) and tile counters, or null
         _P,                        # stream
     ]),
     "matmul_unicast": ("matmul_unicast.cu", "matmul_unicast", [
@@ -120,21 +122,28 @@ KERNELS = {
     ]),
 }
 
+# the matmul rules' arguments: a and b as the entry takes them, M, N, K
+_MM_OPERANDS = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _I, _I, _I]
 # kernel library -> its C rule (entry point, argtypes): the code of the
 # design the kernel's C entry runs for those arguments, 0 the CUDA-core one
-# (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K5: its
-# operands as the entry takes them -> 1 wgmma, 2 wgmma-swapab,
+# (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K1, K4, K5:
+# their operands -> 1 wgmma (K4: wgmma-cluster), 2 wgmma-swapab,
 # 3 wgmma-swapab-3xbf16)
 DESIGN_RULES = {
     "flash_attention": ("flash_attention_fwd_design", [_I, _I]),
     "flash_attention_bwd_dq": ("flash_attention_bwd_dq_design", [_I, _I]),
     "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv_design", [_I, _I]),
-    "matmul_unicast": ("matmul_unicast_design", [_P, _I, _LL, _LL, _P, _I, _LL, _LL,
-                                                 _I, _I, _I]),
+    "matmul_tiled": ("matmul_tiled_design", _MM_OPERANDS),
+    "matmul_mcast": ("matmul_mcast_design", _MM_OPERANDS),
+    "matmul_unicast": ("matmul_unicast_design", _MM_OPERANDS),
 }
 # kernel library -> further C helpers: (entry point, argtypes)
 HELPERS = {
-    "matmul_unicast": [("matmul_unicast_splits", [_I, _I])],  # (N, K) -> K split
+    "matmul_tiled": [("matmul_tiled_splits", [_I, _I])],  # (N, K) -> K split
+    "matmul_mcast": [("matmul_mcast_splits", [_I, _I]),
+                     ("matmul_mcast_cluster", [_I]),          # M -> wgmma-cluster's CL
+                     ("matmul_mcast_active_clusters", [_I])],  # M -> clusters resident at once
+    "matmul_unicast": [("matmul_unicast_splits", [_I, _I])],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -183,12 +192,13 @@ def _finish(name: str, job, out: Path) -> None:
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
 
 
-def build_all() -> float:
-    """Compile every kernel library that is not built yet, one ``nvcc``
-    per source, all started together.  Returns the wall seconds."""
+def build_all(names=None) -> float:
+    """Compile every kernel library (or those of ``names``) that is not
+    built yet, one ``nvcc`` per source, all started together.  Returns the
+    wall seconds."""
     t0 = time.perf_counter()
     with _LOCK:
-        jobs = {name: _start(name) for name in KERNELS}
+        jobs = {name: _start(name) for name in (KERNELS if names is None else names)}
         for name, (job, out) in jobs.items():
             _finish(name, job, out)
     return time.perf_counter() - t0

@@ -494,10 +494,11 @@ class _LinearFunction(torch.autograd.Function):
         pol, g32 = ctx.bwd_policy, g.float()
         if ctx.activation != "none":
             # recompute the pre-activation (one more dispatched matmul)
-            # rather than keep an (M, N) fp32 residual from the forward
-            z = linear(a, b, out_dtype=torch.float32, policy=pol)
-            if bias is not None:
-                z = z + bias.float()
+            # rather than keep an (M, N) fp32 residual from the forward;
+            # the bias joins the product's epilogue: K1 adds it to its fp32
+            # sum, K4 / K5 add it in fp32 after, so z is JAX's z + bias
+            # (one fp32 rounding either way) in one pass fewer
+            z = linear(a, b, bias=bias, out_dtype=torch.float32, policy=pol)
             with torch.enable_grad():
                 z = z.requires_grad_()
                 dz, = torch.autograd.grad(ACTIVATIONS[ctx.activation](z), z, g32)

@@ -1,7 +1,6 @@
 from repro_torch.kernels.matmul.matmul import (  # noqa: F401
     ACT_CODES,
     ACTIVATIONS,
-    MCAST_RESIDENT_ROWS,
     hbm_traffic_model,
     kernel_blocks,
     matmul_mcast,
@@ -10,5 +9,6 @@ from repro_torch.kernels.matmul.matmul import (  # noqa: F401
     matmul_tiled_plain,
     matmul_unicast,
     matmul_unicast_plain,
+    mcast_cluster,
 )
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: F401

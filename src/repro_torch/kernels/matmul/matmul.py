@@ -6,36 +6,42 @@ schedule the cost model picks for almost every projection.  Two
 implementations of the one function live here:
 
 * :func:`matmul_tiled` — the wrapper: on CUDA tensors it launches the
-  hand-written kernel ``csrc/matmul_tiled.cu`` (grouped CTA raster so a
-  B tile is reused from L2 across a group of row blocks, masked ragged
-  edges, bias + activation + downcast fused in the epilogue); on CPU
-  tensors it runs the plain version.  It never falls back from one to
-  the other.
+  hand-written kernel ``csrc/matmul_tiled.cu`` (bias, in its own dtype,
+  activation and downcast fused in the epilogue, once, on the full K
+  sum); on CPU tensors it runs the plain version.  It never falls back
+  from one to the other.
 * :func:`matmul_tiled_plain` — the same function in plain PyTorch: the
   product summed in fp64 and rounded to fp32 (the kernel's fp32 sum,
   without its dependence on summation order), bias and activation in
   fp32, one rounding to ``out_dtype``.
 
-K4 ``matmul_mcast`` (the flat multicast: one CTA per column tile owns
-every row, so each B element is read once) and K5 ``matmul_unicast``
-(the classic grid that re-reads B for every row block) compute plain
-``C = A @ B`` in ``a.dtype``, with no epilogue, as their TPU kernels
-do; ``kernels.api`` runs bias and activation after them.  Each has a
-wrapper (``csrc/matmul_mcast.cu``, ``csrc/matmul_unicast.cu``) and a
-plain version: the fp64 product rounded to fp32, then to ``a.dtype``.
-K5 runs one of four designs, by a fixed rule in its C entry (bf16 B
-that TMA can read; ``matmul_unicast.design`` names the last one):
-``wgmma`` (bf16 A, M > 64: 128 x 128 tiles on the tensor cores),
-``wgmma-swapab`` (bf16 A, M <= 64: Cᵀ = Bᵀ Aᵀ with K split until the
-grid fills the card, the partials summed inside the launch),
-``wgmma-swapab-3xbf16`` (fp32 A, M <= 64, the tied logits: A split into
-three bf16 pieces) and ``cuda-core`` (everything else).
+K4 ``matmul_mcast`` (the flat multicast: B fetched once per cluster of
+row blocks) and K5 ``matmul_unicast`` (the classic grid that re-reads B
+for every row block) compute plain ``C = A @ B`` in ``a.dtype``, with no
+epilogue, as their TPU kernels do; ``kernels.api`` runs bias and
+activation after them.  Each has a wrapper (``csrc/matmul_mcast.cu``,
+``csrc/matmul_unicast.cu``) and a plain version: the fp64 product
+rounded to fp32, then to ``a.dtype``.
+
+Each of the three runs one of four designs, by a fixed rule in its C
+entry (``wrapper.design`` names the last one), on the tensor-core
+kernels of ``csrc/matmul_wgmma.cuh`` wherever B is bf16 and TMA can
+read it: ``wgmma`` (bf16 A, M > 64: 128 x 128 tiles; K1 numbers them in
+groups of 8 row blocks so a B tile serves the group from L2, K5 row by
+row; K4's ``wgmma-cluster`` runs them in thread-block clusters along M
+whose B k-tiles arrive by TMA multicast, for K-major A), ``wgmma-swapab``
+(bf16 A, M <= 64: Cᵀ = Bᵀ Aᵀ with K split until the grid fills the card,
+the partials summed inside the launch), ``wgmma-swapab-3xbf16`` (fp32 A,
+M <= 64, the tied logits: A split into three bf16 pieces) and
+``cuda-core`` (everything else).
 
 A and B may each be bf16 or fp32 and are read through their strides,
 so ``B`` can be a transposed view (the tied logits read the bf16
 embedding table as ``table.t()`` without copying it).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -99,6 +105,51 @@ def matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | No
     return ACTIVATIONS[activation](y).to(out_dtype)
 
 
+#: the designs by the code their C rules return (csrc/matmul_wgmma.cuh
+#: ``Design``): K1 and K5; K4 runs code 1 in thread-block clusters
+TILED_DESIGNS = UNICAST_DESIGNS = ("cuda-core", "wgmma", "wgmma-swapab",
+                                   "wgmma-swapab-3xbf16")
+MCAST_DESIGNS = ("cuda-core", "wgmma-cluster", "wgmma-swapab", "wgmma-swapab-3xbf16")
+#: each kernel's split-K tile counters, per device: one per 64-column tile
+#: of C, zero between launches (each launch's last CTA of a tile resets
+#: its counter); K is split only while the tiles number fewer than the
+#: card's 132 SMs
+_TILED_COUNTERS: dict[torch.device, torch.Tensor] = {}
+_MCAST_COUNTERS: dict[torch.device, torch.Tensor] = {}
+_UNICAST_COUNTERS: dict[torch.device, torch.Tensor] = {}
+_TILES_MAX = 132
+
+
+@functools.lru_cache(maxsize=1024)
+def _splits(kernel: str, n: int, k: int) -> int:
+    """The K split of ``kernel``'s swapab designs at (N, K), by its C rule."""
+    return getattr(_build.load(kernel), f"{kernel}_splits")(n, k)
+
+
+def _plan(kernel: str, lib, designs, counters: dict, operands: tuple, m: int, n: int, k: int,
+          dev: torch.device):
+    """The design ``kernel``'s C rule picks for ``operands`` and, for a
+    swapab launch that splits K, its fp32 workspace and the device's tile
+    counters (else None, None)."""
+    design = designs[getattr(lib, f"{kernel}_design")(*operands, m, n, k)]
+    splits = _splits(kernel, n, k) if design.startswith("wgmma-swapab") else 1
+    if splits == 1:
+        return design, None, None
+    cnt = counters.get(dev)
+    if cnt is None:
+        cnt = counters[dev] = torch.zeros(_TILES_MAX, dtype=torch.int32, device=dev)
+    return design, torch.empty(splits * m * n, dtype=torch.float32, device=dev), cnt
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _operands(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    return (a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
+            b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1))
+
+
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
                  *, activation: str = "none",
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -108,27 +159,29 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_tiled_plain(a, b, bias, activation=activation, out_dtype=out_dtype)
     _check(a, b, bias, activation, out_dtype)
+    if bias is not None and bias.dtype not in _DTYPE_CODES:
+        raise TypeError(f"matmul_tiled: bias must be bf16 or fp32, got {bias.dtype}")
     dev = _check_device("matmul_tiled", a, b, *(() if bias is None else (bias,)))
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    bias32 = None if bias is None else bias.to(torch.float32).contiguous()
+    if bias is not None and bias.stride(0) != 1:
+        bias = bias.contiguous()
     lib = _build.load("matmul_tiled")
+    operands = _operands(a, b)
+    design, ws, cnt = _plan("matmul_tiled", lib, TILED_DESIGNS, _TILED_COUNTERS, operands,
+                            m, n, k, dev)
     rc = lib.matmul_tiled(
-        a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1),
-        None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[out_dtype], m, n, k, ACT_CODES.index(activation),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *operands, _ptr(bias), 0 if bias is None else _DTYPE_CODES[bias.dtype],
+        out.data_ptr(), _DTYPE_CODES[out_dtype], m, n, k, ACT_CODES.index(activation),
+        _ptr(ws), _ptr(cnt), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "matmul_tiled")
     matmul_tiled.launches += 1
+    matmul_tiled.design = design
     return out
-
-
-matmul_tiled.launches = 0  # kernel launches since the last reset
 
 
 def _flat_plain(kernel: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -146,36 +199,34 @@ def matmul_unicast_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _flat_plain("matmul_unicast", a, b)
 
 
-def matmul_mcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K4, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
-    read once per launch for M <= ``MCAST_RESIDENT_ROWS``), the plain
-    version for CPU tensors."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return matmul_mcast_plain(a, b)
-    _check_operands("matmul_mcast", a, b)
-    dev = _check_device("matmul_mcast", a, b)
+def _flat(kernel: str, wrapper, designs, counters: dict, a: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """Launch K4 or K5 (``kernel``) on CUDA operands: C in a's dtype."""
+    _check_operands(kernel, a, b)
+    dev = _check_device(kernel, a, b)
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    rc = _build.load("matmul_mcast").matmul_mcast(
-        a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
-        b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1),
-        out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "matmul_mcast")
-    matmul_mcast.launches += 1
+    lib = _build.load(kernel)
+    operands = _operands(a, b)
+    design, ws, cnt = _plan(kernel, lib, designs, counters, operands, m, n, k, dev)
+    rc = getattr(lib, kernel)(*operands, out.data_ptr(), m, n, k, _ptr(ws), _ptr(cnt),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, kernel)
+    wrapper.launches += 1
+    wrapper.design = design
     return out
 
 
-#: K5's designs by the code its C rule returns (csrc/matmul_unicast.cu ``Design``)
-UNICAST_DESIGNS = ("cuda-core", "wgmma", "wgmma-swapab", "wgmma-swapab-3xbf16")
-#: one split-K tile counter per 64-column tile of C, zero between launches
-#: (each launch's last CTA of a tile resets its counter); K is split only
-#: while the tiles number fewer than the card's 132 SMs
-_UNICAST_COUNTERS: dict[torch.device, torch.Tensor] = {}
-_UNICAST_TILES_MAX = 132
+def matmul_mcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K4, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
+    fetched once per cluster of row blocks: once per launch up to
+    :func:`mcast_cluster` x 128 rows), the plain version for CPU tensors."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_mcast_plain(a, b)
+    return _flat("matmul_mcast", matmul_mcast, MCAST_DESIGNS, _MCAST_COUNTERS, a, b)
 
 
 def matmul_unicast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -183,64 +234,42 @@ def matmul_unicast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     re-read for every row block), the plain version for CPU tensors."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_unicast_plain(a, b)
-    _check_operands("matmul_unicast", a, b)
-    dev = _check_device("matmul_unicast", a, b)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=a.dtype, device=dev)
-    if m == 0 or n == 0:
-        return out
-    lib = _build.load("matmul_unicast")
-    operands = (a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
-                b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1))
-    design = UNICAST_DESIGNS[lib.matmul_unicast_design(*operands, m, n, k)]
-    ws = counters = None
-    splits = lib.matmul_unicast_splits(n, k) if design.startswith("wgmma-swapab") else 1
-    if splits > 1:
-        ws = torch.empty(splits * m * n, dtype=torch.float32, device=dev)
-        counters = _UNICAST_COUNTERS.get(dev)
-        if counters is None:
-            counters = _UNICAST_COUNTERS[dev] = torch.zeros(_UNICAST_TILES_MAX,
-                                                            dtype=torch.int32, device=dev)
-    rc = lib.matmul_unicast(*operands, out.data_ptr(), m, n, k,
-                            None if ws is None else ws.data_ptr(),
-                            None if counters is None else counters.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "matmul_unicast")
-    matmul_unicast.launches += 1
-    matmul_unicast.design = design
-    return out
+    return _flat("matmul_unicast", matmul_unicast, UNICAST_DESIGNS, _UNICAST_COUNTERS, a, b)
 
 
-matmul_mcast.launches = 0
-matmul_unicast.launches = 0
-matmul_unicast.design = None  # the design of the last launch
+for _wrapper in (matmul_tiled, matmul_mcast, matmul_unicast):
+    _wrapper.launches = 0  # kernel launches since the last reset
+    _wrapper.design = None  # the design of the last launch
 
-#: rows K4 keeps resident in one pass (csrc/matmul_mcast.cu ``RESIDENT_ROWS``):
-#: up to this M every B element is read from global memory once per
-#: launch; beyond it K4 walks row panels of this size, each re-reading B.
-MCAST_RESIDENT_ROWS = 256
+#: K4's wgmma-cluster cluster size (csrc/matmul_mcast.cu ``CLUSTER_SMALL``,
+#: ``CLUSTER_LARGE``, ``CLUSTER_SMALL_MAX_M``): CL CTAs of 128 rows share
+#: each B k-tile, so B is fetched ceil(M / (128 CL)) times per launch
+MCAST_CLUSTER_SMALL, MCAST_CLUSTER_LARGE, MCAST_CLUSTER_SMALL_MAX_M = 2, 4, 256
+
+
+def mcast_cluster(m: int) -> int:
+    """CL of K4's wgmma-cluster design at ``m`` (> 64) rows."""
+    return MCAST_CLUSTER_SMALL if m <= MCAST_CLUSTER_SMALL_MAX_M else MCAST_CLUSTER_LARGE
 
 
 def kernel_blocks(m: int) -> dict[str, dict[str, int]]:
     """The CUDA kernels' tile sizes at ``m`` rows, in
     :func:`hbm_traffic_model`'s terms (rows ``bm``, columns ``bn``, depth
-    ``bk``, supertile ``gm``): the constants of ``csrc/matmul_tiled.cu``
-    (grouped raster of 8 row blocks), ``csrc/matmul_mcast.cu`` and
-    ``csrc/matmul_unicast.cu``.  K5's are its tensor-core designs' (bf16
-    B; ``SMALL_M_MAX``, ``SMALL_BN``, ``LARGE_BM``, ``LARGE_BN``, ``BK``):
-    up to 64 rows one row block of every row (one B fetch per launch, K
-    split across CTAs), beyond it 128 x 128 tiles.  Up to 64 rows K4 runs
-    one row block too: unicast with a single row block is multicast."""
-    tiled = dict(bm=16, bn=32, bk=128) if m <= 16 else dict(bm=64, bn=64, bk=16)
-    if m <= 16:
-        mcast = dict(bm=16, bn=64, bk=32)
-    elif m <= 64:
-        mcast = dict(bm=64, bn=64, bk=32)
-    else:
-        mcast = dict(bm=MCAST_RESIDENT_ROWS, bn=64, bk=16)
-    unicast = dict(bm=64, bn=64, bk=64) if m <= 64 else dict(bm=128, bn=128, bk=64)
-    return {"tiled": dict(tiled, gm=8 * tiled["bm"]), "mcast": mcast, "unicast": unicast}
+    ``bk``, supertile ``gm``), for their tensor-core designs (bf16 B;
+    ``csrc/matmul_wgmma.cuh``'s ``SMALL_M_MAX``, ``SMALL_BN``, ``LARGE_BM``,
+    ``LARGE_BN``, ``BK``).  Up to 64 rows all three run one row block of
+    every row (one B fetch per launch, K split across CTAs): unicast with a
+    single row block is multicast.  Beyond it 128 x 128 tiles: K1 in
+    groups of 8 row blocks (``GROUP_M`` of ``csrc/matmul_tiled.cu``: gm
+    1024 rows share a B tile through L2), K4 in clusters of
+    :func:`mcast_cluster` row blocks (bm = CL x 128 rows share each B
+    fetch), K5 one row block each."""
+    if m <= 64:
+        small = dict(bm=64, bn=64, bk=64)
+        return {"tiled": dict(small, gm=1024), "mcast": small, "unicast": small}
+    large = dict(bm=128, bn=128, bk=64)
+    return {"tiled": dict(large, gm=8 * 128),
+            "mcast": dict(large, bm=128 * mcast_cluster(m)), "unicast": large}
 
 
 def hbm_traffic_model(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,

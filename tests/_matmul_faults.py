@@ -1,20 +1,25 @@
-"""Planted faults in K5 (``csrc/matmul_unicast.cu``), to show that
-``chip_smoke.py``'s matmul checks catch them at its K5 shapes.
+"""Planted faults in the matmul kernels K1, K4 and K5 (``csrc/matmul_wgmma.cuh``,
+``csrc/matmul_tiled.cu``, ``csrc/matmul_mcast.cu``), to show that
+``chip_smoke.py``'s matmul checks catch them at its matmul shapes.
 
     python3 tests/_matmul_faults.py
 
 from the root of a checkout, on a machine with one CUDA card.  For each
 fault it copies ``src/`` and ``chip_smoke.py`` into a temporary
-directory, edits one line of the kernel source there (the checkout is
-never touched), builds the copy's K5 and runs it against its plain
-version at every shape of ``chip_smoke.check_schedules``, judged as
+directory, edits one line of one kernel source there (the checkout is
+never touched), builds the copy's kernels that include that source and
+runs each against its plain version at every shape of
+``chip_smoke.check_schedules`` — K1 with a bf16 bias and silu (the fp32
+logits without either), K4 and K5 as there — judged as
 ``chip_smoke.check_close`` judges it: |got - want| <= tol (1 + |want|),
-tol 2e-2 for bf16 outputs and 1e-4 for the fp32 logits.  One JSON line
-per (fault, shape) gives the design that ran, the verdict and the worst
-error over its allowance (> 1 fails).
+tol 2e-2 for bf16 outputs and 1e-4 for the fp32 logits.  Outputs are
+allocated over NaN-filled memory, so an element no CTA writes fails.
+The faults run in parallel, one process each.  One JSON line per (fault,
+kernel, shape) gives the design that ran, the verdict and the worst error
+over its allowance (> 1 fails).
 
-A fault must fail every shape it touches by at least 10x and every other
-shape must pass; the script exits 1 otherwise.
+A fault must fail every (kernel, shape) it touches by at least 10x and
+every other one must pass; the script exits 1 otherwise.
 """
 from __future__ import annotations
 
@@ -26,71 +31,138 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCE = Path("src/repro_torch/csrc/matmul_unicast.cu")
+CSRC = Path("src/repro_torch/csrc")
+MATMULS = ("matmul_tiled", "matmul_mcast", "matmul_unicast")
+# the kernels built from each source
+USERS = {"matmul_wgmma.cuh": MATMULS, "matmul_tiled.cu": ("matmul_tiled",),
+         "matmul_mcast.cu": ("matmul_mcast",)}
 
-# name -> (the line as written, the line with the fault, the shapes it
-# touches: a predicate on (design, K split) of the call)
+
+def swapab_split(kernel, design, splits):
+    return design.startswith("wgmma-swapab") and splits > 1
+
+
+# name -> (source, the line as written, the line with the fault, the
+# (kernel, design, K split) runs it touches)
 FAULTS = {
-    # the fix-up of wgmma-swapab sums every split's partial but the first
+    # the swapab fix-up sums every split's partial but the first
     "one split-K partial dropped": (
+        "matmul_wgmma.cuh",
         "for (int p = 0; p < splits; ++p) sum +=",
         "for (int p = 1; p < splits; ++p) sum +=",
-        lambda design, splits: design.startswith("wgmma-swapab") and splits > 1),
-    # the wgmma design's k-tile count: the last (tail) k-tile is not walked
+        swapab_split),
+    # gemm_wgmma's k-tile count: the last (tail) k-tile is not walked
     "K tail off by one (wgmma)": (
+        "matmul_wgmma.cuh",
         "const int steps = (K + BK - 1) / BK;",
         "const int steps = (K - 1) / BK;",
-        lambda design, splits: design == "wgmma"),
+        lambda kernel, design, splits: design in ("wgmma", "wgmma-cluster")),
+    # K1's split-K epilogue: the last CTA's sum gets no bias
+    "K1: the last CTA's sum drops the bias": (
+        "matmul_wgmma.cuh",
+        "epi.store(m, n, act(sum + epi.bias(n)));",
+        "epi.store(m, n, act(sum));",
+        lambda kernel, design, splits: kernel == "matmul_tiled"
+        and swapab_split(kernel, design, splits)),
+    # K1's split-K epilogue: each split's partial passes the activation
+    "K1: activation on each split's partial": (
+        "matmul_wgmma.cuh",
+        "if (m < M && n < N) part[(long long)m * N + n] = acc[j];",
+        "epi.with_act([&](auto act) { if (m < M && n < N) part[(long long)m * N + n] = "
+        "act(acc[j]); });",
+        lambda kernel, design, splits: kernel == "matmul_tiled"
+        and swapab_split(kernel, design, splits)),
+    # K1's grouped raster sends row blocks 2i and 2i + 1 of a group to one tile
+    "K1: grouped raster maps two CTAs to one tile": (
+        "matmul_tiled.cu",
+        "m0 = (first_m + pid % per_group % group_rows) * LARGE_BM;",
+        "m0 = (first_m + pid % per_group % group_rows / 2 * 2) * LARGE_BM;",
+        lambda kernel, design, splits: design == "wgmma"),
+    # K4's multicast: ranks 2i and 2i + 1 both issue slice 2i of each B k-tile
+    "K4: multicast delivers one B slice twice": (
+        "matmul_wgmma.cuh",
+        "const int slice = CL > 1 ? (int)cluster_rank() : 0;",
+        "const int slice = CL > 1 ? (int)(cluster_rank() & ~1u) : 0;",
+        lambda kernel, design, splits: design == "wgmma-cluster"),
+    # K4's cluster raster: ranks 2i and 2i + 1 both take row block i
+    "K4: cluster rank picks the wrong A row block": (
+        "matmul_mcast.cu",
+        "m0 = (blockIdx.x / CL * CL + (int)cluster_rank()) * LARGE_BM;",
+        "m0 = (blockIdx.x / CL * CL + (int)cluster_rank() / 2) * LARGE_BM;",
+        lambda kernel, design, splits: design == "wgmma-cluster"),
 }
-CATCH = 10.0  # a touched shape fails by at least this much
+CATCH = 10.0  # a touched run fails by at least this much
 
 CHECK = r'''
 import json, math, sys, torch
 import chip_smoke as s
-from repro_torch.kernels.matmul import matmul_unicast, matmul_unicast_plain
+from repro_torch import kernels
+from repro_torch.kernels.matmul import matmul_tiled_plain
 
-fault = sys.argv[1]
-lib = s._build.load("matmul_unicast")
+fault, names = sys.argv[1], sys.argv[2].split(",")
+s._build.build_all(names)
 gen = torch.Generator(device="cuda").manual_seed(0)
 for m, k, n, logits in s.SCHEDULE_SHAPES:
     if logits:
         a = torch.randn(m, k, device="cuda", generator=gen) * 4
         b = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(torch.bfloat16).t()
+        bias = None
     else:
         a = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
         b = (torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)).to(torch.bfloat16)
-    got, want = matmul_unicast(a, b).float(), matmul_unicast_plain(a, b).float()
-    torch.cuda.synchronize()
+        bias = torch.randn(n, device="cuda", generator=gen).to(torch.bfloat16)
     tol = s.TOL_FP32 if a.dtype == torch.float32 else s.TOL_BF16
-    ratio = float(((got - want).abs() / (tol + tol * want.abs())).max())
-    ok = bool(torch.isfinite(got).all()) and ratio <= 1
-    print(json.dumps(dict(fault=fault, shape=[m, k, n], design=matmul_unicast.design,
-                          splits=lib.matmul_unicast_splits(n, k),
-                          verdict="passes" if ok else "fails", err_over_allowance=ratio)),
-          flush=True)
+    for name in names:
+        fn = kernels.KERNELS[name]
+        if name == "matmul_tiled":
+            act = "none" if logits else "silu"
+            run = lambda: fn(a, b, bias, activation=act)
+            want = matmul_tiled_plain(a, b, bias, activation=act).float()
+        else:
+            run = lambda: fn(a, b)
+            want = s.matmul_unicast_plain(a, b).float()
+        torch.full((m, n), float("nan"), dtype=a.dtype, device="cuda")  # freed: run's output
+        got = run().float()
+        torch.cuda.synchronize()
+        ratio = torch.nan_to_num((got - want).abs() / (tol + tol * want.abs()), nan=math.inf)
+        worst = float(ratio.max())
+        lib = s._build.load(name)
+        print(json.dumps(dict(fault=fault, kernel=name, shape=[m, k, n], design=fn.design,
+                              splits=getattr(lib, f"{name}_splits")(n, k),
+                              verdict="passes" if worst <= 1 else "fails",
+                              err_over_allowance=worst)), flush=True)
 '''
 
 
 def main() -> int:
     wrong = []
-    for fault, (line, broken, touches) in FAULTS.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            copy = Path(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for i, (fault, (source, line, broken, _)) in enumerate(FAULTS.items()):
+            copy = Path(tmp) / str(i)
             shutil.copytree(ROOT / "src", copy / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", copy)
-            text = (copy / SOURCE).read_text()
+            path = copy / CSRC / source
+            text = path.read_text()
             if text.count(line) != 1:
-                sys.exit(f"{SOURCE}: expected the line {line!r} once")
-            (copy / SOURCE).write_text(text.replace(line, broken))
-            run = subprocess.run([sys.executable, "-c", CHECK, fault], cwd=copy, check=True,
-                                 capture_output=True, text=True)
-        for rec in map(json.loads, run.stdout.splitlines()):
-            print(json.dumps(rec), flush=True)
-            touched = touches(rec["design"], rec["splits"])
-            caught = rec["verdict"] == "fails" and rec["err_over_allowance"] >= CATCH
-            if touched != caught or (not touched and rec["verdict"] != "passes"):
-                wrong.append((fault, rec["shape"], rec["verdict"], rec["err_over_allowance"]))
+                sys.exit(f"{CSRC / source}: expected the line {line!r} once")
+            path.write_text(text.replace(line, broken))
+            runs[fault] = subprocess.Popen(
+                [sys.executable, "-c", CHECK, fault, ",".join(USERS[source])], cwd=copy,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for fault, proc in runs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                sys.exit(f"{fault}: the check failed to run:\n{err[-4000:]}")
+            touches = FAULTS[fault][3]
+            for rec in map(json.loads, out.splitlines()):
+                print(json.dumps(rec), flush=True)
+                touched = touches(rec["kernel"], rec["design"], rec["splits"])
+                caught = rec["verdict"] == "fails" and rec["err_over_allowance"] >= CATCH
+                if touched != caught or (not touched and rec["verdict"] != "passes"):
+                    wrong.append((fault, rec["kernel"], rec["shape"], rec["verdict"],
+                                  rec["err_over_allowance"]))
     print(json.dumps({"faults": len(FAULTS), "unexpected": wrong}), flush=True)
     return 1 if wrong else 0
 

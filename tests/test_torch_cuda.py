@@ -199,6 +199,155 @@ def test_unicast_split_k_is_deterministic_and_leaves_its_counters_at_zero(cuda_d
     assert int(mm._UNICAST_COUNTERS[a.device].abs().sum()) == 0
 
 
+# (m, k, n, form, design) of K1 (matmul_tiled) and K4 (matmul_mcast): the
+# rule of csrc/matmul_wgmma.cuh for each — up to 64 rows wgmma-swapab (bf16
+# A, K-major) or wgmma-swapab-3xbf16 (fp32 A), above it K1's wgmma (A K- or
+# M-major) and K4's wgmma-cluster (K-major A only, clusters of 2 up to 256
+# rows, else 4; 129, 300 and 2049 rows leave CTAs of a cluster idle or
+# partly idle), and the CUDA-core kernel where B is not TMA-readable (N =
+# 77: a row of 154 bytes), A is M-major above 64 rows (K4) or a base is
+# misaligned
+SCHEDULE_CASES = [
+    (1, 1024, 1024, "bf16", "wgmma-swapab", "wgmma-swapab"),
+    (5, 1024, 2816, "bf16", "wgmma-swapab", "wgmma-swapab"),
+    (17, 2816, 1024, "bf16", "wgmma-swapab", "wgmma-swapab"),
+    (48, 1024, 2816, "bf16", "wgmma-swapab", "wgmma-swapab"),
+    (64, 512, 136, "bf16", "wgmma-swapab", "wgmma-swapab"),
+    (65, 256, 200, "bf16", "wgmma", "wgmma-cluster"),
+    (129, 1024, 1024, "bf16", "wgmma", "wgmma-cluster"),
+    (300, 320, 520, "bf16", "wgmma", "wgmma-cluster"),
+    (2049, 1024, 2816, "bf16", "wgmma", "wgmma-cluster"),
+    (48, 1024, 77, "bf16", "cuda-core", "cuda-core"),
+    (300, 256, 77, "bf16", "cuda-core", "cuda-core"),
+    (5, 1024, 2816, "b.t()", "wgmma-swapab", "wgmma-swapab"),
+    (2049, 1024, 2816, "b.t()", "wgmma", "wgmma-cluster"),
+    (264, 1024, 2816, "a.t()", "wgmma", "cuda-core"),
+    (5, 1024, 2816, "a.t()", "cuda-core", "cuda-core"),
+    (4, 1024, 151936, "logits", "wgmma-swapab-3xbf16", "wgmma-swapab-3xbf16"),
+    (48, 1000, 3000, "logits", "wgmma-swapab-3xbf16", "wgmma-swapab-3xbf16"),
+    (4, 1024, 1024, "misaligned a", "cuda-core", "cuda-core"),
+]
+
+
+def _schedule_operands(gen, m, k, n, form):
+    a_dtype = torch.float32 if form == "logits" else torch.bfloat16
+    a = _rand(gen, k, m).t() if form == "a.t()" else _rand(gen, m, k, dtype=a_dtype,
+                                                          scale=4.0 if form == "logits" else 1.0)
+    if form in ("b.t()", "logits"):
+        b = _rand(gen, n, k, scale=0.02 if form == "logits" else k ** -0.5).t()
+    else:
+        b = _rand(gen, k, n, scale=k ** -0.5)
+    return (_shifted(a) if form == "misaligned a" else a), b
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=str)
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_tiled_designs_by_rule_match_plain(cuda_device, case, bias_dtype):
+    """K1 runs the design its C rule names (``matmul_tiled.design``) and
+    agrees with its plain version, with a bias read in its own dtype and
+    silu fused: bf16 outputs within 2e-2; fp32 outputs within chip_smoke's
+    TOL_FP32 of 1e-4 (the 3xbf16 logits add the pieces' exact products in
+    the tensor cores' fp32 order)."""
+    m, k, n, form, design, _ = case
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a, b = _schedule_operands(gen, m, k, n, form)
+    bias = _rand(gen, n, dtype=bias_dtype)
+    before = matmul_tiled.launches
+    got = matmul_tiled(a, b, bias, activation="silu")
+    torch.cuda.synchronize()
+    assert matmul_tiled.launches == before + 1
+    assert matmul_tiled.design == design
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    want = matmul_tiled_plain(a, b, bias, activation="silu").float().cpu()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    else:
+        close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES, ids=str)
+def test_mcast_designs_by_rule_match_plain(cuda_device, case):
+    """K4 runs the design its C rule names (``matmul_mcast.design``) and
+    agrees with its plain version, at the tolerances of K5's test."""
+    m, k, n, form, _, design = case
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a, b = _schedule_operands(gen, m, k, n, form)
+    before = matmul_mcast.launches
+    got = matmul_mcast(a, b)
+    torch.cuda.synchronize()
+    assert matmul_mcast.launches == before + 1
+    assert matmul_mcast.design == design
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    want = matmul_mcast_plain(a, b).float().cpu()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    else:
+        close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("m", [4, 300])
+def test_tiled_out_dtype_and_no_bias(cuda_device, out_dtype, m):
+    """K1's tensor-core designs store bf16 or fp32 whatever A's dtype, with
+    and without a bias (fp32 out at M > 64 is grad(linear)'s z recompute);
+    fp32 outputs within 1e-4, the tensor cores summing in their own fp32
+    order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    a, b = _rand(gen, m, 1024), _rand(gen, 1024, 2816, scale=1024 ** -0.5)
+    for bias in (None, _rand(gen, 2816, dtype=torch.float32)):
+        got = matmul_tiled(a, b, bias, activation="gelu", out_dtype=out_dtype)
+        want = matmul_tiled_plain(a, b, bias, activation="gelu", out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert matmul_tiled.design == ("wgmma-swapab" if m <= 64 else "wgmma")
+        assert got.dtype == out_dtype
+        if out_dtype == torch.float32:  # chip_smoke's TOL_FP32, as for the logits
+            torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
+        else:
+            close(got.cpu(), want.float().cpu())
+
+
+@pytest.mark.parametrize("name", ["matmul_tiled", "matmul_mcast"])
+def test_split_k_is_deterministic_and_leaves_its_counters_at_zero(cuda_device, name):
+    """K1 (with bias and silu) and K4 split K at 4 x 2816 x 1024 (16 column
+    tiles) as K5 does: two launches give the same bits, and each kernel's
+    own tile counters are back at 0."""
+    from repro_torch.kernels.matmul import matmul as mm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    a, b = _rand(gen, 4, 2816), _rand(gen, 2816, 1024, scale=2816 ** -0.5)
+    bias = _rand(gen, 1024)
+    fn = kernels.KERNELS[name]
+    run = (lambda: fn(a, b, bias, activation="silu")) if name == "matmul_tiled" \
+        else (lambda: fn(a, b))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert fn.design == "wgmma-swapab"
+    assert torch.equal(first, second)
+    counters = mm._TILED_COUNTERS if name == "matmul_tiled" else mm._MCAST_COUNTERS
+    assert int(counters[a.device].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("m,cluster", [(129, 2), (256, 2), (300, 4), (2049, 4)])
+def test_mcast_cluster_size_and_idle_ctas(cuda_device, m, cluster):
+    """K4's wgmma-cluster takes CL from its C rule (kernel_blocks reports
+    CL x 128 rows); rows past M in the last cluster (129: one row of the
+    second block; 300 and 2049: whole idle CTAs) are neither stored nor
+    disturb the rest: two launches agree bit for bit with each other."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul import kernel_blocks
+
+    assert _build.load("matmul_mcast").matmul_mcast_cluster(m) == cluster
+    assert _build.load("matmul_mcast").matmul_mcast_active_clusters(m) > 0
+    assert kernel_blocks(m)["mcast"]["bm"] == 128 * cluster
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    a, b = _rand(gen, m, 1024), _rand(gen, 1024, 1024, scale=1024 ** -0.5)
+    first, second = matmul_mcast(a, b), matmul_mcast(a, b)
+    torch.cuda.synchronize()
+    assert matmul_mcast.design == "wgmma-cluster"
+    assert torch.equal(first, second)
+    close(first.cpu(), matmul_mcast_plain(a, b).float().cpu())
+
+
 @pytest.mark.parametrize("kvh", [16, 4, 1])
 @pytest.mark.parametrize("d", [64, 128])
 def test_paged_kernels_match_plain(cuda_device, kvh, d):
@@ -554,6 +703,43 @@ def test_linear_grad_on_card_matches_plain(cuda_device, policy):
     y = kernels.linear(leaves[0], leaves[1], bias=leaves[2], activation="silu", policy=policy)
     assert sum(kernels.launch_counts().values()) == 1
     got = torch.autograd.grad((y.float() * w).sum(), leaves)
+    assert sum(kernels.launch_counts().values()) == 4
+    cpu = [t.detach().cpu().requires_grad_() for t in (a, b, bias)]
+    y = kernels.linear(cpu[0], cpu[1], bias=cpu[2], activation="silu", policy=policy)
+    want = torch.autograd.grad((y.float() * w.cpu()).sum(), cpu)
+    for g, ww in zip(got, want):
+        close(g.cpu(), ww.float())
+
+
+@pytest.mark.parametrize("policy,forward", [
+    ("tiled", "wgmma"), ("mcast", "wgmma-cluster"), ("unicast", "wgmma")])
+def test_linear_grad_backward_runs_k1_wgmma(cuda_device, policy, forward):
+    """grad(linear) at 1024 x 512 x 768: the forward on its policy's
+    tensor-core design, then z (fp32 out), dA (B = b.t(), K-major) and dB
+    (A = a.t(), M-major) each on K1's wgmma design."""
+    from unittest import mock
+
+    from repro_torch.kernels import api
+
+    designs = []
+
+    def noting(*args, **kw):
+        out = matmul_tiled(*args, **kw)
+        designs.append(matmul_tiled.design)
+        return out
+
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    a, b = _rand(gen, 1024, 512), _rand(gen, 512, 768, scale=512 ** -0.5)
+    bias = _rand(gen, 768)
+    w = _rand(gen, 1024, 768, dtype=torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (a, b, bias)]
+    kernels.reset_launch_counts()
+    y = kernels.linear(leaves[0], leaves[1], bias=leaves[2], activation="silu", policy=policy)
+    assert kernels.KERNELS[{"tiled": "matmul_tiled", "mcast": "matmul_mcast",
+                            "unicast": "matmul_unicast"}[policy]].design == forward
+    with mock.patch.object(api, "matmul_tiled", noting):
+        got = torch.autograd.grad((y.float() * w).sum(), leaves)
+    assert designs == ["wgmma"] * 3
     assert sum(kernels.launch_counts().values()) == 4
     cpu = [t.detach().cpu().requires_grad_() for t in (a, b, bias)]
     y = kernels.linear(cpu[0], cpu[1], bias=cpu[2], activation="silu", policy=policy)

@@ -83,7 +83,8 @@ def test_cpu_wrapper_runs_the_plain_version_for_every_design():
 
 
 def _constants():
-    text = SOURCE.read_text()
+    """K5's tiles: its tensor-core kernels are matmul_wgmma.cuh's."""
+    text = (SOURCE.parent / "matmul_wgmma.cuh").read_text()
     return {name: int(val) for name, val in
             re.findall(r"\b(SMALL_M_MAX|SMALL_BN|LARGE_BM|LARGE_BN|BK) = (\d+)", text)
             + re.findall(r"constexpr int (BK) = (\d+)", (SOURCE.parent / "matmul_hopper.cuh")
