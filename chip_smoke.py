@@ -20,7 +20,13 @@ each fatal on failure (nothing is caught):
    kernel's rule picked and fails unless it is the tensor-core one
    (``wgmma-swapab`` up to 64 rows, ``wgmma-swapab-3xbf16`` for the fp32
    logits, above 64 rows ``wgmma``, for K4 ``wgmma-cluster`` with its
-   cluster size);
+   cluster size); K2 and K3 at the rows of ``DECODE_ROWS`` and
+   ``PREFILL_ROWS`` (the serving shapes, GQA, fp32 pools, contexts up to
+   4K, the last 512-token chunk of a 2,048-token prompt, int8 pools, a
+   first chunk), each record naming its design — ``split-kv`` (K2) and
+   ``wgmma`` (K3) for bf16 and int8 pools, ``cuda-core`` for fp32 ones,
+   else the check fails — its split count, and its time after a flush
+   that leaves L2 clean beside the usual one;
 2b. gradients: K6, K7 and K8 (flash attention forward, dQ, dK/dV) each
    against its plain version at six shapes — qwen1.5-0.5b and gemma2-9b's
    local layers at full width, the kernel benchmark's flash row, two
@@ -119,7 +125,12 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_prefill,
     paged_attention_prefill_plain,
 )
-from repro_torch.kernels.paged_attention.paged_attention import prefill_chunk  # noqa: E402
+from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
+    _DTYPE_CODES,
+    _decode_splits,
+    _prefill_splits,
+    prefill_chunk,
+)
 from repro_torch.kernels.rglru import (  # noqa: E402
     rglru_scan,
     rglru_scan_bwd,
@@ -201,6 +212,26 @@ SCHEDULE_SHAPES = ((4, 1024, 1024, False), (4, 1024, 2816, False), (4, 2816, 102
                    (48, 1024, 2816, False), (4, 1024, 151936, True), (256, 1024, 2816, False),
                    (2049, 1024, 2816, False))
 MATMULS = ("matmul_tiled", "matmul_mcast", "matmul_unicast")
+# K2 and K3 rows of phase 2, (label, check_decode / check_prefill keywords);
+# the first of each is the kernels line's.  qwen1.5-0.5b's attention (h 16,
+# kv heads 16, d 64, page 16) at the serving shapes, GQA, fp32 pools (the
+# cuda-core designs), contexts up to 4K (b 8, 256 pages a sequence) and the
+# last 512-token chunk of a 2,048-token prompt; K3 also int8 pools and a
+# first chunk (start 0, where a query sees few keys)
+DECODE_ROWS = (
+    ("serving", {}),
+    ("gqa", dict(kvh=4)),
+    ("fp32", dict(dtype=torch.float32)),
+    ("long", dict(b=8, n=256, lengths=(4096, 3584, 2048, 1024, 4096, 777, 3000, 1), runs=10)),
+)
+PREFILL_ROWS = (
+    ("serving", {}),
+    ("gqa-ragged", dict(s=5, lengths=(37,), kvh=4)),
+    ("int8", dict(quant=True)),
+    ("fp32", dict(dtype=torch.float32)),
+    ("long", dict(s=512, n=128, lengths=(2048,), runs=10)),
+    ("first-chunk", dict(lengths=(16,))),
+)
 
 
 def emit(rec: dict) -> None:
@@ -246,7 +277,8 @@ _FLUSH = None
 SPIN_HZ = 2.0e9  # cycles per second for torch.cuda._sleep (above the H100's clock)
 
 
-def time_ms(fn, runs: int = 25, warmup: int = 3, max_spin_s: float = 0.05) -> tuple[float, float]:
+def time_ms(fn, runs: int = 25, warmup: int = 3, max_spin_s: float = 0.05,
+            clean_l2: bool = False) -> tuple[float, float]:
     """(median device ms, host ms) of one ``fn()``: device time by CUDA
     events over ``runs``, host time as the wall time to enqueue it.
 
@@ -254,7 +286,10 @@ def time_ms(fn, runs: int = 25, warmup: int = 3, max_spin_s: float = 0.05) -> tu
     finds its weights (a decode step streams far more than L2 holds), and
     the card is kept busy with a spin kernel longer than the host takes
     to enqueue ``fn``, so the events bracket device work only and not the
-    Python and launch overhead between them."""
+    Python and launch overhead between them.  The flush writes 64 MB, so
+    ``fn`` finds L2 full of dirty lines and its misses also pay their
+    write-back; ``clean_l2`` flushes by reading the 64 MB instead (L2 then
+    holds clean lines only)."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -268,7 +303,10 @@ def time_ms(fn, runs: int = 25, warmup: int = 3, max_spin_s: float = 0.05) -> tu
     spin = int(min(max(4 * host_s, 2e-4), max_spin_s) * SPIN_HZ)
     times = []
     for _ in range(runs):
-        _FLUSH.zero_()
+        if clean_l2:
+            _FLUSH.max()
+        else:
+            _FLUSH.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
         start.record()
@@ -469,17 +507,24 @@ def check_schedules(gen, m, k, n, *, logits=False):
     return out
 
 
-def _pool(gen, kvh, b, n, ps, d, quant=False):
+# V is drawn 8x wider than K, so that attention outputs are O(1) and a
+# dropped page, a wrong mask or a lost partial moves elements near 0 by
+# many times TOL_BF16 (tests/_paged_faults.py plants such faults)
+V_SCALE = 8.0
+
+
+def _pool(gen, kvh, b, n, ps, d, quant=False, dtype=torch.bfloat16):
     """A page pool with a distinct page chain per sequence (page 0 null)."""
     shape = (kvh, 1 + b * n, ps, d)
     if quant:
         k = torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int8)
         v = torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int8)
         ks = (torch.rand(*shape[:3], 1, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
-        vs = (torch.rand(*shape[:3], 1, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+        vs = (torch.rand(*shape[:3], 1, device="cuda", generator=gen) * 0.02 * V_SCALE).to(
+            torch.bfloat16)
         return k, v, ks, vs
-    k = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-    return k, torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16), None, None
+    k = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    return k, (torch.randn(shape, device="cuda", generator=gen) * V_SCALE).to(dtype), None, None
 
 
 def _sdpa_over_pages(q, k_pages, v_pages, table, start, lengths, k_scale=None, v_scale=None):
@@ -505,79 +550,126 @@ def _sdpa_over_pages(q, k_pages, v_pages, table, start, lengths, k_scale=None, v
 
 
 def _attn_work(start, lengths, s, ps, kvh, h, d, kv_bytes, scale_bytes=0):
-    """Bytes and flops this data needs: the K/V pages each (sequence, query
-    chunk) must read, and QK + PV over the (row, key) pairs that are valid."""
+    """Bytes and flops this data needs: each (sequence, kv head)'s live K/V
+    pages — below its length and up to the causal bound of its last query
+    row — read once, whatever a kernel reads again; and QK + PV over the
+    (row, key) pairs that are valid."""
     nbytes, flops = 0.0, 0.0
-    group = h // kvh
-    qc = prefill_chunk(s, group) if s > 1 else 1
     for st, ln in zip(start.tolist(), lengths.tolist()):
         if ln <= 0:
             continue
-        for c0 in range(0, s, qc):
-            last = st + min(s, c0 + qc) - 1
-            pages = min(-(-ln // ps), last // ps + 1)
-            nbytes += kvh * pages * ps * (2 * d * kv_bytes + 2 * scale_bytes)
+        pages = min(-(-ln // ps), (st + s - 1) // ps + 1)
+        nbytes += kvh * pages * ps * (2 * d * kv_bytes + 2 * scale_bytes)
         for t in range(s):
             keys = min(ln, st + t + 1)
             flops += 4.0 * h * keys * d
     return nbytes, flops
 
 
-def check_decode(gen, *, b=4, h=16, kvh=16, d=64, ps=16, n=16, lengths=(256, 200, 37, 129)):
-    kp, vp, _, _ = _pool(gen, kvh, b, n, ps, d)
+def _paged_design(fn, dtype) -> str:
+    """The design ``fn`` ran, which must be the tensor-core / split-KV one
+    for bf16 and int8 pools and ``cuda-core`` for fp32 ones."""
+    want = "cuda-core" if dtype == torch.float32 else (
+        "split-kv" if fn is paged_attention_decode else "wgmma")
+    if fn.design != want:
+        raise AssertionError(f"{fn.__name__}: design {fn.design!r} ran for {dtype} pools, "
+                             f"expected {want!r}")
+    return fn.design
+
+
+def decode_case(gen, *, b=4, h=16, kvh=16, d=64, ps=16, n=16, lengths=(256, 200, 37, 129),
+                dtype=torch.bfloat16):
+    """K2's inputs: q, pools, table, start, lengths (a decode token each)."""
+    kp, vp, _, _ = _pool(gen, kvh, b, n, ps, d, dtype=dtype)
     table = torch.arange(1, 1 + b * n, device="cuda", dtype=torch.int32).reshape(b, n)
     lengths = torch.tensor(lengths, device="cuda", dtype=torch.int32)
-    start = lengths - 1
-    q = torch.randn(b, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn(b, h, d, device="cuda", generator=gen).to(dtype)
+    return q, kp, vp, table, lengths - 1, lengths
+
+
+def prefill_case(gen, *, b=1, s=16, h=16, kvh=16, d=64, ps=16, n=16, lengths=(48,),
+                 quant=False, dtype=torch.bfloat16):
+    """K3's inputs: q, pools, table, start, lengths and the int8 scales
+    (the last s tokens of each sequence)."""
+    kp, vp, ks, vs = _pool(gen, kvh, b, n, ps, d, quant=quant, dtype=dtype)
+    table = torch.arange(1, 1 + b * n, device="cuda", dtype=torch.int32).reshape(b, n)
+    lengths = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+    return q, kp, vp, table, torch.clamp(lengths - s, min=0), lengths, \
+        dict(k_scale=ks, v_scale=vs)
+
+
+def check_decode(gen, *, label="", b=4, h=16, kvh=16, d=64, ps=16, n=16,
+                 lengths=(256, 200, 37, 129), dtype=torch.bfloat16, runs=25):
+    q, kp, vp, table, start, lengths = decode_case(gen, b=b, h=h, kvh=kvh, d=d, ps=ps, n=n,
+                                                   lengths=lengths, dtype=dtype)
     before = paged_attention_decode.launches
     got = paged_attention_decode(q, kp, vp, table, start, lengths)
     assert paged_attention_decode.launches == before + 1
+    design = _paged_design(paged_attention_decode, dtype)
     want = paged_attention_decode_plain(q, kp, vp, table, start, lengths)
-    err = check_close(f"paged_attention_decode kvh={kvh}", got, want, TOL_BF16)
-    kv_bytes, flops = _attn_work(start, lengths, 1, ps, kvh, h, d, 2)
-    nbytes = kv_bytes + 2 * q.numel() * 2 + table.numel() * 4 + 2 * b * 4
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
-    k_ms, k_host = time_ms(lambda: paged_attention_decode(q, kp, vp, table, start, lengths))
-    rec = dict(check="kernel", name="paged_attention_decode", b=b, h=h, kvh=kvh, d=d, ps=ps,
-               pages_per_seq=n, lengths=lengths.tolist(), kernel_ms=k_ms, host_ms=k_host,
+    tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+    err = check_close(f"paged_attention_decode kvh={kvh} b={b} {dtype}", got, want, tol)
+    kv_bytes, flops = _attn_work(start, lengths, 1, ps, kvh, h, d, kp.element_size())
+    nbytes = kv_bytes + 2 * q.numel() * q.element_size() + table.numel() * 4 + 2 * b * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32 if dtype == torch.float32 else PEAK_BF16)
+    k_ms, k_host = time_ms(lambda: paged_attention_decode(q, kp, vp, table, start, lengths),
+                           runs=runs)
+    rec = dict(check="kernel", name="paged_attention_decode", row=label, design=design,
+               splits=_decode_splits(_DTYPE_CODES[dtype], b, kvh, ps, d, n), b=b, h=h,
+               kvh=kvh, d=d, ps=ps, dtype=str(dtype).split(".")[-1], pages_per_seq=n,
+               lengths=lengths.tolist(), kernel_ms=k_ms, host_ms=k_host,
                plain_ms=time_ms(lambda: paged_attention_decode_plain(q, kp, vp, table, start,
-                                                                     lengths))[0],
+                                                                     lengths), runs=runs)[0],
                library="scaled_dot_product_attention over gathered pages",
                library_ms=time_ms(_sdpa_over_pages(q[:, None], kp, vp, table, start,
-                                                   lengths))[0],
-               bound_ms=b_ms, bound_by=b_by, max_err=err, tol=TOL_BF16)
+                                                   lengths), runs=runs)[0],
+               kernel_ms_clean_l2=time_ms(lambda: paged_attention_decode(
+                   q, kp, vp, table, start, lengths), runs=runs, clean_l2=True)[0],
+               library_ms_clean_l2=time_ms(_sdpa_over_pages(
+                   q[:, None], kp, vp, table, start, lengths), runs=runs, clean_l2=True)[0],
+               bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol)
     emit(rec)
     return rec
 
 
-def check_prefill(gen, *, b=1, s=16, h=16, kvh=16, d=64, ps=16, n=16, lengths=(48,),
-                  quant=False):
-    kp, vp, ks, vs = _pool(gen, kvh, b, n, ps, d, quant=quant)
-    table = torch.arange(1, 1 + b * n, device="cuda", dtype=torch.int32).reshape(b, n)
-    lengths = torch.tensor(lengths, device="cuda", dtype=torch.int32)
-    start = torch.clamp(lengths - s, min=0)
-    q = torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
-    kw = dict(k_scale=ks, v_scale=vs)
+def check_prefill(gen, *, label="", b=1, s=16, h=16, kvh=16, d=64, ps=16, n=16,
+                  lengths=(48,), quant=False, dtype=torch.bfloat16, runs=25):
+    q, kp, vp, table, start, lengths, kw = prefill_case(
+        gen, b=b, s=s, h=h, kvh=kvh, d=d, ps=ps, n=n, lengths=lengths, quant=quant, dtype=dtype)
+    ks, vs = kw["k_scale"], kw["v_scale"]
     before = paged_attention_prefill.launches
     got = paged_attention_prefill(q, kp, vp, table, start, lengths, **kw)
     assert paged_attention_prefill.launches == before + 1
+    design = _paged_design(paged_attention_prefill, dtype)
     want = paged_attention_prefill_plain(q, kp, vp, table, start, lengths, **kw)
-    err = check_close(f"paged_attention_prefill s={s} quant={quant}", got, want, TOL_BF16)
+    tol = TOL_FP32 if dtype == torch.float32 else TOL_BF16
+    err = check_close(f"paged_attention_prefill s={s} quant={quant} {dtype}", got, want, tol)
     kv_bytes, flops = _attn_work(start, lengths, s, ps, kvh, h, d, kp.element_size(),
                                  2 if quant else 0)
-    nbytes = kv_bytes + 2 * q.numel() * 2 + table.numel() * 4 + 2 * b * 4
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16)
+    nbytes = kv_bytes + 2 * q.numel() * q.element_size() + table.numel() * 4 + 2 * b * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_FP32 if dtype == torch.float32 else PEAK_BF16)
     k_ms, k_host = time_ms(lambda: paged_attention_prefill(q, kp, vp, table, start, lengths,
-                                                           **kw))
-    rec = dict(check="kernel", name="paged_attention_prefill", b=b, s=s, h=h, kvh=kvh, d=d,
-               ps=ps, pages_per_seq=n, lengths=lengths.tolist(), int8=quant,
+                                                           **kw), runs=runs)
+    group = h // kvh
+    qc = prefill_chunk(s, group)
+    rec = dict(check="kernel", name="paged_attention_prefill", row=label, design=design,
+               splits=_prefill_splits(_DTYPE_CODES[dtype], _DTYPE_CODES[kp.dtype], b, s, qc, h,
+                                      kvh, ps, d, n),
+               b=b, s=s, h=h, kvh=kvh, d=d, ps=ps, dtype=str(dtype).split(".")[-1],
+               pages_per_seq=n, lengths=lengths.tolist(), int8=quant,
                kernel_ms=k_ms, host_ms=k_host,
                plain_ms=time_ms(lambda: paged_attention_prefill_plain(q, kp, vp, table, start,
-                                                                      lengths, **kw))[0],
+                                                                      lengths, **kw),
+                                runs=runs)[0],
                library="scaled_dot_product_attention over gathered pages",
                library_ms=time_ms(_sdpa_over_pages(q, kp, vp, table, start, lengths, ks,
-                                                   vs))[0],
-               bound_ms=b_ms, bound_by=b_by, max_err=err, tol=TOL_BF16)
+                                                   vs), runs=runs)[0],
+               kernel_ms_clean_l2=time_ms(lambda: paged_attention_prefill(
+                   q, kp, vp, table, start, lengths, **kw), runs=runs, clean_l2=True)[0],
+               library_ms_clean_l2=time_ms(_sdpa_over_pages(
+                   q, kp, vp, table, start, lengths, ks, vs), runs=runs, clean_l2=True)[0],
+               bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol)
     emit(rec)
     return rec
 
@@ -1473,11 +1565,10 @@ def main() -> None:
         flat = check_schedules(gen, m, k, n, logits=logits)
         for kname, rec in flat.items():
             summary.setdefault(kname, rec)  # the first shape: decode q/k/v
-    summary["paged_attention_decode"] = check_decode(gen)
-    check_decode(gen, h=16, kvh=4)                               # GQA
-    summary["paged_attention_prefill"] = check_prefill(gen)
-    check_prefill(gen, s=5, lengths=(37,), kvh=4)                # ragged suffix, GQA
-    check_prefill(gen, quant=True)                               # int8 pools
+    for label, kw in DECODE_ROWS:
+        summary.setdefault("paged_attention_decode", check_decode(gen, label=label, **kw))
+    for label, kw in PREFILL_ROWS:
+        summary.setdefault("paged_attention_prefill", check_prefill(gen, label=label, **kw))
     grad_launches = check_gradients(gen, summary)
     scan_launches = check_scans(gen, summary)
 

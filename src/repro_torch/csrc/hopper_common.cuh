@@ -1,8 +1,8 @@
 // Hopper machinery shared by the port's tensor-core kernels (K1, K4, K5
-// matmul, K6-K8 flash attention), for sm_90a: mbarriers, TMA tensor maps
-// and loads (multicast into a thread-block cluster too), the cluster's
-// rank and barrier, wgmma descriptors and instructions, and the
-// accumulator fragment's layout.
+// matmul, K6-K8 flash attention, K2 and K3 paged attention), for sm_90a:
+// mbarriers, TMA tensor maps and loads (multicast into a thread-block
+// cluster too), 1-D bulk copies, the cluster's rank and barrier, wgmma
+// descriptors and instructions, and the accumulator fragment's layout.
 //
 // Operand tiles live in shared memory as TMA writes them with 128-byte
 // swizzle: a tile of R rows x C bf16 columns is C / 64 panels, each R rows
@@ -120,6 +120,16 @@ __device__ __forceinline__ void bar_arrive_cluster(uint64_t* bar, uint32_t cta) 
 }
 
 // ---- TMA -----------------------------------------------------------------
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar: one contiguous copy, no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // One box of map at (c0, c1), completing on bar.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,

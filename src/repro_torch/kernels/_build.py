@@ -65,6 +65,7 @@ KERNELS = {
     "paged_attention_decode": ("paged_attention_decode.cu", "paged_attention_decode", [
         _P, _P, _P, _I,            # q, k pages, v pages, dtype
         _P, _P, _P, _P,            # block table, start, lengths, out
+        _P, _P,                    # split-KV workspace (fp32) and counters, or null
         _I, _I, _I, _I, _I, _I, _I,  # batch, heads, kv heads, pages, page size, head dim, width
         _F, _F,                    # scale, softcap
         _P,                        # stream
@@ -73,6 +74,7 @@ KERNELS = {
         _P, _I, _P, _P, _I,        # q, q dtype, k pages, v pages, page dtype
         _P, _P,                    # k scale, v scale (int8 pools, else null)
         _P, _P, _P, _P,            # block table, start, lengths, out
+        _P, _P,                    # split-KV workspace (fp32) and counters, or null
         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # batch, s, qc, heads, kv heads, pages, ps, d, width
         _F, _F,                    # scale, softcap
         _P,                        # stream
@@ -128,7 +130,8 @@ _MM_OPERANDS = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _I, _I, _I]
 # design the kernel's C entry runs for those arguments, 0 the CUDA-core one
 # (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K1, K4, K5:
 # their operands -> 1 wgmma (K4: wgmma-cluster), 2 wgmma-swapab,
-# 3 wgmma-swapab-3xbf16)
+# 3 wgmma-swapab-3xbf16).  K2 and K3 have none: their C entries return
+# the code of the design they ran (0 cuda-core, 1 split-kv / wgmma).
 DESIGN_RULES = {
     "flash_attention": ("flash_attention_fwd_design", [_I, _I]),
     "flash_attention_bwd_dq": ("flash_attention_bwd_dq_design", [_I, _I]),
@@ -144,6 +147,11 @@ HELPERS = {
                      ("matmul_mcast_cluster", [_I]),          # M -> wgmma-cluster's CL
                      ("matmul_mcast_active_clusters", [_I])],  # M -> clusters resident at once
     "matmul_unicast": [("matmul_unicast_splits", [_I, _I])],
+    # (dtype, batch, kv heads, page size, head dim, width) -> split-KV's split count
+    "paged_attention_decode": [("paged_attention_decode_splits", [_I] * 6)],
+    # (q dtype, page dtype, batch, s, qc, heads, kv heads, page size, head dim,
+    # width) -> the wgmma design's split count
+    "paged_attention_prefill": [("paged_attention_prefill_splits", [_I] * 10)],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -20,9 +20,21 @@ versions walk the pages in order with the kernels' online softmax, page
 skip and masking constants (``NEG_INF = -2**30``, ``l`` clamped at
 ``1e-30``, probabilities cast to the V dtype before the PV product), so
 on the CPU they reproduce the reference kernels' arithmetic.
+
+Each kernel has two designs, picked by a fixed rule in its C entry, which
+returns the code of the one it ran; ``wrapper.design`` names the design of
+the last launch.  K2: ``split-kv`` for bf16 pools (head_dim 64 or 128),
+else ``cuda-core``; K3: ``wgmma`` for bf16 q over bf16 or int8 pools
+(head_dim 64, 128 or 256), else ``cuda-core``.  Both new designs may split
+each sequence's pages over CTAs and merge the partials in the same launch:
+the wrapper hands them an fp32 workspace and per-(kv head, sequence[,
+chunk]) counters, both cached per device and reused by every launch (the
+kernels run in stream order; the last CTA of each group resets its
+counter).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -32,7 +44,15 @@ from repro_torch.kernels import _build
 NEG_INF = -(2.0**30)
 MAX_PAGE_SIZE = 64
 MAX_HEAD_DIM = 256
-MAX_CHUNK_ROWS = 32  # K3: query rows (tokens x group) one CTA holds
+MAX_CHUNK_ROWS = 64  # K3: query rows (tokens x group) one CTA holds: wgmma's M
+
+#: the designs by the code their C entries return
+DECODE_DESIGNS = ("cuda-core", "split-kv")
+PREFILL_DESIGNS = ("cuda-core", "wgmma")
+#: (kernel, device) -> the split-KV fp32 workspace / int32 counters, grown on demand
+_WORKSPACE: dict[tuple[str, torch.device], torch.Tensor] = {}
+_COUNTERS: dict[tuple[str, torch.device], torch.Tensor] = {}
+_MIN_COUNTERS = 4096
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -134,6 +154,42 @@ def _i32(t):
     return t.to(torch.int32).contiguous()
 
 
+def _scratch(kernel: str, dev: torch.device, floats: int, counters: int):
+    """The device's cached workspace (>= ``floats`` fp32) and zeroed
+    counters (>= ``counters`` int32) of ``kernel``; (None, None) when the
+    launch does not split."""
+    if floats == 0:
+        return None, None
+    ws = _WORKSPACE.get((kernel, dev))
+    if ws is None or ws.numel() < floats:
+        ws = _WORKSPACE[(kernel, dev)] = torch.empty(floats, dtype=torch.float32, device=dev)
+    cnt = _COUNTERS.get((kernel, dev))
+    if cnt is None or cnt.numel() < counters:
+        cnt = _COUNTERS[(kernel, dev)] = torch.zeros(max(counters, _MIN_COUNTERS),
+                                                     dtype=torch.int32, device=dev)
+    return ws, cnt
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_splits(dtype: int, b: int, kvh: int, ps: int, d: int, width: int) -> int:
+    return _build.load("paged_attention_decode").paged_attention_decode_splits(
+        dtype, b, kvh, ps, d, width)
+
+
+@functools.lru_cache(maxsize=4096)
+def _prefill_splits(q_dtype: int, kv_dtype: int, b: int, s: int, qc: int, h: int, kvh: int,
+                    ps: int, d: int, width: int) -> int:
+    return _build.load("paged_attention_prefill").paged_attention_prefill_splits(
+        q_dtype, kv_dtype, b, s, qc, h, kvh, ps, d, width)
+
+
+def _launched(rc: int, name: str) -> int:
+    """The design code a C entry returned; raises on minus a cudaError."""
+    if rc < 0:
+        _build.check(-rc, name)
+    return rc
+
+
 def paged_attention_decode(q, k_pages, v_pages, block_table, start, lengths, *,
                            softcap=None):
     """One decode token per sequence: q (b, h, d) -> (b, h, d)."""
@@ -153,23 +209,30 @@ def paged_attention_decode(q, k_pages, v_pages, block_table, start, lengths, *,
     if b == 0:
         return out
     lib = _build.load("paged_attention_decode")
+    width, code = table.shape[1], _DTYPE_CODES[q.dtype]
+    splits = _decode_splits(code, b, kvh, ps, d, width)
+    ws, cnt = _scratch("paged_attention_decode", q.device,
+                       splits * b * h * (d + 2) if splits > 1 else 0, b * kvh)
     rc = lib.paged_attention_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _DTYPE_CODES[q.dtype],
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), code,
         table.data_ptr(), start.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kvh, num_pages, ps, d, table.shape[1], 1.0 / math.sqrt(d),
+        None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        b, h, kvh, num_pages, ps, d, width, 1.0 / math.sqrt(d),
         0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "paged_attention_decode")
+    paged_attention_decode.design = DECODE_DESIGNS[_launched(rc, "paged_attention_decode")]
     paged_attention_decode.launches += 1
     return out
 
 
 paged_attention_decode.launches = 0  # kernel launches since the last reset
+paged_attention_decode.design = None  # the design of the last launch
 
 
 def prefill_chunk(s: int, group: int) -> int:
-    """Query tokens per K3 CTA: as many as fit ``MAX_CHUNK_ROWS`` rows."""
+    """Query tokens per K3 CTA: as many as fit ``MAX_CHUNK_ROWS`` rows
+    (64: one warpgroup's wgmma M)."""
     return max(1, min(s, MAX_CHUNK_ROWS // group))
 
 
@@ -206,18 +269,25 @@ def paged_attention_prefill(q, k_pages, v_pages, block_table, start, lengths, *,
     if b == 0 or s == 0:
         return out
     lib = _build.load("paged_attention_prefill")
+    qc, width = prefill_chunk(s, group), table.shape[1]
+    q_code, kv_code = _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype]
+    splits = _prefill_splits(q_code, kv_code, b, s, qc, h, kvh, ps, d, width)
+    units = b * kvh * -(-s // qc)  # (sequence, kv head, chunk)
+    ws, cnt = _scratch("paged_attention_prefill", q.device,
+                       splits * units * MAX_CHUNK_ROWS * (d + 2) if splits > 1 else 0, units)
     rc = lib.paged_attention_prefill(
-        q.data_ptr(), _DTYPE_CODES[q.dtype], k_pages.data_ptr(), v_pages.data_ptr(),
-        _DTYPE_CODES[k_pages.dtype],
+        q.data_ptr(), q_code, k_pages.data_ptr(), v_pages.data_ptr(), kv_code,
         k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
         table.data_ptr(), start.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, s, prefill_chunk(s, group), h, kvh, num_pages, ps, d, table.shape[1],
+        None if ws is None else ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        b, s, qc, h, kvh, num_pages, ps, d, width,
         1.0 / math.sqrt(d), 0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "paged_attention_prefill")
+    paged_attention_prefill.design = PREFILL_DESIGNS[_launched(rc, "paged_attention_prefill")]
     paged_attention_prefill.launches += 1
     return out
 
 
 paged_attention_prefill.launches = 0  # kernel launches since the last reset
+paged_attention_prefill.design = None  # the design of the last launch

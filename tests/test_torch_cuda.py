@@ -392,6 +392,93 @@ def test_prefill_kernel_int8_pools(cuda_device):
     close(got.cpu(), want.float().cpu())
 
 
+def _paged_case(dev, gen, *, b, kvh, ps, d, n, lengths, dtype=torch.bfloat16, h=16):
+    kp = _rand(gen, kvh, 1 + b * n, ps, d, dtype=dtype)
+    vp = _rand(gen, kvh, 1 + b * n, ps, d, dtype=dtype)
+    table = torch.arange(1, 1 + b * n, device=dev, dtype=torch.int32).reshape(b, n)
+    lengths = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    return kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("dtype,decode,prefill", [
+    (torch.bfloat16, "split-kv", "wgmma"), (torch.float32, "cuda-core", "cuda-core")], ids=str)
+def test_paged_designs_by_dtype(cuda_device, dtype, decode, prefill):
+    """K2 runs split-kv and K3 wgmma on bf16 pools (K3 on int8 pools too),
+    both cuda-core on fp32 pools; each wrapper names its last design."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    kp, vp, table, lengths = _paged_case(cuda_device, gen, b=2, kvh=4, ps=16, d=64, n=8,
+                                         lengths=[100, 9], dtype=dtype)
+    q = _rand(gen, 2, 16, 64, dtype=dtype)
+    paged_attention_decode(q, kp, vp, table, lengths - 1, lengths)
+    assert paged_attention_decode.design == decode
+    qs = _rand(gen, 2, 5, 16, 64, dtype=dtype)
+    paged_attention_prefill(qs, kp, vp, table, lengths - 5, lengths)
+    assert paged_attention_prefill.design == prefill
+    if dtype == torch.bfloat16:
+        kq = torch.randint(-127, 128, kp.shape, device=cuda_device, generator=gen,
+                           dtype=torch.int8)
+        sc = _rand(gen, *kp.shape[:3], 1, scale=0.01).abs()
+        paged_attention_prefill(qs, kq, kq, table, lengths - 5, lengths, k_scale=sc,
+                                v_scale=sc)
+        assert paged_attention_prefill.design == "wgmma"
+
+
+def test_paged_split_kv_is_deterministic_and_leaves_its_counters_at_zero(cuda_device):
+    """Two launches in a row give the same bits (each merges its splits in
+    order and the last CTA of each group resets its counter)."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    kp, vp, table, lengths = _paged_case(cuda_device, gen, b=4, kvh=16, ps=16, d=64, n=16,
+                                         lengths=[256, 200, 37, 129])
+    q = _rand(gen, 4, 16, 64)
+    first = paged_attention_decode(q, kp, vp, table, lengths - 1, lengths)
+    second = paged_attention_decode(q, kp, vp, table, lengths - 1, lengths)
+    qs = _rand(gen, 4, 16, 16, 64)
+    p1 = paged_attention_prefill(qs, kp, vp, table, lengths - 16, lengths)
+    p2 = paged_attention_prefill(qs, kp, vp, table, lengths - 16, lengths)
+    torch.cuda.synchronize()
+    assert pa._decode_splits(1, 4, 16, 16, 64, 16) > 1
+    assert pa._prefill_splits(1, 1, 4, 16, 16, 16, 16, 16, 64, 16) > 1
+    assert torch.equal(first, second) and torch.equal(p1, p2)
+    for name in ("paged_attention_decode", "paged_attention_prefill"):
+        assert int(pa._COUNTERS[(name, q.device)].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("lengths", [(4096, 3584, 2048, 1024, 4096, 777, 3000, 1),
+                                     (1, 4096, 1, 4096)], ids=str)
+def test_paged_decode_long_contexts_split_over_ctas(cuda_device, lengths):
+    """Contexts up to 4K, split over CTAs, and a batch mixing 1-token and
+    4K-token sequences, against the plain version."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(len(lengths))
+    b, n = len(lengths), 256
+    kp, vp, table, lens = _paged_case(cuda_device, gen, b=b, kvh=16, ps=16, d=64, n=n,
+                                      lengths=lengths)
+    q = _rand(gen, b, 16, 64)
+    assert pa._decode_splits(1, b, 16, 16, 64, n) > 1
+    got = paged_attention_decode(q, kp, vp, table, lens - 1, lens)
+    want = paged_attention_decode_plain(q, kp, vp, table, lens - 1, lens)
+    torch.cuda.synchronize()
+    assert paged_attention_decode.design == "split-kv"
+    close(got.cpu(), want.float().cpu())
+
+
+def test_paged_prefill_long_chunk(cuda_device):
+    """The last 512-token chunk of a 2,048-token prompt: eight 64-row CTAs
+    per kv head, against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    kp, vp, table, lengths = _paged_case(cuda_device, gen, b=1, kvh=16, ps=16, d=64, n=128,
+                                         lengths=[2048])
+    q = _rand(gen, 1, 512, 16, 64)
+    got = paged_attention_prefill(q, kp, vp, table, lengths - 512, lengths)
+    want = paged_attention_prefill_plain(q, kp, vp, table, lengths - 512, lengths)
+    torch.cuda.synchronize()
+    assert paged_attention_prefill.design == "wgmma"
+    close(got.cpu(), want.float().cpu())
+
+
 def test_engine_on_card_launches_every_kernel(cuda_device):
     cfg = get_config("qwen1.5-0.5b", reduced=True)
     params = lm.init(cfg, seed=0)
