@@ -45,9 +45,16 @@ each fatal on failure (nothing is caught):
 2c. scans: K9 and K10 (the SSD chunked scan with its checkpoints, and its
    reverse-chunk adjoint) at four shapes — mamba2-780m's SSD layer at full
    width, the kernel benchmark's row, a ragged sequence and a 256 KB
-   state — and K11 and K12 (the RG-LRU recurrence and its adjoint) at
-   three — recurrentgemma-2b's at full width, the benchmark's row and a
-   ragged one — each against its plain version and timed as in phase 2;
+   state — each record naming the design that ran, which must be
+   ``chunk-parallel`` (three CUDA launches a call: the chunks'
+   contributions with the head-shared scores, the pass over the chunks,
+   the outputs or gradients; products in 3xTF32; the launches counted in
+   a profiler trace), and its bound taken at the card's rate for
+   fp32-accurate products (TF32 / 3), the kernels and the plain versions
+   each also held to the scan in fp64 at the same tolerance; and K11 and K12
+   (the RG-LRU recurrence and its adjoint) at three — recurrentgemma-2b's
+   at full width, the benchmark's row and a ragged one — each against its
+   plain version and timed as in phase 2;
    then ``torch.autograd.grad`` through ``op("ssd")`` and ``op("rglru")``
    at the full-width shapes, every launch count at 0 before each (one
    forward must launch K9 / K11 once, one backward K10 / K12 once),
@@ -154,7 +161,8 @@ from repro_torch.serve import PagedEngine, Request, ServeConfig  # noqa: E402
 # HBM3 bandwidth.  They assume the 700 W limit; the card line says the
 # limit this run had.
 PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12
+PEAK_FP32 = 67e12  # outside the tensor cores; fp32-accurate products on them: PEAK_TF32 / 3
+PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # Stated tolerances (compared in fp32).  bf16 outputs: 2e-2 absolute and
@@ -1099,19 +1107,29 @@ def _lru_inputs(gen, c: LruShape):
     return 0.8 + 0.2 * torch.sigmoid(rand()), rand(), rand()
 
 
-def ssd_bounds(c: SsdShape) -> dict[str, tuple[float, str]]:
+SSD_DESIGN = "chunk-parallel"  # the design every SSD_SHAPES row must run
+# fp32-accurate products on the tensor cores: 3xTF32, three TF32 passes
+PEAK_FP32_ACCURATE = PEAK_TF32 / 3
+
+
+def ssd_bounds(c: SsdShape, peak: float = PEAK_FP32_ACCURATE) -> dict[str, tuple[float, str]]:
     """K9 and K10's least times: the recurrence's own flops — 4 P N a step
     a head forward (state update and readout), 12 backward (the carried
     adjoint, dxdt, dB, dC, d log a and the recomputed state) — whatever
-    the chunk, against each input read and each output written once."""
+    the chunk, against each input read and each output written once.
+    The flops are taken at ``peak``: by default the card's rate for
+    fp32-accurate products, PEAK_TF32 / 3 (165 TFLOP/s), since the
+    kernels run them on the tensor cores in 3xTF32 and can go below a
+    bound taken at the fp32 rate outside them (PEAK_FP32, the bound of
+    the earlier CUDA-core kernels, reported beside it)."""
     steps, nc = c.b * c.h * c.s, -(-c.s // SSD_CHUNK)
     x_bytes, bc_bytes, l_bytes = steps * c.p * 4, 2 * c.b * c.s * c.n * 4, steps * 4
     states = c.b * c.h * nc * c.p * c.n * 4
     return {
-        "ssd_scan": bound(4.0 * c.p * c.n * steps, 2 * x_bytes + bc_bytes + l_bytes, PEAK_FP32),
+        "ssd_scan": bound(4.0 * c.p * c.n * steps, 2 * x_bytes + bc_bytes + l_bytes, peak),
         "ssd_scan_bwd": bound(12.0 * c.p * c.n * steps,
                               3 * x_bytes + bc_bytes + 2 * l_bytes + states
-                              + 2 * steps * c.n * 4, PEAK_FP32),
+                              + 2 * steps * c.n * 4, peak),
     }
 
 
@@ -1123,12 +1141,12 @@ def lru_bounds(c: LruShape) -> dict[str, tuple[float, str]]:
             "rglru_scan_bwd": bound(3.0 * elems, 5 * elems * 4, PEAK_FP32)}
 
 
-def _scan_record(name, case, shape, errs, fn, plain, bounds, runs, tol):
+def _scan_record(name, case, shape, errs, fn, plain, bounds, runs, tol, extra=None):
     warm = 1 if runs < 10 else 3
     k_ms, k_host = time_ms(fn, runs, warm)
     b_ms, b_by = bounds[name]
     rec = dict(check="kernel", name=name, case=case, shape=shape, dtype="torch.float32",
-               kernel_ms=k_ms, host_ms=k_host,
+               **(extra or {}), kernel_ms=k_ms, host_ms=k_host,
                # a plain recurrence enqueues thousands of small ops: a longer
                # spin keeps the events on device work
                plain_ms=time_ms(plain, runs, warm, max_spin_s=0.2)[0],
@@ -1143,39 +1161,113 @@ def _worst(*errs):
     return tuple(map(max, zip(*errs)))
 
 
+def ssd_fp64(xdt, bm, cm, lcum, dy):
+    """The SSD scan evaluated in fp64 — the plain version's chunked
+    arithmetic, every product and sum in fp64 — and its gradients by
+    autograd: y, the chunk-initial states, dxdt, dB and dC per head (each
+    head reads its own copy of B and C), d log a per step.  The witness
+    for both sides of a K9/K10 check: where C_i . B_j cancels to a small
+    part of its terms, an fp32 sum moves it by more than TOL_SCAN's
+    allowance, so the plain fp32 version can miss the exact value too."""
+    bsz, h, s, p = xdt.shape
+    n, q = bm.shape[-1], SSD_CHUNK
+    nc = -(-s // q)
+    lc = lcum[..., 0].double()  # the per-step log-decays: its differences inside a chunk
+    la = torch.cat([lc[..., :1], lc[..., 1:] - lc[..., :-1]], dim=-1)
+    la[..., ::q] = lc[..., ::q]
+    x, la = xdt.double().requires_grad_(), la.requires_grad_()
+    b_h, c_h = (m.double()[:, None].expand(bsz, h, s, n).clone().requires_grad_()
+                for m in (bm, cm))
+
+    def chunks(t):  # (b, h, s, k) -> (b, h, nc, q, k), zero steps appended
+        return torch.nn.functional.pad(t, (0, 0, 0, nc * q - s)).reshape(bsz, h, nc, q, -1)
+    xc, bc, cc = chunks(x), chunks(b_h), chunks(c_h)
+    l = chunks(la[..., None])[..., 0].cumsum(-1)
+    causal = torch.ones(q, q, dtype=torch.bool, device=xdt.device).tril()
+    decay = torch.exp(torch.where(causal, l[..., :, None] - l[..., None, :], -torch.inf))
+    y = (decay * (cc @ bc.transpose(-1, -2))) @ xc
+    ltot = l[..., -1]
+    fresh = (xc * torch.exp(ltot[..., None] - l)[..., None]).transpose(-1, -2) @ bc
+    state, states = torch.zeros_like(fresh[:, :, 0]), []
+    for ci in range(nc):
+        states.append(state)
+        state = torch.exp(ltot[:, :, ci])[..., None, None] * state + fresh[:, :, ci]
+    st = torch.stack(states, dim=2)
+    y = y + torch.exp(l)[..., None] * (cc @ st.transpose(-1, -2))
+    y = y.reshape(bsz, h, nc * q, p)[:, :, :s]
+    grads = torch.autograd.grad((y * dy.double()).sum(), (x, b_h, c_h, la))
+    return (y.detach(), st.detach(), *grads)
+
+
+def cuda_launches(fn, prefix: str) -> int | None:
+    """The CUDA kernels whose names hold ``prefix`` that one call of ``fn``
+    launches, read from a ``torch.profiler`` trace (None if the profiler
+    traces no device events here).  The names carry their namespace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(prefix in e.name for e in evs) if evs else None
+
+
 def check_ssd(gen, c: SsdShape) -> dict[str, dict]:
     """K9 (with its checkpoints) and K10 against their plain versions on
-    the same inputs (K10 fed K9's states), each timed beside its bound.
-    No single PyTorch call computes a chunked scan: no library time."""
+    the same inputs (K10 fed K9's states), each timed beside its bound
+    (and the bound at PEAK_FP32), each record naming its design, which
+    must be SSD_DESIGN, and the CUDA launches one call issues (from a
+    profiler trace).  Both the kernels and the plain versions are also
+    held to the scan in fp64 (:func:`ssd_fp64`) at TOL_SCAN, so that a
+    failure says which side missed the exact value.  No single PyTorch
+    call computes a chunked scan: no library time."""
     xdt, bm, cm, log_a, dy = _ssd_inputs(gen, c)
     lcum = ssd_lcum(log_a, SSD_CHUNK)
+    exact = ssd_fp64(xdt, bm, cm, lcum, dy)
     before = kernels.launch_counts()
     y, st = ssd_scan(xdt, bm, cm, lcum, return_states=True)
     y_p, st_p = ssd_scan_plain(xdt, bm, cm, lcum, return_states=True)
-    errs = {"ssd_scan": _worst(check_flash_close(f"ssd_scan y {c.label}", y, y_p, TOL_SCAN),
-                               check_flash_close(f"ssd_scan states {c.label}", st, st_p,
-                                                 TOL_SCAN))}
-    del y, y_p, st_p
     bwd = (xdt, bm, cm, lcum, st, dy)
     got, want = ssd_scan_bwd(*bwd), ssd_scan_bwd_plain(*bwd)
-    errs["ssd_scan_bwd"] = _worst(*(
-        check_flash_close(f"ssd_scan_bwd {name} {c.label}", g, w, TOL_SCAN)
-        for name, g, w in zip(("dx", "db", "dc"), got[:3], want[:3])),
-        check_flash_close(f"ssd_scan_bwd dl {c.label}", got[3][..., 0], want[3][..., 0],
-                          TOL_SCAN))
     after = kernels.launch_counts()
+    outputs = {"ssd_scan": {"y": (y, y_p, exact[0]), "states": (st, st_p, exact[1])},
+               "ssd_scan_bwd": {name: (g, w, x) for name, g, w, x in zip(
+                   ("dx", "db", "dc", "dl"), (*got[:3], got[3][..., 0]),
+                   (*want[:3], want[3][..., 0]), exact[2:])}}
+    errs, fp64 = {}, {}
+    for kernel, outs in outputs.items():
+        plain_vs_fp64 = [check_flash_close(f"{kernel} {o} {c.label}: plain version vs fp64",
+                                           w, x, TOL_SCAN)[1] for o, (_, w, x) in outs.items()]
+        kernel_vs_fp64 = [check_flash_close(f"{kernel} {o} {c.label}: kernel vs fp64",
+                                            g, x, TOL_SCAN)[1] for o, (g, _, x) in outs.items()]
+        errs[kernel] = _worst(*(check_flash_close(f"{kernel} {o} {c.label}", g, w, TOL_SCAN)
+                                for o, (g, w, _) in outs.items()))
+        fp64[kernel] = dict(err_over_allowance_fp64=max(kernel_vs_fp64),
+                            plain_err_over_allowance_fp64=max(plain_vs_fp64))
+    del y, y_p, st_p, got, want, exact, outputs
     assert all(after[n] == before[n] + 1 for n in SCAN_KERNELS[:2]), (before, after)
-    del got, want
+    designs = {n: kernels.KERNELS[n].design for n in SCAN_KERNELS[:2]}
+    if designs != dict.fromkeys(SCAN_KERNELS[:2], SSD_DESIGN):
+        raise AssertionError(f"ssd {c.label}: designs {designs}, expected {SSD_DESIGN}")
     bounds, shape = ssd_bounds(c), [c.b, c.h, c.s, c.p, c.n]
+    fp32_bounds = ssd_bounds(c, PEAK_FP32)
+    fwd, bwd_fn = (lambda: ssd_scan(xdt, bm, cm, lcum)), (lambda: ssd_scan_bwd(*bwd))
+    launches = {"ssd_scan": cuda_launches(fwd, "ssd_fwd_"),
+                "ssd_scan_bwd": cuda_launches(bwd_fn, "ssd_bwd_")}
+
+    def extra(name):
+        return dict(design=designs[name], cuda_launches=launches[name],
+                    bound_fp32_peak_ms=fp32_bounds[name][0], **fp64[name])
     return {
         "ssd_scan": _scan_record(
-            "ssd_scan", c.label, shape, errs["ssd_scan"],
-            lambda: ssd_scan(xdt, bm, cm, lcum), lambda: ssd_scan_plain(xdt, bm, cm, lcum),
-            bounds, c.runs, TOL_SCAN),
+            "ssd_scan", c.label, shape, errs["ssd_scan"], fwd,
+            lambda: ssd_scan_plain(xdt, bm, cm, lcum), bounds, c.runs, TOL_SCAN,
+            extra("ssd_scan")),
         "ssd_scan_bwd": _scan_record(
-            "ssd_scan_bwd", c.label, shape, errs["ssd_scan_bwd"],
-            lambda: ssd_scan_bwd(*bwd), lambda: ssd_scan_bwd_plain(*bwd), bounds, c.runs,
-            TOL_SCAN),
+            "ssd_scan_bwd", c.label, shape, errs["ssd_scan_bwd"], bwd_fn,
+            lambda: ssd_scan_bwd_plain(*bwd), bounds, c.runs, TOL_SCAN, extra("ssd_scan_bwd")),
     }
 
 

@@ -6,183 +6,229 @@
 //
 //   H_t = exp(l_t) H_{t-1} + xdt_t (x) B_t,   y_t = C_t . H_t
 //
-// chunk by chunk, as the TPU kernel computes it: with l the inclusive
-// within-chunk cumsum of the log-decays (computed outside, as the JAX
-// package does),
-//   y_i  = sum_{j <= i} exp(l_i - l_j) (C_i . B_j) xdt_j + exp(l_i) C_i . H_in
-//   H_out = exp(l_Q) H_in + sum_j exp(l_Q - l_j) xdt_j (x) B_j
-// with the decay masked inside the exp.  A short last chunk is padded
-// with identity decay and zero input (l repeats its last value).
+// chunk by chunk: with l the inclusive within-chunk cumsum of the
+// log-decays (computed outside, as the JAX package does), S = C B^T the
+// chunk's scores and M_ij = exp(l_i - l_j) S_ij (j <= i, else 0),
+//   y     = M xdt + exp(l) o (C H_c^T)
+//   H_c+1 = exp(l_Q) H_c + F_c,   F_c = sum_j exp(l_Q - l_j) xdt_j (x) B_j
+// A short last chunk is padded with identity decay and zero input (l
+// repeats its last value), which changes no output.
 //
-// What bounds it on the H100: the recurrence's own work, 4 P N flops a
-// step a head, at the fp32 rate (mamba2-780m: 6.4 GFLOP against 106 MB).
-// Design of this first version (CUDA-core fp32 FMA, chunk Q = 64):
-//   * one CTA per (P tile of 16 columns, head, batch) walks the chunks in
-//     order, so that the grid fills the card at mamba2's width (P 64 ->
-//     4 tiles x 48 heads x 2 = 384 CTAs, where one CTA per (batch, head)
-//     would be 96 for 132 SMs);
-//   * each chunk streams C and B through N tiles of 32 columns, so any N
-//     runs: the scores C B^T (Q x Q) and the inter-chunk C H_in^T
-//     accumulate in registers over the tiles, and each tile of the state
-//     is updated as soon as its B tile is in shared memory;
-//   * the state lives in global memory, one (P, N) fp32 tile per head
-//     (L2-resident), read and rewritten once per chunk: with
-//     return_states it is carried through the chunk checkpoints the
-//     backward kernel restarts from, else through a scratch tile;
-//   * every CTA reads B and C itself (through L2) for every head and P
-//     tile — the head-shared operand the paper would fetch once and
-//     multicast.  Later work: a thread-block cluster over heads fed by
-//     one TMA multicast load per B/C chunk, and tensor-core products.
-// Shared memory: 11,152 floats (44.6 KB), static.
-#include <cuda_runtime.h>
-#include <math.h>
+// What bounds it on the H100: the recurrence's 4 P N flops a step a head,
+// done as fp32-accurate products on the tensor cores (3xTF32: 495 / 3 =
+// 165 TFLOP/s), against each input read and each output written once
+// (mamba2-780m: 6.4 GFLOP, 0.039 ms, against 106 MB, 0.032 ms).  The TPU
+// kernel carries the state because its grid runs in order on one core;
+// here blocks run in parallel and in no order, so the scan runs as three
+// launches (design "chunk-parallel"):
+//   1. per (batch, chunk) the scores S = C B^T, once for every head (B and
+//      C are head-shared), into a (batch, nc, Q, Q) buffer read through L2;
+//      and per (batch, head, chunk) but the last, F_c into slot c + 1 of
+//      the states;
+//   2. per (batch, head) and group of 4 state elements, in order over the
+//      chunks: H_0 = 0, H_c+1 = exp(l_Q,c) H_c + F_c, in place — nc steps
+//      of one FMA an element, the only sequential part;
+//   3. per (batch, head, chunk, P tile of 64) y from S and H_c.
+// Every product is mma.sync m16n8k8 on TF32 operands split into a big
+// part and a remainder (ssd_common.cuh); exp and the decays stay fp32 on
+// the CUDA cores.  Tiles of xdt, B, C and the states come by cp.async
+// (16-byte copies where P or N is a multiple of 4, else 4-byte ones) into
+// swizzled shared memory; N is walked in tiles, so any N runs.  The states
+// buffer is (batch, heads, nc, P, N) with or without return_states; every
+// slot is written before it is read (H_0 by pass 2).
+#include "ssd_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int Q = 64;   // chunk
-constexpr int PT = 16;  // columns of P per CTA
-constexpr int NT = 32;  // columns of N per tile
-constexpr int LQ = Q + 1, LN = NT + 1, LP = PT + 1;
+using namespace ssd;
 
-__global__ void __launch_bounds__(THREADS)
-ssd_fwd_kernel(const float* __restrict__ xdt, const float* __restrict__ bmat,
+constexpr int DESIGN = 1;       // "chunk-parallel"
+constexpr int UNROLL = 8;       // pass 2: chunks loaded ahead of the FMA chain
+
+// pass 1: blocks [0, batch nc) the scores, the rest F_c of chunks 0 .. nc-2
+__global__ void __launch_bounds__(THREADS, 3)
+ssd_fwd_chunks(const float* __restrict__ xdt, const float* __restrict__ bmat,
                const float* __restrict__ cmat, const float* __restrict__ lcum,
-               float* __restrict__ y, float* __restrict__ st, int return_states, int heads,
-               int s, int p_dim, int n_dim) {
-  __shared__ float cs[Q * LN];   // C tile (Q x NT)
-  __shared__ float bs[Q * LN];   // B tile (Q x NT)
-  __shared__ float hs[PT * LN];  // state tile (PT x NT), chunk-initial
-  __shared__ float ms[Q * LQ];   // M = masked decay * scores (Q x Q)
-  __shared__ float xs[Q * LP];   // xdt (Q x PT)
-  __shared__ float xw[Q * LP];   // xdt_j exp(l_Q - l_j)
-  __shared__ float ls[Q];
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tx = tid % 16, ty = tid / 16;
-  const int p0 = blockIdx.x * PT, hh = blockIdx.y, bb = blockIdx.z;
-  const long long bh = (long long)bb * heads + hh;
-  const int nc = (s + Q - 1) / Q;
-  const long long pn = (long long)p_dim * n_dim;
-  float* st_head = st + bh * (return_states ? nc : 1) * pn;
-
-  for (int ci = 0; ci < nc; ++ci) {
-    const int t0 = ci * Q, rows = min(Q, s - t0);
-    const bool has_state = ci > 0, update = ci + 1 < nc;
-    const float* st_in = st_head + (return_states ? ci : 0) * pn;
-    float* st_out = st_head + (return_states ? ci + 1 : 0) * pn;
-
-    __syncthreads();  // the previous chunk's tiles are no longer read
-    if (tid < Q) ls[tid] = lcum[bh * s + t0 + min(tid, rows - 1)];
-    for (int e = tid; e < Q * PT; e += THREADS) {
-      const int j = e / PT, p = e % PT;
-      xs[j * LP + p] = (j < rows && p0 + p < p_dim)
-                           ? xdt[(bh * s + t0 + j) * p_dim + p0 + p] : 0.f;
-    }
-    __syncthreads();
-    const float ltot = ls[Q - 1];
-    for (int e = tid; e < Q * PT; e += THREADS) {
-      const int j = e / PT, p = e % PT;
-      xw[j * LP + p] = xs[j * LP + p] * expf(ltot - ls[j]);
-    }
-
-    float sc[4][4], yi[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      yi[a] = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc[a][c] = 0.f;
-    }
-
-    for (int n0 = 0; n0 < n_dim; n0 += NT) {
-      __syncthreads();  // the previous N tile is no longer read
-      for (int e = tid; e < Q * NT; e += THREADS) {
-        const int i = e / NT, n = e % NT;
-        const bool ok = i < rows && n0 + n < n_dim;
-        const long long at = ((long long)bb * s + t0 + i) * n_dim + n0 + n;
-        cs[i * LN + n] = ok ? cmat[at] : 0.f;
-        bs[i * LN + n] = ok ? bmat[at] : 0.f;
-      }
-      for (int e = tid; e < PT * NT; e += THREADS) {
-        const int p = e / NT, n = e % NT;
-        const bool ok = has_state && p0 + p < p_dim && n0 + n < n_dim;
-        hs[p * LN + n] = ok ? st_in[(long long)(p0 + p) * n_dim + n0 + n] : 0.f;
-        if (return_states && ci == 0 && p0 + p < p_dim && n0 + n < n_dim)
-          st_head[(long long)(p0 + p) * n_dim + n0 + n] = 0.f;  // chunk 0 starts from 0
-      }
-      __syncthreads();
-
-      // scores C_i . B_j (rows ty + 16a, columns tx + 16c) and C_i . H_in[p]
-#pragma unroll 4
-      for (int n = 0; n < NT; ++n) {
-        float cv[4], bv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = cs[(ty + 16 * a) * LN + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = bs[(tx + 16 * c) * LN + n];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sc[a][c] = fmaf(cv[a], bv[c], sc[a][c]);
-        if (has_state) {
-          const float hv = hs[tx * LN + n];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) yi[a] = fmaf(cs[(ty + 16 * a) * LN + n], hv, yi[a]);
-        }
-      }
-
-      // this tile of the next chunk's state: exp(l_Q) H_in + sum_j xw_j (x) B_j
-      if (update) {
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int p = warp + 8 * k, n = lane;
-          float acc = 0.f;
-#pragma unroll 8
-          for (int j = 0; j < Q; ++j) acc = fmaf(xw[j * LP + p], bs[j * LN + n], acc);
-          if (p0 + p < p_dim && n0 + n < n_dim)
-            st_out[(long long)(p0 + p) * n_dim + n0 + n] = expf(ltot) * hs[p * LN + n] + acc;
-        }
-      }
-    }
-
-    // M_ij = exp(l_i - l_j) (C_i . B_j) for j <= i, else 0
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c;
-        ms[i * LQ + j] = i >= j ? expf(ls[i] - ls[j]) * sc[a][c] : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // y_i = sum_{j <= i} M_ij xdt_j + exp(l_i) C_i . H_in
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a, p = tx;
-      float acc = 0.f;
-      for (int j = 0; j <= i; ++j) acc = fmaf(ms[i * LQ + j], xs[j * LP + p], acc);
-      const float out = acc + expf(ls[i]) * yi[a];
-      if (i < rows && p0 + p < p_dim) y[(bh * s + t0 + i) * p_dim + p0 + p] = out;
-    }
+               float* __restrict__ st, float* __restrict__ scores, int batch, int heads, int s,
+               int p_dim, int n_dim, int nc, int vec_p, int vec_n) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  long long id = blockIdx.x;
+  if (id < (long long)batch * nc) {
+    const int bb = (int)(id / nc), ci = (int)(id % nc), t0 = ci * Q;
+    const long long row = (long long)bb * s + t0;
+    scores_role(cmat + row * n_dim, bmat + row * n_dim, scores + id * Q * Q, min(Q, s - t0),
+                n_dim, vec_n, smem);
+    return;
   }
+  id -= (long long)batch * nc;
+  const long long bh = id / (nc - 1);
+  const int ci = (int)(id % (nc - 1)), t0 = ci * Q, bb = (int)(bh / heads);
+  const long long pn = (long long)p_dim * n_dim;
+  chunk_role(xdt + (bh * s + t0) * p_dim, bmat + ((long long)bb * s + t0) * n_dim,
+             lcum + bh * s + t0, st + (bh * nc + ci + 1) * pn, Q, p_dim, n_dim, vec_p, vec_n,
+             true, smem);
+}
+
+// pass 2: H_0 = 0, then H_c+1 = exp(l_Q,c) H_c + F_c in place, in order
+// over the chunks; a thread owns V elements of one (batch, head)'s state
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+ssd_fwd_states(float* __restrict__ st, const float* __restrict__ lcum, int s, int nc,
+               long long pn, long long blocks_per_head) {
+  const long long bh = blockIdx.x / blocks_per_head;
+  const long long e = ((blockIdx.x % blocks_per_head) * THREADS + threadIdx.x) * V;
+  if (e >= pn) return;
+  float* base = st + bh * nc * pn + e;
+  const float* l = lcum + bh * s;
+  Vec<V> h;
+#pragma unroll
+  for (int k = 0; k < V; ++k) h.v[k] = 0.f;
+  store(base, h);
+  for (int c0 = 0; c0 + 1 < nc; c0 += UNROLL) {
+    Vec<V> f[UNROLL];
+    float a[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (c0 + u + 1 < nc) {
+        f[u] = load<V>(base + (c0 + u + 1) * pn);
+        a[u] = expf(l[min((c0 + u) * Q + Q - 1, s - 1)]);
+      }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (c0 + u + 1 < nc) {
+        const int c = c0 + u;  // H_c+1 from H_c and F_c
+#pragma unroll
+        for (int k = 0; k < V; ++k) h.v[k] = fmaf(a[u], h.v[k], f[u].v[k]);
+        store(base + (c + 1) * pn, h);
+      }
+  }
+}
+
+// pass 3: y = M xdt + exp(l) o (C H_c^T) for one (batch, head, chunk) and
+// P tile of PT columns.  (Copying the next N tile while multiplying this
+// one needs a second tile buffer and more registers, two CTAs an SM instead
+// of three; tried, it ran slower.)
+constexpr int OUT_FLOATS = 2 * Q * PT + Q * KT + PT * KT + Q;
+
+__global__ void __launch_bounds__(THREADS, 3)
+ssd_fwd_outputs(const float* __restrict__ xdt, const float* __restrict__ cmat,
+                const float* __restrict__ lcum, const float* __restrict__ st,
+                const float* __restrict__ scores, float* __restrict__ y, int heads, int s,
+                int p_dim, int n_dim, int nc, int vec_p, int vec_n) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Smem<Q> ms{smem};
+  const Smem<PT> xs{smem + Q * Q};
+  const Smem<KT> cs{smem + Q * Q + Q * PT}, hs{smem + Q * Q + Q * PT + Q * KT};
+  float* ls = smem + Q * Q + Q * PT + Q * KT + PT * KT;
+
+  const int tid = threadIdx.x, warp = tid / 32;
+  const long long bh = blockIdx.x / nc;
+  const int ci = blockIdx.x % nc, bb = (int)(bh / heads), p0 = blockIdx.y * PT;
+  const int t0 = ci * Q, rows = min(Q, s - t0), pv = min(PT, p_dim - p0);
+  const int m0 = 32 * (warp & 1), n0 = 16 * (warp >> 1);  // (Q, P) block of this warp
+  const bool busy = n0 < pv;
+
+  const float* h_in = st + (bh * nc + ci) * (long long)p_dim * n_dim + (long long)p0 * n_dim;
+  const float* c_in = cmat + ((long long)bb * s + t0) * n_dim;
+  // S, xdt and the first N tile of C and H_c in one round trip (H_0 = 0:
+  // chunk 0 has no inter-chunk term)
+  if (tid < Q) ls[tid] = lcum[bh * s + t0 + min(tid, rows - 1)];
+  stage<Q, Q>(ms, scores + ((long long)bb * nc + ci) * Q * Q, Q, Q, Q, true);
+  stage<Q, PT>(xs, xdt + (bh * s + t0) * p_dim + p0, p_dim, rows, pv, vec_p);
+  if (ci > 0) {
+    stage<Q, KT>(cs, c_in, n_dim, rows, n_dim, vec_n);
+    stage<PT, KT>(hs, h_in, n_dim, pv, n_dim, vec_n);
+  }
+  cp_async_wait();
+  __syncthreads();
+  for (int e = tid; e < Q * Q; e += THREADS) {  // M = decay o S, masked inside the exp
+    const int i = e / Q, j = e % Q;
+    ms(i, j) = i >= j ? expf(ls[i] - ls[j]) * ms(i, j) : 0.f;
+  }
+
+  float acc[2][2][4];
+  zero(acc);
+  if (ci > 0) {
+    for (int k0 = 0; k0 < n_dim; k0 += KT) {
+      if (k0 > 0) {
+        __syncthreads();  // the previous N tile is no longer read
+        stage<Q, KT>(cs, c_in + k0, n_dim, rows, n_dim - k0, vec_n);
+        stage<PT, KT>(hs, h_in + k0, n_dim, pv, n_dim - k0, vec_n);
+        cp_async_wait();
+        __syncthreads();
+      }
+      if (busy) gemm<2, 2, false, true>(acc, cs, hs, m0, n0, 0, round8(min(KT, n_dim - k0)));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] *= expf(ls[acc_row(m0, i, e)]);
+  }
+  __syncthreads();  // M is written
+  // M is lower-triangular: rows below m0 + 32 read columns below m0 + 32
+  if (busy) gemm<2, 2, false, false>(acc, ms, xs, m0, n0, 0, m0 + 32);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = acc_row(m0, i, e), p = acc_col(n0, j, e);
+        if (r < rows)
+          store_pair(y + (bh * s + t0 + r) * p_dim + p0 + p, acc[i][j][e], acc[i][j][e + 1],
+                     p < pv, p + 1 < pv, p_dim % 2 == 0);
+      }
 }
 
 }  // namespace
 
 // xdt, y (batch, heads, s, P); b, c (batch, s, N); lcum (batch, heads, s);
-// all fp32, contiguous.  st: with return_states the chunk-initial states
-// (batch, heads, ceil(s / 64), P, N), else a (batch, heads, P, N) scratch.
+// st the chunk-initial states (batch, heads, ceil(s / 64), P, N); scores a
+// (batch, ceil(s / 64), 64, 64) scratch; all fp32, contiguous.  Returns the
+// design's code (1, chunk-parallel), or minus a cudaError.
 extern "C" int ssd_scan_fwd(const void* xdt, const void* b, const void* c, const void* lcum,
-                            void* y, void* st, int return_states, int batch, int heads, int s,
-                            int p, int n, void* stream) {
-  if (batch <= 0 || heads <= 0 || s <= 0 || p <= 0) return 0;
-  if (n <= 0 || batch > 65535 || heads > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((p + PT - 1) / PT, heads, batch);
-  ssd_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xdt), static_cast<const float*>(b), static_cast<const float*>(c),
-      static_cast<const float*>(lcum), static_cast<float*>(y), static_cast<float*>(st),
-      return_states, heads, s, p, n);
-  return (int)cudaGetLastError();
+                            void* y, void* st, void* scores, int batch, int heads, int s, int p,
+                            int n, void* stream) {
+  if (batch <= 0 || heads <= 0 || s <= 0 || p <= 0) return DESIGN;
+  if (n <= 0) return -(int)cudaErrorInvalidValue;
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int nc = (s + Q - 1) / Q;
+  const long long bhn = (long long)batch * heads, pn = (long long)p * n;
+  const int vec_p = p % 4 == 0 && aligned16(xdt);
+  const int vec_n = n % 4 == 0 && aligned16(b) && aligned16(c);
+  const float* x = static_cast<const float*>(xdt);
+  const float* bm = static_cast<const float*>(b);
+  const float* cm = static_cast<const float*>(c);
+  const float* l = static_cast<const float*>(lcum);
+  float* states = static_cast<float*>(st);
+  float* sc = static_cast<float*>(scores);
+  int rc = smem_attr((const void*)ssd_fwd_chunks, PASS1_FLOATS);
+  if (rc == 0) rc = smem_attr((const void*)ssd_fwd_outputs, OUT_FLOATS);
+  if (rc != 0) return -rc;
+
+  const long long blocks1 = (long long)batch * nc + bhn * (nc - 1);
+  ssd_fwd_chunks<<<(unsigned)blocks1, THREADS, PASS1_FLOATS * sizeof(float), cs>>>(
+      x, bm, cm, l, states, sc, batch, heads, s, p, n, nc, vec_p, vec_n);
+  if ((rc = (int)cudaGetLastError()) != 0) return -rc;
+
+  if (pn % 4 == 0) {
+    const long long per_head = (pn / 4 + THREADS - 1) / THREADS;
+    ssd_fwd_states<4><<<(unsigned)(bhn * per_head), THREADS, 0, cs>>>(states, l, s, nc, pn,
+                                                                       per_head);
+  } else {
+    const long long per_head = (pn + THREADS - 1) / THREADS;
+    ssd_fwd_states<1><<<(unsigned)(bhn * per_head), THREADS, 0, cs>>>(states, l, s, nc, pn,
+                                                                       per_head);
+  }
+  if ((rc = (int)cudaGetLastError()) != 0) return -rc;
+
+  const dim3 grid3((unsigned)(bhn * nc), (p + PT - 1) / PT);
+  ssd_fwd_outputs<<<grid3, THREADS, OUT_FLOATS * sizeof(float), cs>>>(
+      x, cm, l, states, sc, static_cast<float*>(y), heads, s, p, n, nc, vec_p, vec_n);
+  if ((rc = (int)cudaGetLastError()) != 0) return -rc;
+  return DESIGN;
 }

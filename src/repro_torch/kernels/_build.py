@@ -102,13 +102,14 @@ KERNELS = {
     ]),
     "ssd_scan": ("ssd_scan_fwd.cu", "ssd_scan_fwd", [
         _P, _P, _P, _P,            # xdt, b, c, lcum
-        _P, _P, _I,                # y, states (or a per-head scratch), return_states
+        _P, _P, _P,                # y, states, scores scratch
         _I, _I, _I, _I, _I,        # batch, heads, seq, P, N
         _P,                        # stream
     ]),
     "ssd_scan_bwd": ("ssd_scan_bwd.cu", "ssd_scan_bwd", [
         _P, _P, _P, _P, _P, _P,    # xdt, b, c, lcum, states, dy
-        _P, _P, _P, _P, _P,        # dx, db, dc, dl (per head), carried-adjoint scratch
+        _P, _P, _P, _P,            # dx, db, dc, dl (per head)
+        _P, _P,                    # adjoint-state scratch, scores scratch
         _I, _I, _I, _I, _I,        # batch, heads, seq, P, N
         _P,                        # stream
     ]),
@@ -130,8 +131,9 @@ _MM_OPERANDS = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _I, _I, _I]
 # design the kernel's C entry runs for those arguments, 0 the CUDA-core one
 # (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K1, K4, K5:
 # their operands -> 1 wgmma (K4: wgmma-cluster), 2 wgmma-swapab,
-# 3 wgmma-swapab-3xbf16).  K2 and K3 have none: their C entries return
-# the code of the design they ran (0 cuda-core, 1 split-kv / wgmma).
+# 3 wgmma-swapab-3xbf16).  K2, K3, K9 and K10 have none: their C entries
+# return the code of the design they ran (K2, K3: 0 cuda-core, 1 split-kv /
+# wgmma; K9, K10: 1 chunk-parallel).
 DESIGN_RULES = {
     "flash_attention": ("flash_attention_fwd_design", [_I, _I]),
     "flash_attention_bwd_dq": ("flash_attention_bwd_dq_design", [_I, _I]),

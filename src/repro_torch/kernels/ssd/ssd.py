@@ -26,7 +26,12 @@ Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version (``*_plain``) for CPU tensors; it never falls back from one to the
 other.  The plain versions do the kernels' chunked arithmetic in fp32 for
 all chunks at once, with one sequential loop over chunks for the carried
-state (the JAX bodies written over a chunk axis).
+state (the JAX bodies written over a chunk axis).  The kernels split the
+same way, in three CUDA launches a call (design ``chunk-parallel``): every
+chunk's own contribution and the head-shared scores C B^T, one pass over
+the chunks for the carried (adjoint) state, every chunk's outputs; their
+products run on the tensor cores in 3xTF32.  Each C entry returns its
+design's code, which the wrapper keeps as ``wrapper.design``.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._operands import check_fp32_operands, on_cpu
 
 SSD_CHUNK = 64  # the CUDA kernels' chunk Q: a (Q, Q) fp32 tile is 16 KB
+#: the design by the code the C entries return
+SSD_DESIGNS = {1: "chunk-parallel"}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -76,6 +83,13 @@ def _check_kernel(name, chunk, *tensors) -> torch.device:
     if chunk != SSD_CHUNK:
         raise ValueError(f"{name}: the CUDA kernel's chunk is {SSD_CHUNK}, got {chunk}")
     return dev
+
+
+def _design(rc: int, name: str) -> str:
+    """The design a C entry ran; raises on minus a cudaError."""
+    if rc < 0:
+        _build.check(-rc, name)
+    return SSD_DESIGNS[rc]
 
 
 def _chunked(xdt, b, c, lcum, chunk):
@@ -176,16 +190,16 @@ def ssd_scan(xdt, b, c, lcum, *, chunk=SSD_CHUNK, return_states=False):
     bsz, h, s, p = xdt.shape
     n, nc = b.shape[-1], _cdiv(s, chunk)
     y = torch.empty_like(xdt)
-    # with return_states the kernel carries its state through the
-    # checkpoints; without, through one (P, N) scratch tile per head
-    states = torch.empty((bsz, h, nc if return_states else 1, p, n), dtype=torch.float32,
-                         device=dev)
+    # the chunk-initial states are written with or without return_states,
+    # and the head-shared scores C B^T once per (batch, chunk)
+    states = torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=dev)
+    scores = torch.empty((bsz, nc, chunk, chunk), dtype=torch.float32, device=dev)
     if y.numel():
         rc = _build.load("ssd_scan").ssd_scan_fwd(
             xdt.data_ptr(), b.data_ptr(), c.data_ptr(), lcum.data_ptr(), y.data_ptr(),
-            states.data_ptr(), int(return_states), bsz, h, s, p, n,
+            states.data_ptr(), scores.data_ptr(), bsz, h, s, p, n,
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(rc, "ssd_scan")
+        ssd_scan.design = _design(rc, "ssd_scan")
         ssd_scan.launches += 1
     return (y, states) if return_states else y
 
@@ -205,16 +219,20 @@ def ssd_scan_bwd(xdt, b, c, lcum, states, dy, *, chunk=SSD_CHUNK):
     db = torch.empty((bsz, h, s, n), dtype=torch.float32, device=dev)
     dc = torch.empty_like(db)
     dl = torch.empty_like(lcum)
-    carry = torch.empty((bsz, h, p, n), dtype=torch.float32, device=dev)  # G, per head
+    gst = torch.empty_like(states)  # G, the adjoint of each chunk's final state
+    scores = torch.empty((bsz, states.shape[2], chunk, chunk), dtype=torch.float32, device=dev)
     if dx.numel():
         rc = _build.load("ssd_scan_bwd").ssd_scan_bwd(
             xdt.data_ptr(), b.data_ptr(), c.data_ptr(), lcum.data_ptr(), states.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), dl.data_ptr(),
-            carry.data_ptr(), bsz, h, s, p, n, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(rc, "ssd_scan_bwd")
+            gst.data_ptr(), scores.data_ptr(), bsz, h, s, p, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+        ssd_scan_bwd.design = _design(rc, "ssd_scan_bwd")
         ssd_scan_bwd.launches += 1
     return dx, db, dc, dl
 
 
-ssd_scan.launches = 0  # kernel launches since the last reset
+ssd_scan.launches = 0  # wrapper calls that launched the kernel, since the last reset
 ssd_scan_bwd.launches = 0
+ssd_scan.design = None  # the design of the last launch
+ssd_scan_bwd.design = None

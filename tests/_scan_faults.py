@@ -5,18 +5,24 @@ K9-K12 checks catch them.
 
 from the root of a checkout, on a machine with one CUDA card.  For each
 fault it copies ``src/`` and ``chip_smoke.py`` into a temporary
-directory, edits one line of a kernel source there (the checkout is
-never touched), builds the kernels of the copy and runs K9 and K10 at
-mamba2-780m's full width and the ragged SSD cell, K11 and K12 at
-recurrentgemma-2b's full width and the ragged RG-LRU cell, each against
-its plain version.  Each output is judged by ``chip_smoke.check_flash_close``
-at ``TOL_SCAN`` (1e-4 x (|want| + the RMS of want's row)); one JSON line
-per (fault, cell, output) gives the verdict and the worst error over its
-allowance (> 1 fails).  K10 is fed the plain version's states, so a fault
-in K9 stays in K9.
+directory, edits one or two lines of the kernel sources there (the
+checkout is never touched), builds the kernels of the copy and runs K9 and K10 at
+mamba2-780m's full width and the ragged SSD cell (s = 200, a short last
+chunk), K11 and K12 at recurrentgemma-2b's full width and the ragged
+RG-LRU cell, each against its plain version.  Each output is judged by
+``chip_smoke.check_flash_close`` at ``TOL_SCAN`` (1e-4 x (|want| + the RMS
+of want's row)); one JSON line per (fault, cell, output) gives the
+verdict and the worst error over its allowance (> 1 fails).  K10 is fed
+the plain version's states, so a fault in K9 stays in K9.
+
+Each fault must fail every output it touches — the structural ones by
+an err_over_allowance >= 10, the one TF32 pass by > 1 — in both SSD (or
+both RG-LRU) cells, and every other output must pass; else the script
+exits 1.
 """
 from __future__ import annotations
 
+import json
 import shutil
 import subprocess
 import sys
@@ -25,21 +31,46 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path("src/repro_torch/csrc")
+SSD_OUTPUTS = ("y", "states", "dx", "db", "dc", "dl")
+LRU_OUTPUTS = ("h", "da", "db")
 
-# name -> (source, the line as written, the line with the fault)
+# the three products of one k-step in ssd_common.cuh's gemm
+THREE_PASSES = """        mma0(part, as[i], bb[j]);
+        mma(part, ab[i], bs[j]);
+        mma(part, ab[i], bb[j]);
+"""
+# name -> (edits: (source, the lines as written, the lines with the fault),
+# the family and outputs it touches, the least err_over_allowance it must show)
 FAULTS = {
-    "K9 skips the inter-chunk term of the middle chunk": (
-        CSRC / "ssd_scan_fwd.cu",
-        "const float out = acc + expf(ls[i]) * yi[a];",
-        "const float out = acc + (ci == nc / 2 ? 0.f : expf(ls[i]) * yi[a]);"),
+    "K9's state pass drops F_c of the middle chunk": (
+        [(CSRC / "ssd_scan_fwd.cu",
+          "for (int k = 0; k < V; ++k) h.v[k] = fmaf(a[u], h.v[k], f[u].v[k]);",
+          "for (int k = 0; k < V; ++k) h.v[k] = fmaf(a[u], h.v[k], c == nc / 2 ? 0.f : f[u].v[k]);")],
+        "ssd", ("y", "states"), 10.0),
+    "K10's reverse pass leaves out E_c+1 for one chunk": (
+        [(CSRC / "ssd_scan_bwd.cu",
+          "for (int k = 0; k < V; ++k) g.v[k] = fmaf(a[u], g.v[k], f[u].v[k]);",
+          "for (int k = 0; k < V; ++k) g.v[k] = fmaf(a[u], g.v[k], c == nc / 2 ? 0.f : f[u].v[k]);")],
+        "ssd", ("dx", "db", "dl"), 10.0),
     "K10 drops term (c) of d log a": (
-        CSRC / "ssd_scan_bwd.cu",
-        "const float total = ta[tid] + suffix_u + prefix_r + expf(ltot) * d_all;",
-        "const float total = ta[tid] + suffix_u + expf(ltot) * d_all;"),
+        [(CSRC / "ssd_scan_bwd.cu",
+          "const float c1 = warp_prefix(r0 + r1) - r1, c0 = c1 - r0;",
+          "const float c1 = 0.f, c0 = 0.f;")],
+        "ssd", ("dl",), 10.0),
+    # the two correction terms dropped where K9 is compiled (K9_ONE_PASS
+    # is defined in ssd_scan_fwd.cu only, so K10 keeps 3xTF32)
+    "K9's products in one TF32 pass": (
+        [(CSRC / "ssd_common.cuh", THREE_PASSES,
+          "#ifdef K9_ONE_PASS\n        mma0(part, ab[i], bb[j]);\n#else\n" + THREE_PASSES
+          + "#endif\n"),
+         (CSRC / "ssd_scan_fwd.cu", '#include "ssd_common.cuh"',
+          '#define K9_ONE_PASS\n#include "ssd_common.cuh"')],
+        "ssd", ("y", "states"), 1.0),
     "K12 drops the carry out of one thread's first step": (
-        CSRC / "rglru_scan_bwd.cu",
-        "carry = __fmul_rn(av[u], g);",
-        "carry = (blockIdx.y == 0 && ch == 0 && t == s && u == 0) ? 0.f : __fmul_rn(av[u], g);"),
+        [(CSRC / "rglru_scan_bwd.cu",
+          "carry = __fmul_rn(av[u], g);",
+          "carry = (blockIdx.y == 0 && ch == 0 && t == s && u == 0) ? 0.f : __fmul_rn(av[u], g);")],
+        "rglru", ("da", "db"), 10.0),
 }
 
 CHECK = r'''
@@ -49,11 +80,11 @@ import chip_smoke as s
 fault = sys.argv[1]
 
 
-def judge(case, name, got, want):
+def judge(family, case, name, got, want):
     torch.cuda.synchronize()
     g, w = got.float(), want.float()
     diff, allow = (g - w).abs(), s.flash_atol(w, s.TOL_SCAN) + s.TOL_SCAN * w.abs()
-    rec = dict(fault=fault, case=case, output=name,
+    rec = dict(fault=fault, family=family, case=case, output=name,
                err_over_allowance=float(torch.where(diff > 0, diff / allow, 0.0).max()),
                finite=bool(torch.isfinite(g).all()))
     try:
@@ -70,39 +101,67 @@ for c in (s.SSD_SHAPES[0], s.SSD_SHAPES[2]):
     lcum = s.ssd_lcum(log_a, s.SSD_CHUNK)
     y, st = s.ssd_scan(xdt, bm, cm, lcum, return_states=True)
     y_p, st_p = s.ssd_scan_plain(xdt, bm, cm, lcum, return_states=True)
-    judge(c.label, "y", y, y_p)
-    judge(c.label, "states", st, st_p)
+    judge("ssd", c.label, "y", y, y_p)
+    judge("ssd", c.label, "states", st, st_p)
     bwd = (xdt, bm, cm, lcum, st_p, dy)
     got, want = s.ssd_scan_bwd(*bwd), s.ssd_scan_bwd_plain(*bwd)
     for name, g, w in zip(("dx", "db", "dc"), got, want):
-        judge(c.label, name, g, w)
-    judge(c.label, "dl", got[3][..., 0], want[3][..., 0])
+        judge("ssd", c.label, name, g, w)
+    judge("ssd", c.label, "dl", got[3][..., 0], want[3][..., 0])
     del got, want, st, st_p
 for c in (s.LRU_SHAPES[0], s.LRU_SHAPES[2]):
     gen = torch.Generator(device="cuda").manual_seed(0)
     a, x, dh = s._lru_inputs(gen, c)
     h_p = s.rglru_scan_plain(a, x)
-    judge(c.label, "h", s.rglru_scan(a, x), h_p)
+    judge("rglru", c.label, "h", s.rglru_scan(a, x), h_p)
     h_prev = torch.nn.functional.pad(h_p[:, :-1], (0, 0, 1, 0))
     (da, db), (da_p, db_p) = s.rglru_scan_bwd(a, h_prev, dh), s.rglru_scan_bwd_plain(a, h_prev, dh)
-    judge(c.label, "da", da, da_p)
-    judge(c.label, "db", db, db_p)
+    judge("rglru", c.label, "da", da, da_p)
+    judge("rglru", c.label, "db", db, db_p)
 '''
 
 
+def expected(records, family, touched, least) -> list[str]:
+    """What departs from the fault's expectation: a touched output that
+    passes or fails by less than ``least``, an untouched one that fails."""
+    wrong = []
+    for rec in records:
+        hit = rec["family"] == family and rec["output"] in touched
+        ratio = rec["err_over_allowance"] if rec["finite"] else float("inf")
+        if hit and not (rec["verdict"] == "fails" and ratio >= least and ratio > 1):
+            wrong.append(f"{rec['case']} {rec['output']}: {rec['verdict']} at {ratio:.3g}, "
+                         f"expected to fail by >= {least}")
+        if not hit and rec["verdict"] != "passes":
+            wrong.append(f"{rec['case']} {rec['output']}: fails at {ratio:.3g}, untouched")
+    return wrong
+
+
 def main() -> int:
-    for fault, (source, line, broken) in FAULTS.items():
+    missed = {}
+    for fault, (edits, family, touched, least) in FAULTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             copy = Path(tmp)
             shutil.copytree(ROOT / "src", copy / "src",
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", copy)
-            text = (copy / source).read_text()
-            if text.count(line) != 1:
-                sys.exit(f"{source}: expected the line {line!r} once")
-            (copy / source).write_text(text.replace(line, broken))
-            subprocess.run([sys.executable, "-c", CHECK, fault], cwd=copy, check=True)
-    return 0
+            for source, line, broken in edits:
+                text = (copy / source).read_text()
+                if text.count(line) != 1:
+                    sys.exit(f"{source}: expected the line {line!r} once")
+                (copy / source).write_text(text.replace(line, broken))
+            out = subprocess.run([sys.executable, "-c", CHECK, fault], cwd=copy, check=True,
+                                 capture_output=True, text=True).stdout
+        records = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        for rec in records:
+            print(json.dumps(rec), flush=True)
+        outputs = {"ssd": SSD_OUTPUTS, "rglru": LRU_OUTPUTS}
+        if len(records) != 2 * (len(SSD_OUTPUTS) + len(LRU_OUTPUTS)) or any(
+                r["output"] not in outputs[r["family"]] for r in records):
+            sys.exit(f"{fault}: unexpected records")
+        missed[fault] = expected(records, family, touched, least)
+        print(json.dumps(dict(fault=fault, as_expected=not missed[fault],
+                              departures=missed[fault])), flush=True)
+    return 1 if any(missed.values()) else 0
 
 
 if __name__ == "__main__":

@@ -887,10 +887,33 @@ def _lru_inputs(gen, b, s, d):
     return a, _rand(gen, b, s, d, dtype=torch.float32), _rand(gen, b, s, d, dtype=torch.float32)
 
 
+def _ssd_fp64(xdt, bm, cm, lcum, dy, chunk=64):
+    """The recurrence in fp64, one step at a time, on the per-step
+    log-decays that ``lcum`` encodes (its differences inside each chunk),
+    and its gradients by autograd: y, the chunk-initial states, dxdt, dB
+    and dC per head (each head reads its own copy of B and C), d log a."""
+    bsz, h, s, p = xdt.shape
+    lc = lcum[..., 0].double()
+    la = torch.cat([lc[..., :1], lc[..., 1:] - lc[..., :-1]], dim=-1)
+    la[..., ::chunk] = lc[..., ::chunk]
+    x, la = xdt.double().requires_grad_(), la.requires_grad_()
+    b_h, c_h = (m.double()[:, None].expand(bsz, h, s, m.shape[-1]).clone().requires_grad_()
+                for m in (bm, cm))
+    state, ys, states = x.new_zeros(bsz, h, p, bm.shape[-1]), [], []
+    for t in range(s):
+        if t % chunk == 0:
+            states.append(state)
+        state = torch.exp(la[:, :, t])[..., None, None] * state \
+            + x[:, :, t, :, None] * b_h[:, :, t, None, :]
+        ys.append((state * c_h[:, :, t, None, :]).sum(-1))
+    y = torch.stack(ys, dim=2)
+    grads = torch.autograd.grad((y * dy.double()).sum(), (x, b_h, c_h, la))
+    return (y.detach(), torch.stack(states, dim=2).detach(), *grads)
+
+
 # the ragged cell (no chunk in 32..256 divides s = 200; P 32, N 16 under
-# one tile), a 256 KB fp32 state, and a last chunk of one step
-@pytest.mark.parametrize("shape", [(1, 3, 200, 32, 16), (1, 2, 256, 64, 1024),
-                                   (2, 2, 65, 20, 40)], ids=str)
+# one tile) and a last chunk of one step
+@pytest.mark.parametrize("shape", [(1, 3, 200, 32, 16), (2, 2, 65, 20, 40)], ids=str)
 def test_ssd_kernels_match_plain(cuda_device, shape):
     """K9 (y and its checkpoints) and K10 (fed K9's states) against their
     plain versions: 1e-4 of the element and of its row's RMS (fp32 sums in
@@ -904,7 +927,7 @@ def test_ssd_kernels_match_plain(cuda_device, shape):
     torch.cuda.synchronize()
     _flash_close(y, y_p, 1e-4)
     _flash_close(states, states_p, 1e-4)
-    _flash_close(ssd_scan(xdt, bm, cm, lcum), y_p, 1e-4)  # through the scratch state
+    _flash_close(ssd_scan(xdt, bm, cm, lcum), y_p, 1e-4)  # without return_states
     got = ssd_scan_bwd(xdt, bm, cm, lcum, states, dy)
     want = ssd_scan_bwd_plain(xdt, bm, cm, lcum, states, dy)
     torch.cuda.synchronize()
@@ -914,6 +937,113 @@ def test_ssd_kernels_match_plain(cuda_device, shape):
     after = kernels.launch_counts()
     assert after["ssd_scan"] == before["ssd_scan"] + 2
     assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+
+
+# test_ssd_kernels_match_plain's shapes and a 256 KB fp32 state
+@pytest.mark.parametrize("shape", [(1, 3, 200, 32, 16), (1, 2, 256, 64, 1024),
+                                   (2, 2, 65, 20, 40)], ids=str)
+def test_ssd_kernels_match_fp64_recurrence(cuda_device, shape):
+    """K9 (y and its checkpoints) and K10 (fed K9's states) against the
+    recurrence evaluated in fp64, at the same 1e-4.  At the 256 KB
+    state's first step, y_0 = (C_0 . B_0) xdt_0 with C_0 . B_0 cancelling
+    to 1e-3 of its 1024 terms, and any fp32 sum of it moves y_0 by several
+    allowances (the plain version 4.6, on an H100): there two correct
+    fp32 sums disagree, and only the exact value decides."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    xdt, bm, cm, log_a, dy = _ssd_inputs(gen, *shape)
+    lcum = ssd_lcum(log_a, 64)
+    y, states = ssd_scan(xdt, bm, cm, lcum, return_states=True)
+    want = _ssd_fp64(xdt, bm, cm, lcum, dy)
+    torch.cuda.synchronize()
+    _flash_close(y, want[0], 1e-4)
+    _flash_close(states, want[1], 1e-4)
+    got = ssd_scan_bwd(xdt, bm, cm, lcum, states, dy)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[2:5]):
+        _flash_close(g, w, 1e-4)
+    _flash_close(got[3][..., 0], want[5], 1e-4)
+
+
+def _ssd_against_plain(xdt, bm, cm, lcum, dy):
+    """K9 (y, its checkpoints) and K10 (fed them) against their plain
+    versions at chip_smoke's TOL_SCAN, 1e-4 x (|want| + row RMS), each
+    on the chunk-parallel design; returns the kernels' outputs."""
+    y, states = ssd_scan(xdt, bm, cm, lcum, return_states=True)
+    y_p, states_p = ssd_scan_plain(xdt, bm, cm, lcum, return_states=True)
+    got = ssd_scan_bwd(xdt, bm, cm, lcum, states, dy)
+    want = ssd_scan_bwd_plain(xdt, bm, cm, lcum, states, dy)
+    torch.cuda.synchronize()
+    assert ssd_scan.design == ssd_scan_bwd.design == "chunk-parallel"
+    _flash_close(y, y_p, 1e-4)
+    _flash_close(states, states_p, 1e-4)
+    for g, w in zip(got[:3], want[:3]):
+        _flash_close(g, w, 1e-4)
+    _flash_close(got[3][..., 0], want[3][..., 0], 1e-4)
+    return (y, states, *got)
+
+
+# the chunk-parallel design's edges: one chunk (s 40); a short last chunk
+# (s 200); P 32 with N 48, not a multiple of the 32- or 64-column N tiles;
+# b x h = 1; P 100, over two P tiles (K10 sums T over them and finishes
+# dB, dC in place); P 7 and N 5, not multiples of 4 (4-byte copies)
+@pytest.mark.parametrize("shape", [(1, 2, 40, 32, 48), (1, 3, 200, 32, 16),
+                                   (2, 2, 130, 32, 48), (1, 1, 130, 32, 48),
+                                   (1, 2, 130, 100, 24), (1, 2, 70, 7, 5)], ids=str)
+def test_ssd_chunk_parallel_edges_match_plain(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    xdt, bm, cm, log_a, dy = _ssd_inputs(gen, *shape)
+    _ssd_against_plain(xdt, bm, cm, ssd_lcum(log_a, 64), dy)
+
+
+def test_ssd_kernels_repeat_to_the_bit_over_nan_filled_memory(cuda_device):
+    """A second call on the same inputs returns the first call's bits,
+    also after the caching allocator's free blocks (both pools) were
+    filled with NaN: no kernel reads its scratch (states, adjoint states,
+    scores) before writing it, and no sum depends on timing."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    xdt, bm, cm, log_a, dy = _ssd_inputs(gen, 1, 3, 200, 32, 48)
+    lcum = ssd_lcum(log_a, 64)
+    first = _ssd_against_plain(xdt, bm, cm, lcum, dy)
+    junk = [torch.full((n,), float("nan"), device=cuda_device)
+            for n in [1 << 12] * 256 + [1 << 16] * 64 + [1 << 24] * 4]
+    del junk
+    second = _ssd_against_plain(xdt, bm, cm, lcum, dy)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("where", ["xdt", "dy", "b", "c", "log_a"])
+def test_ssd_kernels_carry_nan_where_the_plain_versions_do(cuda_device, where):
+    """A NaN in one input of batch 0 — the card's own default NaN
+    (0x7fffffff, what torch.log of a negative number gives here) and
+    0xffffffff — makes every output the plain versions make non-finite
+    non-finite in the kernels too, and no other: the TF32 split must pass
+    NaN through.  Batch 1 stays finite and matches the plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    xdt, bm, cm, log_a, dy = _ssd_inputs(gen, 2, 2, 130, 32, 48)
+    made = torch.log(-torch.ones(1, device=cuda_device))
+    assert made.view(torch.int32).item() == 0x7FFFFFFF
+    nans = torch.cat([made, torch.tensor([-1], dtype=torch.int32,
+                                         device=cuda_device).view(torch.float32)])
+    flat = dict(xdt=xdt, dy=dy, b=bm, c=cm, log_a=log_a)[where][0].view(-1)
+    flat[[flat.numel() // 3, flat.numel() // 2]] = nans
+    lcum = ssd_lcum(log_a, 64)
+    y, states = ssd_scan(xdt, bm, cm, lcum, return_states=True)
+    y_p, states_p = ssd_scan_plain(xdt, bm, cm, lcum, return_states=True)
+    got = ssd_scan_bwd(xdt, bm, cm, lcum, states, dy)
+    want = ssd_scan_bwd_plain(xdt, bm, cm, lcum, states_p, dy)
+    torch.cuda.synchronize()
+    outputs = {"y": (y, y_p), "states": (states, states_p), "dxdt": (got[0], want[0]),
+               "dB": (got[1], want[1]), "dC": (got[2], want[2]),
+               "dlog_a": (got[3][..., 0], want[3][..., 0])}  # its row is the sequence
+    non_finite = {name: (not bool(torch.isfinite(g[0]).all()),
+                         not bool(torch.isfinite(w[0]).all()))
+                  for name, (g, w) in outputs.items()}
+    assert all(k == p for k, p in non_finite.values()), non_finite
+    reached = {"xdt": ("y", "dB"), "dy": ("dxdt", "dB", "dC")}.get(where, ("y", "dxdt"))
+    assert all(non_finite[name][1] for name in reached), non_finite
+    for g, w in outputs.values():
+        _flash_close(g[1], w[1], 1e-4)
 
 
 @pytest.mark.parametrize("shape", [(3, 77, 192), (1, 5, 7), (2, 512, 512)], ids=str)
