@@ -52,9 +52,12 @@ each fatal on failure (nothing is caught):
    a profiler trace), and its bound taken at the card's rate for
    fp32-accurate products (TF32 / 3), the kernels and the plain versions
    each also held to the scan in fp64 at the same tolerance; and K11 and K12
-   (the RG-LRU recurrence and its adjoint) at three — recurrentgemma-2b's
-   at full width, the benchmark's row and a ragged one — each against its
-   plain version and timed as in phase 2;
+   (the RG-LRU recurrence and its adjoint) at four — recurrentgemma-2b's
+   at full width, the same width at the train_4k sequence length with slow
+   decays, the benchmark's row and a ragged one — each record naming the
+   design that ran, which must be ``chunked-lookback`` (one CUDA launch a
+   call, counted in profiler traces), each against its plain version and
+   both held to the recurrence in fp64, and timed as in phase 2;
    then ``torch.autograd.grad`` through ``op("ssd")`` and ``op("rglru")``
    at the full-width shapes, every launch count at 0 before each (one
    forward must launch K9 / K11 once, one backward K10 / K12 once),
@@ -1068,6 +1071,7 @@ class LruShape(NamedTuple):
     b: int
     s: int
     d: int
+    slow_decay: bool  # log a uniform in [-0.1, -1e-4]: carries that outlive many chunks
     runs: int
 
 
@@ -1079,9 +1083,11 @@ SSD_SHAPES = (
     SsdShape("wide state", 1, 2, 256, 64, 1024, False, 25),  # a 256 KB fp32 state
 )
 LRU_SHAPES = (
-    LruShape("recurrentgemma-2b", 2, 2048, 2560, 10),  # d_rnn 2560
-    LruShape("bench_kernels rglru row", 1, 512, 512, 25),
-    LruShape("ragged", 3, 77, 192, 25),
+    LruShape("recurrentgemma-2b", 2, 2048, 2560, False, 10),  # d_rnn 2560
+    # the repo's train_4k sequence length (src/repro/configs/shapes.py)
+    LruShape("recurrentgemma-2b train_4k, slow decays", 2, 4096, 2560, True, 10),
+    LruShape("bench_kernels rglru row", 1, 512, 512, False, 25),
+    LruShape("ragged", 3, 77, 192, False, 25),  # two chunks of the kernels' 64, the last of 13
 )
 SCAN_KERNELS = ("ssd_scan", "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")
 
@@ -1101,13 +1107,20 @@ def _ssd_inputs(gen, c: SsdShape):
 
 
 def _lru_inputs(gen, c: LruShape):
-    """a = 0.8 + 0.2 sigmoid(N(0, 1)), b ~ N(0, 1), dh ~ N(0, 1); fp32."""
+    """a = 0.8 + 0.2 sigmoid(N(0, 1)) (the JAX tests' draw) or exp of a
+    uniform in [-0.1, -1e-4], b ~ N(0, 1), dh ~ N(0, 1); fp32."""
     def rand():
         return torch.randn(c.b, c.s, c.d, device="cuda", generator=gen)
-    return 0.8 + 0.2 * torch.sigmoid(rand()), rand(), rand()
+    if c.slow_decay:
+        a = torch.exp(-1e-4 - (0.1 - 1e-4) * torch.rand(c.b, c.s, c.d, device="cuda",
+                                                         generator=gen))
+    else:
+        a = 0.8 + 0.2 * torch.sigmoid(rand())
+    return a, rand(), rand()
 
 
 SSD_DESIGN = "chunk-parallel"  # the design every SSD_SHAPES row must run
+LRU_DESIGN = "chunked-lookback"  # the design every LRU_SHAPES row must run
 # fp32-accurate products on the tensor cores: 3xTF32, three TF32 passes
 PEAK_FP32_ACCURATE = PEAK_TF32 / 3
 
@@ -1199,19 +1212,30 @@ def ssd_fp64(xdt, bm, cm, lcum, dy):
     return (y.detach(), st.detach(), *grads)
 
 
-def cuda_launches(fn, prefix: str) -> int | None:
+def cuda_launches(fn, prefix: str, traces: int = 3, lead: int = 32) -> int | None:
     """The CUDA kernels whose names hold ``prefix`` that one call of ``fn``
-    launches, read from a ``torch.profiler`` trace (None if the profiler
-    traces no device events here).  The names carry their namespace."""
+    launches, read from ``torch.profiler`` traces of one call each, the
+    most that any of ``traces`` traces shows (a trace never shows extra
+    ones).  A trace here can lose the first kernels after it starts —
+    the first two, late in a long run — so ``lead`` small kernels of
+    another name open each trace.  None if no trace shows any device
+    event.  The names carry their namespace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    pad = torch.zeros(1, device="cuda")
+    counts = []
+    for _ in range(traces):
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(prefix in e.name for e in evs) if evs else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                pad.add_(1)
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            counts.append(sum(prefix in e.name for e in evs))
+    return max(counts) if counts else None
 
 
 def check_ssd(gen, c: SsdShape) -> dict[str, dict]:
@@ -1271,30 +1295,72 @@ def check_ssd(gen, c: SsdShape) -> dict[str, dict]:
     }
 
 
+def lru_fp64(a, x, h_prev, dh):
+    """The RG-LRU recurrence and its adjoint in fp64, one step at a time,
+    on the fp32 inputs the kernels get: h from (a, x), and (da, db) from
+    (a, h_prev, dh).  The witness for both sides of a K11/K12 check."""
+    a, x, h_prev, dh = (t.double() for t in (a, x, h_prev, dh))
+    h, da, db = torch.empty_like(a), torch.empty_like(a), torch.empty_like(a)
+    state = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        state = a[:, t] * state + x[:, t]
+        h[:, t] = state
+    carry = torch.zeros_like(a[:, 0])
+    for t in reversed(range(a.shape[1])):
+        g = dh[:, t] + carry
+        da[:, t], db[:, t] = g * h_prev[:, t], g
+        carry = a[:, t] * g
+    return h, da, db
+
+
 def check_lru(gen, c: LruShape) -> dict[str, dict]:
     """K11 and K12 against their plain versions (K12 fed the h_prev of
-    K11's output), each timed beside its bound; no library time."""
+    K11's output), each timed beside its bound, each record naming its
+    design, which must be LRU_DESIGN, and the CUDA launches one call
+    issues (from profiler traces).  Both the kernels and the plain
+    versions are also held to the recurrence in fp64 (:func:`lru_fp64`) at
+    TOL_SCAN, so that a failure says which side missed the exact value.
+    No single PyTorch call computes a linear scan: no library time."""
     a, x, dh = _lru_inputs(gen, c)
     before = kernels.launch_counts()
-    h = rglru_scan(a, x)
-    errs = {"rglru_scan": check_flash_close(f"rglru_scan {c.label}", h, rglru_scan_plain(a, x),
-                                            TOL_SCAN)}
+    h, h_p = rglru_scan(a, x), rglru_scan_plain(a, x)
     h_prev = torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
     (da, db), (da_p, db_p) = rglru_scan_bwd(a, h_prev, dh), rglru_scan_bwd_plain(a, h_prev, dh)
-    errs["rglru_scan_bwd"] = _worst(
-        check_flash_close(f"rglru_scan_bwd da {c.label}", da, da_p, TOL_SCAN),
-        check_flash_close(f"rglru_scan_bwd db {c.label}", db, db_p, TOL_SCAN))
     after = kernels.launch_counts()
+    exact = lru_fp64(a, x, h_prev, dh)
+    outputs = {"rglru_scan": {"h": (h, h_p, exact[0])},
+               "rglru_scan_bwd": {"da": (da, da_p, exact[1]), "db": (db, db_p, exact[2])}}
+    errs, fp64 = {}, {}
+    for kernel, outs in outputs.items():
+        plain_vs_fp64 = [check_flash_close(f"{kernel} {o} {c.label}: plain version vs fp64",
+                                           w, e, TOL_SCAN)[1] for o, (_, w, e) in outs.items()]
+        kernel_vs_fp64 = [check_flash_close(f"{kernel} {o} {c.label}: kernel vs fp64",
+                                            g, e, TOL_SCAN)[1] for o, (g, _, e) in outs.items()]
+        errs[kernel] = _worst(*(check_flash_close(f"{kernel} {o} {c.label}", g, w, TOL_SCAN)
+                                for o, (g, w, _) in outs.items()))
+        fp64[kernel] = dict(err_over_allowance_fp64=max(kernel_vs_fp64),
+                            plain_err_over_allowance_fp64=max(plain_vs_fp64))
+    del h_p, da, db, da_p, db_p, exact, outputs
     assert all(after[n] == before[n] + 1 for n in SCAN_KERNELS[2:]), (before, after)
+    designs = {n: kernels.KERNELS[n].design for n in SCAN_KERNELS[2:]}
+    if designs != dict.fromkeys(SCAN_KERNELS[2:], LRU_DESIGN):
+        raise AssertionError(f"rglru {c.label}: designs {designs}, expected {LRU_DESIGN}")
     bounds, shape = lru_bounds(c), [c.b, c.s, c.d]
+    fwd, bwd = (lambda: rglru_scan(a, x)), (lambda: rglru_scan_bwd(a, h_prev, dh))
+    launches = {"rglru_scan": cuda_launches(fwd, "rglru_"),
+                "rglru_scan_bwd": cuda_launches(bwd, "rglru_")}
+
+    def extra(name):
+        return dict(design=designs[name], cuda_launches=launches[name],
+                    slow_decay=c.slow_decay, **fp64[name])
     return {
         "rglru_scan": _scan_record(
-            "rglru_scan", c.label, shape, errs["rglru_scan"], lambda: rglru_scan(a, x),
-            lambda: rglru_scan_plain(a, x), bounds, c.runs, TOL_SCAN),
+            "rglru_scan", c.label, shape, errs["rglru_scan"], fwd,
+            lambda: rglru_scan_plain(a, x), bounds, c.runs, TOL_SCAN, extra("rglru_scan")),
         "rglru_scan_bwd": _scan_record(
-            "rglru_scan_bwd", c.label, shape, errs["rglru_scan_bwd"],
-            lambda: rglru_scan_bwd(a, h_prev, dh), lambda: rglru_scan_bwd_plain(a, h_prev, dh),
-            bounds, c.runs, TOL_SCAN),
+            "rglru_scan_bwd", c.label, shape, errs["rglru_scan_bwd"], bwd,
+            lambda: rglru_scan_bwd_plain(a, h_prev, dh), bounds, c.runs, TOL_SCAN,
+            extra("rglru_scan_bwd")),
     }
 
 

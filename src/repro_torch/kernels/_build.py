@@ -115,11 +115,13 @@ KERNELS = {
     ]),
     "rglru_scan": ("rglru_scan_fwd.cu", "rglru_scan_fwd", [
         _P, _P, _P,                # a, b, h
+        _P, _P, _P,                # look-back flags, chunk values, ticket counter
         _I, _I, _I,                # batch, seq, d
         _P,                        # stream
     ]),
     "rglru_scan_bwd": ("rglru_scan_bwd.cu", "rglru_scan_bwd", [
         _P, _P, _P, _P, _P,        # a, h_prev, dh, da, db
+        _P, _P, _P,                # look-back flags, chunk values, ticket counter
         _I, _I, _I,                # batch, seq, d
         _P,                        # stream
     ]),
@@ -131,9 +133,9 @@ _MM_OPERANDS = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _I, _I, _I]
 # design the kernel's C entry runs for those arguments, 0 the CUDA-core one
 # (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K1, K4, K5:
 # their operands -> 1 wgmma (K4: wgmma-cluster), 2 wgmma-swapab,
-# 3 wgmma-swapab-3xbf16).  K2, K3, K9 and K10 have none: their C entries
+# 3 wgmma-swapab-3xbf16).  K2, K3 and K9-K12 have none: their C entries
 # return the code of the design they ran (K2, K3: 0 cuda-core, 1 split-kv /
-# wgmma; K9, K10: 1 chunk-parallel).
+# wgmma; K9, K10: 1 chunk-parallel; K11, K12: 1 chunked-lookback).
 DESIGN_RULES = {
     "flash_attention": ("flash_attention_fwd_design", [_I, _I]),
     "flash_attention_bwd_dq": ("flash_attention_bwd_dq_design", [_I, _I]),

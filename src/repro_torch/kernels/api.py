@@ -675,8 +675,8 @@ register(KernelOp(
     name="rglru",
     problem=lambda a, b: a.shape,
     # Always available: the JAX schedule is not where its sequence block
-    # must be the whole (prime) sequence and overflows VMEM; one CUDA
-    # thread per channel walks any length.
+    # must be the whole (prime) sequence and overflows VMEM; the CUDA
+    # kernels cut any length into 64-step chunks, the last one short.
     schedules=(Schedule("pallas", _rglru_pallas, _model_cost("rglru"), vjp=True),),
 ))
 

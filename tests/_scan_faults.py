@@ -9,11 +9,13 @@ directory, edits one or two lines of the kernel sources there (the
 checkout is never touched), builds the kernels of the copy and runs K9 and K10 at
 mamba2-780m's full width and the ragged SSD cell (s = 200, a short last
 chunk), K11 and K12 at recurrentgemma-2b's full width and the ragged
-RG-LRU cell, each against its plain version.  Each output is judged by
+RG-LRU cell (s = 77: two of the kernels' 64-step chunks, the last of 13),
+each against its plain version.  Each output is judged by
 ``chip_smoke.check_flash_close`` at ``TOL_SCAN`` (1e-4 x (|want| + the RMS
 of want's row)); one JSON line per (fault, cell, output) gives the
 verdict and the worst error over its allowance (> 1 fails).  K10 is fed
-the plain version's states, so a fault in K9 stays in K9.
+the plain version's states and K12 the plain version's h, so a fault in
+K9 or K11 stays there.
 
 Each fault must fail every output it touches — the structural ones by
 an err_over_allowance >= 10, the one TF32 pass by > 1 — in both SSD (or
@@ -66,10 +68,24 @@ FAULTS = {
          (CSRC / "ssd_scan_fwd.cu", '#include "ssd_common.cuh"',
           '#define K9_ONE_PASS\n#include "ssd_common.cuh"')],
         "ssd", ("y", "states"), 1.0),
-    "K12 drops the carry out of one thread's first step": (
+    "K12 drops the carry out of one channel's last step": (
         [(CSRC / "rglru_scan_bwd.cu",
-          "carry = __fmul_rn(av[u], g);",
-          "carry = (blockIdx.y == 0 && ch == 0 && t == s && u == 0) ? 0.f : __fmul_rn(av[u], g);")],
+          "carry = __fmul_rn(sa[r * W], g);",
+          "carry = t.batch == 0 && t.ch0 + threadIdx.x == 0 && t0 + r == s - 1 ? 0.f"
+          " : __fmul_rn(sa[r * W], g);")],
+        "rglru", ("da", "db"), 10.0),
+    # the middle chunk of batch 0's first channel block walks from 0
+    "K11 drops one tile's carry-in": (
+        [(CSRC / "rglru_scan_fwd.cu",
+          "float state = carry;",
+          "float state = t.col == 0 && t.pos == (int)(gridDim.x / cols) / 2 ? 0.f : carry;")],
+        "rglru", ("h",), 10.0),
+    # g_t = dh_t + a_t g_{t+1}: each step's carry decayed by the a of the
+    # step walked next
+    "K12 composes its carry with a_t in place of a_{t+1}": (
+        [(CSRC / "rglru_scan_bwd.cu",
+          "carry = __fmul_rn(sa[r * W], g);",
+          "carry = __fmul_rn(sa[(r > 0 ? r - 1 : r) * W], g);")],
         "rglru", ("da", "db"), 10.0),
 }
 
@@ -109,7 +125,7 @@ for c in (s.SSD_SHAPES[0], s.SSD_SHAPES[2]):
         judge("ssd", c.label, name, g, w)
     judge("ssd", c.label, "dl", got[3][..., 0], want[3][..., 0])
     del got, want, st, st_p
-for c in (s.LRU_SHAPES[0], s.LRU_SHAPES[2]):
+for c in (s.LRU_SHAPES[0], next(c for c in s.LRU_SHAPES if c.label == "ragged")):
     gen = torch.Generator(device="cuda").manual_seed(0)
     a, x, dh = s._lru_inputs(gen, c)
     h_p = s.rglru_scan_plain(a, x)

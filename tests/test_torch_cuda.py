@@ -882,9 +882,31 @@ def _ssd_inputs(gen, b, h, s, p, n):
     return xdt, bm, cm, log_a, _rand(gen, b, h, s, p, dtype=torch.float32)
 
 
-def _lru_inputs(gen, b, s, d):
-    a = 0.8 + 0.2 * torch.sigmoid(_rand(gen, b, s, d, dtype=torch.float32))
+def _lru_inputs(gen, b, s, d, slow_decay=False):
+    """a = 0.8 + 0.2 sigmoid(N(0, 1)), or with ``slow_decay`` exp of a
+    uniform in [-0.1, -1e-4] (chip_smoke's draws); b, dh ~ N(0, 1)."""
+    if slow_decay:
+        a = torch.exp(-1e-4 - (0.1 - 1e-4) * torch.rand(b, s, d, device=gen.device,
+                                                         generator=gen))
+    else:
+        a = 0.8 + 0.2 * torch.sigmoid(_rand(gen, b, s, d, dtype=torch.float32))
     return a, _rand(gen, b, s, d, dtype=torch.float32), _rand(gen, b, s, d, dtype=torch.float32)
+
+
+def _lru_fp64(a, x, h_prev, dh):
+    """The RG-LRU recurrence and its adjoint in fp64, one step at a time:
+    h from (a, x), and (da, db) from (a, h_prev, dh)."""
+    a, x, h_prev, dh = (t.double() for t in (a, x, h_prev, dh))
+    h, da, db = torch.empty_like(a), torch.empty_like(a), torch.empty_like(a)
+    state, carry = torch.zeros_like(a[:, 0]), torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        state = a[:, t] * state + x[:, t]
+        h[:, t] = state
+    for t in reversed(range(a.shape[1])):
+        g = dh[:, t] + carry
+        da[:, t], db[:, t] = g * h_prev[:, t], g
+        carry = a[:, t] * g
+    return h, da, db
 
 
 def _ssd_fp64(xdt, bm, cm, lcum, dy, chunk=64):
@@ -1046,16 +1068,79 @@ def test_ssd_kernels_carry_nan_where_the_plain_versions_do(cuda_device, where):
         _flash_close(g[1], w[1], 1e-4)
 
 
-@pytest.mark.parametrize("shape", [(3, 77, 192), (1, 5, 7), (2, 512, 512)], ids=str)
-def test_rglru_kernels_match_plain_to_the_bit(cuda_device, shape):
-    """K11 and K12 do the plain versions' fp32 operations in their order."""
-    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
-    a, x, dh = _lru_inputs(gen, *shape)
+def _shifted_h(h):
+    return torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
+
+
+# (b, s, d, slow decays) against the kernels' 64-step chunks and 64-channel
+# tiles: two chunks, the last of 13 (chip_smoke's ragged cell); d = 7 in
+# one chunk; the benchmark's width; s < 64; s = 1; s = 3 x 64 + 5; d = 7
+# over three chunks (4-byte copies); slow decays (log a in [-0.1, -1e-4])
+# whose carry outlives many chunks
+LRU_CASES = [(3, 77, 192, False), (1, 5, 7, False), (2, 512, 512, False), (2, 40, 128, False),
+             (2, 1, 64, False), (2, 197, 256, False), (2, 150, 7, False), (1, 2048, 256, True)]
+
+
+@pytest.mark.parametrize("case", LRU_CASES, ids=str)
+def test_rglru_kernels_match_plain_and_fp64_recurrence(cuda_device, case):
+    """K11 and K12 (fed K11's h shifted one step) against their plain
+    versions and against the recurrence in fp64, at chip_smoke's TOL_SCAN,
+    1e-4 x (|want| + row RMS).  The chunked-lookback design composes the
+    carry into a chunk from the chunks' aggregates where the chunk before
+    has not published its own, so it agrees with the sequential walk to
+    fp32 rounding, not to the bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(case))
+    a, x, dh = _lru_inputs(gen, *case)
     h = rglru_scan(a, x)
-    torch.testing.assert_close(h, rglru_scan_plain(a, x), rtol=0, atol=0)
-    h_prev = torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0))
-    for g, w in zip(rglru_scan_bwd(a, h_prev, dh), rglru_scan_bwd_plain(a, h_prev, dh)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    h_prev = _shifted_h(h)
+    da, db = rglru_scan_bwd(a, h_prev, dh)
+    torch.cuda.synchronize()
+    assert rglru_scan.design == rglru_scan_bwd.design == "chunked-lookback"
+    plain = (rglru_scan_plain(a, x), *rglru_scan_bwd_plain(a, h_prev, dh))
+    for got, want, exact in zip((h, da, db), plain, _lru_fp64(a, x, h_prev, dh)):
+        _flash_close(got, want, 1e-4)
+        _flash_close(got, exact, 1e-4)
+
+
+@pytest.mark.parametrize("where", ["b", "a", "dh"])
+def test_rglru_kernels_carry_nan_where_the_plain_versions_do(cuda_device, where):
+    """A NaN in b, a NaN in a or an inf in dh, at one element of batch 0
+    in the second of four chunks, makes non-finite exactly the outputs,
+    element by element, that the plain versions make non-finite: a
+    non-finite aggregate or prefix must reach every later chunk (earlier,
+    for K12) of its channel and no other.  K12 is fed the plain version's
+    h_prev, so that its inputs are the plain version's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    a, x, dh = _lru_inputs(gen, 2, 200, 96)
+    dict(b=x, a=a, dh=dh)[where][0, 100, 5] = float("inf") if where == "dh" else float("nan")
+    h, h_p = rglru_scan(a, x), rglru_scan_plain(a, x)
+    h_prev = _shifted_h(h_p)
+    got = (h, *rglru_scan_bwd(a, h_prev, dh))
+    want = (h_p, *rglru_scan_bwd_plain(a, h_prev, dh))
+    torch.cuda.synchronize()
+    reached = {"b": (True, True, False), "a": (True, True, True), "dh": (False, True, True)}
+    for g, w, hit in zip(got, want, reached[where]):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        assert bool((~torch.isfinite(w[0])).any()) == hit
+        _flash_close(g[1], w[1], 1e-4)
+
+
+def test_rglru_scratch_serves_calls_of_any_shape_in_turn(cuda_device):
+    """The look-back flags and the ticket counter are kept between calls
+    and tagged with each call's epoch: calls of several shapes in turn,
+    repeated, each agree with the plain versions (a flag left by an
+    earlier call must never read as published)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    cases = [_lru_inputs(gen, *shape) for shape in ((2, 512, 512), (3, 77, 192), (1, 300, 40))]
+    for _ in range(3):
+        for a, x, dh in cases:
+            h = rglru_scan(a, x)
+            h_prev = _shifted_h(h)
+            got = (h, *rglru_scan_bwd(a, h_prev, dh))
+            want = (rglru_scan_plain(a, x), *rglru_scan_bwd_plain(a, h_prev, dh))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                _flash_close(g, w, 1e-4)
 
 
 def test_scan_autograd_launches_each_kernel_once(cuda_device):
