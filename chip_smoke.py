@@ -26,7 +26,12 @@ each fatal on failure (nothing is caught):
    first chunk), each record naming its design — ``split-kv`` (K2) and
    ``wgmma`` (K3) for bf16 and int8 pools, ``cuda-core`` for fp32 ones,
    else the check fails — its split count, and its time after a flush
-   that leaves L2 clean beside the usual one;
+   that leaves L2 clean beside the usual one; and the speculative
+   slice's operating points: K1 at qwen1.5-1.8b's projections at its
+   decode (4 rows) and verify (20 rows) shapes and its untied fp32 logits
+   (``PAIR_MATMUL_ROWS``: the bf16 (d, vocab) head read row-major), K2
+   at head dim 128, K3 at head dim 128 on int8 pools at s = 5, s = 1 and
+   the 28-token suffix of a prefix hit, and on bf16 pools at s = 5 and 28;
 2b. gradients: K6, K7 and K8 (flash attention forward, dQ, dK/dV) each
    against its plain version at six shapes — qwen1.5-0.5b and gemma2-9b's
    local layers at full width, the kernel benchmark's flash row, two
@@ -67,17 +72,34 @@ each fatal on failure (nothing is caught):
    the plain versions: paged decode under the default policy, and dense
    decode under each of ``tiled``, ``mcast`` and ``unicast``, each decode
    step also timed, counted and profiled (device ops and their summed
-   ms), and the host cost of one schedule resolution;
+   ms), and the host cost of one schedule resolution; then qwen1.5-1.8b
+   at full width (untied head, head dim 128) on int8 pools: a cold
+   prefill quantised into pages, a plain decode step and a verify step
+   at s = 5 for a batch of 4, through the kernels and through the plain
+   versions (``TOL_MODEL``), each step timed, counted and profiled;
 4. serve 8 requests (32-token shared prefix, 40-60-token prompts, 32 new
    tokens each) through ``PagedEngine`` under the default policy, and
    through the dense ``Server`` under the default policy, ``mcast`` and
-   ``unicast``.  Each run starts with every launch count at 0 and fails
-   unless every request drained and every kernel of its path — and no
-   other matmul kernel — was launched.
+   ``unicast``; then qwen1.5-1.8b at full width over the same requests
+   on int8 pools — plain, speculative (k = 4) with its registered draft
+   qwen1.5-0.5b (``draft_for``), speculative with the n-gram draft — and
+   on bf16 pools, plain and speculative with the draft (so that K2 serves
+   the 1.8b).  Each run starts with every launch count at 0 and fails
+   unless every request drained, the paged engine's ``check()`` passed
+   and every kernel of its path — and no other — was launched (the
+   matmul kernels as dispatch picks them at the path's shapes).  The
+   speculative records carry the accept rate, rounds and rollback
+   pages, how many streams equal the plain run's on the same pools, and
+   for each that differs the plain run's top-two logit margin at the
+   first differing token, which must be within ``TOL_MODEL`` of that
+   row's largest |logit| (a near-tie: verify at s = 5 and decode at
+   s = 1 split K3 differently); each plain run's ``near_tie_share``
+   record says what share of its tokens falls under that bound.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
-line, the kernel summary (launches: phase 4's serving runs for K1–K5,
+line, the kernel summary (launches: phase 4's serving runs of both
+models for K1–K5,
 phase 2b's autograd paths for K6–K8, phase 2c's for K9–K12) and, last,
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run outside a checkout of the repository, it
@@ -158,7 +180,8 @@ from repro_torch.kernels.ssd import (  # noqa: E402
 )
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.serve import PagedEngine, Request, ServeConfig  # noqa: E402
+from repro_torch.configs.registry import draft_for  # noqa: E402
+from repro_torch.serve import GreedySampler, PagedEngine, Request, ServeConfig  # noqa: E402
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # HBM3 bandwidth.  They assume the 700 W limit; the card line says the
@@ -223,6 +246,18 @@ SCHEDULE_SHAPES = ((4, 1024, 1024, False), (4, 1024, 2816, False), (4, 2816, 102
                    (48, 1024, 2816, False), (4, 1024, 151936, True), (256, 1024, 2816, False),
                    (2049, 1024, 2816, False))
 MATMULS = ("matmul_tiled", "matmul_mcast", "matmul_unicast")
+# K1 rows of the speculative slice, (label, m, k, n, check_matmul keywords):
+# qwen1.5-1.8b's projections (q/k/v/o with bias, gate with silu, down) at
+# its decode (4 rows) and verify (4 x (k + 1) = 20 rows) shapes, and its
+# untied fp32 logits against the bf16 (d, vocab) head read row-major
+PAIR_MATMUL_ROWS = tuple(
+    (f"1.8b-{step}-{proj}", m, k, n, kw)
+    for step, m in (("decode", 4), ("verify", 20))
+    for proj, k, n, kw in (("qkvo", 2048, 2048, {}),
+                           ("gate", 2048, 5504, dict(bias=False, activation="silu")),
+                           ("down", 5504, 2048, dict(bias=False)),
+                           ("logits", 2048, 151936, dict(logits="untied")))
+)
 # K2 and K3 rows of phase 2, (label, check_decode / check_prefill keywords);
 # the first of each is the kernels line's.  qwen1.5-0.5b's attention (h 16,
 # kv heads 16, d 64, page 16) at the serving shapes, GQA, fp32 pools (the
@@ -234,6 +269,8 @@ DECODE_ROWS = (
     ("gqa", dict(kvh=4)),
     ("fp32", dict(dtype=torch.float32)),
     ("long", dict(b=8, n=256, lengths=(4096, 3584, 2048, 1024, 4096, 777, 3000, 1), runs=10)),
+    # qwen1.5-1.8b's attention (16 heads of 128, page 16), contexts 40-300
+    ("d128", dict(d=128, n=19, lengths=(40, 300, 129, 77))),
 )
 PREFILL_ROWS = (
     ("serving", {}),
@@ -242,6 +279,16 @@ PREFILL_ROWS = (
     ("fp32", dict(dtype=torch.float32)),
     ("long", dict(s=512, n=128, lengths=(2048,), runs=10)),
     ("first-chunk", dict(lengths=(16,))),
+    # qwen1.5-1.8b on int8 pools: a verify burst (s = k + 1 = 5) and a
+    # decode token (int8 decode runs K3) per sequence, contexts 40-300
+    ("int8-d128-verify", dict(b=4, s=5, d=128, n=19, lengths=(40, 300, 129, 77), quant=True)),
+    ("int8-d128-decode", dict(b=4, s=1, d=128, n=19, lengths=(40, 300, 129, 77), quant=True)),
+    # its prefix-hit suffix prefill (the longest serving suffix: 28 tokens
+    # after the 32-token shared prefix) on int8 and bf16 pools, and the
+    # bf16 pools' verify burst
+    ("int8-d128-suffix", dict(s=28, d=128, lengths=(60,), quant=True)),
+    ("d128-suffix", dict(s=28, d=128, lengths=(60,))),
+    ("d128-verify", dict(b=4, s=5, d=128, n=19, lengths=(40, 300, 129, 77))),
 )
 
 
@@ -401,9 +448,17 @@ def check_flash_close(name: str, got, want, tol: float, rounding=None) -> tuple[
 # ---------------------------------------------------------------------------
 
 
-def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False):
+def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False, label=""):
+    """K1 against its plain version at one shape.  ``logits``: True for the
+    tied head (fp32 activations x the bf16 (vocab, d) table read
+    transposed), ``"untied"`` for an untied head (the bf16 (d, vocab)
+    ``unembed.w`` read row-major, qwen1.5-1.8b's)."""
     dev = "cuda"
-    if logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
+    if logits == "untied":
+        a = torch.randn(m, k, device=dev, generator=gen) * 4
+        b = (torch.randn(k, n, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        bb = None
+    elif logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
         a = torch.randn(m, k, device=dev, generator=gen) * 4
         table = (torch.randn(n, k, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
         b = table.t()
@@ -432,8 +487,9 @@ def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False):
         library = "torch.matmul (no epilogue)"
         lib_ms = time_ms(lambda: torch.matmul(a, b))[0]
     k_ms, k_host = time_ms(lambda: matmul_tiled(a, b, bb, activation=activation))
-    rec = dict(check="kernel", name="matmul_tiled", shape=[m, k, n],
+    rec = dict(check="kernel", name="matmul_tiled", row=label, shape=[m, k, n],
                a_dtype=str(a.dtype), b_dtype=str(b.dtype), out_dtype=str(got.dtype),
+               b_layout="k-major (table.t())" if logits is True else "n-major",
                bias=bb is not None, activation=activation, design=design, kernel_ms=k_ms,
                host_ms=k_host,
                plain_ms=time_ms(lambda: matmul_tiled_plain(a, b, bb, activation=activation))[0],
@@ -1619,6 +1675,66 @@ def check_model(cfg, params):
                         (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p)))
 
 
+def spec_model_run(cfg, params, prompt, verify_tokens, *, kv_dtype="int8", time_step=False):
+    """The speculative path's target steps: one bucketed cold prefill
+    scattered (quantised, on int8 pools) into pages, then for a batch of 4
+    against those pages one plain decode step (``verify_tokens[:, :1]``)
+    and one verify step (all ``k + 1`` tokens, ``s = 5``: K3 on int8
+    pools); returns the three logits (and, with ``time_step``, both
+    steps' stats)."""
+    pools = lm.init_paged_cache(cfg, 33, 16, kv_dtype, device="cuda")
+    n = len(prompt)  # 45 tokens: the 48-token bucket
+    pre, dense = lm.prefill(params, cfg, _bucketed(prompt), logit_index=n - 1)
+    lm.prefill_to_pages(dense, pools, torch.tensor([1, 2, 3], device="cuda",
+                                                   dtype=torch.int32), n)
+    # four sequences share the first two prompt pages; each gets its own
+    # copy of the third (positions 32-47) and a fresh fourth (48-63),
+    # which the verify burst (positions 45-49) reaches
+    table = torch.zeros((4, 16), dtype=torch.int32, device="cuda")
+    table[:, :2] = torch.tensor([1, 2], dtype=torch.int32)
+    table[:, 2] = torch.arange(5, 9, dtype=torch.int32)
+    table[:, 3] = torch.arange(9, 13, dtype=torch.int32)
+    for c in pools:
+        for t in c:  # K, V and, on int8 pools, their scales
+            t[:, 5:9] = t[:, 3:4]
+    index = torch.full((4,), n, dtype=torch.long, device="cuda")
+    s = verify_tokens.shape[1]
+
+    def decode():
+        return lm.decode_step(params, cfg, pools, verify_tokens[:, :1], index,
+                              block_table=table, lengths=index.int() + 1)[0]
+
+    def verify():
+        return lm.decode_step(params, cfg, pools, verify_tokens, index, block_table=table,
+                              lengths=index.int() + s)[0]
+
+    dec = decode()  # each step rewrites the same rows: repeating it is idempotent
+    ver = verify()
+    if time_step:
+        return pre, dec, ver, step_stats(decode), step_stats(verify)
+    return pre, dec, ver
+
+
+def check_spec_model(cfg, params) -> None:
+    """qwen1.5-1.8b at full width on int8 pools: the cold prefill, a plain
+    decode step and a verify step at ``s = 5``, through the kernels and
+    through the plain versions, each step timed, counted and profiled."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
+    toks = torch.randint(0, cfg.vocab, (4, 5), device="cuda", generator=gen)
+    pre_k, dec_k, ver_k, dec_stats, ver_stats = spec_model_run(cfg, params, prompt, toks,
+                                                               time_step=True)
+    for step, stats, s in (("decode", dec_stats, 1), ("verify", ver_stats, 5)):
+        emit(dict(check="decode_step_time", arch=cfg.name, kv="paged-int8", step=step,
+                  policy="default", batch=4, tokens_per_row=s, context=len(prompt) + s,
+                  **stats))
+    with plain_versions():
+        pre_p, dec_p, ver_p = spec_model_run(cfg, params, prompt, toks)
+    _compare_logits(dict(arch=cfg.name, kv="paged-int8", policy="default"),
+                    (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p),
+                     ("verify_step", ver_k, ver_p)))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving
 # ---------------------------------------------------------------------------
@@ -1631,10 +1747,13 @@ def serving_requests(cfg):
         0, cfg.vocab, size=int(rng.integers(8, 29)))], max_new=32) for i in range(8)]
 
 
-def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=None) -> dict:
+def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=None,
+               compare=None) -> dict:
     """Drive one main path: every launch count set to 0 just before,
     read just after.  Fails unless every request drained with its tokens
-    and every kernel of ``path_kernels`` — and no other — was launched."""
+    and every kernel of ``path_kernels`` — and no other — was launched.
+    ``compare``: (label, streams, margins) of a plain run to hold the
+    streams to (:func:`compare_streams`)."""
     first: dict[int, float] = {}
     admit = server._admit
 
@@ -1662,7 +1781,11 @@ def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=No
         server.check()
         stats = server.stats()
         rec.update(prefix_hit_tokens=stats["prefix_hit_tokens"],
-                   kernel_calls=stats["kernel_calls"])
+                   kernel_calls=stats["kernel_calls"], accept_rate=stats["accept_rate"],
+                   spec_rounds=stats["spec_rounds"],
+                   spec_rollback_pages=stats["spec_rollback_pages"])
+    if compare is not None:
+        rec.update(compare_streams(done, *compare))
     emit(rec)
     if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
         raise AssertionError(f"serving {name}: not every request drained with max_new tokens")
@@ -1673,7 +1796,134 @@ def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=No
     stray = [k for k, v in launches.items() if v and k not in path_kernels]
     if stray:
         raise AssertionError(f"serving {name}: kernels off this path were launched: {stray}")
+    if compare is not None and rec["differing"] and rec["worst_margin_over_tol"] > 1:
+        raise AssertionError(f"serving {name}: a stream differs from {compare[0]} where the "
+                             f"plain run's top-two margin exceeds {TOL_MODEL} x max |logit|: "
+                             f"{rec['differing']}")
     return launches
+
+
+class MarginSampler(GreedySampler):
+    """Greedy, and for each token it chooses the top-two logit margin and
+    the largest |logit| of that row, keyed by (rid, token index): the
+    engine's slots name the rows of a decode step, and the request being
+    admitted the one row of an admission."""
+
+    def __init__(self):
+        self.engine = None
+        self.admitting = None
+        self.margins: dict[tuple[int, int], tuple[float, float]] = {}
+
+    def attach(self, engine):
+        self.engine = engine
+        admit = engine._admit_impl
+
+        def admit_impl(req):
+            self.admitting = req
+            try:
+                return admit(req)
+            finally:
+                self.admitting = None
+
+        engine._admit_impl = admit_impl
+        return engine
+
+    def select(self, logits):
+        out = super().select(logits)
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        scale = logits[:, -1].float().abs().amax(dim=-1).tolist()
+        if self.admitting is not None:
+            rows = {0: self.admitting}
+        else:
+            rows = {slot: st.req for slot, st in self.engine.slots.items()}
+        for row, req in rows.items():
+            self.margins[(req.rid, len(req.out))] = (margin[row], scale[row])
+        return out
+
+
+def compare_streams(done, label, streams, margins) -> dict:
+    """How many streams equal the plain run's, and for each that differs
+    the plain run's top-two margin at the first differing token, over
+    ``TOL_MODEL`` x that row's largest |logit| (<= 1: a near-tie)."""
+    differing = []
+    for r in done:
+        want = streams[r.rid]
+        if r.out == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r.out, want)) if a != b)
+        margin, scale = margins[(r.rid, j)]
+        differing.append(dict(rid=r.rid, first_diff=j, margin=margin,
+                              tol=TOL_MODEL * scale, over_tol=margin / (TOL_MODEL * scale)))
+    return dict(compared_to=label, identical_streams=len(done) - len(differing),
+                differing=differing,
+                worst_margin_over_tol=max((d["over_tol"] for d in differing), default=0.0))
+
+
+def near_tie_share(name: str, margins) -> dict:
+    """The share of a plain run's tokens whose top-two margin is within
+    ``TOL_MODEL`` x the row's largest |logit|: the tokens where
+    :func:`compare_streams` would accept a difference."""
+    under = sum(m <= TOL_MODEL * s for m, s in margins.values())
+    return dict(check="near_tie_share", path=name, tokens=len(margins), near_ties=under,
+                share=under / len(margins), tol_model=TOL_MODEL)
+
+
+def matmul_path_kernels(cfg, rows) -> set[str]:
+    """The matmul wrappers dispatch picks for ``cfg``'s projections and
+    logits at each row count of ``rows`` (under the policy in force)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.attn.n_heads * cfg.attn.head_dim
+    wrapper = {"tiled": "matmul_tiled", "mcast": "matmul_mcast", "unicast": "matmul_unicast"}
+    picks = set()
+    for m in rows:
+        for k, n, dt in ((d, hd, torch.bfloat16), (hd, d, torch.bfloat16),
+                         (d, f, torch.bfloat16), (f, d, torch.bfloat16),
+                         (d, cfg.vocab, torch.float32)):
+            picks.add(wrapper[kernels.resolve("matmul", (m, k, n), dt).schedule])
+    return picks
+
+
+def check_spec_serving(cfg, params, draft_model: str, dcfg, dparams) -> list[dict[str, int]]:
+    """qwen1.5-1.8b at full width served over ``serving_requests``: on int8
+    pools (a) plain decode, (b) speculative with its registered draft
+    (``draft_for``, the qwen1.5-0.5b params of phase 3, same seed as the
+    launcher's; ``draft_model`` names it), (c) speculative with the
+    n-gram draft; on bf16 pools the
+    plain run and (d) speculative with the draft, so that K2 serves the
+    1.8b.  The speculative runs' streams are held to the plain run of
+    their pools: equal, or differing first where the plain run's top-two
+    margin is within ``TOL_MODEL`` of the row's largest |logit|."""
+    k = 4
+    # decode, verify, a prefill bucket; the draft's own rows are decode's
+    mm_target = matmul_path_kernels(cfg, (4, 4 * (k + 1), 64))
+    mm_draft = matmul_path_kernels(dcfg, (4, 64))
+    runs, plain = [], {}
+    for kv_dtype, draft_model, label in (
+            ("int8", None, "paged-int8"),
+            ("int8", draft_model, "paged-int8-spec-model"),
+            ("int8", "ngram", "paged-int8-spec-ngram"),
+            ("bf16", None, "paged-bf16"),
+            ("bf16", draft_model, "paged-bf16-spec-model")):
+        spec = dict(spec_k=k, draft_model=draft_model) if draft_model else {}
+        sampler = MarginSampler() if draft_model is None else None
+        draft = (dcfg, dparams) if draft_model not in (None, "ngram") else None
+        eng = PagedEngine(cfg, params, config=ServeConfig(kv_dtype=kv_dtype, **spec),
+                          sampler=sampler, draft=draft, device="cuda")
+        if sampler is not None:
+            sampler.attach(eng)
+        # int8 pools run every attention call on K3; bf16 decode runs K2
+        path = mm_target | {"paged_attention_prefill"}
+        if kv_dtype == "bf16":
+            path |= {"paged_attention_decode"}
+        if draft is not None:
+            path |= mm_draft
+        reqs = serving_requests(cfg)
+        runs.append(serve_path(f"{cfg.name} {label}", eng, reqs, tuple(sorted(path)),
+                               compare=None if sampler is not None else plain[kv_dtype]))
+        if sampler is not None:
+            plain[kv_dtype] = (label, {r.rid: list(r.out) for r in reqs}, sampler.margins)
+            emit(near_tie_share(f"{cfg.name} {label}", sampler.margins))
+    return runs
 
 
 def check_serving(cfg, params) -> dict[str, int]:
@@ -1719,6 +1969,8 @@ def main() -> None:
           check_matmul(gen, 48, 1024, 2816, bias=False, activation="silu"),  # prefill gate
           check_matmul(gen, 4, 1024, 151936, logits=True)]       # tied logits, fp32
     summary["matmul_tiled"] = mm[0]
+    for label, m, k, n, kw in PAIR_MATMUL_ROWS:
+        check_matmul(gen, m, k, n, label=label, **kw)
     for m, k, n, logits in SCHEDULE_SHAPES:
         flat = check_schedules(gen, m, k, n, logits=logits)
         for kname, rec in flat.items():
@@ -1733,7 +1985,14 @@ def main() -> None:
     cfg = get_config("qwen1.5-0.5b")
     params = lm.init(cfg, seed=0, device="cuda")
     check_model(cfg, params)
+    # the speculative slice: qwen1.5-1.8b (untied head, head dim 128) at
+    # full width, its draft the qwen1.5-0.5b above (the launcher's seed)
+    cfg18 = get_config("qwen1.5-1.8b")
+    params18 = lm.init(cfg18, seed=0, device="cuda")
+    check_spec_model(cfg18, params18)
     serve_launches = check_serving(cfg, params)
+    for run in check_spec_serving(cfg18, params18, draft_for("qwen1.5-1.8b"), cfg, params):
+        serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
                 for k in kernels.KERNELS}
 

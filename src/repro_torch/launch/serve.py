@@ -12,7 +12,11 @@ in the JAX launcher:
 * ``--kv dense`` (the default): :class:`Server`, one ring-buffer cache
   slot per batch lane, bucketed prefill written in place into the slot;
 * ``--kv paged``: :class:`PagedEngine`, the page pool with prefix
-  sharing (its statistics go to stderr).
+  sharing (its statistics go to stderr), with bf16 or int8 pools
+  (``--kv-dtype``) and speculative decoding (``--spec-k K --draft-model
+  ngram|<arch>|auto``; ``auto`` resolves the target's registered draft,
+  whose parameters are initialised from the run's seed on the same
+  device).
 
 ``--kernel-policy`` forces the matmul schedule as in the JAX launcher:
 ``tiled`` (K1), ``mcast`` (K4), ``unicast`` (K5); the default is the
@@ -27,6 +31,8 @@ Not ported yet: the async ``--server`` loop and the options
         --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --reduced --device cpu --shared-prefix 24 --kv paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-1.8b \\
+        --kv paged --kv-dtype int8 --spec-k 4 --draft-model auto
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.registry import draft_for
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm
 from repro_torch.serve import (
@@ -168,11 +175,19 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: list[str] | None = None, *, params=None) -> list[Request]:
+def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> list[Request]:
     """Run the launcher; ``params`` (on the chosen device) replaces the
-    seeded random init, e.g. weights converted by ``repro_torch.weights``."""
+    seeded random init, e.g. weights converted by ``repro_torch.weights``,
+    and ``draft_params`` likewise the model draft's."""
     ap = parser()
     args = ap.parse_args(argv)
+    if args.draft_model == "auto":
+        # resolve the registry pairing before ServeConfig validation,
+        # which never sees "auto"
+        paired = draft_for(args.arch)
+        if paired is None:
+            ap.error(f"--draft-model auto: registry pairs no draft for --arch {args.arch}")
+        args.draft_model = paired
     if args.spec_k and args.kv != "paged":
         ap.error("--spec-k requires --kv paged (speculative verify-accept "
                  "runs on the paged engine's COW page machinery)")
@@ -189,8 +204,16 @@ def main(argv: list[str] | None = None, *, params=None) -> list[Request]:
               else contextlib.nullcontext())
     with policy:
         if args.kv == "paged":
+            draft = None
+            if serve_cfg.spec_k and serve_cfg.draft_model != "ngram":
+                # the model draft: a second parameter set from the run's
+                # seed, so the whole configuration replays from the flags
+                dcfg = get_config(serve_cfg.draft_model, reduced=args.reduced)
+                if draft_params is None:
+                    draft_params = lm.init(dcfg, seed=serve_cfg.seed, device=device)
+                draft = (dcfg, draft_params)
             server = PagedEngine(cfg, params, config=serve_cfg, sampler=sampler,
-                                 device=device)
+                                 draft=draft, device=device)
         else:
             server = Server(cfg, params, max_batch=serve_cfg.max_slots, sampler=sampler,
                             device=device)

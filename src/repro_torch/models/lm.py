@@ -11,10 +11,13 @@ Python loop over the per-layer dicts.  Entry points:
   are returned, for bucket-padded prompts),
 * :func:`prefill_to_pages` — scatter a batch-1 prefill cache into the
   page pools (in place),
-* :func:`init_cache` / :func:`mask_cache_after` — dense ring-buffer
-  caches for the dense ``Server``,
+* :func:`init_cache` / :func:`mask_cache_after` /
+  :func:`mask_cache_rows_after` — dense ring-buffer caches for the dense
+  ``Server`` and the speculative draft model,
+* :func:`init_paged_cache` — the page pools, bf16 or int8
+  (``kv_dtype``; ``"f32"`` gives bf16 pools, as in the JAX package),
 * :func:`decode_step` — one (or a few) tokens against dense caches or
-  the page pools.
+  the page pools, bf16 or int8 (dispatch on the cache type).
 
 Only the configuration features of the dense family the serving stacks
 run are ported; any other raises ``NotImplementedError`` naming
@@ -31,6 +34,7 @@ from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.nn import attention as attn_mod
+from repro_torch.nn import kvquant
 from repro_torch.nn.attention import KvCache, PagedKvCache
 from repro_torch.nn.module import (
     embed,
@@ -113,22 +117,28 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device = DEFAUL
     return init_params(model_spec(cfg), seed=seed, device=resolve(device))
 
 
+KV_DTYPES = ("bf16", "f32", "int8")
+_DENSE_CACHES = (KvCache, kvquant.QuantKvCache)
+_PAGED_CACHES = (PagedKvCache, kvquant.QuantPagedKvCache)
+
+
 def _check_kv_dtype(kv_dtype: str) -> None:
-    if kv_dtype == "int8":
-        raise NotImplementedError("kv_dtype='int8': quantised KV is not ported "
-                                  "(ROADMAP Queue 1 item 1)")
-    if kv_dtype != "bf16":
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the port's caches are bf16")
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r} (have {KV_DTYPES})")
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, kv_dtype: str = "bf16", *,
                device: str | torch.device = DEFAULT):
-    """Dense decode caches, one :class:`KvCache` ring of ``cache_len``
-    slots per layer (the JAX package stacks them by layer; here axis 0 of
-    each tensor is the batch)."""
+    """Dense decode caches, one ring of ``cache_len`` slots per layer (the
+    JAX package stacks them by layer; here axis 0 of each tensor is the
+    batch): :class:`KvCache` in bf16, or :class:`QuantKvCache` for
+    ``kv_dtype="int8"`` (``"f32"`` gives bf16, as in the JAX package)."""
     check_supported(cfg)
     _check_kv_dtype(kv_dtype)
     dev = resolve(device)
+    if kv_dtype == "int8":
+        return [kvquant.init_quant_cache(batch, cache_len, cfg.attn, device=dev)
+                for _ in range(cfg.n_layers)]
     return [attn_mod.init_cache(batch, cache_len, cfg.attn, device=dev)
             for _ in range(cfg.n_layers)]
 
@@ -139,16 +149,33 @@ def mask_cache_after(caches, length):
     tail's K/V rows stay in the ring but can never be attended to.
     Returns new cache tuples; page pools pass through."""
     return [c._replace(pos=torch.where(c.pos >= length, -1, c.pos))
-            if isinstance(c, KvCache) else c for c in caches]
+            if isinstance(c, _DENSE_CACHES) else c for c in caches]
+
+
+def mask_cache_rows_after(caches, lengths: torch.Tensor):
+    """Per-row :func:`mask_cache_after`, in place: ``lengths`` is (batch,)
+    and row ``b``'s positions at or past ``lengths[b]`` are marked empty.
+    The speculative draft needs it after every verify round: it wrote K/V
+    for all k proposals, but only the accepted prefix is history."""
+    for c in caches:
+        if isinstance(c, _DENSE_CACHES):
+            bound = lengths.to(device=c.pos.device, dtype=c.pos.dtype)[:, None]
+            c.pos.masked_fill_(c.pos >= bound, -1)
+    return caches
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      kv_dtype: str = "bf16", *, device: str | torch.device = DEFAULT):
     """One page pool per layer, all indexed by the same host-managed
-    block tables."""
+    block tables: bf16 :class:`PagedKvCache`, or
+    :class:`QuantPagedKvCache` for ``kv_dtype="int8"`` (the JAX package
+    special-cases int8 only, so ``"f32"`` gives bf16 pools)."""
     check_supported(cfg)
     _check_kv_dtype(kv_dtype)
     dev = resolve(device)
+    if kv_dtype == "int8":
+        return [kvquant.init_quant_paged_cache(num_pages, page_size, cfg.attn, device=dev)
+                for _ in range(cfg.n_layers)]
     return [attn_mod.init_paged_cache(num_pages, page_size, cfg.attn, device=dev)
             for _ in range(cfg.n_layers)]
 
@@ -161,6 +188,11 @@ def _embed_inputs(params, cfg: ModelConfig, tokens):
 
 
 def _logits(params, cfg: ModelConfig, x):
+    """fp32 logits.  The untied head's ``w`` (d, vocab) stays bf16: the JAX
+    package widens it to fp32 first, and K1 widens each element in
+    registers instead — the same products, exact either way, without an
+    fp32 copy of the head.  Dispatch keys on the fp32 activations, as
+    the JAX package's does."""
     if cfg.tie_embeddings:
         out = unembed(params["embed"], x)
     else:
@@ -217,7 +249,8 @@ def prefill_to_pages(dense_caches, paged_caches, block_table: torch.Tensor, leng
 
     ``block_table``: (pages,) page ids covering ``[0, pages * page_size)``;
     rows past ``length`` (bucket padding) go to the null page 0, so the
-    page bytes equal what the dense cache holds for the real tokens."""
+    page bytes equal what the dense cache holds for the real tokens.
+    int8 pools take the rows quantised (:func:`kvquant.quantize_kv`)."""
     for dense_c, paged_c in zip(dense_caches, paged_caches):
         ps = paged_c.k_pages.shape[2]
         s_pad = dense_c.k.shape[1]
@@ -227,16 +260,27 @@ def prefill_to_pages(dense_caches, paged_caches, block_table: torch.Tensor, leng
         ids = torch.where(valid, block_table.long()[pidx], torch.zeros_like(pos))
         rows = torch.where(valid, pos % ps, torch.zeros_like(pos))
         # (1, s_pad, kv, hd) -> (kv, s_pad, hd)
-        paged_c.k_pages[:, ids, rows] = dense_c.k[0].transpose(0, 1).to(paged_c.k_pages.dtype)
-        paged_c.v_pages[:, ids, rows] = dense_c.v[0].transpose(0, 1).to(paged_c.v_pages.dtype)
+        k = dense_c.k[0].transpose(0, 1)
+        v = dense_c.v[0].transpose(0, 1)
+        if isinstance(paged_c, kvquant.QuantPagedKvCache):
+            kq, ks = kvquant.quantize_kv(k)
+            vq, vs = kvquant.quantize_kv(v)
+            paged_c.k_pages[:, ids, rows] = kq
+            paged_c.v_pages[:, ids, rows] = vq
+            paged_c.k_scale[:, ids, rows] = ks
+            paged_c.v_scale[:, ids, rows] = vs
+        else:
+            paged_c.k_pages[:, ids, rows] = k.to(paged_c.k_pages.dtype)
+            paged_c.v_pages[:, ids, rows] = v.to(paged_c.v_pages.dtype)
     return paged_caches
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *,
                 block_table: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None):
-    """One decode step (or a few: suffix prefills pass s_new > 1) against
-    dense caches or the page pools, which are updated in place.
+    """One decode step (or a few: suffix prefills and verify steps pass
+    s_new > 1) against dense caches or the page pools, bf16 or int8
+    (dispatch on the cache type), which are updated in place.
 
     tokens: (batch, s_new); index: absolute position of the first new
     token (scalar or (batch,)).  Page pools also take ``block_table``
@@ -245,12 +289,17 @@ def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *
     x = _embed_inputs(params, cfg, tokens)
     for p, cache in zip(params["layers"], caches):
         h = rmsnorm(p["norm1"], x)
-        if isinstance(cache, PagedKvCache):
-            m, _ = attn_mod.paged_decode_attention(
-                p["attn"], h, cache, cfg.attn, index=index, block_table=block_table,
-                lengths=lengths)
+        if isinstance(cache, _PAGED_CACHES):
+            paged_fn = (kvquant.quant_paged_decode_attention
+                        if isinstance(cache, kvquant.QuantPagedKvCache)
+                        else attn_mod.paged_decode_attention)
+            m, _ = paged_fn(p["attn"], h, cache, cfg.attn, index=index,
+                            block_table=block_table, lengths=lengths)
         else:
-            m, _ = attn_mod.decode_attention(p["attn"], h, cache, cfg.attn, index=index)
+            decode_fn = (kvquant.quant_decode_attention
+                         if isinstance(cache, kvquant.QuantKvCache)
+                         else attn_mod.decode_attention)
+            m, _ = decode_fn(p["attn"], h, cache, cfg.attn, index=index)
         x = _mlp_half(p, cfg, x + m)
     x = rmsnorm(params["final_norm"], x)
     return _logits(params, cfg, x), caches

@@ -20,22 +20,30 @@ Owns the device side of paged serving and executes the
   youngest request by swapping its pages to host memory (bit-identical
   restore on re-admission);
 * **copy-on-write**: a fork shares every page of its parent; the first
-  divergent write to a shared page gets a private copy.
+  divergent write to a shared page gets a private copy;
+* **int8 page pools** (``kv_dtype="int8"``): K/V quantised on the way in
+  with a bf16 scale per row and head, dequantised by K3 on the gather
+  (``"f32"`` gives bf16 pools, as in the JAX package);
+* **speculative decoding** (``spec_k > 0``): a draft proposer
+  (:mod:`repro_torch.serve.spec`) runs ahead, one verify step at
+  ``s = k + 1`` scores every proposal, each slot commits its longest
+  accepted prefix, and the pages only the rejected tail reached go back
+  to the pool.
 
 The page pools are updated **in place** — the JAX engine returns new
 pools from each jitted step and donates the old buffers so XLA may
-reuse them; here the tensors are simply written.
+reuse them; here the tensors are simply written.  A rejected draft's
+K/V stays in its page past the committed length, where ``lengths``
+masks it, until a later write replaces it.
 
-Not ported yet (each raises ``NotImplementedError`` naming it): int8 or
-fp32 page pools, speculative decoding (``spec_k``), sharded pools
-(``num_shards > 1``, a mesh), page fingerprints (``kv_guard``), the
-reference-kernel retry (``kernel_fallback``) and fault plans (``chaos``
-or an armed :class:`~repro_torch.serve.faults.FaultPlan`).
+Not ported yet (each raises ``NotImplementedError`` naming it): sharded
+pools (``num_shards > 1``, a mesh), page fingerprints (``kv_guard``),
+the reference-kernel retry (``kernel_fallback``) and fault plans
+(``chaos`` or an armed :class:`~repro_torch.serve.faults.FaultPlan`).
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from collections import Counter
 
 import numpy as np
@@ -44,11 +52,11 @@ import torch
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm
 from repro_torch.obs import trace
-from repro_torch.serve import faults, sampling
+from repro_torch.serve import faults, sampling, spec
 from repro_torch.serve.config import ServeConfig, config_from_legacy
 from repro_torch.serve.pagepool import PagePool
 from repro_torch.serve.prefix import PrefixCache
-from repro_torch.serve.scheduler import Rejected, Scheduler
+from repro_torch.serve.scheduler import Rejected, Scheduler, pad_to_bucket
 
 # a degraded slot (page fault with nothing left to reclaim) re-enters the
 # queue this many times before the request is failed with a typed error
@@ -68,18 +76,6 @@ class Request:
     _requeues: int = dataclasses.field(default=0, repr=False)
 
 
-def bucket_len(n: int, bucket: int = 16) -> int:
-    """Round a prompt/suffix length up to its shared bucket."""
-    return max(bucket, math.ceil(n / bucket) * bucket)
-
-
-def pad_to_bucket(tokens, bucket: int = 16) -> np.ndarray:
-    """Right-pad a token list to its length bucket: (1, bucket_len) int32."""
-    out = np.zeros((1, bucket_len(len(tokens), bucket)), np.int32)
-    out[0, : len(tokens)] = tokens
-    return out
-
-
 @dataclasses.dataclass
 class _Slot:
     req: Request
@@ -91,8 +87,6 @@ class _Slot:
 
 def _unsupported(config: ServeConfig, mesh) -> list[str]:
     checks = {
-        f"kv_dtype={config.kv_dtype!r}": config.kv_dtype != "bf16",
-        f"spec_k={config.spec_k}": config.spec_k > 0,
         f"num_shards={config.num_shards}": config.num_shards > 1,
         "mesh": mesh is not None,
         "kv_guard": config.kv_guard,
@@ -111,10 +105,11 @@ class PagedEngine:
     """Continuous-batching server over the paged KV subsystem.
 
     ``params`` must live on ``device`` (default ``cuda``; the CPU runs the
-    kernels' plain versions)."""
+    kernels' plain versions), and so must a model draft's, passed as
+    ``draft=(draft_cfg, draft_params)``."""
 
     def __init__(self, cfg, params, *, config: ServeConfig | None = None,
-                 sampler: sampling.Sampler | None = None,
+                 sampler: sampling.Sampler | None = None, draft=None,
                  device: str | torch.device = DEFAULT, mesh=None, **legacy):
         if config is not None and legacy:
             raise TypeError(
@@ -160,6 +155,20 @@ class PagedEngine:
         self.n_degrade_requeues = 0
         self.sampler = sampler if sampler is not None else \
             sampling.get_sampler(config.sampler)
+        # speculative decoding: a draft proposer runs ahead of the target,
+        # and ``_step_spec`` verifies its k proposals in one decode step
+        self.spec_k = config.spec_k
+        self.spec = None
+        if config.spec_k:
+            self.spec = spec.make_draft(
+                config, cfg, draft=draft, max_slots=self.max_batch,
+                cache_len=self.cache_len, sampler=self.sampler,
+                kernel_calls=self.kernel_calls, device=self.device)
+        self.n_spec_rounds = 0
+        self.n_spec_drafted = 0
+        self.n_spec_accepted = 0
+        self.n_spec_rollbacks = 0
+        self.n_spec_rollback_pages = 0
 
     # -- host bookkeeping ---------------------------------------------------
     def _free_slot(self) -> int | None:
@@ -178,7 +187,7 @@ class PagedEngine:
 
     # -- model steps --------------------------------------------------------
     def _dispatch(self, name: str, fn, *args):
-        """Run one model step (``decode`` / ``cold_prefill`` /
+        """Run one model step (``decode`` / ``verify`` / ``cold_prefill`` /
         ``suffix_prefill``), counted and traced."""
         self.kernel_calls[name] += 1
         rec = trace.active()
@@ -311,7 +320,7 @@ class PagedEngine:
     def _preempt(self, slot: int) -> None:
         st = self.slots.pop(slot)
         ids = self._tensor(np.asarray(st.pages, np.int64))
-        data = [(c.k_pages[:, ids].cpu(), c.v_pages[:, ids].cpu()) for c in self.caches]
+        data = [tuple(t[:, ids].cpu() for t in c) for c in self.caches]
         st.req._swap = (data, len(st.pages), st.length, st.last_tok)
         rec = trace.active()
         if rec is not None:
@@ -331,9 +340,9 @@ class PagedEngine:
         if pages is None:
             return self._reject(Rejected("pool-dry", n_pages))
         ids = self._tensor(np.asarray(pages, np.int64))
-        for c, (k, v) in zip(self.caches, data):
-            c.k_pages[:, ids] = k.to(self.device)
-            c.v_pages[:, ids] = v.to(self.device)
+        for c, saved in zip(self.caches, data):
+            for t, host in zip(c, saved):
+                t[:, ids] = host.to(self.device)
         req._swap = None
         rec = trace.active()
         if rec is not None:
@@ -369,8 +378,8 @@ class PagedEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         for c in self.caches:
-            c.k_pages[:, dst] = c.k_pages[:, src]
-            c.v_pages[:, dst] = c.v_pages[:, src]
+            for t in c:  # K, V and, in int8 pools, their scales
+                t[:, dst] = t[:, src]
 
     def _alloc_for_decode(self, n: int, *, exclude: set[int]) -> list[int] | None:
         """Allocate decode pages, escalating: free list -> prefix eviction
@@ -385,35 +394,37 @@ class PagedEngine:
                 return None
             self._preempt(victim)
 
-    def _ensure_writable(self, slot: int) -> bool:
-        """Before a decode step writes position ``length``: make sure its
-        page exists in the slot's table and is exclusively owned (COW).
+    def _ensure_writable(self, slot: int, n: int = 1) -> bool:
+        """Before a step writes positions ``length .. length+n-1`` (``n > 1``
+        for a speculative verify burst): make sure every covering page
+        exists in the slot's table and is exclusively owned (COW).
         Returns False when the slot was requeued instead."""
         st = self.slots[slot]
-        need = st.length // self.page_size
-        if need >= self.table_width:
+        last = (st.length + n - 1) // self.page_size
+        if last >= self.table_width:
             raise RuntimeError(f"request {st.req.rid} overran cache_len")
-        if need >= len(st.pages):
-            got = self._alloc_for_decode(1, exclude={slot})
-            if got is None:
-                self._requeue_degraded(slot, "page fault with pool exhausted")
-                return False
-            st.pages.extend(got)
-        elif self.pool.refcount(st.pages[need]) > 1:
-            res = self.pool.cow(st.pages[need])
-            if res is None:  # pool dry: make room, then retry the COW
+        for need in range(st.length // self.page_size, last + 1):
+            if need >= len(st.pages):
                 got = self._alloc_for_decode(1, exclude={slot})
-                if got is not None:
-                    self.pool.release(got)
-                    res = self.pool.cow(st.pages[need])
-            if res is None:
-                self._requeue_degraded(slot, "COW failure with pool exhausted")
-                return False
-            new_id, copied = res
-            if copied:
-                self._copy_page(st.pages[need], new_id)
-                self.n_cow += 1
-            st.pages[need] = new_id
+                if got is None:
+                    self._requeue_degraded(slot, "page fault with pool exhausted")
+                    return False
+                st.pages.extend(got)
+            elif self.pool.refcount(st.pages[need]) > 1:
+                res = self.pool.cow(st.pages[need])
+                if res is None:  # pool dry: make room, then retry the COW
+                    got = self._alloc_for_decode(1, exclude={slot})
+                    if got is not None:
+                        self.pool.release(got)
+                        res = self.pool.cow(st.pages[need])
+                if res is None:
+                    self._requeue_degraded(slot, "COW failure with pool exhausted")
+                    return False
+                new_id, copied = res
+                if copied:
+                    self._copy_page(st.pages[need], new_id)
+                    self.n_cow += 1
+                st.pages[need] = new_id
         return True
 
     # -- main loop ----------------------------------------------------------
@@ -431,6 +442,15 @@ class PagedEngine:
         return out
 
     def _step_impl(self) -> list[Request]:
+        if self.spec is not None and self.slots:
+            # the round's draft width: k proposals need k+1 scored
+            # positions, and no slot may commit past its max_new — clamp
+            # k, and take the plain step when even k = 1 does not fit
+            # (the near-finish tail stays the plain run's)
+            k = min(self.spec_k,
+                    min(st.req.max_new - len(st.req.out) for st in self.slots.values()) - 1)
+            if k >= 1:
+                return self._step_spec(k)
         for slot in sorted(self.slots, key=lambda s: self.slots[s].admit_seq):
             if slot in self.slots:  # a page fault may preempt later slots
                 self._ensure_writable(slot)
@@ -458,6 +478,89 @@ class PagedEngine:
                 finished.append(st.req)
                 self.pool.release(st.pages)
                 del self.slots[slot]
+        return finished
+
+    def _step_spec(self, k: int) -> list[Request]:
+        """One speculative verify-accept round: the draft proposes ``k``
+        tokens per slot, the target scores all of them and the pending
+        token in ONE decode step (K3 at ``s = k + 1``), and each slot
+        commits the longest accepted prefix.
+
+        The verify step feeds ``[last_tok, d_1..d_k]`` at ``index =
+        length``; scored position ``i`` predicts the token after draft
+        ``i``, so the sampler's choice there is what draft ``i+1`` is
+        checked against.  A round commits ``c = min(a+1, k, budget)``
+        tokens (``a`` accepted): the ``a+1``-th is the one every verify
+        step yields for free; capping at ``k`` keeps the draft exactly one
+        pending token behind.
+
+        Rollback: rejected drafts wrote real K/V into real pages, in
+        place; ``lengths`` masks them, later writes replace them, and any
+        page past the committed length is released here — each was made
+        exclusively owned by ``_ensure_writable`` (fresh or COW), so the
+        release keeps refcounts, prefix chains and ``check()`` exact."""
+        for slot in sorted(self.slots, key=lambda s: self.slots[s].admit_seq):
+            if slot in self.slots:  # a page fault may preempt later slots
+                self._ensure_writable(slot, k + 1)
+        if not self.slots:
+            return []
+        views = {slot: spec.SlotView(rid=st.req.rid,
+                                     tokens=tuple(st.req.prompt) + tuple(st.req.out),
+                                     length=st.length)
+                 for slot, st in self.slots.items()}
+        drafts = np.asarray(self.spec.propose(views, k), np.int32)
+        toks = np.zeros((self.max_batch, k + 1), np.int64)
+        index = np.zeros(self.max_batch, np.int64)
+        lengths = np.zeros(self.max_batch, np.int32)
+        table = np.zeros((self.max_batch, self.table_width), np.int32)
+        for slot, st in self.slots.items():
+            toks[slot, 0] = st.last_tok
+            toks[slot, 1:] = drafts[slot]
+            index[slot] = st.length
+            lengths[slot] = st.length + k + 1
+            table[slot] = self._table_row(st.pages)
+        logits = self._dispatch(
+            "verify", self._decode, self._tensor(toks), self._tensor(index),
+            self._tensor(table), self._tensor(lengths))
+        target = self.sampler.select(logits)  # (max_batch, k + 1)
+        accepted = self.sampler.verify(drafts, target)
+        finished = []
+        new_lengths: dict[int, int] = {}
+        n_accepted = n_committed = n_rollback_pages = 0
+        for slot, st in list(self.slots.items()):
+            a = int(accepted[slot])
+            c = min(a + 1, k, st.req.max_new - len(st.req.out))
+            st.req.out.extend(int(t) for t in target[slot, :c])
+            st.length += c
+            st.last_tok = int(target[slot, c - 1])
+            self.n_spec_drafted += k
+            self.n_spec_accepted += a
+            n_accepted += a
+            n_committed += c
+            # release the pages only the rejected tail reached
+            keep = (st.length - 1) // self.page_size + 1
+            if keep < len(st.pages):
+                self.pool.release(st.pages[keep:])
+                n_rollback_pages += len(st.pages) - keep
+                self.n_spec_rollback_pages += len(st.pages) - keep
+                del st.pages[keep:]
+            if a < k:
+                self.n_spec_rollbacks += 1
+            if len(st.req.out) >= st.req.max_new:
+                finished.append(st.req)
+                self.pool.release(st.pages)
+                del self.slots[slot]
+                self.spec.forget(slot)
+            else:
+                new_lengths[slot] = st.length
+        self.spec.observe(new_lengths)
+        self.n_spec_rounds += 1
+        rec = trace.active()
+        if rec is not None:
+            rec.instant("spec.verify", cat="engine", args={
+                "k": k, "n_slots": len(views), "drafted": k * len(views),
+                "accepted": n_accepted, "committed": n_committed,
+                "rollback_pages": n_rollback_pages})
         return finished
 
     def run(self, requests: list[Request]) -> list[Request]:
@@ -509,4 +612,10 @@ class PagedEngine:
             "degrade_requeues": self.n_degrade_requeues,
             "failed": len(self.failed),
             "kernel_calls": dict(self.kernel_calls),
+            "spec_rounds": self.n_spec_rounds,
+            "spec_drafted": self.n_spec_drafted,
+            "spec_accepted": self.n_spec_accepted,
+            "spec_rollbacks": self.n_spec_rollbacks,
+            "spec_rollback_pages": self.n_spec_rollback_pages,
+            "accept_rate": self.n_spec_accepted / max(1, self.n_spec_drafted),
         }

@@ -23,10 +23,24 @@ import dataclasses
 import math
 from typing import Sequence
 
+import numpy as np
+
 from repro_torch.obs import trace
 from repro_torch.serve import faults
 from repro_torch.serve.pagepool import PagePool
 from repro_torch.serve.prefix import PrefixCache
+
+
+def bucket_len(n: int, bucket: int = 16) -> int:
+    """Round a prompt/suffix length up to its shared bucket."""
+    return max(bucket, math.ceil(n / bucket) * bucket)
+
+
+def pad_to_bucket(tokens, bucket: int = 16) -> np.ndarray:
+    """Right-pad a token list to its length bucket: (1, bucket_len) int32."""
+    out = np.zeros((1, bucket_len(len(tokens), bucket)), np.int32)
+    out[0, : len(tokens)] = tokens
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

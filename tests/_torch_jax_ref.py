@@ -9,7 +9,7 @@ the code says, so with the flag the two agree to float32 round-off.
 Every kernel runs under ``backend=pallas`` (interpret mode on the CPU),
 the numerics the port's kernels implement.
 
-    python tests/_torch_jax_ref.py {model|serve|dense} OUT.npz
+    python tests/_torch_jax_ref.py {model|serve|dense|quant|untied|int8serve|spec} OUT.npz
 """
 from __future__ import annotations
 
@@ -80,6 +80,42 @@ def dense_runs() -> dict[str, list[str]]:
     return runs
 
 
+#: the speculative pair: the reduced qwen1.5-1.8b target and its
+#: registered draft, each initialised from SEED (as the launcher does)
+TARGET, DRAFT = "qwen1.5-1.8b", "qwen1.5-0.5b"
+SPEC_SHAPE = dict(max_slots=2, cache_len=64, page_size=8)
+#: PagedEngine runs on the target (mode ``int8serve``): name -> (request
+#: kwargs, ServeConfig kwargs over SPEC_SHAPE); "bf16" is the plain
+#: reference the int8 streams are not held to
+INT8_RUNS = {
+    "bf16": (dict(n=4, max_new=12), {}),
+    "int8": (dict(n=4, max_new=12), dict(kv_dtype="int8")),
+    "int8_chunked": (dict(n=4, max_new=12), dict(kv_dtype="int8", prefill_chunk=4)),
+    "int8_cold": (dict(n=4, shared_prefix=0, max_new=12), dict(kv_dtype="int8")),
+    # a pool too small for two full requests: decode page faults swap
+    # int8 pages and their scales out and back
+    "int8_preempt": (dict(n=3, shared_prefix=0, max_new=10, seed=3),
+                     dict(kv_dtype="int8", page_size=4, pages=7, watermark=1)),
+}
+#: speculative runs on the pair (mode ``spec``), the same shape; each
+#: stream must equal the plain run on the same pools
+SPEC_RUNS = {
+    "spec_ngram": (dict(n=4, max_new=12), dict(spec_k=4, draft_model="ngram")),
+    "spec_model": (dict(n=4, max_new=12), dict(spec_k=4, draft_model=DRAFT)),
+    "int8_spec_ngram": (dict(n=4, max_new=12),
+                        dict(kv_dtype="int8", prefill_chunk=4, spec_k=4, draft_model="ngram")),
+    "int8_spec_model": (dict(n=4, max_new=12),
+                        dict(kv_dtype="int8", spec_k=4, draft_model=DRAFT)),
+}
+#: the launcher flags of the slice's command, on the reduced pair
+SPEC_LAUNCH_ARGS = ["--arch", TARGET, "--reduced", "--requests", "4", "--max-new", "10",
+                    "--shared-prefix", "24", "--seed", str(SEED), "--kv", "paged",
+                    "--kv-dtype", "int8", "--spec-k", "4", "--draft-model", "auto"]
+#: stats() keys of the speculative engine held equal to JAX's
+SPEC_STATS = ("prefix_hit_tokens", "preempted", "cow_copies", "spec_rounds", "spec_drafted",
+              "spec_accepted", "spec_rollbacks", "spec_rollback_pages", "accept_rate")
+
+
 def _model(out: dict) -> None:
     import jax.numpy as jnp
 
@@ -135,6 +171,103 @@ def _serve(out: dict) -> None:
     out["serve_json"] = np.asarray(json.dumps(streams))
 
 
+def _quant(out: dict) -> None:
+    """The reduced qwen1.5-1.8b on int8 pools: two cold prefills scattered
+    (quantised) into pages, one decode token and a 5-token suffix (both K3
+    under int8), and the pages of one layer afterwards."""
+    import jax.numpy as jnp
+
+    from repro import kernels
+    from repro.models import lm
+
+    cfg, params = _setup(TARGET)
+    case = model_case()
+    with kernels.use_policy("backend=pallas"):
+        paged = lm.init_paged_cache(cfg, 16, 8, "int8")
+        for name, table in (("prompt_a", [1, 2, 3, 0]), ("prompt_b", [4, 5, 0, 0])):
+            toks = case[name]
+            padded = np.zeros((1, 32), np.int32)
+            padded[0, : len(toks)] = toks
+            logits, dense = lm.prefill(params, cfg, jnp.asarray(padded),
+                                       logit_index=len(toks) - 1)
+            out[f"cold_{name}"] = np.asarray(logits)
+            paged = lm.prefill_to_pages(dense, paged, jnp.asarray(table, jnp.int32), len(toks))
+        layer = paged["stage0"]["b0"]
+        for leaf in ("k_pages", "v_pages", "k_scale", "v_scale"):
+            out[f"cold_{leaf}"] = np.asarray(getattr(layer, leaf), np.float32)
+        table = jnp.asarray([[1, 2, 3, 6, 0, 0, 0, 0], [4, 5, 7, 0, 0, 0, 0, 0]], jnp.int32)
+        logits, paged = lm.decode_step(params, cfg, paged, jnp.asarray(case["step1"]),
+                                       jnp.asarray([20, 11], jnp.int32), block_table=table,
+                                       lengths=jnp.asarray([21, 12], jnp.int32))
+        out["decode1"] = np.asarray(logits)
+        logits, paged = lm.decode_step(params, cfg, paged, jnp.asarray(case["step5"]),
+                                       jnp.asarray([21, 12], jnp.int32), block_table=table,
+                                       lengths=jnp.asarray([26, 17], jnp.int32))
+        out["decode5"] = np.asarray(logits)
+        layer = paged["stage0"]["b0"]
+        out["k_pages_layer1"] = np.asarray(layer.k_pages[1], np.float32)
+        out["k_scale_layer1"] = np.asarray(layer.k_scale[1], np.float32)
+
+
+def untied_config(cfg):
+    """The reduced qwen1.5-1.8b with its own output head, as the full
+    config has (the reduced one ties its embeddings)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, tie_embeddings=False)
+
+
+def _untied(out: dict) -> None:
+    """Logits through the untied head (B = ``unembed.w``, (d, vocab))."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import kernels
+    from repro.configs import get_config
+    from repro.models import lm
+
+    cfg = untied_config(get_config(TARGET, reduced=True))
+    params = lm.init(cfg, jax.random.PRNGKey(SEED))
+    case = model_case()
+    with kernels.use_policy("backend=pallas"):
+        out["forward"] = np.asarray(lm.forward(params, cfg, jnp.asarray(case["dense"]))[0])
+        out["prefill"] = np.asarray(
+            lm.prefill(params, cfg, jnp.asarray(case["dense"]), logit_index=jnp.asarray([23, 9]))[0])
+    out["params_checksum"] = np.asarray(params_checksum(params))
+
+
+def _engine_runs(runs: dict) -> dict:
+    """Each run's streams and ``SPEC_STATS`` on JAX's ``PagedEngine``."""
+    from repro import kernels
+    from repro.serve import PagedEngine, Request, ServeConfig
+
+    cfg, params = _setup(TARGET)
+    dcfg, dparams = _setup(DRAFT)
+    streams = {}
+    with kernels.use_policy("backend=pallas"):
+        for name, (req_kw, eng_kw) in runs.items():
+            conf = ServeConfig(**{**SPEC_SHAPE, **eng_kw})
+            draft = (dcfg, dparams) if conf.draft_model == DRAFT else None
+            eng = PagedEngine(cfg, params, config=conf, draft=draft)
+            done = eng.run([Request(rid=r, prompt=p, max_new=m)
+                            for r, p, m in serve_requests(**req_kw)])
+            eng.check()
+            streams[name] = {"out": {str(r.rid): [int(t) for t in r.out] for r in done},
+                             "stats": {k: eng.stats()[k] for k in SPEC_STATS}}
+    return streams
+
+
+def _int8serve(out: dict) -> None:
+    out["serve_json"] = np.asarray(json.dumps(_engine_runs(INT8_RUNS)))
+
+
+def _spec(out: dict) -> None:
+    streams = _engine_runs(SPEC_RUNS)
+    streams["launcher_stdout"] = _launch(SPEC_LAUNCH_ARGS + ["--kernel-policy", "backend=pallas"])
+    out["spec_json"] = np.asarray(json.dumps(streams))
+    out["draft_checksum"] = np.asarray(params_checksum(_setup(DRAFT)[1]))
+
+
 def _launch(args: list[str]) -> str:
     """stdout of one ``python -m repro.launch.serve ARGS`` run, in process."""
     from repro import kernels
@@ -157,21 +290,28 @@ def _dense(out: dict) -> None:
         {name: _launch(args) for name, args in dense_runs().items()}))
 
 
-def _setup():
+def _setup(arch: str = "qwen1.5-0.5b"):
     import jax
 
     from repro.configs import get_config
     from repro.models import lm
 
-    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     return cfg, lm.init(cfg, jax.random.PRNGKey(SEED))
+
+
+#: the architecture whose parameters each mode's checksum covers
+MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5-0.5b",
+             "quant": TARGET, "int8serve": TARGET, "spec": TARGET}
 
 
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    {"model": _model, "serve": _serve, "dense": _dense}[mode](out)
-    _, params = _setup()
-    out["params_checksum"] = np.asarray(params_checksum(params))
+    {"model": _model, "serve": _serve, "dense": _dense, "quant": _quant,
+     "untied": _untied, "int8serve": _int8serve, "spec": _spec}[mode](out)
+    if mode in MODE_ARCH:
+        _, params = _setup(MODE_ARCH[mode])
+        out["params_checksum"] = np.asarray(params_checksum(params))
     np.savez(path, **out)
 
 

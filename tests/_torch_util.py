@@ -45,6 +45,10 @@ def jax_reference(mode: str, tmp_dir: Path) -> dict:
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false").strip()
     env["JAX_PLATFORMS"] = "cpu"
+    # the child's autotune picks go to a file of its own: the cache file
+    # the whole test run shares (tests/conftest.py) is read by the autotune
+    # tests of other workers, which must not see entries a child flushed
+    env["REPRO_AUTOTUNE_CACHE"] = str(tmp_dir / f"autotune_{mode}.json")
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(REPO / "src"), env.get("PYTHONPATH", "")) if p)
     proc = subprocess.run([sys.executable, str(TESTS / "_torch_jax_ref.py"), mode, str(out)],

@@ -1197,3 +1197,77 @@ def test_scan_kernels_reject_bad_inputs(cuda_device):
         rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), a)
     with pytest.raises(ValueError, match="one shape"):
         rglru_scan_bwd(a, a, a[:, :8])
+
+
+# ---------------------------------------------------------------------------
+# the speculative int8 slice: qwen1.5-1.8b's operating points
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [1, 5], ids=["decode", "verify"])
+def test_prefill_kernel_int8_pools_at_head_dim_128(cuda_device, s):
+    """K3 on int8 pools at qwen1.5-1.8b's attention (16 heads of 128, page
+    16): a decode token and a verify burst (s = k + 1 = 5) per sequence,
+    contexts 40-300, against the plain version (bf16 tolerance)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(128 + s)
+    b, h, kvh, ps, d, n = 4, 16, 16, 16, 128, 19
+    shape = (kvh, 1 + b * n, ps, d)
+    kq = torch.randint(-127, 128, shape, device=cuda_device, generator=gen, dtype=torch.int8)
+    vq = torch.randint_like(kq, -127, 128)
+    ks = _rand(gen, *shape[:3], 1, scale=0.01).abs()
+    vs = _rand(gen, *shape[:3], 1, scale=0.08).abs()
+    table = torch.arange(1, 1 + b * n, device=cuda_device, dtype=torch.int32).reshape(b, n)
+    lengths = torch.tensor([40, 300, 129, 77], device=cuda_device, dtype=torch.int32)
+    q = _rand(gen, b, s, h, d)
+    start = lengths - s
+    before = paged_attention_prefill.launches
+    got = kernels.op("paged_attention")(q, kq, vq, table, start, lengths, ks, vs)
+    want = paged_attention_prefill_plain(q, kq, vq, table, start, lengths,
+                                         k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_prefill.launches == before + 1
+    assert paged_attention_prefill.design == "wgmma"
+    assert torch.isfinite(got.float()).all()
+    close(got.cpu(), want.float().cpu())
+
+
+@pytest.mark.parametrize("m", [4, 20], ids=["decode", "verify"])
+def test_untied_logits_kernel_matches_plain(cuda_device, m):
+    """K1 on qwen1.5-1.8b's untied head: fp32 activations times the bf16
+    (d, vocab) head read row-major (N-major B, unlike the tied table's
+    transposed view), at the decode and verify row counts; the 3xbf16
+    design, within chip_smoke's TOL_FP32 of 1e-4."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    k, n = 2048, 151936
+    a = _rand(gen, m, k, dtype=torch.float32, scale=4.0)
+    w = _rand(gen, k, n, scale=0.02)
+    got = kernels.linear(a, w)
+    torch.cuda.synchronize()
+    assert matmul_tiled.design == "wgmma-swapab-3xbf16"
+    want = matmul_tiled_plain(a, w).cpu()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_engine_on_card_serves_int8_pools_with_a_model_draft(cuda_device):
+    """The reduced qwen1.5-1.8b on int8 pools with its registered draft:
+    every request drains, the pool audit holds, and int8 pools never
+    reach K2 — every target step runs K3, every projection K1."""
+    from repro_torch.configs.registry import draft_for
+    from repro_torch.serve import ServeConfig
+
+    tcfg = get_config("qwen1.5-1.8b", reduced=True)
+    dcfg = get_config(draft_for("qwen1.5-1.8b"), reduced=True)
+    eng = PagedEngine(tcfg, lm.init(tcfg, seed=0), draft=(dcfg, lm.init(dcfg, seed=0)),
+                      config=ServeConfig(max_slots=2, cache_len=64, page_size=8,
+                                         kv_dtype="int8", spec_k=4,
+                                         draft_model="qwen1.5-0.5b"))
+    prefix = list(range(5, 30))
+    kernels.reset_launch_counts()
+    done = eng.run([Request(rid=i, prompt=prefix + [100 + i], max_new=9) for i in range(3)])
+    eng.check()
+    assert len(done) == 3 and all(len(r.out) == 9 for r in done)
+    counts = kernels.launch_counts()
+    assert counts["matmul_tiled"] > 0 and counts["paged_attention_prefill"] > 0, counts
+    assert counts["paged_attention_decode"] == 0, counts
+    assert eng.stats()["spec_rounds"] > 0

@@ -169,9 +169,19 @@ def test_mask_cache_after_marks_the_padded_tail(model):
 
 
 def test_unported_dense_cache_options_raise(model):
+    """int8 rings are ported (``QuantKvCache`` leaves, ROADMAP Queue 1
+    item 1); local-window rings still raise."""
+    from repro_torch.nn.kvquant import QuantKvCache
+
     cfg = model[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        lm.init_cache(cfg, 2, 16, kv_dtype="int8", device="cpu")
+    caches = lm.init_cache(cfg, 2, 16, kv_dtype="int8", device="cpu")
+    assert len(caches) == cfg.n_layers
+    kv, hd = cfg.attn.n_kv_heads, cfg.attn.head_dim
+    for c in caches:
+        assert isinstance(c, QuantKvCache)
+        assert c.k.dtype == c.v.dtype == torch.int8 and c.k.shape == (2, 16, kv, hd)
+        assert c.k_scale.dtype == torch.bfloat16 and c.k_scale.shape == (2, 16, kv, 1)
+        assert c.pos.tolist() == [[-1] * 16] * 2
     windowed = dataclasses.replace(cfg, stages=(((BlockDef(window=8),), cfg.n_layers),))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         lm.init_cache(windowed, 2, 16, device="cpu")

@@ -10,6 +10,7 @@ Both registries run in this process; nothing executes a kernel except
 the paged-engine run, which uses the plain CPU path."""
 import dataclasses
 import itertools
+from unittest import mock
 
 import jax
 import pytest
@@ -23,6 +24,7 @@ from repro.models import lm as jax_lm
 from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.kernels import api
+from repro_torch.models import lm as lm_port
 from repro_torch.serve import PagedEngine, Request, ServeConfig
 from repro_torch.weights import from_jax_params
 
@@ -217,3 +219,61 @@ def test_scan_and_flash_candidates_match_jax(kernel, shapes):
             got = autotune.candidates(kernel, shape, dt)
             assert [(c.config, c.vmem_bytes, c.grid_steps, c.cost) for c in got] == \
                 [(c.config, c.vmem_bytes, c.grid_steps, c.cost) for c in want], (kernel, shape)
+
+
+# qwen1.5-1.8b at full width (d 2048, d_ff 5504, vocab 151,936, untied):
+# its decode (4 rows) and verify (4 x (k + 1) = 20 rows) projections, its
+# fp32 logits against the (d, vocab) head, and its draft qwen1.5-0.5b's
+# decode shapes; and its paged attention (16 heads of 128, page 16, 16
+# pages a sequence) at decode and verify, over bf16 and int8 pools
+PAIR_MATMULS = [(m, k, n, "bfloat16") for m in (4, 20, 48)
+                for k, n in ((2048, 2048), (2048, 5504), (5504, 2048))]
+PAIR_MATMULS += [(m, 2048, 151936, "float32") for m in (1, 4, 20)]
+PAIR_MATMULS += [(4, 1024, 1024, "bfloat16"), (4, 1024, 2816, "bfloat16"),
+                 (4, 1024, 151936, "float32")]
+PAIR_PAGED = [(4, s, 16, 16, 16, 16, 128, scales) for s in (1, 5) for scales in (0, 2)]
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=str)
+def test_resolve_picks_the_jax_schedule_at_the_speculative_pairs_shapes(policy):
+    torch_dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for m, k, n, dt in PAIR_MATMULS:
+        want = jax_kernels.resolve("matmul", (m, k, n), dt, policy or "backend=pallas")
+        got = kernels.resolve("matmul", (m, k, n), torch_dtype[dt], policy)
+        assert got.schedule == want.schedule, (m, k, n, dt, policy)
+    for shape in PAIR_PAGED:
+        if policy in (None, "backend=pallas,autotune=off"):
+            want = jax_kernels.resolve("paged_attention", shape, "bfloat16",
+                                       policy or "backend=pallas").schedule
+            assert kernels.resolve("paged_attention", shape, torch.bfloat16,
+                                   policy).schedule == want, shape
+    if policy is None:  # int8 pools and verify bursts run K3, bf16 decode K2
+        picks = {s: kernels.resolve("paged_attention", s, torch.bfloat16).schedule
+                 for s in PAIR_PAGED}
+        assert picks == {s: "pallas" if s[1] == 1 and s[-1] == 0 else "pallas_prefill"
+                         for s in PAIR_PAGED}
+
+
+def test_untied_logits_dispatch_keys_the_problem_as_jax_does():
+    """The untied head's call reaches dispatch as JAX's does: the
+    flattened (tokens, d, vocab) problem keyed on the fp32 activations
+    (JAX widens the bf16 head to fp32; the port's B stays bf16 and is
+    not part of the key), and both pick the same schedule."""
+    from _torch_jax_ref import TARGET, untied_config
+
+    cfg = untied_config(get_config(TARGET, reduced=True))
+    params = lm_port.init(cfg, seed=0, device="cpu")
+    seen = []
+    pick = api._pick.__wrapped__
+
+    def spy(name, problem, pol, needs_vjp):
+        seen.append((name, problem))
+        return pick(name, problem, pol, needs_vjp)
+
+    api._pick.cache_clear()
+    with mock.patch.object(api, "_pick", spy):
+        lm_port.forward(params, cfg, torch.zeros((2, 5), dtype=torch.long))
+    logits = [p for name, p in seen if name == "matmul" and p.shape[2] == cfg.vocab]
+    assert logits == [api.Problem((10, cfg.d_model, cfg.vocab), "float32")]
+    want = jax_kernels.resolve("matmul", logits[0].shape, "float32", "backend=pallas")
+    assert kernels.resolve("matmul", logits[0].shape, torch.float32).schedule == want.schedule

@@ -161,5 +161,32 @@ def test_unsupported_config_features_raise():
     cfg = get_config("qwen1.5-0.5b", reduced=True)
     with pytest.raises(NotImplementedError, match="post_block_norm"):
         lm.model_spec(dataclasses.replace(cfg, post_block_norm=True))
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
-        lm.init_paged_cache(cfg, 4, 8, "int8", device="cpu")
+    # int8 and f32 pools are ported (tests/test_torch_kvquant.py); a
+    # kv_dtype no ServeConfig accepts is refused by name
+    with pytest.raises(ValueError, match="kv_dtype"):
+        lm.init_paged_cache(cfg, 4, 8, "fp8", device="cpu")
+
+
+def test_untied_head_logits_match(tmp_path):
+    """The untied head (B = ``unembed.w``, (d, vocab), as the full
+    qwen1.5-1.8b has) on the reduced qwen1.5-1.8b made untied: JAX widens
+    ``w`` to fp32 before the product, the port feeds it in bf16 (exact
+    either way); the converted weights carry ``unembed.w`` bit for bit."""
+    from _torch_jax_ref import TARGET, untied_config
+
+    cfg = untied_config(get_config(TARGET, reduced=True))
+    jparams = jax_lm.init(untied_config(jax_config(TARGET, reduced=True)),
+                          jax.random.PRNGKey(SEED))
+    params = from_jax_params(jax.device_get(jparams), device="cpu")
+    ref = jax_reference("untied", tmp_path)
+    assert float(ref["params_checksum"]) == params_checksum(jparams)
+    w = params["unembed"]["w"]
+    assert w.dtype == torch.bfloat16 and w.shape == (cfg.d_model, cfg.vocab)
+    np.testing.assert_array_equal(w.float().numpy(),
+                                  np.asarray(jparams["unembed"]["w"], np.float32))
+    case = model_case()
+    logits, _ = lm.forward(params, cfg, torch.from_numpy(case["dense"]).long())
+    close(logits, ref["forward"], LOGITS)
+    sel, _ = lm.prefill(params, cfg, torch.from_numpy(case["dense"]).long(),
+                        logit_index=torch.tensor([23, 9]))
+    close(sel, ref["prefill"], LOGITS)

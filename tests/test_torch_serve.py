@@ -110,12 +110,16 @@ def test_check_catches_a_leaked_page(model):
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_dtype="int8"), dict(spec_k=2, draft_model="ngram"), dict(num_shards=2),
-    dict(kv_guard=True), dict(kernel_fallback=True), dict(chaos=("pool.alloc",)),
+    dict(kv_dtype="int8", kv_guard=True), dict(spec_k=2, draft_model="ngram", num_shards=2),
+    dict(num_shards=2), dict(kv_guard=True), dict(kernel_fallback=True),
+    dict(chaos=("pool.alloc",)),
 ])
 def test_unported_options_raise_naming_the_option(model, option):
+    """Each unported option raises, named — also beside the ported int8
+    pools and speculative decoding (the first two cases), which alone
+    construct (tests/test_torch_kvquant.py, tests/test_torch_spec.py)."""
     cfg, _, params = model
-    name = next(iter(option))
+    name = list(option)[-1]
     with pytest.raises(NotImplementedError, match=name):
         PagedEngine(cfg, params, device="cpu", config=ServeConfig(**option))
 
