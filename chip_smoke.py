@@ -95,19 +95,43 @@ each fatal on failure (nothing is caught):
    row's largest |logit| (a near-tie: verify at s = 5 and decode at
    s = 1 split K3 differently); each plain run's ``near_tie_share``
    record says what share of its tokens falls under that bound.
+   Phases 2-4 inject no fault: they must end with no kernel fallback and
+   no reference schedule run (``check_clean``; every family's reference
+   schedule is counted, ``count_reference_calls``);
+5. the reference backend, degraded serving and the async loop, on
+   qwen1.5-0.5b at full width: (a) one prefill and one decode step under
+   ``use_policy("reference")`` against the kernel path (``TOL_MODEL``),
+   the reference step timed beside the kernel step (what one fallback
+   retry costs) and launching no kernel; (b) the paged engine over a pool
+   that preempts (``DEGRADED_PAGES``) — guards off, then ``kv_guard`` and
+   ``kernel_fallback`` armed with no plan (streams identical, nothing
+   falls back), then under ``degraded_plan`` (kernel raises and a NaN
+   output, a corrupted cached page, a lost swap blob, a forced pool
+   exhaustion): every request drains (the plan requeues none past
+   ``MAX_DEGRADE_REQUEUES``, so none may fail), the audit holds,
+   the fallbacks counted equal the kernel faults fired, pages were
+   quarantined, streams equal the clean run's but at near-ties; (c)
+   ``ServeLoop`` over a seeded Poisson trace (1.5 requests/s for 6 s,
+   half with a 32-token shared prefix, 24-32 new tokens) after
+   ``warmup_for_trace``: tokens/s, TTFT and ITL percentiles, occupancy,
+   prefills mid-decode, no kernel library loaded during the trace, the
+   snapshot schema-valid, streams equal the sync replay's but at
+   near-ties.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
-line, the kernel summary (launches: phase 4's serving runs of both
-models for K1–K5,
-phase 2b's autograd paths for K6–K8, phase 2c's for K9–K12) and, last,
+line, the kernel summary (launches: the serving runs of phases 4 and 5
+for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for K9–K12)
+and, last,
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -181,7 +205,18 @@ from repro_torch.kernels.ssd import (  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.configs.registry import draft_for  # noqa: E402
-from repro_torch.serve import GreedySampler, PagedEngine, Request, ServeConfig  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    Fault,
+    FaultPlan,
+    GreedySampler,
+    Lifecycle,
+    LoadGen,
+    PagedEngine,
+    Request,
+    ServeConfig,
+    ServeLoop,
+    validate_snapshot,
+)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them,
 # HBM3 bandwidth.  They assume the 700 W limit; the card line says the
@@ -1748,12 +1783,14 @@ def serving_requests(cfg):
 
 
 def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=None,
-               compare=None) -> dict:
+               compare=None, plan=None) -> dict:
     """Drive one main path: every launch count set to 0 just before,
     read just after.  Fails unless every request drained with its tokens
     and every kernel of ``path_kernels`` — and no other — was launched.
     ``compare``: (label, streams, margins) of a plain run to hold the
-    streams to (:func:`compare_streams`)."""
+    streams to (:func:`compare_streams`).  ``plan``: a :class:`FaultPlan`
+    armed around the run; then a request may instead fail with the
+    engine's typed error."""
     first: dict[int, float] = {}
     admit = server._admit
 
@@ -1768,7 +1805,8 @@ def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=No
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        done = server.run(reqs)
+        with plan or contextlib.nullcontext():
+            done = server.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
@@ -1784,11 +1822,16 @@ def serve_path(name: str, server, reqs, path_kernels: tuple[str, ...], policy=No
                    kernel_calls=stats["kernel_calls"], accept_rate=stats["accept_rate"],
                    spec_rounds=stats["spec_rounds"],
                    spec_rollback_pages=stats["spec_rollback_pages"])
+    failed = getattr(server, "failed", [])
+    if plan is not None:
+        rec.update(failed={r.rid: r.error for r in failed},
+                   fired=[list(f) for f in plan.fired])
     if compare is not None:
         rec.update(compare_streams(done, *compare))
     emit(rec)
-    if len(done) != len(reqs) or any(len(r.out) != r.max_new for r in done):
-        raise AssertionError(f"serving {name}: not every request drained with max_new tokens")
+    if len(done) != len(reqs) or failed or any(len(r.out) != r.max_new for r in done):
+        raise AssertionError(f"serving {name}: not every request drained with max_new tokens; "
+                             f"failed: {[(r.rid, r.error) for r in failed]}")
     missing = [k for k in path_kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"serving {name}: kernels never launched on the main path: "
@@ -1941,6 +1984,209 @@ def check_serving(cfg, params) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the reference backend, degraded serving, the ServeLoop
+# ---------------------------------------------------------------------------
+
+#: calls of each family's reference schedule (:func:`count_reference_calls`)
+REFERENCE_CALLS: collections.Counter = collections.Counter()
+
+
+def count_reference_calls() -> None:
+    """Re-register every family with its reference schedule counted in
+    ``REFERENCE_CALLS``: the evidence that a phase resolved no serving
+    call to the oracle, or ran it where it should."""
+    def counted(family, fn):
+        def call(*args, **kw):
+            REFERENCE_CALLS[family] += 1
+            return fn(*args, **kw)
+        return call
+
+    for op_ in list(api._REGISTRY.values()):
+        api.register(dataclasses.replace(op_, schedules=tuple(
+            dataclasses.replace(s, fn=counted(op_.name, s.fn)) if s.backend == "reference" else s
+            for s in op_.schedules)))
+
+
+def check_clean(phase: str) -> None:
+    """A phase that injects no fault ends with no fallback counted and no
+    reference schedule run; the counters restart for the next phase."""
+    st = kernels.fallback_stats()
+    emit(dict(check="no_fallback", phase=phase, guarded_calls=st.calls, fallbacks=st.fallbacks,
+              reference_calls=dict(REFERENCE_CALLS)))
+    if st.fallbacks or sum(REFERENCE_CALLS.values()):
+        raise AssertionError(f"{phase}: {st.fallbacks} fallbacks, reference calls "
+                             f"{dict(REFERENCE_CALLS)} in a phase that injects no fault")
+    kernels.reset_fallback_stats()
+    REFERENCE_CALLS.clear()
+
+
+def check_reference(cfg, params) -> None:
+    """Phase 5a: qwen1.5-0.5b at full width with every family on its
+    reference schedule (``use_policy("reference")``): the prefill and one
+    decode step for a batch of 4 held to the kernel path's logits
+    (``TOL_MODEL``, argmax agreement reported, as phase 3 does), and the
+    reference decode step timed beside the kernel step — what one retried
+    step costs.  The reference step must launch no kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
+    step = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
+    pre_k, dec_k, kstats = model_run(cfg, params, prompt, step, time_step=True)
+    REFERENCE_CALLS.clear()
+    with kernels.use_policy("reference"):
+        pre_r, dec_r, rstats = model_run(cfg, params, prompt, step, time_step=True)
+    ref_calls = dict(REFERENCE_CALLS)
+    REFERENCE_CALLS.clear()
+    emit(dict(check="reference_step_time", kv="paged", batch=4, context=len(prompt) + 1,
+              reference_calls=ref_calls,
+              **{f"kernel_{k}": v for k, v in kstats.items()},
+              **{f"reference_{k}": v for k, v in rstats.items()},
+              device_ms_ratio=rstats["device_ms"] / kstats["device_ms"],
+              host_ms_ratio=rstats["host_ms"] / kstats["host_ms"]))
+    if rstats["port_launches"] or not ref_calls.get("paged_attention") \
+            or not ref_calls.get("matmul"):
+        raise AssertionError(f"reference step: {rstats['port_launches']} kernel launches, "
+                             f"reference calls {ref_calls}")
+    _compare_logits(dict(kv="paged", policy="reference vs default"),
+                    (("prefill", pre_r, pre_k), ("decode_step", dec_r, dec_k)))
+
+
+#: the degraded-serving pool: 16 usable pages of 16 tokens for 4 slots of
+#: requests that grow to 6 pages each, so decode page faults preempt
+DEGRADED_PAGES = 17
+
+
+def degraded_plan() -> FaultPlan:
+    """One seeded plan with every fault kind of the serving stack at fixed
+    hits: two kernel raises and a NaN output (retried on the reference
+    backend), a corrupted page in the first cached prefix chain (caught by
+    the next prefix hit), a lost swap blob (the request replays) and a
+    forced pool exhaustion."""
+    return FaultPlan([Fault("kernel.raise", at=6), Fault("kernel.raise", at=40),
+                      Fault("kernel.nan", at=20), Fault("page.corrupt", at=0, page_index=0),
+                      Fault("swap.drop", at=0), Fault("pool.alloc", at=3)], seed=0)
+
+
+def check_degraded_serving(cfg, params) -> list[dict[str, int]]:
+    """Phase 5b: qwen1.5-0.5b at full width on the paged engine over a pool
+    small enough to preempt (``DEGRADED_PAGES``): (a) guards off, the
+    streams and their top-two margins; (b) ``kv_guard`` and
+    ``kernel_fallback`` armed, no plan — the streams must equal (a)'s and
+    nothing may fall back; (c) the same engine under ``degraded_plan`` —
+    every request drains (one corrupted page and one forced exhaustion
+    requeue none past ``MAX_DEGRADE_REQUEUES``: a failed request fails
+    the phase), the pool audit is green,
+    fallbacks equal the kernel faults that fired, pages were
+    quarantined, and the streams equal (a)'s but where (a)'s top-two
+    margin is a near-tie (a retried step runs on reference numerics)."""
+    path = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+    conf = dict(pages=DEGRADED_PAGES)
+    sampler = MarginSampler()
+    eng = sampler.attach(PagedEngine(cfg, params, config=ServeConfig(**conf), sampler=sampler,
+                                     device="cuda"))
+    reqs = serving_requests(cfg)
+    runs = [serve_path("paged-small-pool", eng, reqs, path)]
+    clean = {r.rid: list(r.out) for r in reqs}
+    if not eng.n_preempted:
+        raise AssertionError("degraded serving: the small pool preempted nothing")
+    guarded = PagedEngine(cfg, params, device="cuda",
+                          config=ServeConfig(kv_guard=True, kernel_fallback=True, **conf))
+    reqs = serving_requests(cfg)
+    runs.append(serve_path("paged-small-pool guarded", guarded, reqs, path))
+    st = guarded.stats()
+    if {r.rid: list(r.out) for r in reqs} != clean or st["kernel_fallbacks"] \
+            or st["quarantined_pages"]:
+        raise AssertionError(f"guards on, no plan: streams differ or it degraded: {st}")
+    check_clean("guards on, no plan")
+
+    eng = PagedEngine(cfg, params, device="cuda",
+                      config=ServeConfig(kv_guard=True, kernel_fallback=True, **conf))
+    plan = degraded_plan()
+    runs.append(serve_path("paged-small-pool degraded", eng, serving_requests(cfg), path,
+                           compare=("paged-small-pool", clean, sampler.margins), plan=plan))
+    st, fb = eng.stats(), kernels.fallback_stats()
+    fired = collections.Counter(site for site, _ in plan.fired)
+    kernel_faults = fired["kernel.raise"] + fired["kernel.nan"]
+    emit(dict(check="degraded_serving", fired=[list(f) for f in plan.fired],
+              kernel_faults=kernel_faults, fallbacks=fb.fallbacks, raised=fb.raised,
+              numeric_trips=fb.numeric_trips, guarded_calls=fb.calls,
+              engine_fallbacks=st["kernel_fallbacks"], quarantined_pages=st["quarantined_pages"],
+              swap_dropped=st["swap_dropped"], preempted=st["preempted"],
+              degrade_requeues=st["degrade_requeues"], failed=st["failed"],
+              rejected=st["rejected"], reference_calls=dict(REFERENCE_CALLS)))
+    missing = {"kernel.raise", "kernel.nan", "page.corrupt", "swap.drop", "pool.alloc"} - set(fired)
+    if missing:
+        raise AssertionError(f"degraded serving: planned faults never fired: {missing}")
+    if not (fb.fallbacks == st["kernel_fallbacks"] == kernel_faults > 0):
+        raise AssertionError(f"degraded serving: {fb.fallbacks} fallbacks "
+                             f"({st['kernel_fallbacks']} in stats) for {kernel_faults} kernel faults")
+    if st["quarantined_pages"] <= 0 or st["swap_dropped"] <= 0:
+        raise AssertionError(f"degraded serving: nothing quarantined or no swap lost: {st}")
+    kernels.reset_fallback_stats()
+    REFERENCE_CALLS.clear()
+    return runs
+
+
+def check_serve_loop(cfg, params) -> dict[str, int]:
+    """Phase 5c: qwen1.5-0.5b at full width behind the async ``ServeLoop``
+    (``max_slots`` 4): a seeded Poisson trace of 1.5 requests/s over 6 s,
+    half opening with a 32-token shared prefix, 24-32 new tokens each,
+    arriving in real time after ``warmup_for_trace``.  Every launch count
+    is 0 just before the trace and read just after.  Fails unless every
+    request drained, the mean batch occupancy is above 1, a prefill
+    landed while others decoded, the snapshot validates against the
+    schema, no kernel library was built or loaded during the trace, and
+    the streams equal the synchronous ``PagedEngine.run`` replay of the
+    same trace but where the replay's top-two margin is a near-tie."""
+    trace = LoadGen(seed=0, qps=1.5, duration=6.0, vocab=cfg.vocab, prompt_len=(8, 28),
+                    max_new=(24, 32), shared_prefix_len=32, shared_frac=0.5).trace()
+    loop = ServeLoop(PagedEngine(cfg, params, config=ServeConfig(max_slots=4), device="cuda"))
+    t0 = time.perf_counter()
+    warm = loop.warmup_for_trace(trace)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    loaded = sorted(_build._LOADED)
+    kernels.reset_launch_counts()
+    results = loop.run_trace(trace, warmup=False)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    snap = validate_snapshot(loop.snapshot())
+    loop.engine.check()
+    sampler = MarginSampler()
+    sync = sampler.attach(PagedEngine(cfg, params, config=ServeConfig(max_slots=4),
+                                      sampler=sampler, device="cuda"))
+    done = sync.run([Request(rid=a.rid, prompt=list(a.prompt), max_new=a.max_new)
+                     for a in trace])
+    cmp = compare_streams([r.engine_req for r in results.values()], "sync replay",
+                          {r.rid: list(r.out) for r in done}, sampler.margins)
+    states = collections.Counter(r.state.name for r in results.values())
+    keys = ("requests_total", "tokens_out", "duration_s", "sustained_tok_s", "ttft_p50_ms",
+            "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms", "queue_wait_p50_ms", "queue_wait_p99_ms",
+            "decode_ticks", "occupancy_mean", "occupancy_max", "prefills",
+            "prefills_mid_decode", "bucket_compiles", "kernel_fallbacks",
+            "engine_prefix_hit_tokens", "engine_preempted")
+    emit(dict(check="serve_loop", card=card_line(), qps=1.5, duration_s_trace=6.0,
+              warmup_steps=warm, warmup_s=warm_s, states=dict(states),
+              launches={k: v for k, v in launches.items() if v},
+              libraries_loaded_during_trace=sorted(set(_build._LOADED) - set(loaded)),
+              **{k: snap[k] for k in keys}, **cmp))
+    path = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+    if set(states) != {"DRAINED"} or snap["occupancy_mean"] <= 1 \
+            or snap["prefills_mid_decode"] < 1 or sorted(_build._LOADED) != loaded:
+        raise AssertionError(f"serve loop: states {dict(states)}, occupancy "
+                             f"{snap['occupancy_mean']}, prefills mid-decode "
+                             f"{snap['prefills_mid_decode']}, libraries {sorted(_build._LOADED)}")
+    if [k for k in path if not launches[k]] or [k for k, v in launches.items()
+                                                 if v and k not in path]:
+        raise AssertionError(f"serve loop: launches {launches}, path {path}")
+    if cmp["differing"] and cmp["worst_margin_over_tol"] > 1:
+        raise AssertionError(f"serve loop: a stream differs from the sync replay where its "
+                             f"top-two margin exceeds {TOL_MODEL} x max |logit|: "
+                             f"{cmp['differing']}")
+    check_clean("serve loop")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1961,6 +2207,7 @@ def main() -> None:
         for entry, props in ptxas_entries(_build.ptxas_report(kname)):
             print(f"# ptxas {kname}: {entry}: {props}", flush=True)
 
+    count_reference_calls()
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
     mm = [check_matmul(gen, 4, 1024, 1024),                      # decode q/k/v (+bias)
@@ -1992,6 +2239,11 @@ def main() -> None:
     check_spec_model(cfg18, params18)
     serve_launches = check_serving(cfg, params)
     for run in check_spec_serving(cfg18, params18, draft_for("qwen1.5-1.8b"), cfg, params):
+        serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
+    check_clean("phases 2-4")
+    del params18
+    check_reference(cfg, params)
+    for run in check_degraded_serving(cfg, params) + [check_serve_loop(cfg, params)]:
         serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
                 for k in kernels.KERNELS}

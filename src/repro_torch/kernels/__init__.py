@@ -4,10 +4,15 @@ from repro_torch.kernels.api import (  # noqa: F401
     ACTIVATIONS,
     KERNELS,
     DispatchPolicy,
+    FallbackStats,
+    all_finite,
+    call_with_fallback,
+    fallback_stats,
     get_policy,
     launch_counts,
     linear,
     op,
+    reset_fallback_stats,
     reset_launch_counts,
     resolve,
     set_policy,

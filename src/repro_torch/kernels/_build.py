@@ -162,13 +162,20 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+class KernelUnavailable(RuntimeError):
+    """A kernel could not be built, loaded or launched.  The card cannot
+    run that kernel at all, so a caller must not retry the step on the
+    plain version: :func:`repro_torch.kernels.call_with_fallback` lets
+    it propagate."""
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler; raises when there is none."""
     for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
                  shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelUnavailable(
         "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and PATH): "
         "the port's CUDA kernels are built from src/repro_torch/csrc at first use")
 
@@ -200,7 +207,7 @@ def _finish(name: str, job, out: Path) -> None:
     log, _ = proc.communicate()
     (BUILD_DIR / f"{name}.log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {KERNELS[name][0]} (rc {proc.returncode}):\n{log}")
+        raise KernelUnavailable(f"nvcc failed for {KERNELS[name][0]} (rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
 
 
@@ -232,15 +239,18 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             job, out = _start(name)
             _finish(name, job, out)
-            lib = ctypes.CDLL(str(out))
-            fn = getattr(lib, KERNELS[name][1])
-            fn.argtypes = KERNELS[name][2]
-            fn.restype = ctypes.c_int
-            for entry, argtypes in ([DESIGN_RULES[name]] if name in DESIGN_RULES else []) \
-                    + HELPERS.get(name, []):
-                helper = getattr(lib, entry)
-                helper.argtypes = argtypes
-                helper.restype = ctypes.c_int
+            try:
+                lib = ctypes.CDLL(str(out))
+                fn = getattr(lib, KERNELS[name][1])
+                fn.argtypes = KERNELS[name][2]
+                fn.restype = ctypes.c_int
+                for entry, argtypes in ([DESIGN_RULES[name]] if name in DESIGN_RULES else []) \
+                        + HELPERS.get(name, []):
+                    helper = getattr(lib, entry)
+                    helper.argtypes = argtypes
+                    helper.restype = ctypes.c_int
+            except (OSError, AttributeError) as e:
+                raise KernelUnavailable(f"cannot load kernel library {out.name}: {e}") from e
             _LOADED[name] = lib
     return lib
 
@@ -248,5 +258,5 @@ def load(name: str) -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     """Raise when a kernel's C entry reported a CUDA error."""
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise KernelUnavailable(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 

@@ -14,22 +14,28 @@ for the JAX launcher means the same here::
     rglru            pallas (K11; backward K12)                  vjp
 
 In the port the backend name ``pallas`` means "the hand-written
-kernels", and every schedule is one.  Dispatch resolves, in order: the
+kernels".  Every family also registers the JAX package's ``reference``
+schedule: its ``ref.py`` oracle in plain PyTorch (``torch.matmul`` and
+tensor ops, as JAX's use ``jnp.dot``).  Dispatch resolves, in order: the
 ``policy=`` of :func:`linear` / :func:`resolve`, the global policy
 (:func:`set_policy` / :func:`use_policy`), the ``REPRO_KERNEL_POLICY``
 environment variable, then the default — the JAX package's default on a
 TPU: backend ``pallas``, cheapest available schedule by the cost model
-of :mod:`repro_torch.kernels.autotune`.  Ties go to the first schedule
+of :mod:`repro_torch.kernels.autotune`, and the ``reference`` schedule
+only where no kernel schedule is available (paged attention under
+differentiation).  ``backend=reference``, ``reference`` and
+``schedule=reference`` force the oracle.  Ties go to the first schedule
 listed, which is why ``tiled`` comes before ``mcast`` and ``unicast``:
 their costs tie exactly for M <= 2048.  A pick is memoised on (family,
 problem, effective policy, differentiated): the JAX package resolves
 once per trace, and the port, which has no trace, once per distinct key
 rather than once per launch.
 
-Every schedule launches its CUDA kernel for CUDA tensors and runs the
-kernel's plain PyTorch version for CPU tensors.  The ``reference``
-backend (the JAX package's pure-XLA oracle) is not ported: forcing it,
-or a dispatch that would fall back to it, raises ``NotImplementedError``.
+Every kernel schedule launches its CUDA kernel for CUDA tensors and runs
+the kernel's plain PyTorch version for CPU tensors.  The reference
+schedules run on either device and never on the main path by default:
+only a policy that forces them, or an armed fallback's retry
+(:func:`call_with_fallback`), reaches them.
 
 **Gradients.**  A call is differentiated when ``torch.is_grad_enabled()``
 and one of its inputs ``requires_grad``.  Such a call runs a vjp-capable
@@ -41,7 +47,8 @@ copy); the flash backward runs K7 and K8 from the forward's saved
 log-sum-exp; the SSD backward runs K10 from the chunk-initial states K9
 checkpointed, and the RG-LRU backward K12 from K11's output.  Under
 differentiation auto-dispatch skips schedules without a VJP, and forcing
-one raises the JAX package's ``ValueError``.
+one raises the JAX package's ``ValueError``; a reference schedule is
+differentiated natively, by autograd through its tensor ops.
 Only the matmul backward dispatches again (the others are each one fixed
 kernel), and a forward whose schedule was forced does not force it: the
 backward resolves under ``backend=pallas`` (the cheapest kernel for its
@@ -63,6 +70,10 @@ own shapes), as JAX's ``_bwd_policy_token`` does.
   so the port reports none.)
 * :func:`launch_counts` / :func:`reset_launch_counts` — one launch
   counter per kernel; the plain CPU path never moves them.
+* :func:`call_with_fallback` — run a kernel call, and on an exception (or
+  a failed output check, :func:`all_finite`) retry it once on the
+  reference backend, counted in the process-wide :class:`FallbackStats`
+  (:func:`fallback_stats` / :func:`reset_fallback_stats`).
 """
 from __future__ import annotations
 
@@ -76,11 +87,13 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch.kernels import autotune
+from repro_torch.kernels._build import KernelUnavailable
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
 )
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.matmul.matmul import (
     ACTIVATIONS,
     matmul_mcast,
@@ -91,13 +104,18 @@ from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_decode,
     paged_attention_prefill,
 )
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.rglru.ref import rglru_scan_ref
 from repro_torch.kernels.rglru.rglru import rglru_scan, rglru_scan_bwd
+from repro_torch.kernels.ssd.ref import ssd_scan_ref
 from repro_torch.kernels.ssd.ssd import SSD_CHUNK, ssd_lcum, ssd_scan, ssd_scan_bwd
+from repro_torch.obs import trace
 
-__all__ = ["ACTIVATIONS", "BACKENDS", "DispatchPolicy", "KERNELS", "KernelOp",
-           "POLICY_ENV_VAR", "Problem", "Resolution", "Schedule", "as_policy",
-           "get_policy", "launch_counts", "linear", "op", "reset_launch_counts",
-           "resolve", "set_policy", "use_policy"]
+__all__ = ["ACTIVATIONS", "BACKENDS", "DispatchPolicy", "FallbackStats", "KERNELS",
+           "KernelOp", "POLICY_ENV_VAR", "Problem", "Resolution", "Schedule", "all_finite",
+           "as_policy", "call_with_fallback", "fallback_stats", "get_policy", "launch_counts",
+           "linear", "op", "reset_fallback_stats", "reset_launch_counts", "resolve",
+           "set_policy", "use_policy"]
 
 POLICY_ENV_VAR = "REPRO_KERNEL_POLICY"
 BACKENDS = ("pallas", "reference")
@@ -244,21 +262,19 @@ class Problem:
 class Schedule:
     """One way to run a kernel family: ``fn(*tensors, **opts)``.
 
-    ``vjp``: the family's autograd function can differentiate it (its
-    backward is kernels too).  Under differentiation, dispatch skips
-    schedules without one and refuses to force them."""
+    ``backend``: ``pallas`` (a hand-written kernel) or ``reference`` (the
+    plain-PyTorch oracle).  ``cost`` None: a last resort.  ``vjp``: the
+    schedule can be differentiated — a kernel schedule through its
+    family's autograd function (its backward is kernels too), a reference
+    schedule natively.  Under differentiation, dispatch skips schedules
+    without one and refuses to force them."""
 
     name: str
     fn: Callable[..., torch.Tensor]
-    cost: Callable[[Problem], float]  # lower wins
+    cost: Callable[[Problem], float] | None  # lower wins
     available: Callable[[Problem], bool] = lambda p: True
     vjp: bool = False
-
-
-def _no_reference(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the reference backend is not ported (ROADMAP Queue 1 item 2, "
-        f"with kernel_fallback, which retries on it)")
+    backend: str = "pallas"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,10 +302,12 @@ class KernelOp:
 
     def pick(self, problem: Problem, pol: DispatchPolicy, needs_vjp: bool = False) -> Schedule:
         """:meth:`resolve` without the memo."""
-        if pol.backend == "reference" or pol.schedule == "reference":
-            raise _no_reference(f"kernel op {self.name!r}")
         if pol.schedule is not None:
             sched = self.schedule(pol.schedule)
+            if pol.backend is not None and sched.backend != pol.backend:
+                raise ValueError(
+                    f"policy forces schedule {pol.schedule!r} (backend "
+                    f"{sched.backend}) but also backend {pol.backend!r}")
             if needs_vjp and not sched.vjp:
                 raise ValueError(
                     f"kernel op {self.name!r}: schedule {sched.name!r} has no "
@@ -298,19 +316,21 @@ class KernelOp:
                     f"({[s.name for s in self.schedules if s.vjp]}) or drop "
                     f"the forced policy and let dispatch pick one")
             return sched
-        scheds = [s for s in self.schedules if s.vjp or not needs_vjp]
-        if not scheds and pol.backend is not None:
+        of_backend = [s for s in self.schedules if s.backend == (pol.backend or "pallas")
+                      and (s.vjp or not needs_vjp)]
+        if not of_backend and pol.backend is not None:
             raise ValueError(f"kernel op {self.name!r}: no {pol.backend!r} schedule "
                              f"has a VJP but the call is being differentiated")
-        avail = [s for s in scheds if s.available(problem)]
+        avail = [s for s in of_backend if s.available(problem)]
         if pol.backend is not None:
             # a forced backend is honoured even when every availability
             # predicate fails (they are conservative models)
-            avail = avail or scheds
-        elif not avail:  # the JAX package falls back to its reference backend
-            raise _no_reference(f"kernel op {self.name!r} at {problem}"
-                                + (" under differentiation" if needs_vjp else ""))
-        return min(avail, key=lambda s: s.cost(problem))  # ties: the first listed
+            avail = avail or of_backend
+        elif not avail:  # no kernel schedule fits: the reference backend
+            avail = [s for s in self.schedules
+                     if s.backend == "reference" and (s.vjp or not needs_vjp)]
+        # ties: the first listed
+        return min(avail, key=lambda s: s.cost(problem) if s.cost else math.inf)
 
     def __call__(self, *tensors: torch.Tensor, **opts) -> torch.Tensor:
         full = dict(self.opt_defaults)
@@ -322,7 +342,7 @@ class KernelOp:
         pol = get_policy()
         needs_vjp = _needs_vjp(*tensors)
         sched = self.resolve(problem, pol, needs_vjp=needs_vjp)
-        if needs_vjp:
+        if needs_vjp and sched.backend == "pallas":  # the oracle differentiates natively
             if self.name == "matmul":  # the one backward that dispatches again
                 return _LinearFunction.apply(sched, _bwd_policy_token(pol), full, *tensors)
             return _VJP[self.name].apply(sched, full, *tensors)
@@ -353,8 +373,8 @@ def op(name: str) -> KernelOp:
 
 class Resolution(NamedTuple):
     """What :func:`resolve` reports: the picked schedule, its backend
-    (always ``pallas``, the hand-written kernels) and whether it can be
-    differentiated."""
+    (``pallas``, the hand-written kernels, or ``reference``) and whether
+    it can be differentiated."""
 
     schedule: str
     backend: str
@@ -369,7 +389,7 @@ def resolve(name: str, shape: Sequence[int], dtype,
     sched = op(name).resolve(
         Problem(tuple(int(s) for s in shape), autotune.dtype_name(dtype)), policy,
         needs_vjp=needs_vjp)
-    return Resolution(sched.name, "pallas", sched.vjp)
+    return Resolution(sched.name, sched.backend, sched.vjp)
 
 
 def _bwd_policy_token(pol: DispatchPolicy) -> str | None:
@@ -432,6 +452,47 @@ def _mm_unicast(a, b, bias=None, *, activation, out_dtype):
     return _flat_epilogue(matmul_unicast(a, b), bias, activation, out_dtype or a.dtype)
 
 
+def _sigmoid_composed(y):
+    return 1 / (1 + torch.exp(-y))
+
+
+def _gelu_tanh_composed(y):
+    def const(c):  # the JAX code's constants, cast to y's dtype first
+        return torch.tensor(c, dtype=y.dtype, device=y.device)
+    inner = const(math.sqrt(2 / math.pi)) * (y + const(0.044715) * (y * y * y))
+    return y * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+#: the activations as ``jax.nn`` composes them — ``sigmoid`` is
+#: 1 / (1 + exp(-x)), ``gelu`` the tanh form — op by op in the input's
+#: dtype, so a bf16 activation rounds after every step, as the JAX
+#: reference's does
+REFERENCE_ACTIVATIONS = dict(
+    ACTIVATIONS, sigmoid=_sigmoid_composed, silu=lambda y: y * _sigmoid_composed(y),
+    gelu=_gelu_tanh_composed, gelu_tanh=_gelu_tanh_composed)
+
+
+def _reference_epilogue(y, bias, activation, out_dtype):
+    """The reference backend's epilogue (JAX ``_reference_epilogue``): the
+    cast to ``out_dtype`` (default: the product's own dtype) comes
+    *before* the bias add, and the activation runs in that dtype — the
+    model layer's pre-kernel rounding points, not the kernels' fp32
+    epilogue."""
+    y = y.to(out_dtype or y.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return REFERENCE_ACTIVATIONS[activation](y)
+
+
+def _mm_reference(a, b, bias=None, *, activation, out_dtype):
+    """``jnp.dot``: the product accumulated in fp32 and returned in the
+    operands' promoted dtype — an fp32 x bf16 product (the logits) in
+    fp32, a bf16 x bf16 one rounded once to bf16, as XLA's dot does."""
+    y = torch.matmul(a.float(), b.float())
+    return _reference_epilogue(y.to(torch.promote_types(a.dtype, b.dtype)), bias, activation,
+                               out_dtype)
+
+
 register(KernelOp(
     name="matmul",
     problem=lambda a, b, *rest: (a.shape[0], a.shape[1], b.shape[1]),
@@ -442,6 +503,7 @@ register(KernelOp(
         Schedule("mcast", _mm_mcast, _model_cost("matmul", "mcast"),
                  available=_fits("matmul", "mcast"), vjp=True),
         Schedule("unicast", _mm_unicast, _model_cost("matmul", "unicast"), vjp=True),
+        Schedule("reference", _mm_reference, None, vjp=True, backend="reference"),
     ),
 ))
 
@@ -454,7 +516,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None
     ``x`` (..., *k_dims), ``w`` (*k_dims, *out_dims) with
     ``contract_dims`` leading axes contracted; ``bias`` broadcasts over
     ``out_dims``.  Dispatch resolves on the flattened (M, K, N) problem
-    and ``x.dtype``; ``out_dtype`` defaults to ``x.dtype``."""
+    and ``x.dtype``; ``out_dtype`` defaults to ``x.dtype`` on the kernels
+    and to the product's own dtype on the reference backend, as in the JAX
+    package."""
     k_dims, out_dims = w.shape[:contract_dims], w.shape[contract_dims:]
     if tuple(x.shape[x.ndim - contract_dims:]) != tuple(k_dims):
         raise ValueError(f"linear: x {tuple(x.shape)} does not contract with w "
@@ -467,7 +531,7 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None
                                  needs_vjp=needs_vjp)
     opts = dict(activation=activation or "none", out_dtype=out_dtype)
     args = (x.reshape(m, k), w.reshape(k, n)) + (() if bias is None else (bias.reshape(n),))
-    if needs_vjp:
+    if needs_vjp and sched.backend == "pallas":
         y = _LinearFunction.apply(sched, _bwd_policy_token(pol), opts, *args)
     else:
         y = sched.fn(*args, **opts)
@@ -532,6 +596,7 @@ register(KernelOp(
     # (sq, sk, d <= 256) runs.  The one schedule's cost decides nothing.
     schedules=(
         Schedule("pallas", _flash_pallas, _model_cost("flash_attention"), vjp=True),
+        Schedule("reference", attention_ref, None, vjp=True, backend="reference"),
     ),
 ))
 
@@ -591,6 +656,12 @@ def _paged_prefill(q, k_pages, v_pages, block_table, start, lengths, *scales, so
                                    k_scale=k_scale, v_scale=v_scale, softcap=softcap)
 
 
+def _paged_reference(q, k_pages, v_pages, block_table, start, lengths, *scales, softcap):
+    k_scale, v_scale = scales if scales else (None, None)
+    return paged_attention_ref(q, k_pages, v_pages, block_table, start, lengths,
+                               softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+
+
 _paged_fits = _fits("paged_attention")
 
 register(KernelOp(
@@ -608,6 +679,9 @@ register(KernelOp(
         Schedule("pallas_prefill", _paged_prefill,
                  _model_cost("paged_attention", "prefill"),
                  available=_fits("paged_attention", "prefill")),
+        # the one differentiable schedule: auto-dispatch under autograd
+        # lands here, as in the JAX package
+        Schedule("reference", _paged_reference, None, vjp=True, backend="reference"),
     ),
 ))
 
@@ -632,7 +706,10 @@ register(KernelOp(
     # Always available, unlike the JAX schedule, whose chunk must divide
     # the sequence and whose (P, N) state must fit VMEM: the CUDA kernels
     # run a short last chunk and stream the state through N tiles.
-    schedules=(Schedule("pallas", _ssd_pallas, _model_cost("ssd"), vjp=True),),
+    schedules=(
+        Schedule("pallas", _ssd_pallas, _model_cost("ssd"), vjp=True),
+        Schedule("reference", ssd_scan_ref, None, vjp=True, backend="reference"),
+    ),
 ))
 
 
@@ -677,7 +754,10 @@ register(KernelOp(
     # Always available: the JAX schedule is not where its sequence block
     # must be the whole (prime) sequence and overflows VMEM; the CUDA
     # kernels cut any length into 64-step chunks, the last one short.
-    schedules=(Schedule("pallas", _rglru_pallas, _model_cost("rglru"), vjp=True),),
+    schedules=(
+        Schedule("pallas", _rglru_pallas, _model_cost("rglru"), vjp=True),
+        Schedule("reference", rglru_scan_ref, None, vjp=True, backend="reference"),
+    ),
 ))
 
 
@@ -707,3 +787,96 @@ class _RglruFunction(torch.autograd.Function):
 #: fixed kernel (JAX ``_VJP_FWD``/``_VJP_BWD``); matmul's is
 #: :class:`_LinearFunction`, which also takes the backward policy
 _VJP = {"flash_attention": _FlashFunction, "ssd": _SsdFunction, "rglru": _RglruFunction}
+
+
+# ---------------------------------------------------------------------------
+# degradation: retry once on the reference backend
+# ---------------------------------------------------------------------------
+#
+# A kernel call that raises — or, under the opt-in output check, returns
+# NaN/Inf — is retried exactly once on the reference backend instead of
+# failing the whole batch.  A kernel that cannot be built, loaded or
+# launched (``KernelUnavailable``) is not retried: the plain version would
+# then serve every step while the kernel never runs.  The mechanism lives here, next to the dispatch
+# it guards; when to arm it is the caller's choice
+# (``PagedEngine(kernel_fallback=True)``, ``--kernel-fallback``).  Every
+# retry is counted, so a degraded server shows in its stats.
+
+
+@dataclasses.dataclass
+class FallbackStats:
+    """Cumulative counters of :func:`call_with_fallback` (process-wide)."""
+
+    calls: int = 0  # guarded calls attempted
+    fallbacks: int = 0  # calls that completed on the reference retry
+    raised: int = 0  # primary raised an exception
+    numeric_trips: int = 0  # primary returned non-finite output
+    last_error: str | None = None
+
+
+_FALLBACK_STATS = FallbackStats()
+
+
+def fallback_stats() -> FallbackStats:
+    """Snapshot of the process-wide fallback counters."""
+    return dataclasses.replace(_FALLBACK_STATS)
+
+
+def reset_fallback_stats() -> None:
+    global _FALLBACK_STATS
+    _FALLBACK_STATS = FallbackStats()
+
+
+def all_finite(*tensors) -> bool:
+    """Opt-in output guard: True iff every floating tensor is NaN/Inf-free.
+    Synchronises with the device; callers run it at step boundaries,
+    where the engine reads the sampled token anyway."""
+    return all(not t.is_floating_point() or bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def _device_lost() -> bool:
+    """True when the CUDA context can run no more work: a sticky error
+    (an illegal address, a trap) fails every later call, the retry too."""
+    if not torch.cuda.is_initialized():
+        return False
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return True
+    return False
+
+
+def call_with_fallback(primary, reference, *args, check=None):
+    """Run ``primary(*args)``; on an exception — or, when ``check`` is
+    given, on ``check(out)`` returning False — run ``reference(*args)``
+    once and return its result instead.
+
+    Returns ``(out, fell_back)``.  The reference retry is *not* guarded:
+    if the oracle also fails, the fault is not the kernel's and the error
+    propagates.  So does a kernel that cannot be built, loaded or
+    launched (:class:`KernelUnavailable`): serving every step on the
+    oracle would hide it.  And so does the primary's error when it left
+    the CUDA context unusable (a retry could not run).  A primary that
+    writes its inputs in place must write only what the retry rewrites
+    before reading it."""
+    _FALLBACK_STATS.calls += 1
+    try:
+        out = primary(*args)
+    except KernelUnavailable:
+        raise
+    except Exception as e:  # noqa: BLE001 — any other kernel failure degrades
+        if _device_lost():
+            raise
+        _FALLBACK_STATS.raised += 1
+        _FALLBACK_STATS.last_error = f"{type(e).__name__}: {e}"
+    else:
+        if check is None or check(out):
+            return out, False
+        _FALLBACK_STATS.numeric_trips += 1
+        _FALLBACK_STATS.last_error = "non-finite kernel output"
+    _FALLBACK_STATS.fallbacks += 1
+    rec = trace.active()
+    if rec is not None:
+        rec.instant("kernel.fallback", cat="kernel",
+                    args={"error": _FALLBACK_STATS.last_error})
+    return reference(*args), True

@@ -1,9 +1,12 @@
 """Plain PyTorch oracle for paged attention: gather pages, then attend.
 
-The port of the JAX package's ``paged_attention/ref.py``: one softmax
-over the whole gathered sequence, fp32 logits, probabilities cast to the
-value dtype before the PV contraction, and dequant-on-gather for int8
-pools.  The kernels' own plain versions (``paged_attention.py``) follow
+The port of the JAX package's ``paged_attention/ref.py``, rounding where
+it rounds: one softmax over the whole gathered sequence, the QK product
+rounded to the operands' dtype before the fp32 scale (the einsum of bf16
+operands returns bf16), probabilities cast to the value dtype before the
+PV contraction, whose result rounds to that dtype too, and
+dequant-on-gather for int8 pools.  It is the ``reference`` schedule of
+the ``paged_attention`` op.  The kernels' own plain versions (``paged_attention.py``) follow
 the page-by-page online softmax instead; this oracle is the independent
 check that both compute attention.
 """
@@ -38,7 +41,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, start, lengths, *,
         v = (v.float() * gather_pages(v_scale, block_table).float()).to(torch.bfloat16)
     t = k.shape[1]
     q5 = q.reshape(b, s, kvh, group, d)
-    logits = torch.einsum("bskgh,btkh->bkgst", q5.float(), k.float()) / math.sqrt(d)
+    logits = torch.einsum("bskgh,btkh->bkgst", q5.float(), k.float())
+    logits = logits.to(torch.result_type(q5, k)).float() / math.sqrt(d)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = start.long()[:, None] + torch.arange(s, device=q.device)[None, :]
@@ -48,4 +52,4 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, start, lengths, *,
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs.float(), v.float())
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return out.to(v.dtype).reshape(b, s, h, d)

@@ -20,12 +20,28 @@ in the JAX launcher:
 
 ``--kernel-policy`` forces the matmul schedule as in the JAX launcher:
 ``tiled`` (K1), ``mcast`` (K4), ``unicast`` (K5); the default is the
-cost model's pick (``backend=pallas``).  A forced matmul schedule cannot
-reach the paged engine: its attention op has no such schedule and
-raises, as in the JAX package.
+cost model's pick (``backend=pallas``), and ``reference`` runs every
+family's plain-PyTorch oracle.  A forced matmul schedule cannot reach
+the paged engine: its attention op has no such schedule and raises, as
+in the JAX package.  ``--kv-guard`` (page fingerprints), ``--kernel-fallback``
+(retry a failed or non-finite step once on the reference backend,
+counted in the engine's stats; off by default) and ``--chaos
+SITE[:PROB]`` (a seeded fault plan) reach the paged engine.
 
-Not ported yet: the async ``--server`` loop and the options
-:class:`PagedEngine` rejects.
+``--server`` switches from the fixed request list to the async
+continuous-batching loop (:class:`~repro_torch.serve.ServeLoop`, paged
+engine only): a seeded Poisson trace (``--qps``, ``--duration``,
+``--seed``, the shared-prefix mix of ``--shared-prefix`` /
+``--shared-frac``) arrives in real time, prefills land between decode
+ticks, and every request streams its tokens.  ``--server-driver sync``
+replays the same trace through the synchronous ``PagedEngine.run``:
+both drivers print the same ``req …`` lines.  The loop validates its
+flat metrics snapshot against the schema (printed to stderr; written to
+``--metrics-json`` when given), and without ``--chaos`` fails unless
+every request drained.  ``--queue-cap`` bounds the loop's queue.
+
+Not ported yet: ``--trace``, and the options :class:`PagedEngine`
+rejects (sharded pools).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
@@ -33,11 +49,15 @@ Not ported yet: the async ``--server`` loop and the options
         --reduced --device cpu --shared-prefix 24 --kv paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-1.8b \\
         --kv paged --kv-dtype int8 --spec-k 4 --draft-model auto
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --server --qps 1.5 --duration 6 --max-slots 4 --shared-prefix 32 \\
+        [--server-driver sync] [--kv-guard --kernel-fallback --chaos pool.alloc]
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import sys
 
 import numpy as np
@@ -49,12 +69,17 @@ from repro_torch.configs.registry import draft_for
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm
 from repro_torch.serve import (
+    Lifecycle,
+    LoadGen,
     PagedEngine,
     Request,
     Sampler,
+    ServeLoop,
+    ServeMetrics,
     add_serve_args,
     get_sampler,
     pad_to_bucket,
+    validate_snapshot,
 )
 from repro_torch.serve import config as serve_config
 
@@ -157,9 +182,24 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
+    ap.add_argument("--server", action="store_true",
+                    help="async continuous-batching server loop (ServeLoop) over a "
+                         "seeded Poisson trace; requires --kv paged")
+    ap.add_argument("--qps", type=float, default=4.0,
+                    help="--server: mean Poisson arrival rate")
+    ap.add_argument("--duration", type=float, default=2.0,
+                    help="--server: trace length in seconds")
+    ap.add_argument("--shared-frac", type=float, default=0.5,
+                    help="--server: fraction of requests opening with the "
+                         "--shared-prefix tokens")
+    ap.add_argument("--server-driver", choices=("loop", "sync"), default="loop",
+                    help="--server: 'loop' runs the async ServeLoop; 'sync' replays the "
+                         "same trace through PagedEngine.run (the token-parity oracle)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="--server loop: write the validated flat metrics snapshot here")
+    ap.add_argument("--kv", choices=("dense", "paged"), default=None,
                     help="KV-cache backend: dense ring buffers, or the paged pool "
-                         "with prefix sharing")
+                         "with prefix sharing; default dense, or paged under --server")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend a common random prefix of this many tokens "
                          "to every request (exercises prefix sharing and the "
@@ -178,9 +218,15 @@ def parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> list[Request]:
     """Run the launcher; ``params`` (on the chosen device) replaces the
     seeded random init, e.g. weights converted by ``repro_torch.weights``,
-    and ``draft_params`` likewise the model draft's."""
+    and ``draft_params`` likewise the model draft's.  Returns the served
+    (under ``--server``: the drained) requests."""
     ap = parser()
     args = ap.parse_args(argv)
+    if args.kv is None:
+        args.kv = "paged" if args.server else "dense"
+    if args.server and args.kv != "paged":
+        ap.error("--server requires --kv paged (the ServeLoop is built on the paged "
+                 "engine's typed admission/slot machinery)")
     if args.draft_model == "auto":
         # resolve the registry pairing before ServeConfig validation,
         # which never sees "auto"
@@ -191,10 +237,10 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> li
     if args.spec_k and args.kv != "paged":
         ap.error("--spec-k requires --kv paged (speculative verify-accept "
                  "runs on the paged engine's COW page machinery)")
-    serve_cfg = serve_config.from_args(args, max_slots=args.max_batch)
-    for flag, value in (("--trace", serve_cfg.trace), ("--queue-cap", serve_cfg.queue_cap)):
-        if value is not None:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    serve_cfg = serve_config.from_args(
+        args, max_slots=(args.max_slots or args.max_batch) if args.server else args.max_batch)
+    if serve_cfg.trace is not None:
+        raise NotImplementedError("--trace is not ported yet")
     cfg = get_config(args.arch, reduced=args.reduced)
     device = resolve(args.device)
     if params is None:
@@ -217,6 +263,8 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> li
         else:
             server = Server(cfg, params, max_batch=serve_cfg.max_slots, sampler=sampler,
                             device=device)
+        if args.server:
+            return run_server(args, cfg, serve_cfg, server)
         reqs = make_requests(cfg, n=args.requests, max_new=args.max_new,
                              shared_prefix=args.shared_prefix, seed=serve_cfg.seed)
         with serve_cfg.fault_plan() or contextlib.nullcontext():
@@ -225,6 +273,45 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> li
     if args.kv == "paged":
         print(f"# paged kv stats: {server.stats()}", file=sys.stderr)
     return done
+
+
+def run_server(args, cfg, serve_cfg, engine: PagedEngine) -> list[Request]:
+    """``--server``: one seeded trace, two drivers.  ``loop`` is the async
+    ServeLoop (metrics snapshot validated, and written to
+    ``--metrics-json``); ``sync`` is the turn-by-turn oracle.  Both print
+    the same ``req …`` lines."""
+    trace = LoadGen(seed=serve_cfg.seed, qps=args.qps, duration=args.duration,
+                    vocab=cfg.vocab, max_new=args.max_new,
+                    shared_prefix_len=args.shared_prefix, shared_frac=args.shared_frac).trace()
+    print(f"# trace: {len(trace)} requests over {args.duration}s @ qps {args.qps} "
+          f"(seed {serve_cfg.seed}, driver {args.server_driver})", file=sys.stderr)
+    plan = serve_cfg.fault_plan()
+    if args.server_driver == "sync":
+        reqs = [Request(rid=a.rid, prompt=list(a.prompt), max_new=a.max_new) for a in trace]
+        with plan or contextlib.nullcontext():
+            done = engine.run(reqs)
+        print_request_lines(done)
+        print(f"# paged kv stats: {engine.stats()}", file=sys.stderr)
+        return done
+    loop = ServeLoop(engine, config=serve_cfg, metrics=ServeMetrics())
+    with plan or contextlib.nullcontext():
+        results = loop.run_trace(trace)
+    snap = validate_snapshot(loop.snapshot())
+    drained = [r.engine_req for r in results.values() if r.state is Lifecycle.DRAINED]
+    print_request_lines(drained)
+    print(f"# serve metrics: {json.dumps(snap, sort_keys=True)}", file=sys.stderr)
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True)
+            f.write("\n")
+        print(f"# wrote {args.metrics_json}", file=sys.stderr)
+    if plan is None:
+        # without injected faults every request must drain; a chaos run
+        # may end with typed failures (reported above)
+        bad = {r.rid: r.state.name for r in results.values() if r.state is not Lifecycle.DRAINED}
+        if bad:
+            raise SystemExit(f"requests did not drain: {bad}")
+    return drained
 
 
 if __name__ == "__main__":

@@ -36,31 +36,78 @@ reuse them; here the tensors are simply written.  A rejected draft's
 K/V stays in its page past the committed length, where ``lengths``
 masks it, until a later write replaces it.
 
+Failure behaviour, as in the JAX engine — every detector is an
+off-by-default flag, and with both flags off and no armed
+:class:`~repro_torch.serve.faults.FaultPlan` every code path is the
+plain one:
+
+* admission that cannot proceed returns a **typed**
+  :class:`~repro_torch.serve.scheduler.Rejected` (``no-free-slot`` /
+  ``watermark`` / ``pool-dry``);
+* a lost or corrupted preemption swap blob is detected before the
+  scatter and the request is **re-prefilled from its own token stream**
+  (prompt + generated tokens: greedy decode makes the replay
+  token-identical);
+* a mid-decode allocation or COW failure with nothing left to reclaim
+  **requeues the slot** (bounded by ``MAX_DEGRADE_REQUEUES``, after
+  which the request fails with a typed error);
+* with ``kv_guard=True``, page chains are **fingerprinted**
+  (:class:`~repro_torch.serve.guard.PageFingerprints`) when they enter
+  the prefix tree and verified at every prefix hit: a corrupted chain is
+  quarantined (dropped from the tree, its readers requeued for replay);
+  swap blobs carry a checksum, and a rejected admission must leave every
+  refcount as it found it;
+* with ``kernel_fallback=True``, a model step that raises — or returns
+  non-finite logits — is retried once on the reference backend
+  (``kernels.call_with_fallback``), counted in ``stats()``; a kernel that
+  cannot be built, loaded or launched is not retried and raises.
+
+**The retry and the in-place pools.**  The JAX engine donates no pool
+when the fallback is armed, so a failed primary leaves its inputs
+intact.  Here the primary may have written some layers before it
+failed.  That is safe without a snapshot: a step writes exactly the rows
+its host inputs name — in every layer, the new tokens' K/V (int8 values
+and their scales) at (block table, position) for positions below
+``lengths``, and the padded positions into the null page — and the
+reference retry runs the same step on the same host inputs, so it
+rewrites every one of those rows in each layer before that layer's
+attention reads them.  That holds for decode, the verify step (its
+rejected rows included), the suffix prefill, and the cold prefill,
+whose scatter writes the pools only after the whole prefill ran.  After
+a retry the pools equal those of a step run on the reference backend
+from the start (``tests/test_torch_chaos.py`` holds this bit for bit).
+
 Not ported yet (each raises ``NotImplementedError`` naming it): sharded
-pools (``num_shards > 1``, a mesh), page fingerprints (``kv_guard``),
-the reference-kernel retry (``kernel_fallback``) and fault plans
-(``chaos`` or an armed :class:`~repro_torch.serve.faults.FaultPlan`).
+pools (``num_shards > 1``, a mesh).
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections import Counter
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm
 from repro_torch.obs import trace
-from repro_torch.serve import faults, sampling, spec
+from repro_torch.serve import faults, guard, sampling, spec
 from repro_torch.serve.config import ServeConfig, config_from_legacy
 from repro_torch.serve.pagepool import PagePool
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import Rejected, Scheduler, pad_to_bucket
 
-# a degraded slot (page fault with nothing left to reclaim) re-enters the
-# queue this many times before the request is failed with a typed error
+# a degraded slot (COW/alloc failure, lost swap, quarantine) re-enters
+# the queue this many times before the request is failed with a typed
+# error — the bound that turns a persistent fault into a clean rejection
+# instead of an admission/preemption livelock
 MAX_DEGRADE_REQUEUES = 8
+
+# sentinel: _swap_in found the swap blob missing/corrupt (distinct from
+# an admission Rejected — the caller degrades to a replay re-prefill)
+_SWAP_LOST = object()
 
 
 @dataclasses.dataclass
@@ -71,8 +118,11 @@ class Request:
     out: list[int] = dataclasses.field(default_factory=list)
     # set when the engine permanently fails the request (typed reason)
     error: str | None = None
-    # preemption swap state: (host page data, n_pages, length, last_tok)
+    # preemption swap state:
+    # (host page data | None, n_pages, length, last_tok, checksum | None)
     _swap: tuple | None = dataclasses.field(default=None, repr=False)
+    # degrade-requeue count (quarantine / lost swap / alloc+COW failure);
+    # victim preemptions under memory pressure are normal and don't count
     _requeues: int = dataclasses.field(default=0, repr=False)
 
 
@@ -89,16 +139,8 @@ def _unsupported(config: ServeConfig, mesh) -> list[str]:
     checks = {
         f"num_shards={config.num_shards}": config.num_shards > 1,
         "mesh": mesh is not None,
-        "kv_guard": config.kv_guard,
-        "kernel_fallback": config.kernel_fallback,
-        f"chaos={config.chaos!r}": bool(config.chaos),
     }
     return [name for name, hit in checks.items() if hit]
-
-
-def _no_fault_plan() -> None:
-    if faults.active() is not None:
-        raise NotImplementedError("PagedEngine: fault plans are not ported yet")
 
 
 class PagedEngine:
@@ -169,6 +211,21 @@ class PagedEngine:
         self.n_spec_accepted = 0
         self.n_spec_rollbacks = 0
         self.n_spec_rollback_pages = 0
+        self.num_shards = config.num_shards  # 1: sharded pools are not ported
+
+        # degradation: detectors are opt-in flags; the counters below show
+        # in stats(), so a degraded-but-alive server is visible
+        self.kv_guard = config.kv_guard
+        self.kernel_fallback = config.kernel_fallback
+        self.fp = guard.PageFingerprints() if self.kv_guard else None
+        self.n_fallback = 0
+        self.n_swap_dropped = 0
+        self.n_quarantined_pages = 0
+        # the model steps by dispatch name; verify is the decode math at
+        # s = spec_k + 1, under its own name
+        self._steps = {"decode": self._decode, "verify": self._decode,
+                       "cold_prefill": self._cold_prefill,
+                       "suffix_prefill": self._suffix_prefill}
 
     # -- host bookkeeping ---------------------------------------------------
     def _free_slot(self) -> int | None:
@@ -186,16 +243,44 @@ class PagedEngine:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
     # -- model steps --------------------------------------------------------
-    def _dispatch(self, name: str, fn, *args):
+    def _ref_variant(self, name: str):
+        """The model step ``name`` under a forced ``reference`` policy —
+        the retry target of ``kernels.call_with_fallback``."""
+        fn = self._steps[name]
+
+        def ref(*args):
+            with kernels.use_policy("reference"):
+                return fn(*args)
+
+        return ref
+
+    def _dispatch(self, name: str, *args):
         """Run one model step (``decode`` / ``verify`` / ``cold_prefill`` /
-        ``suffix_prefill``), counted and traced."""
+        ``suffix_prefill``) through the fault-injection sites and — when
+        ``kernel_fallback`` is armed — the retry-once-on-reference path
+        with the non-finite-logits check; counted and traced."""
+        fn = self._steps[name]
+
+        def primary(*a):
+            if faults.fires("kernel.raise") is not None:
+                raise faults.InjectedFault(f"injected kernel fault in {name}")
+            out = fn(*a)
+            if faults.fires("kernel.nan") is not None:
+                out = torch.full_like(out, float("nan"))
+            return out
+
         self.kernel_calls[name] += 1
         rec = trace.active()
-        if rec is None:
-            return fn(*args)
-        t0 = rec.now()
-        out = fn(*args)
-        rec.complete(f"engine.{name}", t0, cat="kernel")
+        t0 = rec.now() if rec is not None else 0.0
+        if not self.kernel_fallback:
+            out, fell_back = primary(*args), False
+        else:
+            out, fell_back = kernels.call_with_fallback(
+                primary, self._ref_variant(name), *args, check=kernels.all_finite)
+            if fell_back:
+                self.n_fallback += 1
+        if rec is not None:
+            rec.complete(f"engine.{name}", t0, cat="kernel", args={"fallback": fell_back})
         return out
 
     def _cold_prefill(self, toks, li, table_row, length):
@@ -235,31 +320,54 @@ class PagedEngine:
         if slot is None:
             return self._reject(Rejected("no-free-slot"))
         if req._swap is not None:
-            return self._swap_in(slot, req)
+            res = self._swap_in(slot, req)
+            if res is not _SWAP_LOST:
+                return res
+            # the swap blob was dropped or failed its checksum: the KV
+            # bytes are gone, but the token stream is not — fall through
+            # and re-prefill from prompt + generated tokens
+            self.n_swap_dropped += 1
+            req._swap = None
+            rec = trace.active()
+            if rec is not None:
+                rec.instant("engine.swap_lost", cat="engine", args={"rid": req.rid})
         replay = bool(req.out)  # a degraded requeue re-prefills its own stream
         tokens = req.prompt + req.out[:-1] if replay else req.prompt
         if len(req.prompt) + req.max_new + 1 > self.cache_len:
             raise ValueError(
                 f"request {req.rid}: prompt+max_new exceeds cache_len "
                 f"{self.cache_len}")
+        ref0 = list(self.pool._ref) if self.kv_guard else None
         # match BEFORE the watermark check: the refs it takes pin the
         # chain against can_admit's prefix eviction; a rejected admission
         # fully unwinds it
         shared, n_matched = self.prefix.match(tokens)
+        if self.kv_guard and shared:
+            bad = self.fp.verify(self.caches, shared)
+            if bad:
+                # corruption caught at the sharing point: quarantine the
+                # chain (and its poisoned readers) instead of letting it
+                # reach this and every later consumer
+                self.prefix.unmatch(shared, len(tokens))
+                self._quarantine(bad)
+                shared, n_matched = [], 0
+                ref0 = list(self.pool._ref)
         fresh_needed = self.sched.pages_for(len(tokens) + 1) - len(shared)
         rej = self.sched.check_admission(fresh_needed)
         if rej is not None:
             self.prefix.unmatch(shared, len(tokens))
+            self._assert_refs_unchanged(ref0, "rejected admission")
             return self._reject(rej)
 
         if n_matched == 0:
             # cold prompt: the dense prefill, scattered into pages
             pages = self.pool.alloc(fresh_needed)
-            if pages is None:
+            if pages is None:  # injected exhaustion after a green check
+                self._assert_refs_unchanged(ref0, "rejected admission")
                 return self._reject(Rejected("pool-dry", fresh_needed))
             toks = pad_to_bucket(tokens, self.prompt_bucket)
             logits = self._dispatch(
-                "cold_prefill", self._cold_prefill, self._tensor(toks).long(),
+                "cold_prefill", self._tensor(toks).long(),
                 len(tokens) - 1, self._tensor(self._table_row(pages)), len(tokens))
         else:
             # prefix hit: only the divergent suffix runs, attending to the
@@ -275,20 +383,29 @@ class PagedEngine:
                 need = self.sched.pages_for_range(len(pages) * self.page_size, end)
                 if need:
                     got = self.pool.alloc(need)
-                    if got is None:
+                    if got is None:  # injected mid-suffix exhaustion
                         fresh_far = [p for p in pages if p not in shared]
                         if fresh_far:
                             self.pool.release(fresh_far)
                         self.prefix.unmatch(shared, len(tokens))
+                        self._assert_refs_unchanged(ref0, "rejected admission")
                         return self._reject(Rejected("pool-dry", need))
                     pages.extend(got)
                 toks = pad_to_bucket(ctoks, self.prompt_bucket)
                 logits = self._dispatch(
-                    "suffix_prefill", self._suffix_prefill, self._tensor(toks).long(),
+                    "suffix_prefill", self._tensor(toks).long(),
                     len(ctoks) - 1, self._tensor(self._table_row(pages))[None],
                     self._tensor([n_matched + c0]),
                     self._tensor(np.asarray([n_matched + c0 + len(ctoks)], np.int32)))
         self.prefix.insert(tokens, pages)
+        n_tree = len(tokens) // self.page_size
+        if self.kv_guard and n_tree:
+            self.fp.record(self.caches, pages[:n_tree])
+        f = faults.fires("page.corrupt")
+        if f is not None and n_tree:
+            # flip bytes in one page of the chain this admission cached:
+            # the corruption a later prefix hit must detect
+            self._corrupt_page(pages[min(f.page_index, n_tree - 1)])
         self.slots[slot] = _Slot(
             req=req, pages=pages, length=len(tokens),
             last_tok=(req.out[-1] if replay
@@ -300,11 +417,45 @@ class PagedEngine:
             req.out.append(self.slots[slot].last_tok)
         return True
 
+    def _assert_refs_unchanged(self, ref0, what: str) -> None:
+        """kv_guard regression net: a ``what`` path must leave every
+        refcount exactly as found."""
+        if ref0 is not None and ref0 != self.pool._ref:
+            delta = {pid: (a, b) for pid, (a, b) in enumerate(zip(ref0, self.pool._ref))
+                     if a != b}
+            raise guard.GuardViolation(
+                f"{what} changed page refcounts: {delta} (page: (before, after))")
+
+    def _corrupt_page(self, pid: int) -> None:
+        """Injected corruption (``page.corrupt``): add 1 to the first
+        element of page ``pid`` of every pool tensor, every layer and kv
+        head — the bit-flip stand-in the fingerprint verify must catch."""
+        for c in self.caches:
+            for t in c:
+                t[:, pid, 0, 0] += 1
+
+    def _quarantine(self, bad_pages: list[int]) -> None:
+        """Drop the corrupted chain from the prefix tree and requeue any
+        running slot still reading one of its pages (their replay
+        re-prefills from tokens — correct bytes — so only the chain is
+        lost, not its consumers)."""
+        dropped = self.prefix.drop(bad_pages)
+        self.fp.forget(dropped)
+        self.n_quarantined_pages += len(dropped)
+        rec = trace.active()
+        if rec is not None:
+            rec.instant("engine.quarantine", cat="engine", args={"pages": len(dropped)})
+        poisoned = set(bad_pages)
+        for slot, st in list(self.slots.items()):
+            if poisoned & set(st.pages):
+                self._requeue_degraded(slot, "quarantined page in block table")
+
     def _requeue_degraded(self, slot: int, why: str) -> None:
-        """A slot that could not be made writable: free its pages and send
-        the request back to the queue as a replay (it re-prefills from its
-        own tokens).  Past ``MAX_DEGRADE_REQUEUES`` the request fails with a
-        typed error instead of cycling forever."""
+        """Degradation path shared by quarantine and alloc/COW failure:
+        free the slot's pages and send the request back to the queue as a
+        replay (it re-prefills from its own tokens).  Past
+        ``MAX_DEGRADE_REQUEUES`` the request fails with a typed error
+        instead of cycling forever."""
         st = self.slots.pop(slot)
         self.pool.release(st.pages)
         st.req._swap = None
@@ -321,7 +472,10 @@ class PagedEngine:
         st = self.slots.pop(slot)
         ids = self._tensor(np.asarray(st.pages, np.int64))
         data = [tuple(t[:, ids].cpu() for t in c) for c in self.caches]
-        st.req._swap = (data, len(st.pages), st.length, st.last_tok)
+        if faults.fires("swap.drop") is not None:
+            data = None  # injected loss of the host swap blob
+        checksum = guard.blob_checksum(data) if self.kv_guard and data is not None else None
+        st.req._swap = (data, len(st.pages), st.length, st.last_tok, checksum)
         rec = trace.active()
         if rec is not None:
             rec.instant("engine.preempt", cat="engine",
@@ -331,13 +485,19 @@ class PagedEngine:
         self.n_preempted += 1
 
     def _swap_in(self, slot: int, req: Request):
-        """Restore a preempted request: ``True`` or a typed ``Rejected``."""
-        data, n_pages, length, last_tok = req._swap
+        """Restore a preempted request: ``True``, a typed ``Rejected``, or
+        the ``_SWAP_LOST`` sentinel when the blob is missing or corrupt
+        (the caller degrades to a replay re-prefill)."""
+        data, n_pages, length, last_tok, checksum = req._swap
+        if data is None:
+            return _SWAP_LOST
+        if checksum is not None and guard.blob_checksum(data) != checksum:
+            return _SWAP_LOST
         rej = self.sched.check_admission(n_pages)
         if rej is not None:
             return self._reject(rej)
         pages = self.pool.alloc(n_pages)
-        if pages is None:
+        if pages is None:  # injected exhaustion after a green check
             return self._reject(Rejected("pool-dry", n_pages))
         ids = self._tensor(np.asarray(pages, np.int64))
         for c, saved in zip(self.caches, data):
@@ -389,6 +549,8 @@ class PagedEngine:
                 got = self.pool.alloc(n)
                 if got is not None:
                     return got
+                # an armed fault plan can fail the alloc even after a
+                # green reclaim — fall through to the escalation below
             victim = self._pick_victim(exclude)
             if victim is None:
                 return None
@@ -430,7 +592,6 @@ class PagedEngine:
     # -- main loop ----------------------------------------------------------
     def step(self) -> list[Request]:
         """One decode step over the active batch; returns finished requests."""
-        _no_fault_plan()
         rec = trace.active()
         if rec is None:
             return self._step_impl()
@@ -466,7 +627,7 @@ class PagedEngine:
             lengths[slot] = st.length + 1
             table[slot] = self._table_row(st.pages)
         logits = self._dispatch(
-            "decode", self._decode, self._tensor(toks), self._tensor(index),
+            "decode", self._tensor(toks), self._tensor(index),
             self._tensor(table), self._tensor(lengths))
         nxt = self.sampler.select(logits)[:, -1]
         finished = []
@@ -520,7 +681,7 @@ class PagedEngine:
             lengths[slot] = st.length + k + 1
             table[slot] = self._table_row(st.pages)
         logits = self._dispatch(
-            "verify", self._decode, self._tensor(toks), self._tensor(index),
+            "verify", self._tensor(toks), self._tensor(index),
             self._tensor(table), self._tensor(lengths))
         target = self.sampler.select(logits)  # (max_batch, k + 1)
         accepted = self.sampler.verify(drafts, target)
@@ -565,9 +726,9 @@ class PagedEngine:
 
     def run(self, requests: list[Request]) -> list[Request]:
         """Serve ``requests`` to completion; returns them as they finish."""
-        _no_fault_plan()
         queue = list(requests)
         done: list[Request] = []
+        stall = 0  # consecutive empty-batch rounds with a rejected head
         while queue or self.slots or self._requeue:
             if self._requeue:  # preempted requests re-enter at the front
                 queue = self._requeue + queue
@@ -579,13 +740,20 @@ class PagedEngine:
                     break
                 queue.pop(0)
             if self.slots:
+                stall = 0
                 done.extend(self.step())
                 continue
             if not queue:
                 continue  # degraded requeues merge next round
-            raise RuntimeError(
-                f"pool too small to admit any queued request "
-                f"(head rejected: {last_rej!r})")
+            # nothing running and the head was rejected: without faults
+            # this is deterministic — raise immediately; with a plan armed
+            # the rejection may be transient, so retry a bounded number of
+            # rounds before declaring the pool undersized
+            stall += 1
+            if faults.active() is None or stall > 100:
+                raise RuntimeError(
+                    f"pool too small to admit any queued request "
+                    f"(head rejected: {last_rej!r})")
         return done
 
     # -- auditing ------------------------------------------------------------
@@ -600,7 +768,7 @@ class PagedEngine:
 
     # -- introspection ------------------------------------------------------
     def stats(self) -> dict:
-        return {
+        out = {
             "pool": dataclasses.asdict(self.pool.stats),
             "free_pages": self.pool.free_pages,
             "prefix_pages": len(self.prefix),
@@ -609,8 +777,12 @@ class PagedEngine:
             "preempted": self.n_preempted,
             "cow_copies": self.n_cow,
             "rejected": dict(self.rejections),
+            "kernel_fallbacks": self.n_fallback,
+            "swap_dropped": self.n_swap_dropped,
+            "quarantined_pages": self.n_quarantined_pages,
             "degrade_requeues": self.n_degrade_requeues,
             "failed": len(self.failed),
+            "num_shards": self.num_shards,
             "kernel_calls": dict(self.kernel_calls),
             "spec_rounds": self.n_spec_rounds,
             "spec_drafted": self.n_spec_drafted,
@@ -619,3 +791,42 @@ class PagedEngine:
             "spec_rollback_pages": self.n_spec_rollback_pages,
             "accept_rate": self.n_spec_accepted / max(1, self.n_spec_drafted),
         }
+        for s in range(self.num_shards):
+            out[f"shard{s}_free_pages"] = self.pool.free_pages_on(s)
+            out[f"shard{s}_in_use"] = self.pool.pages_per_shard - self.pool.free_pages_on(s)
+        return out
+
+    # stats() keys that are point-in-time gauges, not cumulative counters:
+    # stats_delta reports their current value rather than a difference
+    _STAT_GAUGES = frozenset(
+        {"free_pages", "prefix_pages", "peak_in_use", "num_shards", "accept_rate"})
+    # every per-shard stat is a point-in-time occupancy gauge
+    _SHARD_GAUGE_RE = re.compile(r"shard\d+_")
+
+    def _is_gauge(self, key: str) -> bool:
+        k = key.removeprefix("pool_")
+        return k in self._STAT_GAUGES or self._SHARD_GAUGE_RE.match(k) is not None
+
+    def flat_stats(self) -> dict:
+        """:meth:`stats` with the nesting removed: ``pool`` counters as
+        ``pool_*`` keys, per-reason rejections as ``rejected_<reason>``,
+        per-step dispatches as ``kernel_calls_<step>`` — the shape
+        :mod:`repro_torch.serve.metrics` merges into its flat snapshot."""
+        flat: dict = {}
+        for key, val in self.stats().items():
+            if key in ("pool", "rejected", "kernel_calls"):
+                flat.update({f"{key}_{k}": v for k, v in val.items()})
+            else:
+                flat[key] = val
+        return flat
+
+    def stats_delta(self) -> dict:
+        """Flat dict of counter *deltas* since the previous
+        ``stats_delta`` call (first call: since engine construction).
+        Gauges (``free_pages``, ``prefix_pages``, ``pool_peak_in_use``,
+        ``num_shards``, ``accept_rate`` and the per-shard ``shard{s}_*``
+        occupancy family) report their current value."""
+        flat = self.flat_stats()
+        prev = getattr(self, "_stats_prev", {})
+        self._stats_prev = flat
+        return {k: v if self._is_gauge(k) else v - prev.get(k, 0) for k, v in flat.items()}

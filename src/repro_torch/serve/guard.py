@@ -1,19 +1,37 @@
-"""Invariant auditor for the paged serving stack.
+"""Invariant auditor + per-page fingerprints for the paged serving stack.
 
 The page pool is the serving stack's multicast fabric: one physical page
 fanned out to N consumers by refcount.  That sharing is also the failure
-amplifier — a leaked refcount strands capacity forever.
-:func:`check_pool` (surfaced as ``PagePool.check()``) is the structural
-audit of the pool: free-list disjointness, refcount/free-list
-consistency, null-page-0 sanity, and — given the current *holders*
-(every live page-id chain: running slots, prefix-tree nodes) — an exact
-cross-count of every page's refcount against who actually holds it.  A
-rejected admission or a preemption must leave this audit green.
+amplifier — a leaked refcount strands capacity forever, a corrupted
+shared page poisons every request that matches the prefix covering it.
+This module is the detection layer:
+
+* :func:`check_pool` (surfaced as ``PagePool.check()``) — structural
+  audit of the pool: free-list disjointness, refcount/free-list
+  consistency, null-page-0 sanity, and — given the current *holders*
+  (every live page-id chain: running slots, prefix-tree nodes) — an
+  exact cross-count of every page's refcount against who actually holds
+  it.  A rejected admission, a preemption, a quarantine must all leave
+  this audit green.
+* :class:`PageFingerprints` — optional (``kv_guard``) content checksums:
+  one fp32 reduction over the whole pool per record/verify call, indexed
+  by page id.  Recorded when a chain enters the prefix tree and verified
+  **at the sharing point** (a prefix hit), so corruption of a shared
+  chain is caught before it fans out to a new consumer — the engine
+  quarantines that chain instead of letting it poison every request
+  that shares the prefix.
+* :func:`blob_checksum` — the same tripwire over a preemption swap blob
+  on the host, recorded at swap-out and verified before swap-in.
+
+A checksum is a deterministic reduction (same bytes and shapes, same
+sum), not a cryptographic hash: a tripwire for bit flips and mis-writes.
 """
 from __future__ import annotations
 
 from collections import Counter
 from typing import Iterable, Sequence
+
+import numpy as np
 
 NULL_PAGE = 0  # mirrors pagepool.NULL_PAGE (no import: pagepool imports us)
 
@@ -89,3 +107,58 @@ def check_pool(pool, holders: Iterable[Sequence[int]] | None = None) -> None:
                 f"page {pid}: refcount {pool._ref[pid]} != {expected.get(pid, 0)} "
                 f"holder references — a reference was leaked or dropped"
             )
+
+
+# ---------------------------------------------------------------------------
+# per-page content fingerprints
+# ---------------------------------------------------------------------------
+
+
+def _page_sums(caches) -> np.ndarray:
+    """Per-page |sum| over every pool tensor of every layer (K, V and, in
+    int8 pools, their scales), fp32: each tensor is (kv_heads, pages,
+    page_size, ·), so every axis but 1 is reduced.  One host copy."""
+    total = None
+    for layer in caches:
+        for t in layer:
+            s = t.float().abs().sum(dim=(0, 2, 3))
+            total = s if total is None else total + s
+    return total.cpu().numpy()
+
+
+class PageFingerprints:
+    """Content checksums for pool pages, keyed by page id.
+
+    ``record(caches, page_ids)`` snapshots the named pages' checksums;
+    ``verify(caches, page_ids)`` returns the ids whose bytes no longer
+    match.  One whole-pool reduction per call — page chains are recorded
+    and verified at admission, never inside the decode loop."""
+
+    def __init__(self):
+        self._fp: dict[int, float] = {}
+
+    @staticmethod
+    def _checksums(caches, page_ids: Sequence[int]) -> dict[int, float]:
+        sums = _page_sums(caches)
+        return {int(pid): float(sums[pid]) for pid in page_ids}
+
+    def record(self, caches, page_ids: Sequence[int]) -> None:
+        self._fp.update(self._checksums(caches, page_ids))
+
+    def forget(self, page_ids: Sequence[int]) -> None:
+        for pid in page_ids:
+            self._fp.pop(int(pid), None)
+
+    def verify(self, caches, page_ids: Sequence[int]) -> list[int]:
+        """Ids in ``page_ids`` with a recorded fingerprint that no longer
+        matches the live bytes (unrecorded pages are skipped — only a
+        chain that was fingerprinted can be audited)."""
+        got = self._checksums(caches, page_ids)
+        return [pid for pid, s in got.items() if pid in self._fp and self._fp[pid] != s]
+
+
+def blob_checksum(data) -> float:
+    """Host-side checksum of a preemption swap blob (per layer, a tuple of
+    CPU tensors): recorded at swap-out, verified before swap-in scatters
+    the blob back into the pool."""
+    return float(sum(np.abs(t.float().numpy()).sum() for layer in data for t in layer))

@@ -7,13 +7,18 @@ writes — the jitted steps otherwise skip some of them, and greedy
 tokens follow those roundings.  The port rounds at exactly the places
 the code says, so with the flag the two agree to float32 round-off.
 Every kernel runs under ``backend=pallas`` (interpret mode on the CPU),
-the numerics the port's kernels implement.
+the numerics the port's kernels implement — except mode ``refserve``,
+which serves on JAX's CPU default, the ``reference`` backend.  Modes
+``serve``, ``refserve``, ``chaos`` and ``loop`` build many engines, and
+let them share their jitted steps (:func:`_share_jits`).
 
-    python tests/_torch_jax_ref.py {model|serve|dense|quant|untied|int8serve|spec} OUT.npz
+    python tests/_torch_jax_ref.py \
+        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop} OUT.npz
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import sys
@@ -58,6 +63,29 @@ SERVE_RUNS = {
     "preempt": (dict(n=3, shared_prefix=0, max_new=10, seed=3),
                 dict(max_batch=2, cache_len=64, page_size=4, num_pages=7, watermark=1)),
 }
+
+#: the paged-engine options that construct since the guard, fallback and
+#: fault plans were ported, each run over ``serve_requests()`` on the
+#: default ServeConfig (an option's ``chaos`` plan armed around the run)
+SERVE_OPTION_RUNS = {
+    "int8+kv_guard": dict(kv_dtype="int8", kv_guard=True),
+    "kv_guard": dict(kv_guard=True),
+    "kernel_fallback": dict(kernel_fallback=True),
+    "chaos": dict(chaos=("pool.alloc",)),
+}
+#: stats() keys of the option runs held equal to JAX's
+OPTION_STATS = ("prefix_hit_tokens", "preempted", "cow_copies", "kernel_fallbacks",
+                "quarantined_pages", "degrade_requeues", "swap_dropped", "failed", "rejected")
+
+#: the ServeLoop's seeded trace (``tests/test_server_loop.py``'s flagship)
+#: and its engine
+LOOP_TRACE = dict(seed=3, qps=30.0, duration=0.3, max_new=6, shared_prefix_len=24,
+                  shared_frac=0.5)
+LOOP_ENGINE = dict(max_batch=3, cache_len=128, page_size=16, num_pages=64)
+#: the launcher's ``--server`` flags of the loop references (either driver)
+SERVER_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--server", "--qps", "6", "--duration",
+               "1.0", "--max-slots", "3", "--shared-prefix", "24", "--max-new", "8",
+               "--seed", str(SEED)]
 
 LAUNCH_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--requests", "6",
                "--max-new", "8", "--shared-prefix", "24", "--seed", str(SEED)]
@@ -151,9 +179,44 @@ def _model(out: dict) -> None:
         out["k_pages_layer2"] = np.asarray(paged["stage0"]["b0"].k_pages[2], np.float32)
 
 
+def _share_jits() -> None:
+    """Let the JAX engines of this process share their jitted steps.  The
+    engine jits fresh closures per instance, so a mode that builds dozens
+    of engines would compile the same steps dozens of times.  A step is
+    shared when its code, its closure's values and the jit options agree;
+    the dispatch policy in force at the call is part of the key, since
+    tracing reads it.  Patched after the package's imports, so only
+    ``jax.jit`` calls made at run time (the engines') go through it."""
+    import jax
+
+    from repro import kernels
+
+    real, memo = jax.jit, {}
+
+    def jit(fn=None, **kw):
+        if fn is None:
+            return functools.partial(jit, **kw)
+        try:
+            key = (fn.__code__, tuple(c.cell_contents for c in fn.__closure__ or ()),
+                   repr(sorted(kw.items())))
+            hash(key)
+        except (AttributeError, TypeError, ValueError):
+            return real(fn, **kw)
+
+        def call(*args, **kwargs):
+            full = key + (kernels.get_policy(),)
+            if full not in memo:
+                memo[full] = real(fn, **kw)
+            return memo[full](*args, **kwargs)
+
+        return call
+
+    jax.jit = jit
+
+
 def _serve(out: dict) -> None:
     from repro import kernels
-    from repro.serve import PagedEngine, Request
+    from repro.serve import PagedEngine, Request, ServeConfig
 
     cfg, params = _setup()
     streams = {}
@@ -166,9 +229,79 @@ def _serve(out: dict) -> None:
             streams[name] = {"out": {str(r.rid): [int(t) for t in r.out] for r in done},
                              "stats": {k: eng.stats()[k] for k in
                                        ("prefix_hit_tokens", "preempted", "cow_copies")}}
+        for name, opt in SERVE_OPTION_RUNS.items():
+            conf = ServeConfig(**opt)
+            eng = PagedEngine(cfg, params, config=conf)
+            reqs = [Request(rid=r, prompt=p, max_new=m) for r, p, m in serve_requests()]
+            plan = conf.fault_plan()
+            with plan or contextlib.nullcontext():
+                done = eng.run(reqs)
+            eng.check()
+            st = eng.stats()
+            streams[f"option {name}"] = {
+                "out": {str(r.rid): [int(t) for t in r.out] for r in done},
+                "fired": [list(f) for f in plan.fired] if plan is not None else [],
+                "stats": {k: st[k] for k in OPTION_STATS}}
     streams["launcher_stdout"] = _launch([*LAUNCH_ARGS, "--kv", "paged",
                                           "--kernel-policy", "backend=pallas"])
     out["serve_json"] = np.asarray(json.dumps(streams))
+
+
+def _refserve(out: dict) -> None:
+    """``SERVE_RUNS`` and an int8-pool run on JAX's CPU default, the
+    reference backend (no policy set)."""
+    from repro import kernels
+    from repro.serve import PagedEngine, Request
+
+    cfg, params = _setup()
+    assert kernels.resolve("matmul", (4, 64, 64), "bfloat16").backend == "reference"
+    streams = {}
+    runs = dict(SERVE_RUNS, int8=({}, dict(max_batch=4, cache_len=64, page_size=8,
+                                           kv_dtype="int8")))
+    for name, (req_kw, eng_kw) in runs.items():
+        eng = PagedEngine(cfg, params, **eng_kw)
+        done = eng.run([Request(rid=r, prompt=p, max_new=m)
+                        for r, p, m in serve_requests(**req_kw)])
+        eng.check()
+        streams[name] = {"out": {str(r.rid): [int(t) for t in r.out] for r in done},
+                         "stats": {k: eng.stats()[k] for k in
+                                   ("prefix_hit_tokens", "preempted", "cow_copies")}}
+    out["refserve_json"] = np.asarray(json.dumps(streams))
+
+
+def _chaos(out: dict) -> None:
+    """Every case of ``_torch_chaos_cases.py`` on JAX's ``PagedEngine``."""
+    from _torch_chaos_cases import cases, jax_package
+
+    from repro import kernels
+
+    pkg = jax_package()
+    with kernels.use_policy("backend=pallas"):
+        res = {name: fn(pkg) for name, fn in cases().items()}
+    out["chaos_json"] = np.asarray(json.dumps(res))
+
+
+def _loop(out: dict) -> None:
+    """JAX's ``ServeLoop`` over ``LOOP_TRACE`` (realtime arrivals) and the
+    synchronous ``PagedEngine.run`` over the same trace; the launcher's
+    stdout under ``SERVER_ARGS`` with either driver."""
+    from repro import kernels
+    from repro.serve import LoadGen, PagedEngine, Request, ServeLoop
+
+    cfg, params = _setup()
+    trace = LoadGen(vocab=cfg.vocab, **LOOP_TRACE).trace()
+    with kernels.use_policy("backend=pallas"):
+        loop = ServeLoop(PagedEngine(cfg, params, **LOOP_ENGINE))
+        results = loop.run_trace(trace)
+        done = PagedEngine(cfg, params, **LOOP_ENGINE).run(
+            [Request(rid=a.rid, prompt=list(a.prompt), max_new=a.max_new) for a in trace])
+    out["loop_json"] = np.asarray(json.dumps({
+        "loop": {str(r.rid): [int(t) for t in r.tokens] for r in results.values()},
+        "states": sorted({r.state.name for r in results.values()}),
+        "sync": {str(r.rid): [int(t) for t in r.out] for r in done},
+        **{f"launcher_{driver}": _launch([*SERVER_ARGS, "--server-driver", driver,
+                                          "--kernel-policy", "backend=pallas"])
+           for driver in ("loop", "sync")}}))
 
 
 def _quant(out: dict) -> None:
@@ -302,13 +435,17 @@ def _setup(arch: str = "qwen1.5-0.5b"):
 
 #: the architecture whose parameters each mode's checksum covers
 MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5-0.5b",
-             "quant": TARGET, "int8serve": TARGET, "spec": TARGET}
+             "quant": TARGET, "int8serve": TARGET, "spec": TARGET,
+             "refserve": "qwen1.5-0.5b", "chaos": "qwen1.5-0.5b", "loop": "qwen1.5-0.5b"}
 
 
 def main(mode: str, path: str) -> None:
     out: dict = {}
+    if mode in ("serve", "refserve", "chaos", "loop"):
+        _share_jits()
     {"model": _model, "serve": _serve, "dense": _dense, "quant": _quant,
-     "untied": _untied, "int8serve": _int8serve, "spec": _spec}[mode](out)
+     "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,
+     "chaos": _chaos, "loop": _loop}[mode](out)
     if mode in MODE_ARCH:
         _, params = _setup(MODE_ARCH[mode])
         out["params_checksum"] = np.asarray(params_checksum(params))

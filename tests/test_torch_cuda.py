@@ -1271,3 +1271,89 @@ def test_engine_on_card_serves_int8_pools_with_a_model_draft(cuda_device):
     assert counts["matmul_tiled"] > 0 and counts["paged_attention_prefill"] > 0, counts
     assert counts["paged_attention_decode"] == 0, counts
     assert eng.stats()["spec_rounds"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the reference backend and the fallback on the card
+# ---------------------------------------------------------------------------
+
+
+def _reference_cases(gen):
+    """One serving shape per family: (family, inputs, options, tolerance
+    class) — qwen1.5-0.5b's decode gate projection and its attention
+    (decode on bf16 pools, a 16-token chunk on int8 pools), its flash
+    shape, mamba2's SSD layer and recurrentgemma's RG-LRU at short
+    sequences."""
+    from repro_torch.nn.kvquant import quantize_kv
+
+    kp, vp = _rand(gen, 16, 33, 16, 64), _rand(gen, 16, 33, 16, 64)
+    table = torch.arange(1, 33, device="cuda", dtype=torch.int32).reshape(4, 8)
+    lengths = torch.tensor([100, 37, 128, 1], device="cuda", dtype=torch.int32)
+    chunk_lengths = lengths.clamp(min=16)  # a 16-token chunk ending each context
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    log_a = -torch.rand(1, 24, 256, device="cuda", generator=gen) * 0.5
+    a = torch.rand(2, 256, 256, device="cuda", generator=gen) * 0.5 + 0.49
+    return {
+        "matmul": ((_rand(gen, 4, 1024), _rand(gen, 1024, 2816, scale=1024 ** -0.5)),
+                   dict(activation="silu"), torch.bfloat16),
+        "paged_attention-decode": ((_rand(gen, 4, 1, 16, 64), kp, vp, table, lengths - 1,
+                                    lengths), {}, torch.bfloat16),
+        "paged_attention-int8-chunk": ((_rand(gen, 4, 16, 16, 64), kq, vq, table,
+                                        chunk_lengths - 16, chunk_lengths, ks, vs), {},
+                                       torch.bfloat16),
+        "flash_attention": ((_rand(gen, 1, 16, 128, 64), _rand(gen, 1, 16, 128, 64),
+                             _rand(gen, 1, 16, 128, 64)), {}, torch.bfloat16),
+        "ssd": ((torch.randn(1, 24, 256, 64, device="cuda", generator=gen) * 0.1,
+                 torch.randn(1, 256, 64, device="cuda", generator=gen) * 0.3,
+                 torch.randn(1, 256, 64, device="cuda", generator=gen) * 0.3, log_a), {},
+                "scan"),
+        "rglru": ((a, torch.randn(2, 256, 256, device="cuda", generator=gen)), {}, "scan"),
+    }
+
+
+@pytest.mark.parametrize("case", ["matmul", "paged_attention-decode",
+                                  "paged_attention-int8-chunk", "flash_attention", "ssd",
+                                  "rglru"])
+def test_reference_schedules_match_the_kernels(cuda_device, case):
+    """Each family's reference schedule (the oracle a fallback retries
+    on) against its kernel at one serving shape, on the card: the kernel
+    path launches its kernel, the reference path none, and they agree at
+    the dtype's tolerance (bf16: ``TOL``; the fp32 scans: 1e-3, the
+    sequential oracle's fp32 sums in another order than the chunked
+    kernels')."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    args, opts, tol = _reference_cases(gen)[case]
+    family = case.split("-")[0]
+    kernels.reset_launch_counts()
+    got = kernels.op(family)(*args, **opts)
+    assert sum(kernels.launch_counts().values()) == 1
+    with kernels.use_policy("reference"):
+        want = kernels.op(family)(*args, **opts)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 1  # the oracle launched nothing
+    if tol == "scan":
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=1e-3, atol=1e-3)
+    else:
+        close(got.float().cpu(), want.float().cpu(), tol)
+
+
+def test_engine_on_card_retries_faulted_steps_on_the_reference(cuda_device):
+    """The reduced qwen1.5-0.5b with ``kv_guard`` and ``kernel_fallback``
+    under a plan that raises in one step, poisons another's logits and
+    corrupts a cached page: every request drains, each kernel fault is
+    one counted fallback, the chain is quarantined, the audit holds."""
+    from repro_torch.serve import Fault, FaultPlan, ServeConfig
+
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    eng = PagedEngine(cfg, lm.init(cfg, seed=0), config=ServeConfig(
+        max_slots=2, cache_len=64, page_size=8, kv_guard=True, kernel_fallback=True))
+    prefix = list(range(5, 30))
+    kernels.reset_fallback_stats()
+    with FaultPlan([Fault("kernel.raise", at=2), Fault("kernel.nan", at=4),
+                    Fault("page.corrupt", at=0)]) as plan:
+        done = eng.run([Request(rid=i, prompt=prefix + [100 + i], max_new=6) for i in range(3)])
+    eng.check()
+    assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+    assert len(plan.fired) == 3
+    assert kernels.fallback_stats().fallbacks == eng.stats()["kernel_fallbacks"] == 2
+    assert eng.stats()["quarantined_pages"] > 0

@@ -82,8 +82,10 @@ def test_dense_server_matches_jax_launcher(model, ref, policy):
 
 def test_dense_is_the_default_backend_and_policy(model, ref):
     """No ``--kv`` and no ``--kernel-policy``: the dense server under the
-    cost model's picks, which is JAX's ``backend=pallas`` stream."""
-    assert launcher.parser().parse_args([]).kv == "dense"
+    cost model's picks, which is JAX's ``backend=pallas`` stream.  As in
+    JAX's launcher, ``--kv`` parses to None and ``main`` resolves it:
+    dense, or paged under ``--server``."""
+    assert launcher.parser().parse_args([]).kv is None
     assert _port_stdout(model[2], LAUNCH_ARGS) == ref["dense backend=pallas"]
 
 

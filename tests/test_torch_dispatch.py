@@ -4,7 +4,8 @@ picked for every (shape, dtype, policy) of a grid that covers the
 serving shapes, the exact tie at M <= 2048 (``tiled`` listed first
 wins) and the one shape where ``mcast`` is cheaper (M = 2049).  A forced
 matmul schedule cannot reach paged attention in either package, and the
-port refuses the unported ``reference`` backend.
+``reference`` policies resolve as JAX's (``tests/test_torch_reference.py``
+holds the reference backend itself).
 
 Both registries run in this process; nothing executes a kernel except
 the paged-engine run, which uses the plain CPU path."""
@@ -13,6 +14,8 @@ import itertools
 from unittest import mock
 
 import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -130,10 +133,26 @@ def test_forced_mcast_on_the_paged_engine_raises():
 
 @pytest.mark.parametrize("policy", ["backend=reference", "reference", "schedule=reference"])
 def test_reference_backend_is_not_ported(policy):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        kernels.resolve("matmul", (4, 64, 64), torch.bfloat16, policy)
-    with kernels.use_policy(policy), pytest.raises(NotImplementedError, match="reference"):
-        kernels.linear(torch.zeros(2, 8), torch.zeros(8, 4))
+    """Once refused, now ported: each spelling of the reference policy
+    resolves to JAX's ``reference`` schedule, and ``linear`` under it runs
+    the oracle — JAX's values, the product's own dtype (fp32 here, where
+    the kernels would return ``x.dtype``) — launching no kernel."""
+    want = jax_kernels.resolve("matmul", (4, 64, 64), "bfloat16", policy)
+    got = kernels.resolve("matmul", (4, 64, 64), torch.bfloat16, policy)
+    assert (got.schedule, got.backend, got.vjp) == (want.schedule, want.backend, want.vjp) \
+        == ("reference", "reference", True)
+    rng = np.random.default_rng(5)
+    x, w = rng.standard_normal((2, 8)).astype(np.float32), rng.standard_normal((8, 4))
+    w = jnp.asarray(w, jnp.bfloat16)
+    with jax_kernels.use_policy(policy):
+        ref = np.asarray(jax_kernels.linear(jnp.asarray(x), w))
+    kernels.reset_launch_counts()
+    with kernels.use_policy(policy):
+        out = kernels.linear(torch.from_numpy(x), torch.from_numpy(np.asarray(w, np.float32))
+                             .to(torch.bfloat16))
+    assert out.dtype == torch.float32 and str(ref.dtype) == "float32"
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
 def test_unknown_schedule_raises_like_jax():

@@ -362,14 +362,27 @@ def test_forced_backend_without_a_vjp_schedule_raises_under_grad():
 
 
 def test_auto_dispatched_paged_attention_under_grad_needs_the_reference_backend():
-    """JAX would fall back to its (differentiable) reference backend; the
-    port has none and says so."""
+    """Paged attention has no kernel with a VJP: under differentiation JAX's
+    auto-dispatch falls back to its (differentiable) reference backend, and
+    so does the port's — the gradient of the same loss through the same
+    pages equals ``jax.grad``'s."""
     assert jax_kernels.resolve("paged_attention", PAGED, "bfloat16", "reference",
                                needs_vjp=True).backend == "reference"
-    with pytest.raises(NotImplementedError, match="reference backend is not ported"):
-        kernels.op("paged_attention")(*_paged_call(True))
-    with pytest.raises(NotImplementedError, match="under differentiation"):
-        kernels.resolve("paged_attention", PAGED, torch.bfloat16, needs_vjp=True)
+    got = kernels.resolve("paged_attention", PAGED, torch.bfloat16, needs_vjp=True)
+    assert (got.schedule, got.backend, got.vjp) == ("reference", "reference", True)
+    q, pages, _, table, start, lengths = _paged_call(True)
+    w = torch.randn(q.shape)
+    kernels.reset_launch_counts()
+    out = kernels.op("paged_attention")(q, pages, pages, table, start, lengths)
+    dq, = torch.autograd.grad((out * w).sum(), q)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    j = {name: jnp.asarray(a.detach().numpy()) for name, a in
+         dict(q=q, pages=pages, table=table, start=start, lengths=lengths, w=w).items()}
+    with jax_kernels.use_policy("reference"):
+        want = jax.grad(lambda qq: (jax_kernels.op("paged_attention")(
+            qq, j["pages"], j["pages"], j["table"], j["start"], j["lengths"]) * j["w"]).sum())(
+            j["q"])
+    np.testing.assert_allclose(dq.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_differentiation_needs_grad_mode_and_a_grad_input():

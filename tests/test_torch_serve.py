@@ -3,7 +3,8 @@
 requests and the same converted parameters, for a shared-prefix run, the
 same run with chunked prefill, and a small pool that forces preemption;
 the pool audit after every run; the launcher's stdout against the JAX
-launcher's.
+launcher's; the guard, fallback and fault-plan options against JAX's runs
+with the same options.
 
 The JAX side runs in a child process with every kernel under the Pallas
 backend and XLA's excess precision off (``_torch_jax_ref.py``).  The two
@@ -17,7 +18,14 @@ import jax
 import pytest
 import torch
 
-from _torch_jax_ref import LAUNCH_ARGS, SEED, SERVE_RUNS, params_checksum, serve_requests
+from _torch_jax_ref import (
+    LAUNCH_ARGS,
+    OPTION_STATS,
+    SEED,
+    SERVE_RUNS,
+    params_checksum,
+    serve_requests,
+)
 from _torch_util import jax_reference
 from repro.configs import get_config as jax_config
 from repro.models import lm as jax_lm
@@ -109,25 +117,54 @@ def test_check_catches_a_leaked_page(model):
         eng.check()
 
 
-@pytest.mark.parametrize("option", [
+OPTIONS = [
     dict(kv_dtype="int8", kv_guard=True), dict(spec_k=2, draft_model="ngram", num_shards=2),
     dict(num_shards=2), dict(kv_guard=True), dict(kernel_fallback=True),
     dict(chaos=("pool.alloc",)),
-])
-def test_unported_options_raise_naming_the_option(model, option):
-    """Each unported option raises, named — also beside the ported int8
-    pools and speculative decoding (the first two cases), which alone
-    construct (tests/test_torch_kvquant.py, tests/test_torch_spec.py)."""
+]
+
+
+@pytest.mark.parametrize("option", OPTIONS)
+def test_unported_options_raise_naming_the_option(model, ref, option):
+    """Sharded pools (``num_shards``) still raise, named — also beside the
+    ported speculative decoding.  The page fingerprints (``kv_guard``, also
+    on int8 pools), the reference-kernel retry (``kernel_fallback``) and
+    fault plans (``chaos``, armed around the run as the launcher arms it)
+    construct now, and serve the JAX engine's streams with its fault log
+    and its ``stats()``."""
     cfg, _, params = model
+    conf = ServeConfig(**option)
     name = list(option)[-1]
-    with pytest.raises(NotImplementedError, match=name):
-        PagedEngine(cfg, params, device="cpu", config=ServeConfig(**option))
+    if name == "num_shards":
+        with pytest.raises(NotImplementedError, match=name):
+            PagedEngine(cfg, params, device="cpu", config=conf)
+        return
+    key = "int8+kv_guard" if "kv_dtype" in option else name
+    want = ref[f"option {key}"]
+    eng = PagedEngine(cfg, params, device="cpu", config=conf)
+    plan = conf.fault_plan()
+    with plan or contextlib.nullcontext():
+        done = eng.run(_requests())
+    eng.check()
+    assert {str(r.rid): r.out for r in done} == want["out"]
+    assert ([list(f) for f in plan.fired] if plan else []) == want["fired"]
+    st = eng.stats()
+    assert {k: st[k] for k in OPTION_STATS} == want["stats"]
 
 
-def test_armed_fault_plan_raises(model):
+def test_armed_fault_plan_raises(model, ref):
+    """An armed plan no longer raises: the engine consults it.  A forced
+    exhaustion of the first pool draw (the cold admission) is retried and
+    the run serves the fault-free streams, with the typed rejection
+    counted."""
     from repro_torch.serve.faults import Fault, FaultPlan
 
     cfg, _, params = model
     eng = PagedEngine(cfg, params, device="cpu", max_batch=2, cache_len=64, page_size=8)
-    with FaultPlan([Fault("pool.alloc")]), pytest.raises(NotImplementedError, match="fault"):
-        eng.run(_requests(n=1))
+    clean = PagedEngine(cfg, params, device="cpu", max_batch=2, cache_len=64, page_size=8)
+    with FaultPlan([Fault("pool.alloc")]) as plan:
+        done = eng.run(_requests(n=1))
+    eng.check()
+    assert plan.fired == [("pool.alloc", 0)]
+    assert eng.stats()["rejected"] == {"pool-dry": 1}
+    assert [r.out for r in done] == [r.out for r in clean.run(_requests(n=1))]

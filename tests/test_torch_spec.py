@@ -21,8 +21,9 @@ features, and held to the JAX package's ``PagedEngine``.
   masking, ``Sampler.verify``, the deprecated ``greedy_token``, the
   registry pairing, ``make_draft`` and ``ServeConfig``'s validation.
 
-Not ported (they wait for ROADMAP Queue 1 items 2.3 and 7): the sharded,
-``kv_guard`` and chaos cases of the JAX file."""
+The JAX file's ``kv_guard`` and chaos cases are held in
+``test_torch_chaos.py``; its sharded case waits for sharded pools (ROADMAP
+Queue 1 item 7)."""
 import contextlib
 import dataclasses
 import io
