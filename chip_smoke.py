@@ -116,13 +116,39 @@ each fatal on failure (nothing is caught):
    ``warmup_for_trace``: tokens/s, TTFT and ITL percentiles, occupancy,
    prefills mid-decode, no kernel library loaded during the trace, the
    snapshot schema-valid, streams equal the sync replay's but at
-   near-ties.
+   near-ties;
+6. mixture-of-experts serving, moonshot-v1-16b-a3b (64 experts top-6 of
+   d_ff 1408, 2 shared experts, d 2048, vocab 163,840) at full width and
+   full depth (48 layers: no cut), built on the card from a seed once
+   every earlier model is freed: K1, K4 and K5 in their grouped form —
+   one launch over all 64 experts — at the experts' decode shapes (64 x
+   (24 x 2048 -> 1408), silu and bare, and 64 x (24 x 1408 -> 2048)) and
+   a 512-token prompt's gate (64 x (60 x 2048 -> 1408)), each against
+   its plain version (``TOL_BF16``), timed beside ``torch.bmm`` on the
+   same operands and the stack's bound, naming its design
+   (``wgmma-swapab``) and K split; then one 45-token prefill and one
+   decode step for a batch of 4 under the default policy, ``mcast`` and
+   ``unicast``, every layer's attention, MLP or MoE and the logits held
+   to the plain versions on the kernel run's own inputs (``LayerCheck``,
+   ``TOL_MODEL``; at full depth the random-weight stack turns a last-bit
+   difference into unrelated logits, so a whole plain run is only
+   reported, ``model_unpinned``), each decode step timed, profiled (its
+   top device ops by name) and its launches counted by kernel, beside the
+   bound of reading every weight once (the reference dispatch computes
+   every expert at every step); then the dense ``Server`` over 4 prompts
+   of 16-64 tokens (8-16 new tokens) under each policy at full depth
+   (every request drained, its policy's matmul kernel and no other
+   launched, tokens/s and TTFT), and on the first ``MOE_STREAM_DEPTH`` =
+   4 layers through the kernels and through the plain versions with the
+   kernel run's experts replayed: every kernel stream equal to its plain
+   run's but at near-ties.  Depth is cut only there.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
-line, the kernel summary (launches: the serving runs of phases 4 and 5
-for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for K9–K12)
-and, last,
+line, the kernel summary (launches: the serving runs of phases 4, 5 and
+6 for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for
+K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
+6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run outside a checkout of the repository, it
 exits non-zero and prints no result.
@@ -204,6 +230,8 @@ from repro_torch.kernels.ssd import (  # noqa: E402
 )
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.nn import attention as attn_mod  # noqa: E402
+from repro_torch.nn import moe as moe_mod  # noqa: E402
 from repro_torch.configs.registry import draft_for  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Fault,
@@ -1610,12 +1638,13 @@ def dense_model_run(cfg, params, prompt, step_tokens, *, time_step=False):
     return pre, dec
 
 
-def profile_step(step) -> dict:
+def profile_step(step, top: int = 0) -> dict:
     """One step under ``torch.profiler``: the summed device time of its
     kernels and copies, how many there were, and the span from the first
-    start to the last end.  No spin kernel runs first, so the span
-    includes the card's waits for the host.  A reading, not a check: if
-    the profiler cannot trace the card, the record says why."""
+    start to the last end (with ``top``, also the ``top`` device ops by
+    summed ms, by name).  No spin kernel runs first, so the span includes
+    the card's waits for the host.  A reading, not a check: if the
+    profiler cannot trace the card, the record says why."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1629,13 +1658,21 @@ def profile_step(step) -> dict:
         return dict(profile_error=repr(exc)[:300])
     if not evs:
         return dict(profile_error="the profiler recorded no device events")
-    return dict(device_ops=len(evs),
-                device_op_sum_ms=sum(e.time_range.elapsed_us() for e in evs) / 1e3,
-                device_span_ms=(max(e.time_range.end for e in evs)
-                                - min(e.time_range.start for e in evs)) / 1e3)
+    out = dict(device_ops=len(evs),
+               device_op_sum_ms=sum(e.time_range.elapsed_us() for e in evs) / 1e3,
+               device_span_ms=(max(e.time_range.end for e in evs)
+                               - min(e.time_range.start for e in evs)) / 1e3)
+    if top:
+        by_name: dict[str, list] = collections.defaultdict(lambda: [0, 0.0])
+        for e in evs:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+        out["top_device_ops"] = [dict(name=n[:120], count=c, ms=ms) for n, (c, ms) in
+                                 sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]]
+    return out
 
 
-def step_stats(step) -> dict:
+def step_stats(step, top: int = 0) -> dict:
     """A decode step's device ms (CUDA events behind a spin kernel) and
     host ms, the port's kernel launches in it, and its profile.  The
     events can also time the card waiting for the host — a step enqueues
@@ -1646,7 +1683,7 @@ def step_stats(step) -> dict:
     kernels.reset_launch_counts()
     step()
     launches = sum(kernels.launch_counts().values())
-    prof = profile_step(step)
+    prof = profile_step(step, top)
     busy = prof.get("device_op_sum_ms")
     return dict(device_ms=device_ms, host_ms=host_ms,
                 device_busy_share=None if busy is None else min(1.0, busy / host_ms),
@@ -1871,6 +1908,10 @@ class MarginSampler(GreedySampler):
         engine._admit_impl = admit_impl
         return engine
 
+    def rows(self) -> dict:
+        """A decode step's rows: the engine's slots."""
+        return {slot: st.req for slot, st in self.engine.slots.items()}
+
     def select(self, logits):
         out = super().select(logits)
         top2 = logits[:, -1].float().topk(2, dim=-1).values
@@ -1879,10 +1920,33 @@ class MarginSampler(GreedySampler):
         if self.admitting is not None:
             rows = {0: self.admitting}
         else:
-            rows = {slot: st.req for slot, st in self.engine.slots.items()}
+            rows = self.rows()
         for row, req in rows.items():
             self.margins[(req.rid, len(req.out))] = (margin[row], scale[row])
         return out
+
+
+class DenseMarginSampler(MarginSampler):
+    """:class:`MarginSampler` for the dense ``Server``: an admission's row
+    is the request admitted, a decode step's rows are the batch slots of
+    ``server.active``."""
+
+    def attach(self, server):
+        self.engine = server
+        admit = server._admit
+
+        def admit_one(req):
+            self.admitting = req
+            try:
+                return admit(req)
+            finally:
+                self.admitting = None
+
+        server._admit = admit_one
+        return server
+
+    def rows(self) -> dict:
+        return dict(self.engine.active)
 
 
 def compare_streams(done, label, streams, margins) -> dict:
@@ -2187,6 +2251,344 @@ def check_serve_loop(cfg, params) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: mixture-of-experts serving, moonshot-v1-16b-a3b at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# grouped rows, (label, g, m, k, n, K1's activation): the 64 experts' gate
+# (silu fused in K1) and up projections and the down projection at a
+# decode step of 4 sequences (4 x top-6 = 24 rows an expert, every expert
+# computed, empty slots too, as the reference dispatch does), and the gate
+# at a 512-token prompt (capacity 60); the first is the kernels line's
+GROUPED_ROWS = (("decode-gate", 64, 24, 2048, 1408, "silu"),
+                ("decode-up", 64, 24, 2048, 1408, "none"),
+                ("decode-down", 64, 24, 1408, 2048, "none"),
+                ("prefill-gate", 64, 60, 2048, 1408, "silu"))
+
+
+def check_grouped(gen, label, g, m, k, n, activation) -> dict[str, dict]:
+    """K1 (with ``activation`` fused), K4 and K5 on one stack of ``g``
+    expert products (A (g, m, k), B (g, k, n), bf16), one launch each:
+    each against its plain version (per-group products) at ``TOL_BF16``,
+    each timed beside the plain version, ``torch.bmm`` on the same
+    operands and the byte / flop bound of the stack, with its design and
+    K split."""
+    from repro_torch.kernels.matmul import matmul as mm_mod
+
+    a = torch.randn(g, m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    b = (torch.randn(g, k, n, device="cuda", generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+    b_ms, b_by = bound(2.0 * g * m * n * k, (a.numel() + b.numel() + g * m * n) * 2, PEAK_BF16)
+    bmm_ms = time_ms(lambda: torch.bmm(a, b))[0]
+    out = {}
+    for fn, plain in ((matmul_tiled, lambda: matmul_tiled_plain(a, b, activation=activation)),
+                      (matmul_mcast, lambda: matmul_mcast_plain(a, b)),
+                      (matmul_unicast, lambda: matmul_unicast_plain(a, b))):
+        name = fn.__name__
+        run = (lambda: fn(a, b, activation=activation)) if fn is matmul_tiled \
+            else (lambda: fn(a, b))
+        before = fn.launches
+        got = run()
+        launched = fn.launches - before
+        if launched != 1:
+            raise AssertionError(f"{name} grouped {label}: {launched} launches for one call")
+        design = expect_design(name, m, k, n, False)
+        err = check_close(f"{name} grouped {label}", got, plain(), TOL_BF16)
+        k_ms, k_host = time_ms(run)
+        out[name] = dict(
+            check="grouped_kernel", name=name, row=label, shape=[g, m, k, n],
+            activation=activation if fn is matmul_tiled else "none", design=design,
+            splits=mm_mod._splits(name, n, k, g), launches_per_call=launched,
+            kernel_ms=k_ms, host_ms=k_host, plain_ms=time_ms(plain, runs=5)[0],
+            library="torch.bmm (no epilogue)", library_ms=bmm_ms, bound_ms=b_ms,
+            bound_by=b_by, max_err=err, tol=TOL_BF16)
+        emit(out[name])
+    return out
+
+
+def moe_requests(cfg):
+    """4 prompts of 16-64 tokens, 8-16 new tokens each, from one seed."""
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(0, cfg.vocab, size=n)],
+                    max_new=new) for i, (n, new) in enumerate(((16, 16), (37, 8), (64, 12),
+                                                               (23, 16)))]
+
+
+class RoutingPin:
+    """The experts each MoE call routes to, recorded in one run (in call
+    order: ``nn.moe.top_k``'s picks) and replayed in another: the replay
+    computes its own probabilities, gates, capacity and products, and
+    counts, per call, the tokens whose own top-k set differs from the one
+    replayed, with the largest gap between the k-th and the (k+1)-th
+    probability among them (a near-tie when small).  A routing decision
+    is discrete: where two experts nearly tie, the last bits of a
+    reordered fp32 sum pick one or the other and the token's output jumps
+    by a gate's share of two experts' difference."""
+
+    def __init__(self):
+        self.ids: list[torch.Tensor] = []
+        self.tokens = self.flipped = 0
+        self.worst_gap = 0.0
+
+    @contextlib.contextmanager
+    def record(self):
+        real = moe_mod.top_k
+
+        def record(probs, k):
+            vals, ids = real(probs, k)
+            self.ids.append(ids)
+            return vals, ids
+
+        with mock.patch.object(moe_mod, "top_k", record):
+            yield self
+
+    @contextlib.contextmanager
+    def replay(self):
+        calls = iter(self.ids)
+
+        def replay(probs, k):
+            want = next(calls)
+            sorted_p, own = torch.sort(probs, dim=-1, descending=True, stable=True)
+            diff = (own[..., :k].sort(dim=-1).values != want.sort(dim=-1).values).any(-1)
+            self.tokens += diff.numel()
+            self.flipped += int(diff.sum())
+            if bool(diff.any()) and k < probs.shape[-1]:
+                gap = (sorted_p[..., k - 1] - sorted_p[..., k])[diff]
+                self.worst_gap = max(self.worst_gap, float(gap.max()))
+            return probs.gather(-1, want), want
+
+        with mock.patch.object(moe_mod, "top_k", replay):
+            yield self
+        if next(calls, None) is not None:
+            raise AssertionError("routing replay: the plain run made fewer MoE calls")
+
+    def summary(self) -> dict:
+        return dict(routing_calls=len(self.ids), routed_tokens=self.tokens,
+                    routing_flips=self.flipped, worst_flip_gap=self.worst_gap)
+
+
+class LayerCheck:
+    """Every layer of a kernel run held to the plain versions on the same
+    inputs: while armed, each attention (prefill and decode), dense MLP,
+    MoE and logits head runs through the kernels as usual and then once
+    more through the plain versions on the inputs the kernel run gave it
+    (a decode attention on a copy of its cache as it was before the
+    step; an MoE with the kernel call's experts replayed), and each
+    output is held to ``TOL_MODEL`` x its plain output's largest
+    magnitude.  The kernel run goes on with its own outputs.
+
+    This is how the full-depth MoE stack is checked: on seeded random
+    weights its 47 MoE layers amplify a last-bit difference from layer to
+    layer (the experts' weights take their fan-in from the expert axis,
+    as in the JAX package, so each GLU expert has a gain far above 1),
+    and a kernel run and a plain run of the same prompt end up sharing
+    nothing (``model_unpinned``)."""
+
+    KINDS = ("attention", "decode_attention", "mlp", "moe", "logits")
+
+    def __init__(self):
+        self.stats = {k: dict(calls=0, worst_ratio=0.0, max_err=0.0) for k in self.KINDS}
+        self.routing = dict(routed_tokens=0, routing_flips=0, worst_flip_gap=0.0)
+        self.argmax = []
+
+    def _hold(self, kind, got, want):
+        err = max_err(got, want)
+        ratio = err / (TOL_MODEL * float(want.detach().abs().max()))
+        st = self.stats[kind]
+        st["calls"] += 1
+        st["worst_ratio"] = max(st["worst_ratio"], ratio)
+        st["max_err"] = max(st["max_err"], err)
+        if not bool(torch.isfinite(got).all()):
+            st["worst_ratio"] = math.inf
+
+    @contextlib.contextmanager
+    def armed(self):
+        real = dict(attention=attn_mod.attention, decode=attn_mod.decode_attention,
+                    mlp=lm.mlp, moe=moe_mod.moe, logits=lm._logits)
+
+        def attention(p, x, cfg, **kw):
+            out, kv = real["attention"](p, x, cfg, **kw)
+            with plain_versions():
+                want, _ = real["attention"](p, x, cfg, **kw)
+            self._hold("attention", out, want)
+            return out, kv
+
+        def decode(p, x, cache, cfg, **kw):
+            before = type(cache)(*(t.clone() for t in cache))
+            out, c = real["decode"](p, x, cache, cfg, **kw)
+            with plain_versions():
+                want, _ = real["decode"](p, x, before, cfg, **kw)
+            self._hold("decode_attention", out, want)
+            return out, c
+
+        def mlp(p, x, cfg):
+            out = real["mlp"](p, x, cfg)
+            with plain_versions():
+                want = real["mlp"](p, x, cfg)
+            self._hold("mlp", out, want)
+            return out
+
+        def moe(p, x, cfg, **kw):
+            pin = RoutingPin()
+            with pin.record():
+                out, aux = real["moe"](p, x, cfg, **kw)
+            with plain_versions(), pin.replay():
+                want, _ = real["moe"](p, x, cfg, **kw)
+            self.routing["routed_tokens"] += pin.tokens
+            self.routing["routing_flips"] += pin.flipped
+            self.routing["worst_flip_gap"] = max(self.routing["worst_flip_gap"], pin.worst_gap)
+            self._hold("moe", out, want)
+            return out, aux
+
+        def logits(params, cfg, x):
+            out = real["logits"](params, cfg, x)
+            with plain_versions():
+                want = real["logits"](params, cfg, x)
+            self._hold("logits", out, want)
+            self.argmax.append(float((out.argmax(-1) == want.argmax(-1)).float().mean()))
+            return out
+
+        with mock.patch.object(attn_mod, "attention", attention), \
+                mock.patch.object(attn_mod, "decode_attention", decode), \
+                mock.patch.object(lm, "mlp", mlp), mock.patch.object(moe_mod, "moe", moe), \
+                mock.patch.object(lm, "_logits", logits):
+            yield self
+
+    def worst(self) -> float:
+        return max(st["worst_ratio"] for st in self.stats.values())
+
+    def summary(self) -> dict:
+        return dict(layers=self.stats, logits_argmax_agree=self.argmax, tol_model=TOL_MODEL,
+                    **self.routing)
+
+
+def moe_model_run(cfg, params, prompt, step_tokens):
+    """The dense server's path for MoE: one prefill at the prompt's own
+    length (no bucket: padding would take expert capacity) into 256-slot
+    rings, copied to all 4 batch slots, then one decode step for the batch;
+    returns both logits and the step (rerunning it rewrites the same ring
+    rows: idempotent)."""
+    caches = lm.init_cache(cfg, 4, 256, device="cuda")
+    n = len(prompt)
+    pre, one = lm.prefill(params, cfg, prompt[None], cache_slots=256, logit_index=n - 1)
+    for full, c in zip(caches, one):
+        for dst, src in zip(full, c):
+            dst[:] = src
+    del one
+    index = torch.full((4,), n, dtype=torch.long, device="cuda")
+
+    def step():
+        return lm.decode_step(params, cfg, caches, step_tokens, index)[0]
+
+    return pre, step(), step
+
+
+def check_moe_model(cfg, params) -> None:
+    """moonshot-v1-16b-a3b at full width and depth: one 45-token prefill and
+    one decode step for a batch of 4 under the default policy, ``mcast``
+    and ``unicast``, every layer and the logits held to the plain versions
+    on the kernel run's own inputs (:class:`LayerCheck`, ``TOL_MODEL``;
+    argmax agreement of the logits reported, routing flips counted).
+    Under the default policy also the whole plain run on its own, held to
+    nothing and reported (``model_unpinned``).  Each kernel decode step is
+    timed, counted by kernel and profiled, beside the bytes every weight of
+    the model takes to read once (a decode step computes every expert) and
+    those of the routed experts alone."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
+    step_tokens = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    experts = sum(lyr["moe"][w].numel() * 2 for lyr in params["layers"] if "moe" in lyr
+                  for w in ("w_in", "w_gate", "w_out"))
+    for policy in (None, "mcast", "unicast"):
+        tag = dict(arch=cfg.name, kv="dense", policy=policy or "default")
+        check = LayerCheck()
+        with kernels.use_policy(policy):
+            with check.armed():
+                pre_k, dec_k, step = moe_model_run(cfg, params, prompt, step_tokens)
+            stats = step_stats(step, top=8)
+            kernels.reset_launch_counts()
+            step()
+            stats["launches_by_kernel"] = {k: v for k, v in kernels.launch_counts().items() if v}
+            del step
+            if policy is None:
+                with plain_versions():
+                    pre_u, dec_u, _ = moe_model_run(cfg, params, prompt, step_tokens)
+                for name, got, want in (("prefill", pre_k, pre_u), ("decode_step", dec_k, dec_u)):
+                    emit(dict(check="model_unpinned", name=name, **tag, max_err=max_err(got, want),
+                              max_abs_logit=float(want.abs().max()),
+                              argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                                                 .float().mean())))
+                del pre_u, dec_u
+        emit(dict(check="decode_step_time", **tag, batch=4, context=len(prompt) + 1,
+                  weight_bytes=weight_bytes, weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+                  routed_expert_bytes=experts,
+                  routed_expert_bound_ms=experts / HBM_BYTES_PER_S * 1e3, **stats))
+        emit(dict(check="model_layers", **tag, worst_ratio=check.worst(), **check.summary()))
+        if check.worst() > 1 or check.stats["logits"]["calls"] != 2:
+            raise AssertionError(f"full model {tag}: a layer's kernel output is off its plain "
+                                 f"version by {check.worst():.3g} x TOL_MODEL x max |plain|: "
+                                 f"{check.stats}")
+        del pre_k, dec_k
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        for v in tree:
+            yield from _leaves(v)
+
+
+#: the stream comparison's depth: the dense first layer and 3 MoE layers
+#: of the full-width model (its first 4 layers' weights).  At full depth
+#: the random-weight stack turns a last-bit difference into a different
+#: stream (:class:`LayerCheck`), so kernel and plain streams are compared
+#: here, where a difference can only come from a near-tie.
+MOE_STREAM_DEPTH = 4
+
+
+def check_moe_serving(cfg, params) -> dict[str, int]:
+    """The dense ``Server`` over :func:`moe_requests` under the default
+    policy, ``mcast`` and ``unicast``.  At full depth each run is the main
+    path: every request drained, its policy's matmul kernel and no other
+    launched, tokens/s and TTFT.  Then, on the model's first
+    ``MOE_STREAM_DEPTH`` layers at full width, the same requests through
+    the kernels and through the plain versions with the kernel run's
+    routing replayed (:class:`RoutingPin`), greedy with its top-two
+    margins: the kernel streams must equal the plain run's but at
+    near-ties (:func:`compare_streams`).  Returns each kernel's launches
+    summed over the full-depth runs."""
+    runs = []
+    cut = dataclasses.replace(cfg, n_layers=MOE_STREAM_DEPTH, stages=(
+        cfg.stages[0], (cfg.stages[1][0], MOE_STREAM_DEPTH - 1)))
+    params_cut = dict(params, layers=params["layers"][:MOE_STREAM_DEPTH])
+    for policy, kernel in ((None, "matmul_tiled"), ("mcast", "matmul_mcast"),
+                           ("unicast", "matmul_unicast")):
+        runs.append(serve_path(f"{cfg.name} dense", Server(cfg, params, device="cuda"),
+                               moe_requests(cfg), (kernel,), policy))
+        label = f"{cfg.name} dense {policy or 'default'} first {MOE_STREAM_DEPTH} layers"
+        pin, done = RoutingPin(), moe_requests(cfg)
+        with pin.record(), kernels.use_policy(policy):
+            Server(cut, params_cut, device="cuda").run(done)
+        sampler, reqs = DenseMarginSampler(), moe_requests(cfg)
+        with plain_versions(), pin.replay(), kernels.use_policy(policy):
+            sampler.attach(Server(cut, params_cut, sampler=sampler, device="cuda")).run(reqs)
+        emit(near_tie_share(f"{label} plain", sampler.margins))
+        cmp = compare_streams(done, "plain versions, routing replayed",
+                              {r.rid: list(r.out) for r in reqs}, sampler.margins)
+        emit(dict(check="serving_streams", path=label, depth=MOE_STREAM_DEPTH, **cmp,
+                  **pin.summary()))
+        if cmp["differing"] and cmp["worst_margin_over_tol"] > 1:
+            raise AssertionError(f"serving {label}: a stream differs from the plain run where "
+                                 f"its top-two margin exceeds {TOL_MODEL} x max |logit|: "
+                                 f"{cmp['differing']}")
+    return {k: sum(r[k] for r in runs) for k in kernels.KERNELS}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -2245,6 +2647,26 @@ def main() -> None:
     check_reference(cfg, params)
     for run in check_degraded_serving(cfg, params) + [check_serve_loop(cfg, params)]:
         serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
+
+    # phase 6: moonshot-v1-16b-a3b at full width and depth (about 56 GB of
+    # bf16 weights), built on the card once every earlier model is freed
+    grouped = [check_grouped(gen, *row) for row in GROUPED_ROWS]
+    del params
+    torch.cuda.empty_cache()
+    cfg_moe = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params_moe = lm.init(cfg_moe, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    emit(dict(check="moe_model", arch=cfg_moe.name, layers=cfg_moe.n_layers,
+              depth_cut="none", params=sum(t.numel() for t in _leaves(params_moe)),
+              bytes=sum(t.numel() * t.element_size() for t in _leaves(params_moe)),
+              init_s=time.perf_counter() - t0,
+              memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
+    check_moe_model(cfg_moe, params_moe)
+    run = check_moe_serving(cfg_moe, params_moe)
+    serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
+    check_clean("phase 6")
+    del params_moe
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
                 for k in kernels.KERNELS}
 
@@ -2257,6 +2679,12 @@ def main() -> None:
             launches=launches[kname], max_abs_err=rec["max_err"], ms=rec["kernel_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"]))
+        if kname in grouped[0]:  # the grouped form (the MoE experts), phase 6's first row
+            g = grouped[0][kname]
+            kernels_line[-1]["grouped"] = dict(
+                row=g["row"], shape=g["shape"], design=g["design"], max_abs_err=g["max_err"],
+                ms=g["kernel_ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+                bound_by=g["bound_by"], library_ms=g["library_ms"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

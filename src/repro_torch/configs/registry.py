@@ -1,7 +1,10 @@
 """Architecture registry of the port: ``get_config(arch_id)`` -> ModelConfig.
 
-The port serves the dense decoder family; the registry holds the
-architectures it has been held against the JAX package on.
+The registry holds the architectures the port has been held against
+the JAX package on: the dense decoders qwen1.5-0.5b and qwen1.5-1.8b,
+and the mixture-of-experts moonshot-v1-16b-a3b and
+llama4-maverick-400b-a17b (dense ``Server`` only: paged serving refuses
+MoE, as in the JAX package).
 
 Also the draft-pairing API of speculative decoding, as in the JAX
 package: a config module may export ``DRAFT = "<arch>"`` naming the
@@ -15,7 +18,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS: tuple[str, ...] = ("qwen1.5-0.5b", "qwen1.5-1.8b")
+ARCHS: tuple[str, ...] = ("qwen1.5-0.5b", "qwen1.5-1.8b", "llama4-maverick-400b-a17b",
+                          "moonshot-v1-16b-a3b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -37,6 +37,16 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
 
+// The operands of one call: A and B with their strides and group strides
+// (elements), G groups of (M, N, K).
+struct Call {
+  const void* a;
+  ll sam, sak, sag;
+  const void* b;
+  ll sbk, sbn, sbg;
+  int G, M, N, K;
+};
+
 template <int BM, int BN, int TM, int TN>
 __host__ __device__ constexpr int threads() { return (BM / TM) * (BN / TN); }
 

@@ -14,6 +14,16 @@
 //                ROWS / 64 panels a k-tile.
 //     TMA needs a 16-byte-aligned base and ld a multiple of 8 elements;
 //     boxes past R or K are zero-filled, so ragged edges add zeros.
+//   * Grouped calls (the MoE expert matmuls: G independent products in
+//     one launch) add a third map dimension, the group, with its own
+//     stride (a multiple of 8 elements); every box is one group deep, so
+//     a box past R or K of its group is zero-filled there too and never
+//     reads the next group.  One product is the same map with G = 1.
+//   * Grouped calls (the MoE expert matmuls: G independent products in
+//     one launch) add a third map dimension, the group, with its own
+//     stride (a multiple of 8 elements); every box is one group deep, so
+//     a box past R or K of its group is zero-filled there too and never
+//     reads the next group.  One product is the same map with G = 1.
 //   * A ring of STAGES slots in shared memory, each holding one k-tile of
 //     every operand, with a full mbarrier (the producer's loads landed)
 //     and an empty one (every consumer warp is done with the slot).
@@ -35,21 +45,23 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int BK = 64;  // the depth of a k-tile: one 128-byte panel of bf16
 
-// The map of a bf16 operand with rows R and depth K (see above), boxes of
-// 64 k x box_rows rows (K-major) or 64 rows x box_depth k (MN-major) per
-// load.  0 or a cudaError.
+// The map of `groups` bf16 operands, each with rows R and depth K (see
+// above), gstride elements apart (0: one group, any legal stride), boxes
+// of 64 k x box_rows rows (K-major) or 64 rows x box_depth k (MN-major)
+// of one group per load.  0 or a cudaError.
 __host__ inline int operand_map(CUtensorMap* map, const void* base, bool kmajor, long long rows,
-                                long long depth, long long ld, int box_rows,
-                                int box_depth = BK) {
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+                                long long depth, long long ld, int box_rows, int box_depth,
+                                int groups, long long gstride) {
+  if (gstride == 0) gstride = (kmajor ? rows : depth) * ld;
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)gstride * 2};
   if (kmajor) {
-    const cuuint64_t dims[2] = {(cuuint64_t)depth, (cuuint64_t)rows};
-    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-    return encode_bf16(map, base, 2, dims, strides, box);
+    const cuuint64_t dims[3] = {(cuuint64_t)depth, (cuuint64_t)rows, (cuuint64_t)groups};
+    const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+    return encode_bf16(map, base, 3, dims, strides, box);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)rows, (cuuint64_t)depth};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_depth};
-  return encode_bf16(map, base, 2, dims, strides, box);
+  const cuuint64_t dims[3] = {(cuuint64_t)rows, (cuuint64_t)depth, (cuuint64_t)groups};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_depth, 1};
+  return encode_bf16(map, base, 3, dims, strides, box);
 }
 
 // Can TMA read an operand with these strides (its unit stride on one
@@ -72,19 +84,20 @@ __host__ inline bool operand_ok(const void* base, long long s_row, long long s_k
 template <int ROWS>
 __host__ __device__ constexpr uint32_t tile_bytes() { return ROWS * BK * 2; }
 
-// Load k-tile at depth k0 of operand rows [r0, r0 + ROWS) into dst.
+// Load k-tile at depth k0 of operand rows [r0, r0 + ROWS) of group g into dst.
 template <bool KMAJOR, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int r0, int k0) {
+                                          int r0, int k0, int g) {
   if constexpr (KMAJOR) {
-    tma_load_2d(dst, map, bar, k0, r0);
+    tma_load_3d(dst, map, bar, k0, r0, g);
   } else {
 #pragma unroll
-    for (int p = 0; p < ROWS / 64; ++p) tma_load_2d(dst + p * BK * 64, map, bar, r0 + 64 * p, k0);
+    for (int p = 0; p < ROWS / 64; ++p)
+      tma_load_3d(dst + p * BK * 64, map, bar, r0 + 64 * p, k0, g);
   }
 }
 
-// Slice `slice` of CL of the k-tile load_tile<KMAJOR, ROWS> would load,
+// Slice `slice` of CL of the k-tile load_tile<KMAJOR, ROWS> would load (of group g),
 // multicast into dst of every CTA of the cluster.  The k-tile is ROWS
 // 128-byte rows of shared memory either way (K-major: the operand rows;
 // MN-major: the 64 k rows of each 64-row panel in turn), and the slice
@@ -92,15 +105,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, uin
 // 64 x ROWS / CL (operand_map's box_rows, or box_depth for MN-major).
 template <bool KMAJOR, int ROWS, int CL>
 __device__ __forceinline__ void load_slice(bf16* dst, const CUtensorMap* map, uint64_t* bar,
-                                           int r0, int k0, int slice) {
+                                           int r0, int k0, int g, int slice) {
   constexpr int PER = ROWS / CL;
   static_assert(CL > 1 && PER * CL == ROWS && PER <= BK && PER % 8 == 0,
                 "a slice is whole swizzle atoms of one panel");
   const int u0 = slice * PER;
   if constexpr (KMAJOR)
-    tma_load_2d_multicast(dst + u0 * 64, map, bar, k0, r0 + u0, (1u << CL) - 1);
+    tma_load_3d_multicast(dst + u0 * 64, map, bar, k0, r0 + u0, g, (1u << CL) - 1);
   else
-    tma_load_2d_multicast(dst + u0 * 64, map, bar, r0 + u0 / BK * 64, k0 + u0 % BK,
+    tma_load_3d_multicast(dst + u0 * 64, map, bar, r0 + u0 / BK * 64, k0 + u0 % BK, g,
                           (1u << CL) - 1);
 }
 

@@ -47,6 +47,12 @@
 //   panels of that size, each re-reading B.  Tiles by M: M <= 16 a 16-row
 //   tile (BN 64, 128 threads), M <= 64 a 64-row tile (BN 64, 256 threads),
 //   larger M the 256-row panel (BN 64, 256 threads).
+//
+// Groups (the MoE expert matmuls of kernels.grouped_linear, JAX's vmap of
+// the kernel over the expert axis): every design takes G products in one
+// launch, the group in the grid's z (see matmul_wgmma.cuh).  A cluster
+// lies along x, so its CTAs share one group's B k-tiles and never span
+// two groups.
 #include "matmul_flat.cuh"
 #include "matmul_wgmma.cuh"
 
@@ -60,34 +66,34 @@ constexpr int RESIDENT_ROWS = 256;
 
 template <typename TA, typename TB, int BM, int BN, int BK_, int TM, int TN>
 __global__ void __launch_bounds__(flat::threads<BM, BN, TM, TN>())
-matmul_mcast_kernel(const TA* __restrict__ A, long long sam, long long sak,
-                    const TB* __restrict__ B, long long sbk, long long sbn,
+matmul_mcast_kernel(const TA* __restrict__ A, long long sam, long long sak, long long sag,
+                    const TB* __restrict__ B, long long sbk, long long sbn, long long sbg,
                     TA* __restrict__ C, int M, int N, int K) {
+  A += blockIdx.z * sag;  // the group's operands
+  B += blockIdx.z * sbg;
+  C += (long long)blockIdx.z * M * N;
   const int n0 = blockIdx.x * BN;
   for (int m0 = 0; m0 < M; m0 += BM)  // one pass when M <= BM
     flat::tile_gemm<TA, TB, BM, BN, BK_, TM, TN>(A, sam, sak, B, sbk, sbn, C, m0, n0, M, N, K);
 }
 
 template <typename TA, typename TB, int BM, int BN, int BK_, int TM, int TN>
-int launch_flat(const void* a, long long sam, long long sak, const void* b, long long sbk,
-                long long sbn, void* c, int M, int N, int K, cudaStream_t s) {
+int launch_flat(const flat::Call& p, void* c, cudaStream_t s) {
   matmul_mcast_kernel<TA, TB, BM, BN, BK_, TM, TN>
-      <<<(N + BN - 1) / BN, flat::threads<BM, BN, TM, TN>(), 0, s>>>(
-          static_cast<const TA*>(a), sam, sak, static_cast<const TB*>(b), sbk, sbn,
-          static_cast<TA*>(c), M, N, K);
+      <<<dim3((p.N + BN - 1) / BN, 1, p.G), flat::threads<BM, BN, TM, TN>(), 0, s>>>(
+          static_cast<const TA*>(p.a), p.sam, p.sak, p.sag, static_cast<const TB*>(p.b), p.sbk,
+          p.sbn, p.sbg, static_cast<TA*>(c), p.M, p.N, p.K);
   return 0;
 }
 
-int launch_cuda_core(const void* a, int a_dtype, long long sam, long long sak, const void* b,
-                     int b_dtype, long long sbk, long long sbn, void* c, int M, int N, int K,
-                     cudaStream_t s) {
-#define K4_LAUNCH(TA, TB)                                                                     \
-  if (M <= 16)                                                                                \
-    launch_flat<TA, TB, 16, 64, 32, 2, 4>(a, sam, sak, b, sbk, sbn, c, M, N, K, s);           \
-  else if (M <= 64)                                                                           \
-    launch_flat<TA, TB, 64, 64, 32, 4, 4>(a, sam, sak, b, sbk, sbn, c, M, N, K, s);           \
-  else                                                                                        \
-    launch_flat<TA, TB, RESIDENT_ROWS, 64, 16, 8, 8>(a, sam, sak, b, sbk, sbn, c, M, N, K, s);
+int launch_cuda_core(const flat::Call& p, int a_dtype, int b_dtype, void* c, cudaStream_t s) {
+#define K4_LAUNCH(TA, TB)                                                      \
+  if (p.M <= 16)                                                               \
+    launch_flat<TA, TB, 16, 64, 32, 2, 4>(p, c, s);                            \
+  else if (p.M <= 64)                                                          \
+    launch_flat<TA, TB, 64, 64, 32, 4, 4>(p, c, s);                            \
+  else                                                                         \
+    launch_flat<TA, TB, RESIDENT_ROWS, 64, 16, 8, 8>(p, c, s);
   FLAT_DISPATCH(a_dtype, b_dtype, K4_LAUNCH);
 #undef K4_LAUNCH
   return 0;
@@ -116,22 +122,26 @@ struct ClusterRaster {
   }
 };
 
-int launch_tensor_core(int design, bool bk, const void* a, long long sam, long long sak,
-                       const void* b, long long sbk, long long sbn, void* c, float* w, int* cnt,
-                       int M, int N, int K, cudaStream_t s) {
+int launch_tensor_core(int design, bool bk, const flat::Call& p, void* c, float* w, int* cnt,
+                       cudaStream_t s) {
+  const long long gs = (long long)p.M * p.N;
   if (design == WGMMA_SWAPAB_3XBF16)  // fp32 A: C in fp32
-    return launch_swapab<true>(bk, a, sam, sak, b, sbk, sbn,
-                               PlainEpilogue<float>{{static_cast<float*>(c), N}}, w, cnt, M, N,
-                               K, s);
-  const PlainEpilogue<bf16> epi{{static_cast<bf16*>(c), N}};
+    return launch_swapab<true>(bk, p.a, p.sam, p.sak, p.sag, p.b, p.sbk, p.sbn, p.sbg,
+                               PlainEpilogue<float>{{static_cast<float*>(c), p.N, gs}}, w, cnt,
+                               p.G, p.M, p.N, p.K, s);
+  const PlainEpilogue<bf16> epi{{static_cast<bf16*>(c), p.N, gs}};
   if (design == WGMMA_SWAPAB)
-    return launch_swapab<false>(bk, a, sam, sak, b, sbk, sbn, epi, w, cnt, M, N, K, s);
-#define K4_CLUSTER(CL)                                                                     \
-  (bk ? launch_large<true, true, CL, ClusterRaster<CL>>(a, sam, sak, b, sbk, sbn, epi, M, N, \
-                                                        K, s)                              \
-      : launch_large<true, false, CL, ClusterRaster<CL>>(a, sam, sak, b, sbk, sbn, epi, M, N, \
-                                                         K, s))
-  return cluster_of(M) == CLUSTER_SMALL ? K4_CLUSTER(CLUSTER_SMALL) : K4_CLUSTER(CLUSTER_LARGE);
+    return launch_swapab<false>(bk, p.a, p.sam, p.sak, p.sag, p.b, p.sbk, p.sbn, p.sbg, epi, w,
+                                cnt, p.G, p.M, p.N, p.K, s);
+#define K4_CLUSTER(CL)                                                                        \
+  (bk ? launch_large<true, true, CL, ClusterRaster<CL>>(p.a, p.sam, p.sak, p.sag, p.b, p.sbk, \
+                                                        p.sbn, p.sbg, epi, p.G, p.M, p.N,     \
+                                                        p.K, s)                               \
+      : launch_large<true, false, CL, ClusterRaster<CL>>(p.a, p.sam, p.sak, p.sag, p.b,       \
+                                                         p.sbk, p.sbn, p.sbg, epi, p.G, p.M,  \
+                                                         p.N, p.K, s))
+  return cluster_of(p.M) == CLUSTER_SMALL ? K4_CLUSTER(CLUSTER_SMALL)
+                                          : K4_CLUSTER(CLUSTER_LARGE);
 #undef K4_CLUSTER
 }
 
@@ -149,34 +159,40 @@ int active_clusters() {
 
 // The design a call runs (the fixed rule): see the head of this file;
 // WGMMA is wgmma-cluster, for K-major A only.
-int design_of(const void* a, int a_dtype, long long sam, long long sak, const void* b,
-              int b_dtype, long long sbk, long long sbn, int M, int N, int K, bool* ak,
-              bool* bk) {
-  return design_rule(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, M, N, K, false, ak, bk);
+int design_of(const void* a, int a_dtype, long long sam, long long sak, long long sag,
+              const void* b, int b_dtype, long long sbk, long long sbn, long long sbg, int G,
+              int M, int N, int K, bool* ak, bool* bk) {
+  return design_rule(a, a_dtype, sam, sak, sag, b, b_dtype, sbk, sbn, sbg, G, M, N, K, false, ak,
+                     bk);
 }
 
 }  // namespace
 
-// C (M, N) contiguous in A's dtype = A (M, K) @ B (K, N), A and B read
-// through their strides (elements), each of dtype 0 = float32 or
-// 1 = bfloat16.  ws and counters: the split-K workspace (splits x M x N
-// fp32, matmul_mcast_splits) and one int per 64-column tile, zero before
-// the launch and zero after it; both may be null when the design does not
-// split K.  The design comes from matmul_mcast_design; a failure to build
-// a tensor map or to launch returns its cudaError, and nothing retries on
-// another design.
+// C (G, M, N) contiguous in A's dtype: for each group g,
+// C[g] = A_g (M, K) @ B_g (K, N), A and B read through their strides
+// (elements; A_g at a + g sag, B_g at b + g sbg), each of dtype
+// 0 = float32 or 1 = bfloat16.  G = 1 is one product.  ws and counters:
+// the split-K workspace (splits x G x M x N fp32, matmul_mcast_splits)
+// and one int per group and 64-column tile, zero before the launch and
+// zero after it; both may be null when the design does not split K.  The
+// design comes from matmul_mcast_design; a failure to build a tensor map
+// or to launch returns its cudaError, and nothing retries on another
+// design.
 extern "C" int matmul_mcast(const void* a, int a_dtype, long long sam, long long sak,
-                            const void* b, int b_dtype, long long sbk, long long sbn, void* c,
-                            int M, int N, int K, void* ws, void* counters, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
+                            long long sag, const void* b, int b_dtype, long long sbk,
+                            long long sbn, long long sbg, void* c, int G, int M, int N, int K,
+                            void* ws, void* counters, void* stream) {
+  if (G <= 0 || M <= 0 || N <= 0) return 0;
+  if (G > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const flat::Call p{a, sam, sak, sag, b, sbk, sbn, sbg, G, M, N, K};
   bool ak = true, bk = true;
-  const int design = design_of(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, M, N, K, &ak, &bk);
-  const int rc =
-      design == CUDA_CORE
-          ? launch_cuda_core(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, c, M, N, K, s)
-          : launch_tensor_core(design, bk, a, sam, sak, b, sbk, sbn, c, static_cast<float*>(ws),
-                               static_cast<int*>(counters), M, N, K, s);
+  const int design =
+      design_of(a, a_dtype, sam, sak, sag, b, b_dtype, sbk, sbn, sbg, G, M, N, K, &ak, &bk);
+  const int rc = design == CUDA_CORE
+                     ? launch_cuda_core(p, a_dtype, b_dtype, c, s)
+                     : launch_tensor_core(design, bk, p, c, static_cast<float*>(ws),
+                                          static_cast<int*>(counters), s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -184,15 +200,15 @@ extern "C" int matmul_mcast(const void* a, int a_dtype, long long sam, long long
 // The design matmul_mcast runs for these operands: 0 cuda-core,
 // 1 wgmma-cluster, 2 wgmma-swapab, 3 wgmma-swapab-3xbf16.
 extern "C" int matmul_mcast_design(const void* a, int a_dtype, long long sam, long long sak,
-                                   const void* b, int b_dtype, long long sbk, long long sbn,
-                                   int M, int N, int K) {
+                                   long long sag, const void* b, int b_dtype, long long sbk,
+                                   long long sbn, long long sbg, int G, int M, int N, int K) {
   bool ak, bk;
-  return design_of(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, M, N, K, &ak, &bk);
+  return design_of(a, a_dtype, sam, sak, sag, b, b_dtype, sbk, sbn, sbg, G, M, N, K, &ak, &bk);
 }
 
-// The K split of the swapab designs at (N, K): the workspace holds this
-// many M x N fp32 partials when it exceeds 1.
-extern "C" int matmul_mcast_splits(int N, int K) { return splits_of(N, K); }
+// The K split of the swapab designs at (N, K) over G groups: the
+// workspace holds this many G x M x N fp32 partials when it exceeds 1.
+extern "C" int matmul_mcast_splits(int N, int K, int G) { return splits_of(N, K, G); }
 
 // The cluster size of wgmma-cluster at M rows (B is read ceil(M / (128
 // CL)) times per launch).

@@ -40,6 +40,12 @@
 //   one CTA per (BM, BN) tile with a K loop through shared memory on fp32
 //   FMA (exact for bf16 products, true fp32 for fp32 inputs), 16 x 32
 //   tiles up to M = 16, else 64 x 64, in the same grouped raster.
+//
+// Groups (the MoE expert matmuls of kernels.grouped_linear, JAX's vmap of
+// the kernel over the expert axis): every design takes G products in one
+// launch, the group in the grid's z, each with its own A, B, bias (or one
+// bias for all) and C, and the design's rule sees the group strides (see
+// matmul_wgmma.cuh).  The grouped raster orders the tiles of one group.
 #include "matmul_wgmma.cuh"
 
 namespace {
@@ -100,10 +106,16 @@ __device__ __forceinline__ float load_bias(const void* bias, int dt, int n) {
 
 template <typename TA, typename TB, typename TO, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-matmul_tiled_kernel(const TA* __restrict__ A, long long sam, long long sak,
-                    const TB* __restrict__ B, long long sbk, long long sbn,
-                    const void* __restrict__ bias, int bias_dt, TO* __restrict__ C,
-                    int M, int N, int K, int act) {
+matmul_tiled_kernel(const TA* __restrict__ A, long long sam, long long sak, long long sag,
+                    const TB* __restrict__ B, long long sbk, long long sbn, long long sbg,
+                    const void* __restrict__ bias, int bias_dt, long long sbias_g,
+                    TO* __restrict__ C, int M, int N, int K, int act) {
+  const int g = blockIdx.z;  // the group
+  A += g * sag;
+  B += g * sbg;
+  C += (long long)g * M * N;
+  if (bias != nullptr)
+    bias = static_cast<const char*>(bias) + g * sbias_g * (bias_dt == 1 ? 2 : 4);
   constexpr int TX = BN / TN;  // threads along N
   constexpr int NT = (BM / TM) * TX;
   __shared__ float As[BK][BM + 1];
@@ -179,27 +191,35 @@ matmul_tiled_kernel(const TA* __restrict__ A, long long sam, long long sak,
   }
 }
 
+// The operands of one call: A, B, the bias (or null) and their group
+// strides (elements), G groups of (M, N, K).
+struct Call {
+  const void* a;
+  long long sam, sak, sag;
+  const void* b;
+  long long sbk, sbn, sbg;
+  const void* bias;
+  int bias_dt;
+  long long sbias_g;
+  int G, M, N, K;
+};
+
 template <typename TA, typename TB, typename TO, int BM, int BN, int BK, int TM, int TN>
-void launch(const void* a, long long sam, long long sak, const void* b, long long sbk,
-            long long sbn, const void* bias, int bias_dt, void* c, int M, int N, int K, int act,
-            cudaStream_t stream) {
-  const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+void launch(const Call& p, void* c, int act, cudaStream_t stream) {
+  const int tiles = ((p.M + BM - 1) / BM) * ((p.N + BN - 1) / BN);
   matmul_tiled_kernel<TA, TB, TO, BM, BN, BK, TM, TN>
-      <<<tiles, (BM / TM) * (BN / TN), 0, stream>>>(
-          static_cast<const TA*>(a), sam, sak, static_cast<const TB*>(b), sbk, sbn,
-          bias, bias_dt, static_cast<TO*>(c), M, N, K, act);
+      <<<dim3(tiles, 1, p.G), (BM / TM) * (BN / TN), 0, stream>>>(
+          static_cast<const TA*>(p.a), p.sam, p.sak, p.sag, static_cast<const TB*>(p.b), p.sbk,
+          p.sbn, p.sbg, p.bias, p.bias_dt, p.sbias_g, static_cast<TO*>(c), p.M, p.N, p.K, act);
 }
 
 template <int BM, int BN, int BK, int TM, int TN>
-int dispatch(const void* a, int a_dt, long long sam, long long sak, const void* b,
-             int b_dt, long long sbk, long long sbn, const void* bias, int bias_dt, void* c,
-             int c_dt, int M, int N, int K, int act, cudaStream_t s) {
+int dispatch(const Call& p, int a_dt, int b_dt, void* c, int c_dt, int act, cudaStream_t s) {
   // dtype codes: 0 = float32, 1 = bfloat16
-#define K1_CASE(A_, B_, C_, TA, TB, TO)                                              \
-  if (a_dt == A_ && b_dt == B_ && c_dt == C_) {                                      \
-    launch<TA, TB, TO, BM, BN, BK, TM, TN>(a, sam, sak, b, sbk, sbn, bias, bias_dt, c, \
-                                           M, N, K, act, s);                         \
-    return 0;                                                                        \
+#define K1_CASE(A_, B_, C_, TA, TB, TO)                           \
+  if (a_dt == A_ && b_dt == B_ && c_dt == C_) {                   \
+    launch<TA, TB, TO, BM, BN, BK, TM, TN>(p, c, act, s);         \
+    return 0;                                                     \
   }
   K1_CASE(0, 0, 0, float, float, float)
   K1_CASE(0, 0, 1, float, float, bf16)
@@ -232,12 +252,19 @@ struct GroupedRaster {
   }
 };
 
-// K1's epilogue: + bias[n] (bf16 or fp32, or none), the activation, the
+// K1's epilogue: + bias[n] (bf16 or fp32, or none; group g's bias
+// bias_gs elements after group 0's, 0 for one bias), the activation, the
 // cast to TO.
 template <typename TO>
 struct FusedEpilogue : Store<TO> {
   const void* bias_;
   int bias_dt, act_;
+  long long bias_gs;
+  __device__ __forceinline__ void to_group(int g) {
+    Store<TO>::to_group(g);
+    if (bias_ != nullptr)
+      bias_ = static_cast<const char*>(bias_) + g * bias_gs * (bias_dt == 1 ? 2 : 4);
+  }
   __device__ __forceinline__ float bias(int n) const {
     return bias_ == nullptr || n >= this->N ? 0.f : load_bias(bias_, bias_dt, n);
   }
@@ -246,63 +273,73 @@ struct FusedEpilogue : Store<TO> {
 };
 
 template <typename TO>
-int launch_tensor_core(int design, bool ak, bool bk, const void* a, long long sam, long long sak,
-                       const void* b, long long sbk, long long sbn, const FusedEpilogue<TO>& epi,
-                       float* w, int* cnt, int M, int N, int K, cudaStream_t s) {
+int launch_tensor_core(int design, bool ak, bool bk, const Call& p,
+                       const FusedEpilogue<TO>& epi, float* w, int* cnt, cudaStream_t s) {
   if (design == WGMMA_SWAPAB_3XBF16)
-    return launch_swapab<true>(bk, a, sam, sak, b, sbk, sbn, epi, w, cnt, M, N, K, s);
+    return launch_swapab<true>(bk, p.a, p.sam, p.sak, p.sag, p.b, p.sbk, p.sbn, p.sbg, epi, w,
+                               cnt, p.G, p.M, p.N, p.K, s);
   if (design == WGMMA_SWAPAB)
-    return launch_swapab<false>(bk, a, sam, sak, b, sbk, sbn, epi, w, cnt, M, N, K, s);
-#define K1_LARGE(AK, BKM) \
-  launch_large<AK, BKM, 1, GroupedRaster>(a, sam, sak, b, sbk, sbn, epi, M, N, K, s)
+    return launch_swapab<false>(bk, p.a, p.sam, p.sak, p.sag, p.b, p.sbk, p.sbn, p.sbg, epi, w,
+                                cnt, p.G, p.M, p.N, p.K, s);
+#define K1_LARGE(AK, BKM)                                                                    \
+  launch_large<AK, BKM, 1, GroupedRaster>(p.a, p.sam, p.sak, p.sag, p.b, p.sbk, p.sbn, p.sbg, \
+                                          epi, p.G, p.M, p.N, p.K, s)
   return ak ? (bk ? K1_LARGE(true, true) : K1_LARGE(true, false))
             : (bk ? K1_LARGE(false, true) : K1_LARGE(false, false));
 #undef K1_LARGE
 }
 
 // The design a call runs (the fixed rule): see the head of this file.
-int design_of(const void* a, int a_dtype, long long sam, long long sak, const void* b,
-              int b_dtype, long long sbk, long long sbn, int M, int N, int K, bool* ak,
-              bool* bk) {
-  return design_rule(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, M, N, K, true, ak, bk);
+int design_of(const void* a, int a_dtype, long long sam, long long sak, long long sag,
+              const void* b, int b_dtype, long long sbk, long long sbn, long long sbg, int G,
+              int M, int N, int K, bool* ak, bool* bk) {
+  return design_rule(a, a_dtype, sam, sak, sag, b, b_dtype, sbk, sbn, sbg, G, M, N, K, true, ak,
+                     bk);
 }
 
 }  // namespace
 
-// C (M, N) contiguous in c_dtype = act(A (M, K) @ B (K, N) + bias), A and
-// B read through their strides (elements); dtype codes 0 = float32,
-// 1 = bfloat16 for A, B, the bias (N elements, or null) and C; activation
-// by its code (repro_torch.kernels.matmul.ACT_CODES).  ws and counters:
-// the split-K workspace (splits x M x N fp32, matmul_tiled_splits) and
-// one int per 64-column tile, zero before the launch and zero after it;
-// both may be null when the design does not split K.  The design comes
-// from matmul_tiled_design; a failure to build a tensor map or to launch
+// C (G, M, N) contiguous in c_dtype: for each group g,
+// C[g] = act(A_g (M, K) @ B_g (K, N) + bias_g), A and B read through their
+// strides (elements; A_g at a + g sag, B_g at b + g sbg), bias_g at
+// bias + g sbias_g (N elements; sbias_g 0: one bias for every group; or
+// null); dtype codes 0 = float32, 1 = bfloat16 for A, B, the bias and C;
+// activation by its code (repro_torch.kernels.matmul.ACT_CODES).  G = 1
+// is one product.  ws and counters: the split-K workspace (splits x G x
+// M x N fp32, matmul_tiled_splits) and one int per group and 64-column
+// tile, zero before the launch and zero after it; both may be null when
+// the design does not split K.  The design comes from
+// matmul_tiled_design; a failure to build a tensor map or to launch
 // returns its cudaError, and nothing retries on another design.
 extern "C" int matmul_tiled(const void* a, int a_dtype, long long sam, long long sak,
-                            const void* b, int b_dtype, long long sbk, long long sbn,
-                            const void* bias, int bias_dtype, void* c, int c_dtype, int M, int N,
-                            int K, int activation, void* ws, void* counters, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if ((c_dtype != 0 && c_dtype != 1) || (bias != nullptr && bias_dtype != 0 && bias_dtype != 1))
+                            long long sag, const void* b, int b_dtype, long long sbk,
+                            long long sbn, long long sbg, const void* bias, int bias_dtype,
+                            long long sbias_g, void* c, int c_dtype, int G, int M, int N, int K,
+                            int activation, void* ws, void* counters, void* stream) {
+  if (G <= 0 || M <= 0 || N <= 0) return 0;
+  if ((c_dtype != 0 && c_dtype != 1) || (bias != nullptr && bias_dtype != 0 && bias_dtype != 1) ||
+      G > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
+  const Call p{a, sam, sak, sag, b, sbk, sbn, sbg, bias, bias_dtype, sbias_g, G, M, N, K};
   bool ak = true, bk = true;
-  const int design = design_of(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, M, N, K, &ak, &bk);
+  const int design =
+      design_of(a, a_dtype, sam, sak, sag, b, b_dtype, sbk, sbn, sbg, G, M, N, K, &ak, &bk);
   int rc;
   if (design == CUDA_CORE) {
-    rc = M <= 16 ? dispatch<16, 32, 128, 2, 1>(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, bias,
-                                                bias_dtype, c, c_dtype, M, N, K, activation, s)
-                 : dispatch<64, 64, 16, 4, 4>(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, bias,
-                                              bias_dtype, c, c_dtype, M, N, K, activation, s);
+    rc = M <= 16 ? dispatch<16, 32, 128, 2, 1>(p, a_dtype, b_dtype, c, c_dtype, activation, s)
+                 : dispatch<64, 64, 16, 4, 4>(p, a_dtype, b_dtype, c, c_dtype, activation, s);
     if (rc != 0) return (int)cudaErrorInvalidValue;
   } else if (c_dtype == 0) {
-    const FusedEpilogue<float> epi{{static_cast<float*>(c), N}, bias, bias_dtype, activation};
-    rc = launch_tensor_core(design, ak, bk, a, sam, sak, b, sbk, sbn, epi, w, cnt, M, N, K, s);
+    const FusedEpilogue<float> epi{
+        {static_cast<float*>(c), N, (long long)M * N}, bias, bias_dtype, activation, sbias_g};
+    rc = launch_tensor_core(design, ak, bk, p, epi, w, cnt, s);
   } else {
-    const FusedEpilogue<bf16> epi{{static_cast<bf16*>(c), N}, bias, bias_dtype, activation};
-    rc = launch_tensor_core(design, ak, bk, a, sam, sak, b, sbk, sbn, epi, w, cnt, M, N, K, s);
+    const FusedEpilogue<bf16> epi{
+        {static_cast<bf16*>(c), N, (long long)M * N}, bias, bias_dtype, activation, sbias_g};
+    rc = launch_tensor_core(design, ak, bk, p, epi, w, cnt, s);
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
@@ -311,12 +348,12 @@ extern "C" int matmul_tiled(const void* a, int a_dtype, long long sam, long long
 // The design matmul_tiled runs for these operands: 0 cuda-core, 1 wgmma,
 // 2 wgmma-swapab, 3 wgmma-swapab-3xbf16.
 extern "C" int matmul_tiled_design(const void* a, int a_dtype, long long sam, long long sak,
-                                   const void* b, int b_dtype, long long sbk, long long sbn,
-                                   int M, int N, int K) {
+                                   long long sag, const void* b, int b_dtype, long long sbk,
+                                   long long sbn, long long sbg, int G, int M, int N, int K) {
   bool ak, bk;
-  return design_of(a, a_dtype, sam, sak, b, b_dtype, sbk, sbn, M, N, K, &ak, &bk);
+  return design_of(a, a_dtype, sam, sak, sag, b, b_dtype, sbk, sbn, sbg, G, M, N, K, &ak, &bk);
 }
 
-// The K split of the swapab designs at (N, K): the workspace holds this
-// many M x N fp32 partials when it exceeds 1.
-extern "C" int matmul_tiled_splits(int N, int K) { return splits_of(N, K); }
+// The K split of the swapab designs at (N, K) over G groups: the
+// workspace holds this many G x M x N fp32 partials when it exceeds 1.
+extern "C" int matmul_tiled_splits(int N, int K, int G) { return splits_of(N, K, G); }

@@ -48,6 +48,15 @@
 //     bias added once.  With one split the epilogue runs on the fragment.
 //     With a single row block, each k-slice of each B column tile is read
 //     by one CTA: B is read once per launch, whatever the schedule.
+// Groups (the MoE expert matmuls, kernels.grouped_linear): G independent
+// products C_g = A_g B_g in one launch, the group in the grid's z.  A_g
+// and B_g sit sag and sbg elements after A_0 and B_0 (the tensor maps'
+// third dimension), C is (G, M, N) contiguous, and an epilogue moves to
+// its group before it stores (to_group).  K is split over G x the column
+// tiles: each group's column tiles have their own counters and their own
+// splits x M x N of the workspace, so no two groups share a counter.
+// A cluster of K4 lies along x, inside one group.  G = 1 is the plain
+// product.
 #pragma once
 
 #include <type_traits>
@@ -69,17 +78,24 @@ enum Design { CUDA_CORE = 0, WGMMA = 1, WGMMA_SWAPAB = 2, WGMMA_SWAPAB_3XBF16 = 
 // bf16 B that TMA reads; up to SMALL_M_MAX rows fp32 A -> 3xbf16, bf16
 // K-major A -> swapab; above it bf16 A (M-major only where a_mn_major)
 // -> wgmma; anything else -> cuda-core.  ak / bk: the operands' K-major-ness.
+// Over G > 1 groups TMA also needs each group stride of a bf16 operand
+// it reads to be a positive multiple of 8 elements (16 bytes).
 __host__ inline int design_rule(const void* a, int a_dtype, long long sam, long long sak,
-                                const void* b, int b_dtype, long long sbk, long long sbn, int M,
-                                int N, int K, bool a_mn_major, bool* ak, bool* bk) {
-  if (M <= 0 || N <= 0 || K <= 0 || b_dtype != 1) return CUDA_CORE;
-  if (!operand_ok(b, sbn, sbk, bk)) return CUDA_CORE;
+                                long long sag, const void* b, int b_dtype, long long sbk,
+                                long long sbn, long long sbg, int G, int M, int N, int K,
+                                bool a_mn_major, bool* ak, bool* bk) {
+  auto group_ok = [G](long long sg) { return G == 1 || (sg > 0 && sg % 8 == 0); };
+  if (G <= 0 || M <= 0 || N <= 0 || K <= 0 || b_dtype != 1) return CUDA_CORE;
+  if (!operand_ok(b, sbn, sbk, bk) || !group_ok(sbg)) return CUDA_CORE;
   if (M <= SMALL_M_MAX) {
     if (a_dtype == 0) return WGMMA_SWAPAB_3XBF16;
-    return (a_dtype == 1 && operand_ok(a, sam, sak, ak) && *ak) ? WGMMA_SWAPAB : CUDA_CORE;
+    return (a_dtype == 1 && operand_ok(a, sam, sak, ak) && *ak && group_ok(sag))
+               ? WGMMA_SWAPAB
+               : CUDA_CORE;
   }
-  return (a_dtype == 1 && operand_ok(a, sam, sak, ak) && (*ak || a_mn_major)) ? WGMMA
-                                                                               : CUDA_CORE;
+  return (a_dtype == 1 && operand_ok(a, sam, sak, ak) && (*ak || a_mn_major) && group_ok(sag))
+             ? WGMMA
+             : CUDA_CORE;
 }
 
 // ---- epilogues ------------------------------------------------------------
@@ -93,11 +109,15 @@ __device__ __forceinline__ void put2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-// C (M x N, row-major) in TO.  An epilogue's bias(n) takes any n, 0 past N.
+// C (M x N, row-major) in TO, group after group gs elements apart.  An
+// epilogue's bias(n) takes any n, 0 past N.
 template <typename TO>
 struct Store {
   TO* C;
   int N;
+  long long gs;
+  // move to group g's C (and, in an epilogue with one, its bias)
+  __device__ __forceinline__ void to_group(int g) { C += g * gs; }
   __device__ __forceinline__ void store(int m, int n, float v) const {
     put(C + (long long)m * N + n, v);
   }
@@ -138,8 +158,11 @@ struct LargeSmem {
 template <bool AK, bool BKM, int CL, typename Raster, typename Epi>
 __global__ void __launch_bounds__(LARGE_THREADS, 1)
 gemm_wgmma(__grid_constant__ const CUtensorMap ta, __grid_constant__ const CUtensorMap tb,
-           Raster raster, Epi epi, int M, int N, int K) {
+           Raster raster, Epi epi0, int M, int N, int K) {
   using S = LargeSmem;
+  const int g = blockIdx.z;  // the group
+  Epi epi = epi0;
+  epi.to_group(g);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* as = reinterpret_cast<bf16*>(base);                       // STAGES A k-tiles
@@ -163,11 +186,11 @@ gemm_wgmma(__grid_constant__ const CUtensorMap ta, __grid_constant__ const CUten
     if (threadIdx.x == 256) {
       const int slice = CL > 1 ? (int)cluster_rank() : 0;  // this CTA's share of each B k-tile
       ring_produce<LARGE_STAGES>(full, empty, steps, S::A + S::B, [&](int i, int s, uint64_t* bar) {
-        load_tile<AK, LARGE_BM>(as + s * A_EL, &ta, bar, m0, i * BK);
+        load_tile<AK, LARGE_BM>(as + s * A_EL, &ta, bar, m0, i * BK, g);
         if constexpr (CL == 1)
-          load_tile<BKM, LARGE_BN>(bs + s * B_EL, &tb, bar, n0, i * BK);
+          load_tile<BKM, LARGE_BN>(bs + s * B_EL, &tb, bar, n0, i * BK, g);
         else
-          load_slice<BKM, LARGE_BN, CL>(bs + s * B_EL, &tb, bar, n0, i * BK, slice);
+          load_slice<BKM, LARGE_BN, CL>(bs + s * B_EL, &tb, bar, n0, i * BK, g, slice);
       });
     }
   } else {
@@ -226,20 +249,23 @@ cudaLaunchConfig_t cluster_config(dim3 grid, cudaStream_t stream, cudaLaunchAttr
   return cfg;
 }
 
-// Launch gemm_wgmma on the tiles Raster::grid(M, N) numbers; CL > 1 as
-// clusters of CL CTAs along the grid's x.  0 or a cudaError.
+// Launch gemm_wgmma on the tiles Raster::grid(M, N) numbers, for each of
+// G groups (the grid's z); CL > 1 as clusters of CL CTAs along the grid's
+// x.  0 or a cudaError.
 template <bool AK, bool BKM, int CL, typename Raster, typename Epi>
-int launch_large(const void* a, long long sam, long long sak, const void* b, long long sbk,
-                 long long sbn, const Epi& epi, int M, int N, int K, cudaStream_t stream) {
+int launch_large(const void* a, long long sam, long long sak, long long sag, const void* b,
+                 long long sbk, long long sbn, long long sbg, const Epi& epi, int G, int M, int N,
+                 int K, cudaStream_t stream) {
   auto kernel = gemm_wgmma<AK, BKM, CL, Raster, Epi>;
   CUtensorMap ta, tb;
-  int rc = operand_map(&ta, a, AK, M, K, AK ? sam : sak, LARGE_BM);
+  int rc = operand_map(&ta, a, AK, M, K, AK ? sam : sak, LARGE_BM, BK, G, G > 1 ? sag : 0);
   if (rc == 0)
     rc = operand_map(&tb, b, BKM, N, K, BKM ? sbn : sbk, LARGE_BN / CL,
-                     CL > 1 ? LARGE_BN / CL : BK);
+                     CL > 1 ? LARGE_BN / CL : BK, G, G > 1 ? sbg : 0);
   if (rc == 0) rc = opt_in_smem(kernel, LargeSmem::BYTES);
   if (rc != 0) return rc;
-  const dim3 grid = Raster::grid(M, N);
+  dim3 grid = Raster::grid(M, N);
+  grid.z = G;
   if constexpr (CL == 1) {
     kernel<<<grid, LARGE_THREADS, LargeSmem::BYTES, stream>>>(ta, tb, Raster{}, epi, M, N, K);
     return 0;
@@ -263,10 +289,12 @@ struct SmallSmem {
       1024 + SMALL_STAGES * SLOT + (A_F32 ? 3 * A : 0) + 16 * SMALL_STAGES + 16;
 };
 
-// The split of K a (M, N, K) call at M <= 64 runs: at least SMS CTAs
-// where the column tiles leave room, at most one k-tile each.
-__host__ __device__ inline int splits_of(int N, int K) {
-  const int tiles = (N + SMALL_BN - 1) / SMALL_BN, steps = (K + BK - 1) / BK;
+// The split of K a (M, N, K) call over G groups at M <= 64 runs: at
+// least SMS CTAs where the groups' column tiles leave room, at most one
+// k-tile each.  Only a grid of fewer than SMS tiles splits, so the
+// counters of one split launch number fewer than SMS.
+__host__ __device__ inline int splits_of(int N, int K, int G = 1) {
+  const int tiles = G * ((N + SMALL_BN - 1) / SMALL_BN), steps = (K + BK - 1) / BK;
   if (tiles >= SMS || steps <= 1) return 1;
   const int want = (SMS + tiles - 1) / tiles;
   return want < steps ? want : steps;
@@ -278,9 +306,19 @@ __device__ __forceinline__ int swz(int r, int k) { return r * 64 + (((k / 8) ^ (
 template <int MP, bool BKM, bool A_F32, typename Epi>
 __global__ void __launch_bounds__(SMALL_THREADS)
 gemm_swapab(__grid_constant__ const CUtensorMap tb, __grid_constant__ const CUtensorMap ta,
-            const float* __restrict__ a32, long long sam, long long sak, Epi epi,
-            float* __restrict__ ws, int* __restrict__ counters, int M, int N, int K) {
+            const float* __restrict__ a32, long long sam, long long sak, long long sag,
+            Epi epi0, float* __restrict__ ws, int* __restrict__ counters, int M, int N, int K) {
   using S = SmallSmem<MP, A_F32>;
+  // the group: its A (fp32 A is read by address), C, counters and
+  // workspace partials
+  const int g = blockIdx.z;
+  Epi epi = epi0;
+  epi.to_group(g);
+  a32 += g * sag;
+  if (gridDim.y > 1) {
+    counters += g * gridDim.x;
+    ws += (long long)g * gridDim.y * M * N;
+  }
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* pieces = reinterpret_cast<bf16*>(base + SMALL_STAGES * S::SLOT);  // fp32 A: 3 x MP x 64
@@ -304,8 +342,8 @@ gemm_swapab(__grid_constant__ const CUtensorMap tb, __grid_constant__ const CUte
   if (threadIdx.x >= 128) {
     if (threadIdx.x == 128)
       ring_produce<SMALL_STAGES>(full, empty, steps, S::SLOT, [&](int i, int s, uint64_t* bar) {
-        load_tile<BKM, SMALL_BN>(bslot(s), &tb, bar, n0, (kt0 + i) * BK);
-        if constexpr (!A_F32) load_tile<true, MP>(aslot(s), &ta, bar, 0, (kt0 + i) * BK);
+        load_tile<BKM, SMALL_BN>(bslot(s), &tb, bar, n0, (kt0 + i) * BK, g);
+        if constexpr (!A_F32) load_tile<true, MP>(aslot(s), &ta, bar, 0, (kt0 + i) * BK, g);
       });
     return;
   }
@@ -398,31 +436,32 @@ gemm_swapab(__grid_constant__ const CUtensorMap tb, __grid_constant__ const CUte
 }
 
 template <int MP, bool BKM, bool A_F32, typename Epi>
-int launch_small_mp(const void* a, long long sam, long long sak, const void* b, long long sbk,
-                    long long sbn, const Epi& epi, float* ws, int* counters, int M, int N, int K,
-                    cudaStream_t stream) {
+int launch_small_mp(const void* a, long long sam, long long sak, long long sag, const void* b,
+                    long long sbk, long long sbn, long long sbg, const Epi& epi, float* ws,
+                    int* counters, int G, int M, int N, int K, cudaStream_t stream) {
   using S = SmallSmem<MP, A_F32>;
   auto kernel = gemm_swapab<MP, BKM, A_F32, Epi>;
   CUtensorMap tb, ta;
-  int rc = operand_map(&tb, b, BKM, N, K, BKM ? sbn : sbk, SMALL_BN);
-  if (rc == 0 && !A_F32) rc = operand_map(&ta, a, true, M, K, sam, MP);
+  int rc = operand_map(&tb, b, BKM, N, K, BKM ? sbn : sbk, SMALL_BN, BK, G, G > 1 ? sbg : 0);
+  if (rc == 0 && !A_F32) rc = operand_map(&ta, a, true, M, K, sam, MP, BK, G, G > 1 ? sag : 0);
   if (rc == 0) rc = opt_in_smem(kernel, S::BYTES);
   if (rc != 0) return rc;
-  const int splits = splits_of(N, K);
+  const int splits = splits_of(N, K, G);
   if (splits > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + SMALL_BN - 1) / SMALL_BN, splits);
+  dim3 grid((N + SMALL_BN - 1) / SMALL_BN, splits, G);
   kernel<<<grid, SMALL_THREADS, S::BYTES, stream>>>(tb, ta, static_cast<const float*>(a), sam,
-                                                     sak, epi, ws, counters, M, N, K);
+                                                     sak, sag, epi, ws, counters, M, N, K);
   return 0;
 }
 
 // gemm_swapab at the least MP that holds M; 0 or a cudaError.
 template <bool BKM, bool A_F32, typename Epi>
-int launch_small(const void* a, long long sam, long long sak, const void* b, long long sbk,
-                 long long sbn, const Epi& epi, float* ws, int* counters, int M, int N, int K,
-                 cudaStream_t s) {
-#define MM90_SMALL(MP) \
-  launch_small_mp<MP, BKM, A_F32>(a, sam, sak, b, sbk, sbn, epi, ws, counters, M, N, K, s)
+int launch_small(const void* a, long long sam, long long sak, long long sag, const void* b,
+                 long long sbk, long long sbn, long long sbg, const Epi& epi, float* ws,
+                 int* counters, int G, int M, int N, int K, cudaStream_t s) {
+#define MM90_SMALL(MP)                                                                        \
+  launch_small_mp<MP, BKM, A_F32>(a, sam, sak, sag, b, sbk, sbn, sbg, epi, ws, counters, G, M, \
+                                  N, K, s)
   if (M <= 8) return MM90_SMALL(8);
   if (M <= 16) return MM90_SMALL(16);
   if (M <= 32) return MM90_SMALL(32);
@@ -431,13 +470,15 @@ int launch_small(const void* a, long long sam, long long sak, const void* b, lon
 }
 
 // gemm_swapab with bf16 (A_F32: fp32) A and B K-major (bk) or N-major,
-// epilogue and all; 0 or a cudaError.
+// epilogue and all, over G groups; 0 or a cudaError.
 template <bool A_F32, typename Epi>
-int launch_swapab(bool bk, const void* a, long long sam, long long sak, const void* b,
-                  long long sbk, long long sbn, const Epi& epi, float* ws, int* counters, int M,
-                  int N, int K, cudaStream_t s) {
-  return bk ? launch_small<true, A_F32>(a, sam, sak, b, sbk, sbn, epi, ws, counters, M, N, K, s)
-            : launch_small<false, A_F32>(a, sam, sak, b, sbk, sbn, epi, ws, counters, M, N, K, s);
+int launch_swapab(bool bk, const void* a, long long sam, long long sak, long long sag,
+                  const void* b, long long sbk, long long sbn, long long sbg, const Epi& epi,
+                  float* ws, int* counters, int G, int M, int N, int K, cudaStream_t s) {
+  return bk ? launch_small<true, A_F32>(a, sam, sak, sag, b, sbk, sbn, sbg, epi, ws, counters,
+                                        G, M, N, K, s)
+            : launch_small<false, A_F32>(a, sam, sak, sag, b, sbk, sbn, sbg, epi, ws, counters,
+                                         G, M, N, K, s);
 }
 
 }  // namespace mm90

@@ -9,6 +9,7 @@ from repro_torch.kernels.api import (  # noqa: F401
     call_with_fallback,
     fallback_stats,
     get_policy,
+    grouped_linear,
     launch_counts,
     linear,
     op,

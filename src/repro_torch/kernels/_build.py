@@ -41,24 +41,25 @@ _F = ctypes.c_float
 # kernel library -> (source file, C entry point, argtypes)
 KERNELS = {
     "matmul_tiled": ("matmul_tiled.cu", "matmul_tiled", [
-        _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
-        _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
-        _P, _I, _P, _I,            # bias (or null), bias dtype, out, out dtype
-        _I, _I, _I, _I,            # M, N, K, activation
+        _P, _I, _LL, _LL, _LL,     # a, a dtype, a strides (m, k, group)
+        _P, _I, _LL, _LL, _LL,     # b, b dtype, b strides (k, n, group)
+        _P, _I, _LL,               # bias (or null), bias dtype, bias group stride
+        _P, _I,                    # out, out dtype
+        _I, _I, _I, _I, _I,        # G, M, N, K, activation
         _P, _P,                    # split-K workspace (fp32) and tile counters, or null
         _P,                        # stream
     ]),
     "matmul_mcast": ("matmul_mcast.cu", "matmul_mcast", [
-        _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
-        _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
-        _P, _I, _I, _I,            # out (a's dtype), M, N, K
+        _P, _I, _LL, _LL, _LL,     # a, a dtype, a strides (m, k, group)
+        _P, _I, _LL, _LL, _LL,     # b, b dtype, b strides (k, n, group)
+        _P, _I, _I, _I, _I,        # out (a's dtype), G, M, N, K
         _P, _P,                    # split-K workspace (fp32) and tile counters, or null
         _P,                        # stream
     ]),
     "matmul_unicast": ("matmul_unicast.cu", "matmul_unicast", [
-        _P, _I, _LL, _LL,          # a, a dtype, a strides (m, k)
-        _P, _I, _LL, _LL,          # b, b dtype, b strides (k, n)
-        _P, _I, _I, _I,            # out (a's dtype), M, N, K
+        _P, _I, _LL, _LL, _LL,     # a, a dtype, a strides (m, k, group)
+        _P, _I, _LL, _LL, _LL,     # b, b dtype, b strides (k, n, group)
+        _P, _I, _I, _I, _I,        # out (a's dtype), G, M, N, K
         _P, _P,                    # split-K workspace (fp32) and tile counters, or null
         _P,                        # stream
     ]),
@@ -127,8 +128,8 @@ KERNELS = {
     ]),
 }
 
-# the matmul rules' arguments: a and b as the entry takes them, M, N, K
-_MM_OPERANDS = [_P, _I, _LL, _LL, _P, _I, _LL, _LL, _I, _I, _I]
+# the matmul rules' arguments: a and b as the entry takes them, G, M, N, K
+_MM_OPERANDS = [_P, _I, _LL, _LL, _LL, _P, _I, _LL, _LL, _LL, _I, _I, _I, _I]
 # kernel library -> its C rule (entry point, argtypes): the code of the
 # design the kernel's C entry runs for those arguments, 0 the CUDA-core one
 # (the flash kernels: (dtype code, head dim) -> 1 for wgmma; K1, K4, K5:
@@ -146,11 +147,11 @@ DESIGN_RULES = {
 }
 # kernel library -> further C helpers: (entry point, argtypes)
 HELPERS = {
-    "matmul_tiled": [("matmul_tiled_splits", [_I, _I])],  # (N, K) -> K split
-    "matmul_mcast": [("matmul_mcast_splits", [_I, _I]),
+    "matmul_tiled": [("matmul_tiled_splits", [_I, _I, _I])],  # (N, K, G) -> K split
+    "matmul_mcast": [("matmul_mcast_splits", [_I, _I, _I]),
                      ("matmul_mcast_cluster", [_I]),          # M -> wgmma-cluster's CL
                      ("matmul_mcast_active_clusters", [_I])],  # M -> clusters resident at once
-    "matmul_unicast": [("matmul_unicast_splits", [_I, _I])],
+    "matmul_unicast": [("matmul_unicast_splits", [_I, _I, _I])],
     # (dtype, batch, kv heads, page size, head dim, width) -> split-KV's split count
     "paged_attention_decode": [("paged_attention_decode_splits", [_I] * 6)],
     # (q dtype, page dtype, batch, s, qc, heads, kv heads, page size, head dim,

@@ -59,6 +59,10 @@ own shapes), as JAX's ``_bwd_policy_token`` does.
   product in ``x.dtype`` and the epilogue runs after them, unfused, in
   fp32 — the JAX package's ``_mm_flat``, whose double rounding makes
   ``mcast``/``unicast`` streams differ from ``tiled`` ones.
+* :func:`grouped_linear` — one independent ``act(x_g @ w_g)`` per group
+  (the MoE expert matmuls): the picked schedule's kernel launched once
+  over every group, the group in its grid, as the JAX package's ``vmap``
+  of ``linear`` lifts the expert axis into the ``pallas_call``'s grid.
 * :func:`op` — ``op("flash_attention")(q, k, v, causal=..., window=...,
   softcap=...)``, ``op("paged_attention")(q, k_pages, v_pages, table,
   start, lengths, *scales, softcap=...)``, ``op("matmul")(a, b[, bias],
@@ -113,9 +117,9 @@ from repro_torch.obs import trace
 
 __all__ = ["ACTIVATIONS", "BACKENDS", "DispatchPolicy", "FallbackStats", "KERNELS",
            "KernelOp", "POLICY_ENV_VAR", "Problem", "Resolution", "Schedule", "all_finite",
-           "as_policy", "call_with_fallback", "fallback_stats", "get_policy", "launch_counts",
-           "linear", "op", "reset_fallback_stats", "reset_launch_counts", "resolve",
-           "set_policy", "use_policy"]
+           "as_policy", "call_with_fallback", "fallback_stats", "get_policy", "grouped_linear",
+           "launch_counts", "linear", "op", "reset_fallback_stats", "reset_launch_counts",
+           "resolve", "set_policy", "use_policy"]
 
 POLICY_ENV_VAR = "REPRO_KERNEL_POLICY"
 BACKENDS = ("pallas", "reference")
@@ -536,6 +540,43 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None
     else:
         y = sched.fn(*args, **opts)
     return y.reshape(*lead, *out_dims)
+
+
+def grouped_linear(x: torch.Tensor, w: torch.Tensor, *, activation: str | None = None,
+                   policy: DispatchPolicy | str | None = None) -> torch.Tensor:
+    """Per-group linear (the MoE expert matmul): ``x`` (..., g, m, k),
+    ``w`` (g, k, n) -> (..., g, m, n), one independent ``act(x_g @ w_g)``
+    per group, in ``x.dtype``.
+
+    It resolves once, on (prod(lead) x m, k, n) and ``x.dtype``, as the
+    JAX package does.  The reference backend keeps JAX's einsum: products
+    summed in fp32, one rounding to the promoted dtype, then the
+    activation composed op by op in that dtype.  A kernel schedule moves
+    the lead axes behind the group axis (JAX's transpose, a copy only
+    where the lead axes are not 1) and launches its kernel once over all
+    groups (K1 with the activation in its epilogue, K4 / K5 with it after
+    them in fp32, as :func:`linear`).  Differentiating a kernel schedule
+    raises: its backward is not ported yet."""
+    g, k, n = w.shape
+    lead, m = x.shape[:-3], x.shape[-2]
+    if tuple(x.shape[-3:]) != (g, m, k):
+        raise ValueError(f"grouped_linear: x {tuple(x.shape)} does not match w {tuple(w.shape)}")
+    act = activation or "none"
+    pol = as_policy(policy) or get_policy()
+    needs_vjp = _needs_vjp(x, w)
+    sched = op("matmul").resolve(
+        Problem((max(1, math.prod(lead)) * m, k, n), autotune.dtype_name(x.dtype)), pol,
+        needs_vjp=needs_vjp)
+    if sched.backend == "reference":
+        y = torch.matmul(x.float(), w.float()).to(torch.promote_types(x.dtype, w.dtype))
+        return REFERENCE_ACTIVATIONS[act](y)
+    if needs_vjp:
+        raise NotImplementedError(
+            "grouped_linear: the backward of the grouped kernels is not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    xt = x.reshape(-1, g, m, k).transpose(0, 1).reshape(g, -1, k)
+    y = sched.fn(xt, w, activation=act, out_dtype=None)
+    return y.reshape(g, -1, m, n).transpose(0, 1).reshape(*lead, g, m, n)
 
 
 class _LinearFunction(torch.autograd.Function):

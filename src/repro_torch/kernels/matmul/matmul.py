@@ -38,6 +38,16 @@ M <= 64, the tied logits: A split into three bf16 pieces) and
 A and B may each be bf16 or fp32 and are read through their strides,
 so ``B`` can be a transposed view (the tied logits read the bf16
 embedding table as ``table.t()`` without copying it).
+
+**Groups.**  Each wrapper also takes a stack of G independent products,
+A (G, M, K) and B (G, K, N) -> C (G, M, N) (K1's bias (N,) for every
+group or (G, N)), in one launch: the MoE expert matmuls of
+``kernels.grouped_linear``, the port of JAX's ``vmap`` of the kernel over
+the expert axis, which lifts that axis into the ``pallas_call``'s grid.
+The group is the grid's z in every design; each group's operands sit at
+their own group stride, each group's split-K partials and tile counters
+are its own.  The plain versions take the same stacks, one plain product
+per group in a Python loop.
 """
 from __future__ import annotations
 
@@ -65,9 +75,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_operands(kernel: str, a, b):
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"{kernel}: need (M, K) @ (K, N), got {tuple(a.shape)} "
-                         f"and {tuple(b.shape)}")
+    one = a.ndim == b.ndim == 2 and a.shape[1] == b.shape[0]
+    grouped = a.ndim == b.ndim == 3 and a.shape[0] == b.shape[0] and a.shape[2] == b.shape[1]
+    if not (one or grouped):
+        raise ValueError(f"{kernel}: need (M, K) @ (K, N) or (G, M, K) @ (G, K, N), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
     for name, t in (("a", a), ("b", b)):
         if t.dtype not in _DTYPE_CODES:
             raise TypeError(f"{kernel}: {name} must be bf16 or fp32, got {t.dtype}")
@@ -88,17 +100,25 @@ def _check(a, b, bias, activation, out_dtype):
         raise ValueError(f"unknown activation: {activation!r}")
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"matmul_tiled: out_dtype must be bf16 or fp32, got {out_dtype}")
-    if bias is not None and tuple(bias.shape) != (b.shape[1],):
-        raise ValueError(f"bias shape {tuple(bias.shape)} != ({b.shape[1]},)")
+    n = b.shape[-1]
+    if bias is not None and tuple(bias.shape) not in ((n,), (*b.shape[:-2], n)):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != ({n},)"
+                         + (f" or ({b.shape[0]}, {n})" if b.ndim == 3 else ""))
 
 
 def matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
                        *, activation: str = "none",
                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: fp64 products rounded to
-    fp32, then the fp32 epilogue (no TF32 anywhere)."""
+    fp32, then the fp32 epilogue (no TF32 anywhere); over a stack of
+    groups, one such product per group."""
     out_dtype = out_dtype or a.dtype
     _check(a, b, bias, activation, out_dtype)
+    if a.ndim == 3:
+        return torch.stack([
+            matmul_tiled_plain(a[g], b[g], bias if bias is None or bias.ndim == 1 else bias[g],
+                               activation=activation, out_dtype=out_dtype)
+            for g in range(a.shape[0])])
     y = (a.double() @ b.double()).float()
     if bias is not None:
         y = y + bias.float()
@@ -110,10 +130,10 @@ def matmul_tiled_plain(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | No
 TILED_DESIGNS = UNICAST_DESIGNS = ("cuda-core", "wgmma", "wgmma-swapab",
                                    "wgmma-swapab-3xbf16")
 MCAST_DESIGNS = ("cuda-core", "wgmma-cluster", "wgmma-swapab", "wgmma-swapab-3xbf16")
-#: each kernel's split-K tile counters, per device: one per 64-column tile
-#: of C, zero between launches (each launch's last CTA of a tile resets
-#: its counter); K is split only while the tiles number fewer than the
-#: card's 132 SMs
+#: each kernel's split-K tile counters, per device: one per group and
+#: 64-column tile of C, zero between launches (each launch's last CTA of a
+#: tile resets its counter); K is split only while the tiles of all groups
+#: number fewer than the card's 132 SMs
 _TILED_COUNTERS: dict[torch.device, torch.Tensor] = {}
 _MCAST_COUNTERS: dict[torch.device, torch.Tensor] = {}
 _UNICAST_COUNTERS: dict[torch.device, torch.Tensor] = {}
@@ -121,24 +141,25 @@ _TILES_MAX = 132
 
 
 @functools.lru_cache(maxsize=1024)
-def _splits(kernel: str, n: int, k: int) -> int:
-    """The K split of ``kernel``'s swapab designs at (N, K), by its C rule."""
-    return getattr(_build.load(kernel), f"{kernel}_splits")(n, k)
+def _splits(kernel: str, n: int, k: int, g: int = 1) -> int:
+    """The K split of ``kernel``'s swapab designs at (N, K) over ``g``
+    groups, by its C rule."""
+    return getattr(_build.load(kernel), f"{kernel}_splits")(n, k, g)
 
 
-def _plan(kernel: str, lib, designs, counters: dict, operands: tuple, m: int, n: int, k: int,
-          dev: torch.device):
+def _plan(kernel: str, lib, designs, counters: dict, operands: tuple, g: int, m: int, n: int,
+          k: int, dev: torch.device):
     """The design ``kernel``'s C rule picks for ``operands`` and, for a
     swapab launch that splits K, its fp32 workspace and the device's tile
     counters (else None, None)."""
-    design = designs[getattr(lib, f"{kernel}_design")(*operands, m, n, k)]
-    splits = _splits(kernel, n, k) if design.startswith("wgmma-swapab") else 1
+    design = designs[getattr(lib, f"{kernel}_design")(*operands, g, m, n, k)]
+    splits = _splits(kernel, n, k, g) if design.startswith("wgmma-swapab") else 1
     if splits == 1:
         return design, None, None
     cnt = counters.get(dev)
     if cnt is None:
         cnt = counters[dev] = torch.zeros(_TILES_MAX, dtype=torch.int32, device=dev)
-    return design, torch.empty(splits * m * n, dtype=torch.float32, device=dev), cnt
+    return design, torch.empty(splits * g * m * n, dtype=torch.float32, device=dev), cnt
 
 
 def _ptr(t: torch.Tensor | None):
@@ -146,15 +167,28 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _operands(a: torch.Tensor, b: torch.Tensor) -> tuple:
-    return (a.data_ptr(), _DTYPE_CODES[a.dtype], a.stride(0), a.stride(1),
-            b.data_ptr(), _DTYPE_CODES[b.dtype], b.stride(0), b.stride(1))
+    """A and B as the C entries take them: pointer, dtype code, the row
+    and depth strides and the group stride (0 for one product)."""
+    sa = a.stride() if a.ndim == 3 else (0, *a.stride())
+    sb = b.stride() if b.ndim == 3 else (0, *b.stride())
+    return (a.data_ptr(), _DTYPE_CODES[a.dtype], sa[1], sa[2], sa[0],
+            b.data_ptr(), _DTYPE_CODES[b.dtype], sb[1], sb[2], sb[0])
+
+
+def _gmkn(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int, int]:
+    """(G, M, K, N) of one product (G = 1) or of a stack of them."""
+    if a.ndim == 3:
+        return a.shape[0], a.shape[1], a.shape[2], b.shape[2]
+    return 1, a.shape[0], a.shape[1], b.shape[1]
 
 
 def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
                  *, activation: str = "none",
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``act(a @ b + bias)`` -> ``out_dtype`` (default ``a.dtype``):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """``act(a @ b + bias)`` -> ``out_dtype`` (default ``a.dtype``), for
+    one product or a stack of G (``a`` (G, M, K), ``b`` (G, K, N), ``bias``
+    (N,) or (G, N)): the CUDA kernel for CUDA tensors, one launch either
+    way, the plain version for CPU tensors."""
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_tiled_plain(a, b, bias, activation=activation, out_dtype=out_dtype)
@@ -162,20 +196,20 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
     if bias is not None and bias.dtype not in _DTYPE_CODES:
         raise TypeError(f"matmul_tiled: bias must be bf16 or fp32, got {bias.dtype}")
     dev = _check_device("matmul_tiled", a, b, *(() if bias is None else (bias,)))
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    if m == 0 or n == 0:
+    g, m, k, n = _gmkn(a, b)
+    out = torch.empty((g, m, n) if a.ndim == 3 else (m, n), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
         return out
-    if bias is not None and bias.stride(0) != 1:
+    if bias is not None and bias.stride(-1) != 1:
         bias = bias.contiguous()
     lib = _build.load("matmul_tiled")
     operands = _operands(a, b)
     design, ws, cnt = _plan("matmul_tiled", lib, TILED_DESIGNS, _TILED_COUNTERS, operands,
-                            m, n, k, dev)
+                            g, m, n, k, dev)
     rc = lib.matmul_tiled(
         *operands, _ptr(bias), 0 if bias is None else _DTYPE_CODES[bias.dtype],
-        out.data_ptr(), _DTYPE_CODES[out_dtype], m, n, k, ACT_CODES.index(activation),
+        0 if bias is None or bias.ndim == 1 else bias.stride(0),
+        out.data_ptr(), _DTYPE_CODES[out_dtype], g, m, n, k, ACT_CODES.index(activation),
         _ptr(ws), _ptr(cnt), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "matmul_tiled")
@@ -186,6 +220,8 @@ def matmul_tiled(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = N
 
 def _flat_plain(kernel: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_operands(kernel, a, b)
+    if a.ndim == 3:
+        return torch.stack([_flat_plain(kernel, a[g], b[g]) for g in range(a.shape[0])])
     return (a.double() @ b.double()).float().to(a.dtype)
 
 
@@ -201,18 +237,18 @@ def matmul_unicast_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _flat(kernel: str, wrapper, designs, counters: dict, a: torch.Tensor,
           b: torch.Tensor) -> torch.Tensor:
-    """Launch K4 or K5 (``kernel``) on CUDA operands: C in a's dtype."""
+    """Launch K4 or K5 (``kernel``) on CUDA operands, one product or a
+    stack of them: C in a's dtype."""
     _check_operands(kernel, a, b)
     dev = _check_device(kernel, a, b)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=a.dtype, device=dev)
-    if m == 0 or n == 0:
+    g, m, k, n = _gmkn(a, b)
+    out = torch.empty((g, m, n) if a.ndim == 3 else (m, n), dtype=a.dtype, device=dev)
+    if out.numel() == 0:
         return out
     lib = _build.load(kernel)
     operands = _operands(a, b)
-    design, ws, cnt = _plan(kernel, lib, designs, counters, operands, m, n, k, dev)
-    rc = getattr(lib, kernel)(*operands, out.data_ptr(), m, n, k, _ptr(ws), _ptr(cnt),
+    design, ws, cnt = _plan(kernel, lib, designs, counters, operands, g, m, n, k, dev)
+    rc = getattr(lib, kernel)(*operands, out.data_ptr(), g, m, n, k, _ptr(ws), _ptr(cnt),
                               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, kernel)
     wrapper.launches += 1
@@ -221,17 +257,19 @@ def _flat(kernel: str, wrapper, designs, counters: dict, a: torch.Tensor,
 
 
 def matmul_mcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K4, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
-    fetched once per cluster of row blocks: once per launch up to
-    :func:`mcast_cluster` x 128 rows), the plain version for CPU tensors."""
+    """K4, ``a @ b`` in ``a.dtype`` (one product, or a stack of groups
+    in one launch): the CUDA kernel for CUDA tensors (B fetched once per
+    cluster of row blocks: once per launch up to :func:`mcast_cluster` x
+    128 rows), the plain version for CPU tensors."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_mcast_plain(a, b)
     return _flat("matmul_mcast", matmul_mcast, MCAST_DESIGNS, _MCAST_COUNTERS, a, b)
 
 
 def matmul_unicast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K5, ``a @ b`` in ``a.dtype``: the CUDA kernel for CUDA tensors (B
-    re-read for every row block), the plain version for CPU tensors."""
+    """K5, ``a @ b`` in ``a.dtype`` (one product, or a stack of groups
+    in one launch): the CUDA kernel for CUDA tensors (B re-read for every
+    row block), the plain version for CPU tensors."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_unicast_plain(a, b)
     return _flat("matmul_unicast", matmul_unicast, UNICAST_DESIGNS, _UNICAST_COUNTERS, a, b)

@@ -10,13 +10,17 @@ weights (:func:`main` takes ``params=`` for that).  Two KV backends, as
 in the JAX launcher:
 
 * ``--kv dense`` (the default): :class:`Server`, one ring-buffer cache
-  slot per batch lane, bucketed prefill written in place into the slot;
+  slot per batch lane, prefill (bucketed where padding is exact, not
+  for MoE) written in place into the slot; every arch of the registry,
+  the MoE ones (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b) too;
 * ``--kv paged``: :class:`PagedEngine`, the page pool with prefix
   sharing (its statistics go to stderr), with bf16 or int8 pools
   (``--kv-dtype``) and speculative decoding (``--spec-k K --draft-model
   ngram|<arch>|auto``; ``auto`` resolves the target's registered draft,
   whose parameters are initialised from the run's seed on the same
-  device).
+  device); MoE archs raise JAX's ``ValueError`` here (expert capacity
+  scales with the padded call length, so paged prefills would route real
+  tokens differently).
 
 ``--kernel-policy`` forces the matmul schedule as in the JAX launcher:
 ``tiled`` (K1), ``mcast`` (K4), ``unicast`` (K5); the default is the
@@ -90,7 +94,11 @@ class Server:
 
     Each admitted request prefills alone, right-padded to a
     ``prompt_bucket`` multiple, with the padded tail masked out of its
-    cache; the cache is written in place into the request's batch slot.
+    cache, where padding is exact: global attention everywhere and no MoE
+    (expert capacity scales with the padded length, so pads would take
+    capacity and change real tokens' routing), the JAX launcher's rule;
+    otherwise the prompt prefills at its own length.  The cache is
+    written in place into the request's batch slot.
     Every decode step runs all ``max_batch`` slots at their own positions
     (ragged continuous batching).  ``params`` must live on ``device``."""
 
@@ -107,9 +115,15 @@ class Server:
         self.active: dict[int, Request] = {}  # slot -> request
         self.pos = np.zeros(max_batch, np.int32)
         self.last_tok = np.zeros(max_batch, np.int32)
-        # lm.init_cache admits global-attention, non-MoE decoders only, for
-        # which right-padding a prompt to its bucket is exact
-        self._bucket = prompt_bucket
+        # right-pad-to-bucket prefill is exact only when padded tokens
+        # cannot influence real ones: global attention (no ring wrap), no
+        # recurrent mixer state, and no MoE (expert capacity scales with
+        # the padded length, so pads would consume capacity and change
+        # real tokens' routing)
+        self._bucket = prompt_bucket if all(
+            bd.mixer == "attn" and bd.window is None and bd.ff != "moe"
+            for bd in cfg.layer_defs
+        ) else None
 
     def _admit(self, req: Request) -> bool:
         free = [s for s in range(self.max_batch) if s not in self.active]
@@ -117,7 +131,8 @@ class Server:
             return False
         slot = free[0]
         n = len(req.prompt)
-        toks = torch.as_tensor(pad_to_bucket(req.prompt, self._bucket),
+        toks = torch.as_tensor(pad_to_bucket(req.prompt, self._bucket) if self._bucket
+                               else np.asarray(req.prompt, np.int32)[None],
                                device=self.device).long()
         logits, one = lm.prefill(self.params, self.cfg, toks, cache_slots=self.cache_len,
                                  logit_index=n - 1)

@@ -1,9 +1,15 @@
-"""Decoder-only LM, dense family: the port of the JAX package's ``models/lm.py``.
+"""Decoder-only LM, dense and MoE families: the port of the JAX package's
+``models/lm.py``.
 
 Parameters are a dict: ``embed``, ``layers`` (a list with one dict per
-layer — the JAX package's stacked ``stage0`` leaves, split) and
-``final_norm``.  The JAX ``lax.scan`` over stacked layers becomes a
-Python loop over the per-layer dicts.  Entry points:
+layer — the JAX package's stacked ``stage{i}/b{j}`` leaves, split, in
+the JAX order: stage by stage, repeat by repeat, block by block, which is
+``cfg.layer_defs``) and ``final_norm``.  The JAX ``lax.scan`` over each
+stage becomes a Python loop over its layers; a layer's feed-forward is
+the dense MLP or the MoE (``nn/moe.py``) as its ``BlockDef`` says, and
+the MoE's aux losses are summed in fp32 per stage, then over stages, as
+JAX's ``_run_stage`` does.  Caches are one entry per layer in the same
+order.  Entry points:
 
 * :func:`forward`     — full-sequence forward (no caches),
 * :func:`prefill`     — full-sequence forward that also returns the
@@ -19,10 +25,14 @@ Python loop over the per-layer dicts.  Entry points:
 * :func:`decode_step` — one (or a few) tokens against dense caches or
   the page pools, bf16 or int8 (dispatch on the cache type).
 
-Only the configuration features of the dense family the serving stacks
-run are ported; any other raises ``NotImplementedError`` naming
-it (MoE, recurrent mixers, local windows, layernorm, learned positions,
-front ends, post-block norms).
+Only the configuration features of the dense and MoE families the
+serving stacks run are ported; any other raises ``NotImplementedError``
+naming it (recurrent mixers, local windows, layernorm, learned positions,
+front ends, post-block norms, blocks without a feed-forward).  The page
+pools refuse MoE with JAX's ``ValueError``: expert capacity scales with
+the padded call length, so the bucketed and suffix-only prefills of
+paged serving would route real tokens differently (serve MoE with the
+dense ``Server``).
 """
 from __future__ import annotations
 
@@ -31,10 +41,11 @@ from typing import Any
 import torch
 
 from repro_torch import kernels
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import kvquant
+from repro_torch.nn import moe as moe_mod
 from repro_torch.nn.attention import KvCache, PagedKvCache
 from repro_torch.nn.module import (
     embed,
@@ -51,7 +62,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for configuration features the port
     does not run yet."""
     unsupported = {
-        "moe": cfg.moe is not None,
         "ssm": cfg.ssm is not None,
         "rglru": cfg.rglru is not None,
         "encoder": cfg.encoder is not None,
@@ -64,11 +74,13 @@ def check_supported(cfg: ModelConfig) -> None:
     for i, bd in enumerate(cfg.layer_defs):
         unsupported[f"layer {i} mixer={bd.mixer}"] = bd.mixer != "attn"
         unsupported[f"layer {i} window={bd.window}"] = bd.window is not None
-        unsupported[f"layer {i} ff={bd.ff}"] = bd.ff != "mlp"
+        unsupported[f"layer {i} ff={bd.ff}"] = bd.ff not in ("mlp", "moe")
+        unsupported[f"layer {i} ff=moe without cfg.moe"] = bd.ff == "moe" and cfg.moe is None
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense global-attention decoders only; "
+            f"{cfg.name}: the port runs global-attention decoders with dense or MoE "
+            f"feed-forwards only; "
             f"unsupported: {', '.join(bad)} (other model families and local-window "
             f"rings: ROADMAP Queue 1 item 5)")
 
@@ -91,20 +103,24 @@ def mlp(params, x, cfg: ModelConfig):
     return kernels.linear(h, params["w_out"])
 
 
-def block_spec(cfg: ModelConfig):
-    return {
+def block_spec(cfg: ModelConfig, bd: BlockDef):
+    spec = {
         "norm1": rmsnorm_spec(cfg.d_model),
         "attn": attn_mod.attn_spec(cfg.d_model, cfg.attn),
         "norm2": rmsnorm_spec(cfg.d_model),
-        "mlp": mlp_spec(cfg),
     }
+    if bd.ff == "moe":
+        spec["moe"] = moe_mod.moe_spec(cfg.d_model, cfg.moe, glu=cfg.glu)
+    else:
+        spec["mlp"] = mlp_spec(cfg)
+    return spec
 
 
 def model_spec(cfg: ModelConfig):
     check_supported(cfg)
     spec: dict[str, Any] = {
         "embed": embed_spec(cfg.vocab, cfg.d_model),
-        "layers": [block_spec(cfg) for _ in range(cfg.n_layers)],
+        "layers": [block_spec(cfg, bd) for bd in cfg.layer_defs],
         "final_norm": rmsnorm_spec(cfg.d_model),
     }
     if not cfg.tie_embeddings:
@@ -169,8 +185,21 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     """One page pool per layer, all indexed by the same host-managed
     block tables: bf16 :class:`PagedKvCache`, or
     :class:`QuantPagedKvCache` for ``kv_dtype="int8"`` (the JAX package
-    special-cases int8 only, so ``"f32"`` gives bf16 pools)."""
+    special-cases int8 only, so ``"f32"`` gives bf16 pools).  An MoE
+    block raises JAX's ``ValueError``: expert capacity scales with the
+    padded call length, so the bucketed and suffix-only prefills this
+    cache implies would route, and drop, real tokens differently than the
+    dense path."""
     check_supported(cfg)
+    for i, (pattern, _) in enumerate(cfg.stages):
+        for j, bd in enumerate(pattern):
+            if bd.mixer != "attn" or bd.window is not None or bd.ff == "moe":
+                raise ValueError(
+                    f"paged KV serving needs global-attention non-MoE blocks; "
+                    f"stage {i} block {j} has mixer={bd.mixer!r}, "
+                    f"window={bd.window!r}, ff={bd.ff!r} — serve this arch "
+                    f"with the dense fallback (--kv dense)"
+                )
     _check_kv_dtype(kv_dtype)
     dev = resolve(device)
     if kv_dtype == "int8":
@@ -200,18 +229,40 @@ def _logits(params, cfg: ModelConfig, x):
     return softcap(out, cfg.final_softcap)
 
 
-def _mlp_half(p, cfg, x):
-    return x + mlp(p["mlp"], rmsnorm(p["norm2"], x), cfg)
+def _ff_half(p, cfg, x):
+    """x + the layer's feed-forward (dense MLP or MoE) -> (x, aux loss or None)."""
+    h = rmsnorm(p["norm2"], x)
+    if "moe" in p:
+        f, aux = moe_mod.moe(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu)
+        return x + f, aux
+    return x + mlp(p["mlp"], h, cfg), None
+
+
+def _stage_ends(cfg: ModelConfig) -> set[int]:
+    """The index of each stage's last layer in ``params["layers"]``."""
+    ends, n = set(), 0
+    for pattern, repeats in cfg.stages:
+        n += len(pattern) * repeats
+        ends.add(n - 1)
+    return ends
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """(batch, seq) tokens -> ((batch, seq, vocab) fp32 logits, aux loss 0)."""
+    """(batch, seq) tokens -> ((batch, seq, vocab) fp32 logits, fp32 aux
+    loss): the MoE layers' aux losses summed within each stage, then the
+    stages' sums, in JAX's order (0 without MoE)."""
     x = _embed_inputs(params, cfg, tokens)
-    for p in params["layers"]:
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total, aux_stage = zero, zero
+    ends = _stage_ends(cfg)
+    for i, p in enumerate(params["layers"]):
         m, _ = attn_mod.attention(p["attn"], rmsnorm(p["norm1"], x), cfg.attn)
-        x = _mlp_half(p, cfg, x + m)
+        x, aux = _ff_half(p, cfg, x + m)
+        aux_stage = aux_stage + (zero if aux is None else aux)
+        if i in ends:
+            aux_total, aux_stage = aux_total + aux_stage, zero
     x = rmsnorm(params["final_norm"], x)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux_total
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -234,7 +285,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
             pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
         caches.append(KvCache(k=k, v=v, pos=pos))
-        x = _mlp_half(p, cfg, x + m)
+        x, _ = _ff_half(p, cfg, x + m)
     x = rmsnorm(params["final_norm"], x)
     if logit_index is None:
         sel = x[:, -1:, :]
@@ -300,6 +351,6 @@ def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *
                          if isinstance(cache, kvquant.QuantKvCache)
                          else attn_mod.decode_attention)
             m, _ = decode_fn(p["attn"], h, cache, cfg.attn, index=index)
-        x = _mlp_half(p, cfg, x + m)
+        x, _ = _ff_half(p, cfg, x + m)
     x = rmsnorm(params["final_norm"], x)
     return _logits(params, cfg, x), caches

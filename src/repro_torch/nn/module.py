@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import api
 from repro_torch.nn.spec import ParamSpec
 
 
@@ -56,6 +57,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) ->
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def act_fn(name: str):
+    """The activation applied outside a kernel, as the JAX package's
+    ``act_fn`` applies ``jax.nn``'s: composed op by op in the input's
+    dtype (``kernels.api.REFERENCE_ACTIVATIONS``), so bf16 rounds after
+    every step as XLA's does."""
+    return api.REFERENCE_ACTIVATIONS[name]
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

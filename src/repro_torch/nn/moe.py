@@ -1,0 +1,131 @@
+"""Mixture-of-experts with GShard-style one-hot einsum dispatch: the port
+of the JAX package's ``nn/moe.py``.
+
+1. router logits (fp32, through ``kernels.linear``) -> softcap ->
+   softmax -> the top-k distinct experts per token, ties to the lower
+   expert index as ``jax.lax.top_k`` breaks them (a stable descending
+   sort: with a zero router every probability ties);
+2. groups = sequences (the batch axis), regrouped into windows of
+   ``group_size`` tokens where that divides the sequence; per-group
+   capacity ``C = ceil(k * s * cf / E)`` (decode: s = 1 -> drop-free), the
+   formula kept as written, float floor division and all, and groups of
+   at most 64 slots take all of them;
+3. slot-major position within each expert by a cumsum; slots past
+   capacity drop (the residual path carries the token);
+4. a dispatch tensor (b, k*s, E, C) feeds two einsums: tokens -> (b, E,
+   C, d) expert buffers -> the expert matmuls (``kernels.grouped_linear``:
+   one kernel launch over all E experts per projection) -> combine
+   weighted by the gates, summed over the k slots.
+
+Every expert runs on its whole buffer, empty slots included, as in the
+JAX package: a decode step reads every expert's weights.  The dispatch
+and combine einsums each take one token per output element, so bf16
+rounds them exactly as JAX does; the k-slot sum accumulates in fp32 and
+rounds once, as XLA's CPU reduce does.  JAX's ``_ep_constrain`` is a
+sharding hint under a device mesh and has no counterpart here: the port
+runs on one card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import kernels
+from repro_torch.configs.base import MoeConfig
+from repro_torch.nn.module import act_fn, softcap
+from repro_torch.nn.spec import ParamSpec
+
+
+def moe_spec(d_model: int, cfg: MoeConfig, *, glu: bool = True):
+    e, f = cfg.n_experts, cfg.d_ff_expert
+    spec = {
+        "router": ParamSpec((d_model, e), dtype=torch.float32),
+        "w_in": ParamSpec((e, d_model, f)),
+        "w_out": ParamSpec((e, f, d_model)),
+    }
+    if glu:
+        spec["w_gate"] = ParamSpec((e, d_model, f))
+    if cfg.n_shared_experts:
+        sf = cfg.n_shared_experts * f
+        spec["shared_in"] = ParamSpec((d_model, sf))
+        spec["shared_out"] = ParamSpec((sf, d_model))
+        if glu:
+            spec["shared_gate"] = ParamSpec((d_model, sf))
+    return spec
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest values in
+    descending order, equal values in ascending index order."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def capacity(k: int, s: int, e: int, capacity_factor: float) -> int:
+    """Slots per expert in a routing group of ``s`` tokens (JAX's formula)."""
+    cap = int(max(1, min(-(-k * s * capacity_factor // e), k * s)))
+    return k * s if k * s <= 64 else cap
+
+
+def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool = True):
+    """x: (batch, seq, d) -> ((batch, seq, d), fp32 aux loss)."""
+    b_orig, s_orig, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+
+    # route within windows of group_size tokens (batch-major reshape)
+    gs = max(1, min(cfg.group_size, s_orig))
+    if s_orig % gs == 0 and gs < s_orig:
+        x = x.reshape(b_orig * (s_orig // gs), gs, d)
+    b, s, _ = x.shape
+
+    # --- routing (fp32) ---------------------------------------------------
+    logits = softcap(kernels.linear(x.float(), params["router"]), cfg.router_softcap)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = top_k(probs, k)  # (b, s, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(expert_ids, e).float().mean(dim=(0, 1, 2))
+    aux_loss = e * torch.sum(me * ce)
+
+    # --- grouped dispatch (groups = sequences) ------------------------------
+    cap = capacity(k, s, e, cfg.capacity_factor)
+    oh = F.one_hot(expert_ids, e)  # (b, s, k, e)
+    # slot-major event stream (slot 0 for all tokens, then slot 1, ...)
+    oh_flat = oh.permute(0, 2, 1, 3).reshape(b, k * s, e)
+    pos = torch.cumsum(oh_flat, dim=1) - 1  # position within expert
+    pos_sel = torch.sum(pos * oh_flat, dim=-1)  # (b, k*s)
+    keep = pos_sel < cap
+    gates_flat = (gate_vals.permute(0, 2, 1).reshape(b, k * s) * keep).to(x.dtype)
+    slot = pos_sel[..., None] == torch.arange(cap, device=x.device)  # one_hot, zero past cap
+    dispatch = (oh_flat[..., None] * slot[..., None, :]).to(x.dtype) \
+        * keep[..., None, None].to(x.dtype)  # (b, k*s, e, cap)
+
+    x_slots = torch.cat([x] * k, dim=1)  # slot-major (b, k*s, d)
+    hidden = torch.einsum("bjec,bjd->becd", dispatch, x_slots)
+
+    # --- expert computation (one grouped kernel launch per projection) -----
+    h_in = kernels.grouped_linear(hidden, params["w_in"])
+    if glu:
+        h = kernels.grouped_linear(hidden, params["w_gate"], activation=act) * h_in
+    else:
+        h = act_fn(act)(h_in)
+    out = kernels.grouped_linear(h, params["w_out"])  # (b, e, cap, d)
+
+    # --- combine --------------------------------------------------------------
+    combine = dispatch * gates_flat[..., None, None]
+    y = torch.einsum("bjec,becd->bjd", combine, out)  # (b, k*s, d)
+    y = y.reshape(b, k, s, d).sum(dim=1)
+
+    # --- shared experts (always-on path) --------------------------------------
+    if "shared_in" in params:
+        xf = x.reshape(b * s, d)
+        s_in = kernels.linear(xf, params["shared_in"])
+        if glu:
+            s_in = kernels.linear(xf, params["shared_gate"], activation=act) * s_in
+        else:
+            s_in = act_fn(act)(s_in)
+        y = y + kernels.linear(s_in, params["shared_out"]).reshape(b, s, d)
+
+    return y.reshape(b_orig, s_orig, d), aux_loss

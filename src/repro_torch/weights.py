@@ -1,4 +1,4 @@
-"""Convert a JAX parameter tree of the dense family into the port's layout.
+"""Convert a JAX parameter tree of the dense or MoE family into the port's layout.
 
 :func:`from_jax_params` takes the tree as nested dicts of numpy arrays
 (``jax.device_get`` of ``repro.models.lm.init``'s output, or arrays
@@ -7,8 +7,10 @@ loaded from a checkpoint) and imports no JAX:
 * bf16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``) cross into
   torch through a ``uint16`` view, since ``torch.from_numpy`` rejects
   that dtype;
-* the stacked ``stage0`` leaves (leading axis = layer) are split into
-  one dict per layer under ``layers``;
+* the stacked leaves of every stage (``stage{i}/b{j}``, leading axis =
+  repeat) are split into one dict per layer under ``layers``, in the
+  JAX order: stage by stage, repeat by repeat, block by block
+  (``cfg.layer_defs``); MoE leaves keep their expert axis;
 * headed projections become 2-D: ``wq``/``wk``/``wv`` (d, heads,
   head_dim) -> (d, heads*head_dim), ``wo`` (heads, head_dim, d) ->
   (heads*head_dim, d), biases (heads, head_dim) -> (heads*head_dim,).
@@ -49,18 +51,17 @@ def _layer(tree: dict, i: int, device) -> dict:
 
 
 def from_jax_params(tree: dict, *, device: str | torch.device = DEFAULT) -> dict:
-    """JAX dense-family parameter tree (numpy leaves) -> the port's dict."""
+    """JAX dense- or MoE-family parameter tree (numpy leaves) -> the port's dict."""
     dev = resolve(device)
-    stages = [k for k in tree if k.startswith("stage")]
-    if stages != ["stage0"] or set(tree["stage0"]) != {"b0"}:
-        raise NotImplementedError(
-            f"from_jax_params: expected one stage of one block (dense family), got "
-            f"{sorted(stages)}")
-    stacked = tree["stage0"]["b0"]
-    n_layers = len(next(iter(stacked["norm1"].values())))
+    layers = []
+    for i in range(sum(k.startswith("stage") for k in tree)):
+        stage = tree[f"stage{i}"]
+        blocks = [stage[f"b{j}"] for j in range(len(stage))]
+        repeats = len(next(iter(blocks[0]["norm1"].values())))
+        layers += [_layer(block, r, dev) for r in range(repeats) for block in blocks]
     out = {
         "embed": {"table": to_torch(tree["embed"]["table"], dev)},
-        "layers": [_layer(stacked, i, dev) for i in range(n_layers)],
+        "layers": layers,
         "final_norm": {"scale": to_torch(tree["final_norm"]["scale"], dev)},
     }
     if "unembed" in tree:

@@ -13,7 +13,7 @@ which serves on JAX's CPU default, the ``reference`` backend.  Modes
 let them share their jitted steps (:func:`_share_jits`).
 
     python tests/_torch_jax_ref.py \
-        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop} OUT.npz
+        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve} OUT.npz
 """
 from __future__ import annotations
 
@@ -423,6 +423,74 @@ def _dense(out: dict) -> None:
         {name: _launch(args) for name, args in dense_runs().items()}))
 
 
+#: the MoE archs held against JAX at their reduced configs (mode ``moe``)
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
+#: the dense-Server launcher runs on the reduced moonshot (mode
+#: ``moeserve``): no shared prefix, so the prompts' lengths differ (4-11
+#: tokens, five lengths) and a bucketed prefill would pad every one
+MOE_LAUNCH_ARGS = ["--arch", "moonshot-v1-16b-a3b", "--reduced", "--requests", "6",
+                   "--max-new", "8", "--seed", str(SEED), "--kv", "dense"]
+
+
+def moe_case():
+    """Token arrays for the MoE logits references (shared with the test)."""
+    rng = np.random.default_rng(11)
+    return {
+        "dense": rng.integers(0, 512, size=(2, 24)).astype(np.int32),
+        "prompt": rng.integers(0, 512, size=(2, 13)).astype(np.int32),
+        "step1": rng.integers(0, 512, size=(2, 1)).astype(np.int32),
+        "step3": rng.integers(0, 512, size=(2, 3)).astype(np.int32),
+    }
+
+
+def _moe(out: dict) -> None:
+    """Per MoE arch: ``forward``'s logits and aux loss, a prefill's
+    logits at given rows, then two decode steps (1 and 3 tokens) against
+    the dense caches that prefill built."""
+    import jax.numpy as jnp
+
+    from repro import kernels
+    from repro.models import lm
+
+    case = moe_case()
+    for arch in MOE_ARCHS:
+        cfg, params = _setup(arch)
+        with kernels.use_policy("backend=pallas"):
+            logits, aux = lm.forward(params, cfg, jnp.asarray(case["dense"]))
+            out[f"{arch}/forward"], out[f"{arch}/aux"] = np.asarray(logits), np.asarray(aux)
+            logits, caches = lm.prefill(params, cfg, jnp.asarray(case["prompt"]), cache_slots=32,
+                                        logit_index=jnp.asarray([12, 7]))
+            out[f"{arch}/prefill"] = np.asarray(logits)
+            logits, caches = lm.decode_step(params, cfg, caches, jnp.asarray(case["step1"]),
+                                            jnp.int32(13))
+            out[f"{arch}/decode1"] = np.asarray(logits)
+            logits, caches = lm.decode_step(params, cfg, caches, jnp.asarray(case["step3"]),
+                                            jnp.int32(14))
+            out[f"{arch}/decode3"] = np.asarray(logits)
+        out[f"{arch}/params_checksum"] = np.asarray(params_checksum(params))
+
+
+def _moeserve(out: dict) -> None:
+    """The JAX launcher's dense ``Server`` on the reduced moonshot under
+    every ``DENSE_POLICIES`` entry, and the ``ValueError`` text that
+    paged serving of an MoE arch raises (``lm.init_paged_cache``,
+    ``PagedEngine``, ``--kv paged``)."""
+    from repro.models import lm
+    from repro.serve import PagedEngine
+
+    runs = {p: _launch([*MOE_LAUNCH_ARGS, "--kernel-policy", p]) for p in DENSE_POLICIES}
+    cfg, params = _setup("moonshot-v1-16b-a3b")
+    errors = {}
+    for name, call in (("init_paged_cache", lambda: lm.init_paged_cache(cfg, 8, 8)),
+                       ("PagedEngine", lambda: PagedEngine(cfg, params)),
+                       ("launcher", lambda: _launch([*MOE_LAUNCH_ARGS[:-1], "paged"]))):
+        try:
+            call()
+        except ValueError as e:
+            errors[name] = str(e)
+    out["moeserve_json"] = np.asarray(json.dumps({"runs": runs, "errors": errors}))
+
+
 def _setup(arch: str = "qwen1.5-0.5b"):
     import jax
 
@@ -436,7 +504,8 @@ def _setup(arch: str = "qwen1.5-0.5b"):
 #: the architecture whose parameters each mode's checksum covers
 MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5-0.5b",
              "quant": TARGET, "int8serve": TARGET, "spec": TARGET,
-             "refserve": "qwen1.5-0.5b", "chaos": "qwen1.5-0.5b", "loop": "qwen1.5-0.5b"}
+             "refserve": "qwen1.5-0.5b", "chaos": "qwen1.5-0.5b", "loop": "qwen1.5-0.5b",
+             "moeserve": "moonshot-v1-16b-a3b"}
 
 
 def main(mode: str, path: str) -> None:
@@ -445,7 +514,7 @@ def main(mode: str, path: str) -> None:
         _share_jits()
     {"model": _model, "serve": _serve, "dense": _dense, "quant": _quant,
      "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,
-     "chaos": _chaos, "loop": _loop}[mode](out)
+     "chaos": _chaos, "loop": _loop, "moe": _moe, "moeserve": _moeserve}[mode](out)
     if mode in MODE_ARCH:
         _, params = _setup(MODE_ARCH[mode])
         out["params_checksum"] = np.asarray(params_checksum(params))

@@ -348,6 +348,121 @@ def test_mcast_cluster_size_and_idle_ctas(cuda_device, m, cluster):
     close(first.cpu(), matmul_mcast_plain(a, b).float().cpu())
 
 
+# (g, m, k, n, form, (K1's, K4's, K5's design)) of the grouped forms: the
+# moonshot-v1-16b-a3b expert matmuls at decode (64 experts x 24 rows: 4
+# sequences x top-6) and at a 512-token prefill (capacity 60), a split-K
+# shape over 3 groups (splits = ceil(132 / 3) = 44: each group's column
+# tile its own counter and workspace), M > 64 with idle cluster CTAs in
+# every group (300 rows: CL 4, 3 row blocks), ragged M and N, an N whose
+# rows TMA cannot read (cuda-core), fp32 A (3xbf16) and an A read
+# through its strides ("x.t": a (m, g, k) tensor transposed, so a group's
+# rows lie g * k apart and the groups k apart)
+GROUPED_CASES = [
+    (64, 24, 2048, 1408, "bf16", ("wgmma-swapab",) * 3),
+    (64, 24, 1408, 2048, "bf16", ("wgmma-swapab",) * 3),
+    (64, 60, 2048, 1408, "bf16", ("wgmma-swapab",) * 3),
+    (3, 5, 4096, 64, "bf16", ("wgmma-swapab",) * 3),
+    (4, 300, 256, 200, "bf16", ("wgmma", "wgmma-cluster", "wgmma")),
+    (3, 130, 192, 136, "bf16", ("wgmma", "wgmma-cluster", "wgmma")),
+    (3, 70, 100, 77, "bf16", ("cuda-core",) * 3),
+    (2, 4, 1024, 320, "fp32 a", ("wgmma-swapab-3xbf16",) * 3),
+    (5, 12, 256, 128, "x.t", ("wgmma-swapab",) * 3),
+]
+
+
+def _grouped_operands(gen, g, m, k, n, form):
+    if form == "x.t":  # rows of a group g * k apart: A read through its strides
+        a = _rand(gen, m, g, k).transpose(0, 1)
+    else:
+        a = _rand(gen, g, m, k, dtype=torch.float32 if form == "fp32 a" else torch.bfloat16)
+    return a, _rand(gen, g, k, n, scale=k ** -0.5)
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=str)
+@pytest.mark.parametrize("name", ["matmul_tiled", "matmul_mcast", "matmul_unicast"])
+def test_grouped_kernels_match_plain(cuda_device, name, case):
+    """K1 (silu, a bias per group), K4 and K5 over a stack of G groups in
+    one launch: the design of the C rule, every group against the plain
+    version's per-group product (bf16 within 2e-2, fp32 within 1e-4)."""
+    g, m, k, n, form, designs = case
+    gen = torch.Generator(device=cuda_device).manual_seed(g * m + k + n)
+    a, b = _grouped_operands(gen, g, m, k, n, form)
+    fn = kernels.KERNELS[name]
+    if name == "matmul_tiled":
+        bias = _rand(gen, g, n)
+        run = lambda: fn(a, b, bias, activation="silu")  # noqa: E731
+        want = matmul_tiled_plain(a, b, bias, activation="silu")
+    else:
+        run = lambda: fn(a, b)  # noqa: E731
+        want = matmul_mcast_plain(a, b)
+    before = fn.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.design == designs[("matmul_tiled", "matmul_mcast", "matmul_unicast").index(name)]
+    assert got.shape == (g, m, n) and got.dtype == a.dtype
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want.float().cpu(), rtol=1e-4, atol=1e-4)
+    else:
+        close(got.cpu(), want.float().cpu())
+
+
+@pytest.mark.parametrize("name", ["matmul_tiled", "matmul_mcast", "matmul_unicast"])
+def test_grouped_split_k_keeps_groups_apart_and_counters_at_zero(cuda_device, name):
+    """Split K over 3 groups (3 x 5 x 4096 x 64: 44 splits of one column
+    tile each): two launches give the same bits, every counter is back at
+    0, and a group whose A is zero comes out zero (K1: silu(bias)) while
+    the others keep their values — no partial crosses into another
+    group."""
+    from repro_torch.kernels.matmul import matmul as mm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(44)
+    a, b = _grouped_operands(gen, 3, 5, 4096, 64, "bf16")
+    a[1] = 0
+    assert mm._splits(name, 64, 4096, 3) == 44
+    fn = kernels.KERNELS[name]
+    bias = _rand(gen, 64)
+    run = (lambda: fn(a, b, bias, activation="silu")) if name == "matmul_tiled" \
+        else (lambda: fn(a, b))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert fn.design == "wgmma-swapab"
+    assert torch.equal(first, second)
+    counters = {"matmul_tiled": mm._TILED_COUNTERS, "matmul_mcast": mm._MCAST_COUNTERS,
+                "matmul_unicast": mm._UNICAST_COUNTERS}[name]
+    assert int(counters[a.device].abs().sum()) == 0
+    zero = ACTIVATIONS["silu"](bias.float()).to(a.dtype) if name == "matmul_tiled" \
+        else torch.zeros_like(first[1])
+    assert torch.equal(first[1], zero.expand_as(first[1]))
+    for grp in (0, 2):
+        one = fn(a[grp], b[grp], bias, activation="silu") if name == "matmul_tiled" \
+            else fn(a[grp], b[grp])
+        close(first[grp].cpu(), one.float().cpu())
+
+
+@pytest.mark.parametrize("policy", ["tiled", "mcast", "unicast"])
+def test_grouped_linear_lead_axes_on_the_card(cuda_device, policy):
+    """``kernels.grouped_linear`` with two lead axes launches its schedule's
+    kernel once for all groups and agrees with the plain versions' per-group
+    products (its lead axes moved behind the group axis, as JAX's does)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, w = _rand(gen, 2, 3, 8, 6, 256), _rand(gen, 8, 256, 192, scale=256 ** -0.5)
+    wrapper = kernels.KERNELS[f"matmul_{policy}"]
+    before = wrapper.launches
+    with kernels.use_policy(policy):
+        got = kernels.grouped_linear(x, w, activation="silu")
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.shape == (2, 3, 8, 6, 192)
+    want = torch.stack([matmul_tiled_plain(x.reshape(6, 8, 6, 256)[:, e].reshape(36, 256),
+                                           w[e], activation="silu").reshape(2, 3, 6, 192)
+                        for e in range(8)], dim=2)
+    if policy != "tiled":  # K4 / K5 round the product, then silu in fp32 (JAX's _mm_flat)
+        want = torch.stack([ACTIVATIONS["silu"](matmul_mcast_plain(
+            x.reshape(6, 8, 6, 256)[:, e].reshape(36, 256), w[e]).float()).to(x.dtype)
+            .reshape(2, 3, 6, 192) for e in range(8)], dim=2)
+    close(got.cpu(), want.float().cpu())
+
+
 @pytest.mark.parametrize("kvh", [16, 4, 1])
 @pytest.mark.parametrize("d", [64, 128])
 def test_paged_kernels_match_plain(cuda_device, kvh, d):

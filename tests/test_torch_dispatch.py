@@ -2,7 +2,9 @@
 against the JAX package's: the same policy syntax, and the same schedule
 picked for every (shape, dtype, policy) of a grid that covers the
 serving shapes, the exact tie at M <= 2048 (``tiled`` listed first
-wins) and the one shape where ``mcast`` is cheaper (M = 2049).  A forced
+wins) and the one shape where ``mcast`` is cheaper (M = 2049), and the
+grouped expert matmuls of ``grouped_linear`` at moonshot-v1-16b-a3b's
+shapes.  A forced
 matmul schedule cannot reach paged attention in either package, and the
 ``reference`` policies resolve as JAX's (``tests/test_torch_reference.py``
 holds the reference backend itself).
@@ -296,3 +298,49 @@ def test_untied_logits_dispatch_keys_the_problem_as_jax_does():
     assert logits == [api.Problem((10, cfg.d_model, cfg.vocab), "float32")]
     want = jax_kernels.resolve("matmul", logits[0].shape, "float32", "backend=pallas")
     assert kernels.resolve("matmul", logits[0].shape, torch.float32).schedule == want.schedule
+
+
+#: grouped problems: the moonshot experts at full width (decode: 4
+#: sequences x top-6 = 24 rows; a 512-token prefill: capacity 60; 2
+#: prompts of 512 tokens: 120 rows) and the reduced config's
+GROUPED_SHAPES = [((), 64, 24, 2048, 1408), ((), 64, 24, 1408, 2048), ((), 64, 60, 2048, 1408),
+                  ((2,), 64, 60, 2048, 1408), ((4,), 8, 2, 64, 32), ((2,), 8, 24, 64, 32)]
+
+
+@pytest.mark.parametrize("policy", [None, "tiled", "mcast", "unicast", "backend=pallas"],
+                         ids=str)
+def test_grouped_linear_resolves_the_jax_schedule(policy):
+    """Each side's ``grouped_linear`` (the MoE expert matmuls) reaches the
+    same matmul schedule: JAX's vmapped ``linear`` traced (no kernel runs)
+    with its ``_invoke`` recorded, the port's on meta tensors with its
+    wrappers recorded; one kernel call each, for all groups."""
+    jax_policy = policy or "backend=pallas"
+    for lead, g, m, k, n in GROUPED_SHAPES:
+        seen = []
+        real = jax_api._invoke
+
+        def record(name, sched, *args, **kw):
+            seen.append(sched.name)
+            return real(name, sched, *args, **kw)
+
+        with mock.patch.object(jax_api, "_invoke", record):
+            jax.eval_shape(lambda x, w: jax_api.grouped_linear(x, w, policy=jax_policy),
+                           jax.ShapeDtypeStruct((*lead, g, m, k), jnp.bfloat16),
+                           jax.ShapeDtypeStruct((g, k, n), jnp.bfloat16))
+        reached = []
+
+        def fake(name):
+            def run(a, b, *rest, **kw):
+                reached.append(name)
+                return torch.empty((*a.shape[:-1], b.shape[-1]), dtype=a.dtype, device="meta")
+            return run
+
+        with mock.patch.object(api, "matmul_tiled", fake("tiled")), \
+                mock.patch.object(api, "matmul_mcast", fake("mcast")), \
+                mock.patch.object(api, "matmul_unicast", fake("unicast")):
+            y = kernels.grouped_linear(torch.empty((*lead, g, m, k), dtype=torch.bfloat16,
+                                                   device="meta"),
+                                       torch.empty((g, k, n), dtype=torch.bfloat16,
+                                                   device="meta"), policy=policy)
+        assert y.shape == (*lead, g, m, n)
+        assert seen == reached and len(reached) == 1, ((lead, g, m, k, n), seen, reached)
