@@ -141,12 +141,34 @@ each fatal on failure (nothing is caught):
    launched, tokens/s and TTFT), and on the first ``MOE_STREAM_DEPTH`` =
    4 layers through the kernels and through the plain versions with the
    kernel run's experts replayed: every kernel stream equal to its plain
-   run's but at near-ties.  Depth is cut only there.
+   run's but at near-ties.  Depth is cut only there;
+7. recurrent serving, mamba2-780m (48 SSD layers) and recurrentgemma-2b
+   (RG-LRU and window-2048 local attention, 26 layers) at full width and
+   full depth, built on the card from a seed once moonshot is freed: K1,
+   K4 and K5 through ``kernels.linear`` at every new projection
+   (``RECURRENT_ROWS``: mamba2's in / out projections and tied logits,
+   recurrentgemma's gelu and bare branches, the RG-LRU gate with bias,
+   sigmoid and fp32 output, the MQA k / v, the gelu_tanh GLU and down
+   projections, its tied logits) at M 4 and 45 under each policy, each
+   held to the same call on the plain versions, timed beside
+   ``torch.matmul`` / ``torch.addmm`` and its bound, naming its design;
+   then per model one 45-token prefill and one batch-4 decode step per
+   policy with every layer (RG-LRU and SSD blocks and their steps,
+   local-window attention, MLP) and the logits held to the plain
+   versions (``LayerCheck``), the whole run reported against a whole
+   plain run (``model_whole``), the decode step timed, profiled and
+   counted beside the weights' bound; a 4,096-token prefill (batch 1,
+   only the last row's logits) and 4 decode steps, every layer held,
+   recurrentgemma's local layers on the banded path with 2,048-slot
+   rings holding the last positions, mamba2 over 32 chunks; and the
+   dense ``Server`` over the phase-6 prompts per policy at full depth
+   (every request drained, only its policy's matmul kernel launched,
+   streams equal to a plain run's but at near-ties).
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
-line, the kernel summary (launches: the serving runs of phases 4, 5 and
-6 for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for
+line, the kernel summary (launches: the serving runs of phases 4 to 7
+for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for
 K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -231,7 +253,10 @@ from repro_torch.kernels.ssd import (  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import attention as attn_mod  # noqa: E402
+from repro_torch.nn import memeff as memeff_mod  # noqa: E402
 from repro_torch.nn import moe as moe_mod  # noqa: E402
+from repro_torch.nn import rglru as rglru_mod  # noqa: E402
+from repro_torch.nn import ssd as ssd_mod  # noqa: E402
 from repro_torch.configs.registry import draft_for  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     Fault,
@@ -250,8 +275,11 @@ from repro_torch.serve import (  # noqa: E402
 # HBM3 bandwidth.  They assume the 700 W limit; the card line says the
 # limit this run had.
 PEAK_BF16 = 989e12
-PEAK_FP32 = 67e12  # outside the tensor cores; fp32-accurate products on them: PEAK_TF32 / 3
+PEAK_FP32 = 67e12  # outside the tensor cores
 PEAK_TF32 = 495e12
+# fp32-accurate products on the tensor cores (K9/K10's 3xTF32, the matmuls'
+# fp32 x bf16 wgmma-swapab-3xbf16): three passes, taken at PEAK_TF32 / 3
+PEAK_FP32_ACCURATE = PEAK_TF32 / 3
 HBM_BYTES_PER_S = 3.35e12
 
 # Stated tolerances (compared in fp32).  bf16 outputs: 2e-2 absolute and
@@ -511,25 +539,56 @@ def check_flash_close(name: str, got, want, tol: float, rounding=None) -> tuple[
 # ---------------------------------------------------------------------------
 
 
-def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False, label=""):
-    """K1 against its plain version at one shape.  ``logits``: True for the
-    tied head (fp32 activations x the bf16 (vocab, d) table read
-    transposed), ``"untied"`` for an untied head (the bf16 (d, vocab)
-    ``unembed.w`` read row-major, qwen1.5-1.8b's)."""
+def matmul_operands(gen, m, k, n, *, logits=False, bias=False):
+    """A, B and the bias of a matmul check.  ``logits``: True for the tied
+    head (fp32 activations x the bf16 (vocab, d) table read transposed),
+    ``"untied"`` for an untied head (x the bf16 (d, vocab) ``unembed.w``
+    read row-major, qwen1.5-1.8b's), neither with a bias; else bf16
+    activations x a bf16 B scaled by 1/sqrt(k), with a bf16 bias if
+    ``bias``."""
     dev = "cuda"
-    if logits == "untied":
+    if logits:
         a = torch.randn(m, k, device=dev, generator=gen) * 4
-        b = (torch.randn(k, n, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
-        bb = None
-    elif logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
-        a = torch.randn(m, k, device=dev, generator=gen) * 4
-        table = (torch.randn(n, k, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
-        b = table.t()
-        bb = None
-    else:
-        a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
-        b = (torch.randn(k, n, device=dev, generator=gen) / math.sqrt(k)).to(torch.bfloat16)
-        bb = torch.randn(n, device=dev, generator=gen).to(torch.bfloat16) if bias else None
+        if logits == "untied":
+            b = (torch.randn(k, n, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        else:
+            b = (torch.randn(n, k, device=dev, generator=gen) * 0.02).to(torch.bfloat16).t()
+        return a, b, None
+    a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    b = (torch.randn(k, n, device=dev, generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+    bb = torch.randn(n, device=dev, generator=gen).to(torch.bfloat16) if bias else None
+    return a, b, bb
+
+
+def matmul_bound(a, b, bias, out_dtype) -> tuple[float, str]:
+    """The least time of ``a @ b`` (+ ``bias``) into ``out_dtype``: each
+    operand read once and the output written once; 2 m n k flops at
+    PEAK_BF16 for bf16 x bf16, else at PEAK_FP32_ACCURATE (an fp32 operand
+    runs on the tensor cores, fp32-accurate: wgmma-swapab-3xbf16)."""
+    (m, k), n = a.shape, b.shape[1]
+    nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() \
+        + m * n * torch.empty((), dtype=out_dtype).element_size() \
+        + (0 if bias is None else bias.numel() * bias.element_size())
+    both_bf16 = a.dtype == b.dtype == torch.bfloat16
+    return bound(2.0 * m * n * k, nbytes, PEAK_BF16 if both_bf16 else PEAK_FP32_ACCURATE)
+
+
+def matmul_library(a, b, bias=None, activation="none") -> tuple[str | None, float | None]:
+    """The library call timed beside a matmul kernel on its operands: none
+    for fp32 x bf16 (no single call multiplies them), ``torch.addmm`` for a
+    bias alone, else ``torch.matmul`` (without the epilogue, if any)."""
+    if a.dtype != b.dtype:
+        return None, None
+    if bias is not None and activation == "none":
+        return "torch.addmm", time_ms(lambda: torch.addmm(bias, a, b))[0]
+    name = "torch.matmul" if bias is None and activation == "none" \
+        else "torch.matmul (no epilogue)"
+    return name, time_ms(lambda: torch.matmul(a, b))[0]
+
+
+def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False, label=""):
+    """K1 against its plain version at one shape (:func:`matmul_operands`)."""
+    a, b, bb = matmul_operands(gen, m, k, n, logits=logits, bias=bias)
     before = matmul_tiled.launches
     got = matmul_tiled(a, b, bb, activation=activation)
     assert matmul_tiled.launches == before + 1
@@ -537,18 +596,8 @@ def check_matmul(gen, m, k, n, *, bias=True, activation="none", logits=False, la
     want = matmul_tiled_plain(a, b, bb, activation=activation)
     tol = TOL_FP32 if got.dtype == torch.float32 else TOL_BF16
     err = check_close(f"matmul_tiled {m}x{k}x{n}", got, want, tol)
-    out_bytes = m * n * got.element_size()
-    nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() + out_bytes \
-        + (0 if bb is None else bb.numel() * bb.element_size())
-    b_ms, b_by = bound(2.0 * m * n * k, nbytes,
-                       PEAK_FP32 if a.dtype == torch.float32 else PEAK_BF16)
-    if logits:
-        library, lib_ms = None, None  # no single call multiplies fp32 by a bf16 view
-    elif bb is not None and activation == "none":
-        library, lib_ms = "torch.addmm", time_ms(lambda: torch.addmm(bb, a, b))[0]
-    else:
-        library = "torch.matmul (no epilogue)"
-        lib_ms = time_ms(lambda: torch.matmul(a, b))[0]
+    b_ms, b_by = matmul_bound(a, b, bb, got.dtype)
+    library, lib_ms = matmul_library(a, b, bb, activation)
     k_ms, k_host = time_ms(lambda: matmul_tiled(a, b, bb, activation=activation))
     rec = dict(check="kernel", name="matmul_tiled", row=label, shape=[m, k, n],
                a_dtype=str(a.dtype), b_dtype=str(b.dtype), out_dtype=str(got.dtype),
@@ -582,22 +631,12 @@ def check_schedules(gen, m, k, n, *, logits=False):
     from global memory (K4: once per cluster of CL row blocks, CL from its
     C rule).  Emits one kernel record for K4 and one for K5, then the
     side-by-side record."""
-    dev = "cuda"
-    if logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
-        a = torch.randn(m, k, device=dev, generator=gen) * 4
-        b = (torch.randn(n, k, device=dev, generator=gen) * 0.02).to(torch.bfloat16).t()
-    else:
-        a = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
-        b = (torch.randn(k, n, device=dev, generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+    a, b, _ = matmul_operands(gen, m, k, n, logits=logits)
     tol = TOL_FP32 if a.dtype == torch.float32 else TOL_BF16
     want = matmul_mcast_plain(a, b)  # the one function all three compute
     plain_ms = time_ms(lambda: matmul_mcast_plain(a, b))[0]
-    nbytes = (a.numel() + m * n) * a.element_size() + b.numel() * b.element_size()
-    # the card's peak for the operands' type, whatever the kernels compute on
-    both_bf16 = a.dtype == b.dtype == torch.bfloat16
-    b_ms, b_by = bound(2.0 * m * n * k, nbytes, PEAK_BF16 if both_bf16 else PEAK_FP32)
-    library, lib_ms = (None, None) if logits else \
-        ("torch.matmul", time_ms(lambda: torch.matmul(a, b))[0])
+    b_ms, b_by = matmul_bound(a, b, None, a.dtype)
+    library, lib_ms = matmul_library(a, b)
     blocks = kernel_blocks(m)
     cluster = resident = None
     if m > 64:  # K4's cluster size by its C rule, as kernel_blocks reports it
@@ -1240,8 +1279,6 @@ def _lru_inputs(gen, c: LruShape):
 
 SSD_DESIGN = "chunk-parallel"  # the design every SSD_SHAPES row must run
 LRU_DESIGN = "chunked-lookback"  # the design every LRU_SHAPES row must run
-# fp32-accurate products on the tensor cores: 3xTF32, three TF32 passes
-PEAK_FP32_ACCURATE = PEAK_TF32 / 3
 
 
 def ssd_bounds(c: SsdShape, peak: float = PEAK_FP32_ACCURATE) -> dict[str, tuple[float, str]]:
@@ -2368,8 +2405,9 @@ class RoutingPin:
 
 class LayerCheck:
     """Every layer of a kernel run held to the plain versions on the same
-    inputs: while armed, each attention (prefill and decode), dense MLP,
-    MoE and logits head runs through the kernels as usual and then once
+    inputs: while armed, each attention (prefill and decode, global or
+    local-window), RG-LRU and SSD block (prefill and decode step), dense
+    MLP, MoE and logits head runs through the kernels as usual and then once
     more through the plain versions on the inputs the kernel run gave it
     (a decode attention on a copy of its cache as it was before the
     step; an MoE with the kernel call's experts replayed), and each
@@ -2383,7 +2421,8 @@ class LayerCheck:
     and a kernel run and a plain run of the same prompt end up sharing
     nothing (``model_unpinned``)."""
 
-    KINDS = ("attention", "decode_attention", "mlp", "moe", "logits")
+    KINDS = ("attention", "decode_attention", "mlp", "moe", "rglru", "rglru_step", "ssd",
+             "ssd_step", "logits")
 
     def __init__(self):
         self.stats = {k: dict(calls=0, worst_ratio=0.0, max_err=0.0) for k in self.KINDS}
@@ -2404,6 +2443,18 @@ class LayerCheck:
     def armed(self):
         real = dict(attention=attn_mod.attention, decode=attn_mod.decode_attention,
                     mlp=lm.mlp, moe=moe_mod.moe, logits=lm._logits)
+        recurrent = {(mod, name): getattr(mod, name) for mod, name in (
+            (rglru_mod, "rglru"), (rglru_mod, "rglru_step"), (ssd_mod, "ssd"),
+            (ssd_mod, "ssd_step"))}
+
+        def mixer(kind, fn):
+            def run(p, x, *args, **kw):  # pure: the plain rerun takes the same state
+                out, state = fn(p, x, *args, **kw)
+                with plain_versions():
+                    want, _ = fn(p, x, *args, **kw)
+                self._hold(kind, out, want)
+                return out, state
+            return run
 
         def attention(p, x, cfg, **kw):
             out, kv = real["attention"](p, x, cfg, **kw)
@@ -2447,11 +2498,14 @@ class LayerCheck:
             self.argmax.append(float((out.argmax(-1) == want.argmax(-1)).float().mean()))
             return out
 
-        with mock.patch.object(attn_mod, "attention", attention), \
-                mock.patch.object(attn_mod, "decode_attention", decode), \
-                mock.patch.object(lm, "mlp", mlp), mock.patch.object(moe_mod, "moe", moe), \
-                mock.patch.object(lm, "_logits", logits):
-            yield self
+        with contextlib.ExitStack() as stack:
+            for (mod, name), fn in recurrent.items():
+                stack.enter_context(mock.patch.object(mod, name, mixer(name, fn)))
+            with mock.patch.object(attn_mod, "attention", attention), \
+                    mock.patch.object(attn_mod, "decode_attention", decode), \
+                    mock.patch.object(lm, "mlp", mlp), mock.patch.object(moe_mod, "moe", moe), \
+                    mock.patch.object(lm, "_logits", logits):
+                yield self
 
     def worst(self) -> float:
         return max(st["worst_ratio"] for st in self.stats.values())
@@ -2461,12 +2515,14 @@ class LayerCheck:
                     **self.routing)
 
 
-def moe_model_run(cfg, params, prompt, step_tokens):
-    """The dense server's path for MoE: one prefill at the prompt's own
-    length (no bucket: padding would take expert capacity) into 256-slot
-    rings, copied to all 4 batch slots, then one decode step for the batch;
-    returns both logits and the step (rerunning it rewrites the same ring
-    rows: idempotent)."""
+def dense_server_model_run(cfg, params, prompt, step_tokens):
+    """The dense server's path for MoE and the recurrent archs: one prefill
+    at the prompt's own length (no bucket: padding would take expert
+    capacity, or enter a ring or a recurrent state) into 256-slot rings
+    (a local window's: min(window, 256)) and recurrent states, copied to
+    all 4 batch slots, then one decode step for the batch; returns both
+    logits and the step (rerunning it rewrites the same ring rows and
+    replaces, not updates, the states: idempotent)."""
     caches = lm.init_cache(cfg, 4, 256, device="cuda")
     n = len(prompt)
     pre, one = lm.prefill(params, cfg, prompt[None], cache_slots=256, logit_index=n - 1)
@@ -2504,7 +2560,7 @@ def check_moe_model(cfg, params) -> None:
         check = LayerCheck()
         with kernels.use_policy(policy):
             with check.armed():
-                pre_k, dec_k, step = moe_model_run(cfg, params, prompt, step_tokens)
+                pre_k, dec_k, step = dense_server_model_run(cfg, params, prompt, step_tokens)
             stats = step_stats(step, top=8)
             kernels.reset_launch_counts()
             step()
@@ -2512,7 +2568,7 @@ def check_moe_model(cfg, params) -> None:
             del step
             if policy is None:
                 with plain_versions():
-                    pre_u, dec_u, _ = moe_model_run(cfg, params, prompt, step_tokens)
+                    pre_u, dec_u, _ = dense_server_model_run(cfg, params, prompt, step_tokens)
                 for name, got, want in (("prefill", pre_k, pre_u), ("decode_step", dec_k, dec_u)):
                     emit(dict(check="model_unpinned", name=name, **tag, max_err=max_err(got, want),
                               max_abs_logit=float(want.abs().max()),
@@ -2586,6 +2642,324 @@ def check_moe_serving(cfg, params) -> dict[str, int]:
                                  f"its top-two margin exceeds {TOL_MODEL} x max |logit|: "
                                  f"{cmp['differing']}")
     return {k: sum(r[k] for r in runs) for k in kernels.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: recurrent serving, mamba2-780m (SSD) and recurrentgemma-2b (RG-LRU
+# and local-window rings) at full width and full depth
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("mamba2-780m", "recurrentgemma-2b")
+# the recurrent models' projections, (label, k, n, linear keywords): mamba2's
+# in_proj and out_proj and tied logits; recurrentgemma's gate branch (gelu)
+# and x branch (also the q and o projections' shape), the RG-LRU gates (bias,
+# sigmoid, fp32 out), the MQA k / v (one 256-wide head), the GLU's gate
+# (gelu_tanh; the up projection is the bare shape) and down projections, and
+# its tied logits (fp32 x the bf16 table read transposed); the first is the
+# first row of the phase's records
+RECURRENT_ROWS = (
+    ("mamba2-in", 1536, 6448, {}),
+    ("mamba2-out", 3072, 1536, {}),
+    ("mamba2-logits", 1536, 50280, dict(logits=True)),
+    ("rg-gate-branch", 2560, 2560, dict(activation="gelu")),
+    ("rg-x-branch", 2560, 2560, {}),
+    ("rg-lru-gate", 2560, 2560, dict(bias=True, activation="sigmoid", out_dtype=torch.float32)),
+    ("rg-kv", 2560, 256, {}),
+    ("rg-mlp-gate", 2560, 7680, dict(activation="gelu_tanh")),
+    ("rg-mlp-down", 7680, 2560, {}),
+    ("rg-logits", 2560, 256000, dict(logits=True)),
+)
+RECURRENT_M = (4, 45)  # a decode step of 4 sequences, a 45-token prefill
+POLICY_KERNELS = (("tiled", "matmul_tiled"), ("mcast", "matmul_mcast"),
+                  ("unicast", "matmul_unicast"))
+LONG_PROMPT = 4096
+
+
+def check_recurrent_matmul(gen, label, m, k, n, kw) -> dict[str, dict]:
+    """``kernels.linear`` at one projection of the recurrent models under
+    ``tiled``, ``mcast`` and ``unicast``: one launch of the policy's kernel
+    on its tensor-core design, held to the same call on the plain versions
+    (K4 and K5 run bias and activation after the product, as in the JAX
+    package) at the tolerance of the dtype the result passes through (a
+    bf16 product's fp32 sigmoid is a bf16 result), timed (the call,
+    epilogue included) beside the plain version,
+    ``torch.addmm`` / ``torch.matmul`` on the same operands and the bound of
+    the product with its epilogue."""
+    kw = dict(kw)
+    logits = kw.pop("logits", False)
+    a, b, bias = matmul_operands(gen, m, k, n, logits=logits, bias=kw.pop("bias", False))
+    out_dtype = kw.get("out_dtype") or a.dtype
+    b_ms, b_by = matmul_bound(a, b, bias, out_dtype)
+    library, lib_ms = matmul_library(a, b, bias, kw.get("activation", "none"))
+    with plain_versions():
+        plain_ms = time_ms(lambda: kernels.linear(a, b, bias=bias, policy="tiled", **kw),
+                           runs=5)[0]
+    out = {}
+    for policy, kname in POLICY_KERNELS:
+        def call():
+            return kernels.linear(a, b, bias=bias, policy=policy, **kw)
+
+        # the tolerance of the dtype the result passes through: K1 rounds
+        # once, to out_dtype; K4 and K5 round the product to a's dtype first
+        tol = TOL_FP32 if (out_dtype if policy == "tiled" else a.dtype) == torch.float32 \
+            else TOL_BF16
+
+        kernels.reset_launch_counts()
+        got = call()
+        counts = kernels.launch_counts()
+        if counts[kname] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"{label} {m}x{k}x{n} {policy}: launches {counts}")
+        design = expect_design(kname, m, k, n, logits)
+        with plain_versions():
+            want = call()
+        if got.dtype != out_dtype or want.dtype != out_dtype:
+            raise AssertionError(f"{label} {policy}: out dtype {got.dtype}, want {out_dtype}")
+        err = check_close(f"{kname} {label} {m}x{k}x{n}", got, want, tol)
+        k_ms, k_host = time_ms(call)
+        out[kname] = dict(
+            check="recurrent_matmul", name=kname, row=label, policy=policy, shape=[m, k, n],
+            a_dtype=str(a.dtype), out_dtype=str(out_dtype), bias=bias is not None,
+            activation=kw.get("activation", "none"), design=design, kernel_ms=k_ms,
+            host_ms=k_host, plain_ms=plain_ms, library=library, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol)
+        emit(out[kname])
+    return out
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def check_recurrent_model(cfg, params) -> None:
+    """One 45-token prefill and one decode step for a batch of 4 (the dense
+    server's path, :func:`dense_server_model_run`) under the default policy,
+    ``mcast`` and ``unicast``: every layer's mixer (RG-LRU, SSD or
+    local-window attention, prefill and decode step), MLP and the logits
+    held to the plain versions on the kernel run's own inputs
+    (:class:`LayerCheck`, ``TOL_MODEL``), and the whole run's logits to a
+    whole plain run (``model_whole``, reported: no MoE amplifies a last-bit
+    difference here, so they are predicted to agree).  Each decode step
+    timed, profiled and its launches counted by kernel, beside the bound of
+    reading every weight once."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
+    step_tokens = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
+    wbytes = weight_bytes(params)
+    for policy in (None, "mcast", "unicast"):
+        tag = dict(arch=cfg.name, kv="dense", policy=policy or "default")
+        check = LayerCheck()
+        with kernels.use_policy(policy):
+            with check.armed():
+                pre_k, dec_k, step = dense_server_model_run(cfg, params, prompt, step_tokens)
+            stats = step_stats(step, top=8)
+            kernels.reset_launch_counts()
+            step()
+            stats["launches_by_kernel"] = {k: v for k, v in kernels.launch_counts().items() if v}
+            del step
+            with plain_versions():
+                pre_p, dec_p, _ = dense_server_model_run(cfg, params, prompt, step_tokens)
+        torch.cuda.synchronize()
+        for name, got, want in (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p)):
+            err, scale = max_err(got, want), float(want.abs().max())
+            emit(dict(check="model_whole", name=name, **tag, max_err=err, max_abs_logit=scale,
+                      tol=TOL_MODEL * scale, within_tol=err <= TOL_MODEL * scale,
+                      argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float().mean())))
+        emit(dict(check="decode_step_time", **tag, batch=4, context=len(prompt) + 1,
+                  weight_bytes=wbytes, weight_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3, **stats))
+        emit(dict(check="model_layers", **tag, worst_ratio=check.worst(), **check.summary()))
+        if check.worst() > 1 or check.stats["logits"]["calls"] != 2:
+            raise AssertionError(f"full model {tag}: a layer's kernel output is off its plain "
+                                 f"version by {check.worst():.3g} x TOL_MODEL x max |plain|: "
+                                 f"{check.stats}")
+        del pre_k, dec_k, pre_p, dec_p
+
+
+#: the whole-run comparison's second witness, at the model's depth over each
+GAP_DEPTH_SHARES = (8, 4, 2, 1)
+
+
+def cut_depth(cfg, params, n: int):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (the stages
+    truncated in order; the embedding, final norm and head kept)."""
+    stages, left = [], n
+    for pattern, repeats in cfg.stages:
+        take = min(repeats, left // len(pattern))
+        if take:
+            stages.append((pattern, take))
+        left -= take * len(pattern)
+        if take < repeats:
+            if left:
+                stages.append((pattern[:left], 1))
+            break
+    return (dataclasses.replace(cfg, n_layers=n, stages=tuple(stages)),
+            dict(params, layers=params["layers"][:n]))
+
+
+def check_depth_gap(cfg, params) -> None:
+    """The second witness of the whole-run comparison (``model_whole``):
+    the model cut to each depth ``n_layers // d`` (``GAP_DEPTH_SHARES``)
+    runs :func:`dense_server_model_run`'s prefill and decode step (the
+    same prompt, default policy) through the kernels, through the plain
+    versions, and through the plain versions with the last bit of every
+    element of the prefill's layer-0 input flipped (one bf16 ulp, the
+    size of a kernel's rounding difference in one layer).  Each run's gap
+    to the plain run is reported over ``TOL_MODEL`` x max |plain logit|
+    (``depth_gap``): a stack that amplifies rounding moves both gaps up
+    together with depth, where a kernel fault would part them."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
+    step_tokens = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
+    real_embed, calls = lm._embed_inputs, []
+
+    def flipped(*args):
+        x = real_embed(*args)
+        if not calls:  # the prefill's, not the decode step's
+            assert x.dtype == torch.bfloat16
+            x = (x.view(torch.int16) ^ 1).view(torch.bfloat16)
+        calls.append(x.shape)
+        return x
+
+    for share in GAP_DEPTH_SHARES:
+        c, p = cut_depth(cfg, params, cfg.n_layers // share)
+        kern = dense_server_model_run(c, p, prompt, step_tokens)[:2]
+        with plain_versions():
+            plain = dense_server_model_run(c, p, prompt, step_tokens)[:2]
+            calls.clear()
+            with mock.patch.object(lm, "_embed_inputs", flipped):
+                flip = dense_server_model_run(c, p, prompt, step_tokens)[:2]
+        for i, name in enumerate(("prefill", "decode_step")):
+            scale = float(plain[i].abs().max())
+            emit(dict(check="depth_gap", arch=cfg.name, name=name, policy="default",
+                      depth=c.n_layers, max_abs_logit=scale, tol_model=TOL_MODEL,
+                      kernels_over_tol=max_err(kern[i], plain[i]) / (TOL_MODEL * scale),
+                      flipped_bit_over_tol=max_err(flip[i], plain[i]) / (TOL_MODEL * scale),
+                      kernels_argmax_agree=float((kern[i].argmax(-1) == plain[i].argmax(-1))
+                                                 .float().mean()),
+                      flipped_bit_argmax_agree=float((flip[i].argmax(-1) == plain[i]
+                                                      .argmax(-1)).float().mean())))
+        del kern, plain, flip
+
+
+def check_long_prefill(cfg, params) -> None:
+    """One ``LONG_PROMPT``-token prefill, batch 1, under the default policy,
+    only the last row's logits computed (``logit_index``), then 4 decode
+    steps on its caches: timed unchecked first, then every layer held to
+    the plain versions (:class:`LayerCheck`).  recurrentgemma's local
+    layers must take the banded path and leave rings of min(window,
+    max(256, s)) slots shorter than the prompt (``_kv_from_full``'s ring
+    layout: the last positions, each at ``position % slots``); mamba2's
+    SSD layers walk s / chunk chunks."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    s = LONG_PROMPT
+    prompt = torch.randint(0, cfg.vocab, (1, s), device="cuda", generator=gen)
+    steps = torch.randint(0, cfg.vocab, (1, 4), device="cuda", generator=gen)
+
+    def run():
+        logits, caches = lm.prefill(params, cfg, prompt, cache_slots=256, logit_index=s - 1)
+        dec = []
+        for i in range(4):
+            lo, caches = lm.decode_step(params, cfg, caches, steps[:, i:i + 1], s + i)
+            dec.append(lo)
+        return logits, caches, dec
+
+    run()  # warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    lm.prefill(params, cfg, prompt, cache_slots=256, logit_index=s - 1)
+    end.record()
+    end.synchronize()
+    wall_ms, device_ms = (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+    check, bands = LayerCheck(), []
+    real_banded = memeff_mod._banded
+
+    def banded(*a, **kw):
+        bands.append(kw["band"])
+        return real_banded(*a, **kw)
+
+    with check.armed(), mock.patch.object(memeff_mod, "_banded", banded):
+        logits, caches, dec = run()
+    torch.cuda.synchronize()
+    rings = {}
+    for bd, c in zip(cfg.layer_defs, caches):
+        if bd.mixer != "attn":
+            continue
+        slots = lm._slots(bd, max(256, s))
+        kept = sorted(int(p) for p in c.pos[0].tolist())
+        want = list(range(s + 4 - slots, s + 4))  # the prompt's last positions, then 4 decoded
+        if c.k.shape[1] != slots or kept != want:
+            raise AssertionError(f"{cfg.name} {s}-token prefill: ring of {c.k.shape[1]} slots "
+                                 f"holding {kept[:3]}..{kept[-3:]}, want {slots} slots "
+                                 f"holding {want[0]}..{want[-1]}")
+        rings[bd.window] = slots
+    n_attn = sum(bd.mixer == "attn" for bd in cfg.layer_defs)
+    if len(bands) != 2 * n_attn:  # each local layer's kernel run and its plain rerun
+        raise AssertionError(f"{cfg.name}: {len(bands)} banded calls for {n_attn} local layers "
+                             f"run twice")
+    chunks = -(-s // cfg.ssm.chunk) if cfg.ssm is not None else None
+    rec = dict(check="long_prefill", arch=cfg.name, prompt=s, batch=1, policy="default",
+               prefill_device_ms=device_ms, prefill_wall_ms=wall_ms, banded_calls=len(bands),
+               band=sorted(set(bands)), ring_slots=rings, ssd_chunks=chunks,
+               decode_steps=len(dec), finite=bool(torch.isfinite(logits).all()) and all(
+                   bool(torch.isfinite(d).all()) for d in dec),
+               worst_ratio=check.worst(), **check.summary())
+    emit(rec)
+    if not rec["finite"] or check.worst() > 1 or check.stats["logits"]["calls"] != 5:
+        raise AssertionError(f"{cfg.name} {s}-token prefill: a layer is off its plain version "
+                             f"by {check.worst():.3g} x TOL_MODEL, or not finite: {check.stats}")
+
+
+def check_recurrent_serving(cfg, params) -> dict[str, int]:
+    """The dense ``Server`` over :func:`moe_requests` (4 prompts of 16-64
+    tokens, 8-16 new tokens) at full depth under the default policy,
+    ``mcast`` and ``unicast``: every request drained, its policy's matmul
+    kernel and no other launched, tokens/s and TTFT; then the same requests
+    through the plain versions, greedy with its top-two margins: each
+    kernel stream must equal the plain run's but at near-ties
+    (:func:`compare_streams`).  Returns each kernel's launches summed over
+    the kernel runs."""
+    runs = []
+    for policy, kernel in ((None, "matmul_tiled"), ("mcast", "matmul_mcast"),
+                           ("unicast", "matmul_unicast")):
+        sampler, reqs = DenseMarginSampler(), moe_requests(cfg)
+        with plain_versions(), kernels.use_policy(policy):
+            sampler.attach(Server(cfg, params, sampler=sampler, device="cuda")).run(reqs)
+        label = f"{cfg.name} dense {policy or 'default'} plain"
+        emit(near_tie_share(label, sampler.margins))
+        runs.append(serve_path(f"{cfg.name} dense", Server(cfg, params, device="cuda"),
+                               moe_requests(cfg), (kernel,), policy,
+                               compare=(label, {r.rid: list(r.out) for r in reqs},
+                                        sampler.margins)))
+    return {k: sum(r[k] for r in runs) for k in kernels.KERNELS}
+
+
+def check_recurrent(gen) -> tuple[dict[str, int], list]:
+    """Phase 7: the new projections' rows, then per arch at full width and
+    full depth (built on the card from the seed): :func:`check_recurrent_model`,
+    :func:`check_depth_gap`, :func:`check_long_prefill`,
+    :func:`check_recurrent_serving`.  Returns the serving launches and the
+    rows' records."""
+    rows = [check_recurrent_matmul(gen, label, m, k, n, kw)
+            for label, k, n, kw in RECURRENT_ROWS for m in RECURRENT_M]
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = lm.init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        emit(dict(check="recurrent_model", arch=cfg.name, layers=cfg.n_layers, depth_cut="none",
+                  params=sum(t.numel() for t in _leaves(params)), bytes=weight_bytes(params),
+                  init_s=time.perf_counter() - t0,
+                  memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
+        check_recurrent_model(cfg, params)
+        check_depth_gap(cfg, params)
+        check_long_prefill(cfg, params)
+        run = check_recurrent_serving(cfg, params)
+        launches = {k: launches[k] + run[k] for k in kernels.KERNELS}
+        del params
+        torch.cuda.empty_cache()
+    return launches, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2667,6 +3041,12 @@ def main() -> None:
     serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     check_clean("phase 6")
     del params_moe
+    torch.cuda.empty_cache()
+
+    # phase 7: mamba2-780m and recurrentgemma-2b at full width and depth
+    run, _ = check_recurrent(gen)
+    serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
+    check_clean("phase 7")
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
                 for k in kernels.KERNELS}
 

@@ -2,9 +2,11 @@
 
 The registry holds the architectures the port has been held against
 the JAX package on: the dense decoders qwen1.5-0.5b and qwen1.5-1.8b,
-and the mixture-of-experts moonshot-v1-16b-a3b and
-llama4-maverick-400b-a17b (dense ``Server`` only: paged serving refuses
-MoE, as in the JAX package).
+the mixture-of-experts moonshot-v1-16b-a3b and
+llama4-maverick-400b-a17b, the SSD model mamba2-780m and the RG-LRU /
+local-attention hybrid recurrentgemma-2b (the last four dense ``Server``
+only: paged serving refuses MoE, recurrent mixers and local windows, as
+in the JAX package).
 
 Also the draft-pairing API of speculative decoding, as in the JAX
 package: a config module may export ``DRAFT = "<arch>"`` naming the
@@ -19,7 +21,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS: tuple[str, ...] = ("qwen1.5-0.5b", "qwen1.5-1.8b", "llama4-maverick-400b-a17b",
-                          "moonshot-v1-16b-a3b")
+                          "moonshot-v1-16b-a3b", "mamba2-780m", "recurrentgemma-2b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -10,17 +10,21 @@ weights (:func:`main` takes ``params=`` for that).  Two KV backends, as
 in the JAX launcher:
 
 * ``--kv dense`` (the default): :class:`Server`, one ring-buffer cache
-  slot per batch lane, prefill (bucketed where padding is exact, not
-  for MoE) written in place into the slot; every arch of the registry,
-  the MoE ones (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b) too;
+  slot per batch lane, prefill (bucketed where padding is exact: not for
+  MoE, recurrent mixers or local windows) written in place into the
+  slot; every arch of the registry, the MoE ones
+  (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b), the SSD model
+  mamba2-780m and the RG-LRU / local-attention hybrid recurrentgemma-2b
+  (their recurrent states and window rings written into the slot too);
 * ``--kv paged``: :class:`PagedEngine`, the page pool with prefix
   sharing (its statistics go to stderr), with bf16 or int8 pools
   (``--kv-dtype``) and speculative decoding (``--spec-k K --draft-model
   ngram|<arch>|auto``; ``auto`` resolves the target's registered draft,
   whose parameters are initialised from the run's seed on the same
-  device); MoE archs raise JAX's ``ValueError`` here (expert capacity
-  scales with the padded call length, so paged prefills would route real
-  tokens differently).
+  device); MoE, recurrent and local-window archs raise JAX's
+  ``ValueError`` here (expert capacity scales with the padded call
+  length, so paged prefills would route real tokens differently; a
+  recurrent state or a ring has no pages).
 
 ``--kernel-policy`` forces the matmul schedule as in the JAX launcher:
 ``tiled`` (K1), ``mcast`` (K4), ``unicast`` (K5); the default is the
@@ -53,6 +57,8 @@ rejects (sharded pools).
         --reduced --device cpu --shared-prefix 24 --kv paged
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-1.8b \\
         --kv paged --kv-dtype int8 --spec-k 4 --draft-model auto
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+        [--kernel-policy mcast]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --server --qps 1.5 --duration 6 --max-slots 4 --shared-prefix 32 \\
         [--server-driver sync] [--kv-guard --kernel-fallback --chaos pool.alloc]
@@ -97,8 +103,9 @@ class Server:
     cache, where padding is exact: global attention everywhere and no MoE
     (expert capacity scales with the padded length, so pads would take
     capacity and change real tokens' routing), the JAX launcher's rule;
-    otherwise the prompt prefills at its own length.  The cache is
-    written in place into the request's batch slot.
+    otherwise (MoE, a local window, a recurrent mixer) the prompt
+    prefills at its own length.  The caches — rings, and the recurrent
+    layers' states — are written in place into the request's batch slot.
     Every decode step runs all ``max_batch`` slots at their own positions
     (ragged continuous batching).  ``params`` must live on ``device``."""
 

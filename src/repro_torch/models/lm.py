@@ -1,38 +1,42 @@
-"""Decoder-only LM, dense and MoE families: the port of the JAX package's
-``models/lm.py``.
+"""Decoder-only LM, dense, MoE, SSM and hybrid families: the port of the
+JAX package's ``models/lm.py``.
 
 Parameters are a dict: ``embed``, ``layers`` (a list with one dict per
 layer — the JAX package's stacked ``stage{i}/b{j}`` leaves, split, in
 the JAX order: stage by stage, repeat by repeat, block by block, which is
 ``cfg.layer_defs``) and ``final_norm``.  The JAX ``lax.scan`` over each
-stage becomes a Python loop over its layers; a layer's feed-forward is
-the dense MLP or the MoE (``nn/moe.py``) as its ``BlockDef`` says, and
-the MoE's aux losses are summed in fp32 per stage, then over stages, as
-JAX's ``_run_stage`` does.  Caches are one entry per layer in the same
-order.  Entry points:
+stage becomes a Python loop over its layers.  A layer's mixer is
+attention (global, or a local window), the Griffin RG-LRU block
+(``nn/rglru.py``) or the Mamba-2 SSD block (``nn/ssd.py``), as its
+``BlockDef`` says; its feed-forward is the dense MLP, the MoE
+(``nn/moe.py``) or none.  The MoE's aux losses are summed in fp32 per
+stage, then over stages, as JAX's ``_run_stage`` does.  Caches are one
+entry per layer in the same order: a :class:`KvCache` ring of
+``min(window, cache_len)`` slots for attention (a local window's ring
+wraps), an ``RglruState`` / ``SsdState`` for the recurrent mixers.
+Entry points:
 
 * :func:`forward`     — full-sequence forward (no caches),
 * :func:`prefill`     — full-sequence forward that also returns the
-  per-layer dense K/V cache (``logit_index`` picks the row whose logits
-  are returned, for bucket-padded prompts),
+  per-layer caches (``logit_index`` picks the row whose logits are
+  returned, for bucket-padded prompts),
 * :func:`prefill_to_pages` — scatter a batch-1 prefill cache into the
   page pools (in place),
 * :func:`init_cache` / :func:`mask_cache_after` /
-  :func:`mask_cache_rows_after` — dense ring-buffer caches for the dense
-  ``Server`` and the speculative draft model,
+  :func:`mask_cache_rows_after` — dense ring-buffer caches and recurrent
+  states for the dense ``Server`` and the speculative draft model,
 * :func:`init_paged_cache` — the page pools, bf16 or int8
   (``kv_dtype``; ``"f32"`` gives bf16 pools, as in the JAX package),
 * :func:`decode_step` — one (or a few) tokens against dense caches or
   the page pools, bf16 or int8 (dispatch on the cache type).
 
-Only the configuration features of the dense and MoE families the
-serving stacks run are ported; any other raises ``NotImplementedError``
-naming it (recurrent mixers, local windows, layernorm, learned positions,
-front ends, post-block norms, blocks without a feed-forward).  The page
-pools refuse MoE with JAX's ``ValueError``: expert capacity scales with
-the padded call length, so the bucketed and suffix-only prefills of
-paged serving would route real tokens differently (serve MoE with the
-dense ``Server``).
+Configuration features not ported yet raise ``NotImplementedError``
+naming them (layernorm, learned positions, front ends, encoders,
+post-block norms).  The page pools refuse MoE, recurrent mixers and
+local windows with JAX's ``ValueError``: expert capacity scales with the
+padded call length, so the bucketed and suffix-only prefills of paged
+serving would route real tokens differently, and a recurrent state or a
+ring has no pages (serve these with the dense ``Server``).
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ from repro_torch.device import DEFAULT, resolve
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import kvquant
 from repro_torch.nn import moe as moe_mod
+from repro_torch.nn import rglru as rglru_mod
+from repro_torch.nn import ssd as ssd_mod
 from repro_torch.nn.attention import KvCache, PagedKvCache
 from repro_torch.nn.module import (
     embed,
@@ -62,27 +68,27 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for configuration features the port
     does not run yet."""
     unsupported = {
-        "ssm": cfg.ssm is not None,
-        "rglru": cfg.rglru is not None,
         "encoder": cfg.encoder is not None,
         "frontend": bool(cfg.frontend),
         "norm=" + cfg.norm: cfg.norm != "rmsnorm",
         "post_block_norm": cfg.post_block_norm,
-        "attn=None": cfg.attn is None,
         "learned_pos": cfg.attn is not None and cfg.attn.learned_pos,
     }
+    need = {"attn": ("attn", cfg.attn), "ssd": ("ssm", cfg.ssm), "rglru": ("rglru", cfg.rglru)}
     for i, bd in enumerate(cfg.layer_defs):
-        unsupported[f"layer {i} mixer={bd.mixer}"] = bd.mixer != "attn"
-        unsupported[f"layer {i} window={bd.window}"] = bd.window is not None
-        unsupported[f"layer {i} ff={bd.ff}"] = bd.ff not in ("mlp", "moe")
+        field, sub = need.get(bd.mixer, (None, None))
+        unsupported[f"layer {i} mixer={bd.mixer}"] = field is None
+        unsupported[f"layer {i} mixer={bd.mixer} without cfg.{field}"] = (
+            field is not None and sub is None)
+        unsupported[f"layer {i} ff={bd.ff}"] = bd.ff not in ("mlp", "moe", "none")
         unsupported[f"layer {i} ff=moe without cfg.moe"] = bd.ff == "moe" and cfg.moe is None
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs global-attention decoders with dense or MoE "
-            f"feed-forwards only; "
-            f"unsupported: {', '.join(bad)} (other model families and local-window "
-            f"rings: ROADMAP Queue 1 item 5)")
+            f"{cfg.name}: the port runs decoders of attention (global or local-window), "
+            f"RG-LRU and SSD blocks with dense, MoE or no feed-forwards only; "
+            f"unsupported: {', '.join(bad)} (post-block norms, encoders and front ends: "
+            f"ROADMAP Queue 1 item 5)")
 
 
 def mlp_spec(cfg: ModelConfig):
@@ -104,15 +110,19 @@ def mlp(params, x, cfg: ModelConfig):
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef):
-    spec = {
-        "norm1": rmsnorm_spec(cfg.d_model),
-        "attn": attn_mod.attn_spec(cfg.d_model, cfg.attn),
-        "norm2": rmsnorm_spec(cfg.d_model),
-    }
-    if bd.ff == "moe":
-        spec["moe"] = moe_mod.moe_spec(cfg.d_model, cfg.moe, glu=cfg.glu)
+    spec: dict[str, Any] = {"norm1": rmsnorm_spec(cfg.d_model)}
+    if bd.mixer == "attn":
+        spec["attn"] = attn_mod.attn_spec(cfg.d_model, cfg.attn)
+    elif bd.mixer == "rglru":
+        spec["rglru"] = rglru_mod.rglru_spec(cfg.d_model, cfg.rglru)
     else:
+        spec["ssd"] = ssd_mod.ssd_spec(cfg.d_model, cfg.ssm)
+    if bd.ff == "mlp":
+        spec["norm2"] = rmsnorm_spec(cfg.d_model)
         spec["mlp"] = mlp_spec(cfg)
+    elif bd.ff == "moe":
+        spec["norm2"] = rmsnorm_spec(cfg.d_model)
+        spec["moe"] = moe_mod.moe_spec(cfg.d_model, cfg.moe, glu=cfg.glu)
     return spec
 
 
@@ -143,27 +153,41 @@ def _check_kv_dtype(kv_dtype: str) -> None:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r} (have {KV_DTYPES})")
 
 
+def _slots(bd: BlockDef, cache_len: int) -> int:
+    return min(bd.window, cache_len) if bd.window else cache_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, kv_dtype: str = "bf16", *,
                device: str | torch.device = DEFAULT):
-    """Dense decode caches, one ring of ``cache_len`` slots per layer (the
-    JAX package stacks them by layer; here axis 0 of each tensor is the
-    batch): :class:`KvCache` in bf16, or :class:`QuantKvCache` for
-    ``kv_dtype="int8"`` (``"f32"`` gives bf16, as in the JAX package)."""
+    """Dense decode caches, one per layer (the JAX package stacks them by
+    layer; here axis 0 of each tensor is the batch): for attention a ring
+    of ``min(window, cache_len)`` slots, :class:`KvCache` in bf16 or
+    :class:`QuantKvCache` for ``kv_dtype="int8"`` (``"f32"`` gives bf16,
+    as in the JAX package); for the recurrent mixers a zero
+    ``RglruState`` / ``SsdState``."""
     check_supported(cfg)
     _check_kv_dtype(kv_dtype)
     dev = resolve(device)
-    if kv_dtype == "int8":
-        return [kvquant.init_quant_cache(batch, cache_len, cfg.attn, device=dev)
-                for _ in range(cfg.n_layers)]
-    return [attn_mod.init_cache(batch, cache_len, cfg.attn, device=dev)
-            for _ in range(cfg.n_layers)]
+    out = []
+    for bd in cfg.layer_defs:
+        if bd.mixer == "rglru":
+            out.append(rglru_mod.init_rglru_state(batch, cfg.d_model, cfg.rglru, device=dev))
+        elif bd.mixer == "ssd":
+            out.append(ssd_mod.init_ssd_state(batch, cfg.d_model, cfg.ssm, device=dev))
+        elif kv_dtype == "int8":
+            out.append(kvquant.init_quant_cache(batch, _slots(bd, cache_len), cfg.attn,
+                                                device=dev))
+        else:
+            out.append(attn_mod.init_cache(batch, _slots(bd, cache_len), cfg.attn, device=dev))
+    return out
 
 
 def mask_cache_after(caches, length):
     """Mark every cache position at or past ``length`` empty (pos = -1):
     the fix-up that makes right-padded bucket prefills exact — the padded
     tail's K/V rows stay in the ring but can never be attended to.
-    Returns new cache tuples; page pools pass through."""
+    Returns new cache tuples; page pools and recurrent states pass
+    through."""
     return [c._replace(pos=torch.where(c.pos >= length, -1, c.pos))
             if isinstance(c, _DENSE_CACHES) else c for c in caches]
 
@@ -172,7 +196,8 @@ def mask_cache_rows_after(caches, lengths: torch.Tensor):
     """Per-row :func:`mask_cache_after`, in place: ``lengths`` is (batch,)
     and row ``b``'s positions at or past ``lengths[b]`` are marked empty.
     The speculative draft needs it after every verify round: it wrote K/V
-    for all k proposals, but only the accepted prefix is history."""
+    for all k proposals, but only the accepted prefix is history.
+    Recurrent states pass through untouched."""
     for c in caches:
         if isinstance(c, _DENSE_CACHES):
             bound = lengths.to(device=c.pos.device, dtype=c.pos.dtype)[:, None]
@@ -230,12 +255,52 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def _ff_half(p, cfg, x):
-    """x + the layer's feed-forward (dense MLP or MoE) -> (x, aux loss or None)."""
+    """x + the layer's feed-forward (dense MLP, MoE or none) -> (x, aux
+    loss or None)."""
+    if "norm2" not in p:  # ff="none"
+        return x, None
     h = rmsnorm(p["norm2"], x)
     if "moe" in p:
         f, aux = moe_mod.moe(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu)
         return x + f, aux
     return x + mlp(p["mlp"], h, cfg), None
+
+
+def _kv_from_full(k, v, bd: BlockDef, cache_slots: int | None) -> KvCache:
+    """The decode cache of a prefill's keys and values (positions 0 ..
+    s-1): ``min(window, max(cache_slots, s))`` slots; where the ring is
+    shorter than the prompt it keeps the last ``slots`` positions, each at
+    slot ``position % slots``."""
+    b, s = k.shape[0], k.shape[1]
+    slots = _slots(bd, max(cache_slots or s, s))
+    positions = torch.arange(s, device=k.device, dtype=torch.int32).expand(b, s)
+    if slots >= s:
+        pad = slots - s
+        if pad:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            positions = torch.nn.functional.pad(positions, (0, pad), value=-1)
+        return KvCache(k=k, v=v, pos=positions)
+    idx = torch.arange(s - slots, s, device=k.device)  # the absolute positions kept
+    ring = idx % slots
+    k_r = torch.zeros((b, slots, *k.shape[2:]), dtype=k.dtype, device=k.device)
+    v_r = torch.zeros_like(k_r)
+    pos = torch.full((b, slots), -1, dtype=torch.int32, device=k.device)
+    k_r[:, ring] = k[:, s - slots:]
+    v_r[:, ring] = v[:, s - slots:]
+    pos[:, ring] = idx.to(torch.int32)
+    return KvCache(k=k_r, v=v_r, pos=pos)
+
+
+def _mixer(p, bd: BlockDef, cfg: ModelConfig, h, *, cache_slots=None, want_cache=False):
+    """A layer's mixer over a full sequence -> (out, its decode cache: the
+    recurrent state, or with ``want_cache`` the attention ring)."""
+    if bd.mixer == "rglru":
+        return rglru_mod.rglru(p["rglru"], h, cfg.rglru)
+    if bd.mixer == "ssd":
+        return ssd_mod.ssd(p["ssd"], h, cfg.ssm)
+    m, (k, v) = attn_mod.attention(p["attn"], h, cfg.attn, window=bd.window)
+    return m, (_kv_from_full(k, v, bd, cache_slots) if want_cache else None)
 
 
 def _stage_ends(cfg: ModelConfig) -> set[int]:
@@ -255,8 +320,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_total, aux_stage = zero, zero
     ends = _stage_ends(cfg)
-    for i, p in enumerate(params["layers"]):
-        m, _ = attn_mod.attention(p["attn"], rmsnorm(p["norm1"], x), cfg.attn)
+    for i, (p, bd) in enumerate(zip(params["layers"], cfg.layer_defs)):
+        m, _ = _mixer(p, bd, cfg, rmsnorm(p["norm1"], x))
         x, aux = _ff_half(p, cfg, x + m)
         aux_stage = aux_stage + (zero if aux is None else aux)
         if i in ends:
@@ -267,24 +332,20 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache_slots: int | None = None, logit_index=None):
-    """Forward over the prompt -> (logits (b, 1, vocab), per-layer
-    :class:`KvCache`).  ``cache_slots`` (>= prompt length) sizes the
-    caches; ``logit_index`` (scalar or (b,)) picks the position whose
-    logits are returned instead of the last — right-padded bucketed
-    prompts read their true last token."""
-    b, s = tokens.shape
-    slots = max(cache_slots or s, s)
+    """Forward over the prompt -> (logits (b, 1, vocab), per-layer caches:
+    :class:`KvCache` rings, recurrent states).  ``cache_slots`` sizes the
+    rings (a global layer's ring holds at least the prompt; a local one
+    ``min(window, max(cache_slots, s))`` slots, keeping the last
+    positions where the prompt is longer); ``logit_index`` (scalar or
+    (b,)) picks the position whose logits are returned instead of the
+    last — right-padded bucketed prompts read their true last token."""
+    b = tokens.shape[0]
     x = _embed_inputs(params, cfg, tokens)
     caches = []
-    for p in params["layers"]:
-        m, (k, v) = attn_mod.attention(p["attn"], rmsnorm(p["norm1"], x), cfg.attn)
-        pad = slots - s
-        pos = torch.arange(s, device=x.device, dtype=torch.int32).expand(b, s)
-        if pad:
-            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-            pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
-        caches.append(KvCache(k=k, v=v, pos=pos))
+    for p, bd in zip(params["layers"], cfg.layer_defs):
+        m, cache = _mixer(p, bd, cfg, rmsnorm(p["norm1"], x), cache_slots=cache_slots,
+                          want_cache=True)
+        caches.append(cache)
         x, _ = _ff_half(p, cfg, x + m)
     x = rmsnorm(params["final_norm"], x)
     if logit_index is None:
@@ -330,17 +391,24 @@ def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *
                 block_table: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None):
     """One decode step (or a few: suffix prefills and verify steps pass
-    s_new > 1) against dense caches or the page pools, bf16 or int8
-    (dispatch on the cache type), which are updated in place.
+    s_new > 1; the recurrent mixers take one token) against dense caches
+    or the page pools, bf16 or int8 (dispatch on the cache type).  Rings
+    and pools are updated in place; recurrent states are replaced, so the
+    returned list is a new one and ``caches`` keeps the states it had.
 
     tokens: (batch, s_new); index: absolute position of the first new
     token (scalar or (batch,)).  Page pools also take ``block_table``
     (batch, pages) and ``lengths`` (batch,) = valid tokens after this
     call's writes.  Returns (logits (batch, s_new, vocab), caches)."""
     x = _embed_inputs(params, cfg, tokens)
-    for p, cache in zip(params["layers"], caches):
+    new_caches = []
+    for p, bd, cache in zip(params["layers"], cfg.layer_defs, caches):
         h = rmsnorm(p["norm1"], x)
-        if isinstance(cache, _PAGED_CACHES):
+        if bd.mixer == "rglru":
+            m, cache = rglru_mod.rglru_step(p["rglru"], h, cache, cfg.rglru)
+        elif bd.mixer == "ssd":
+            m, cache = ssd_mod.ssd_step(p["ssd"], h, cache, cfg.ssm)
+        elif isinstance(cache, _PAGED_CACHES):
             paged_fn = (kvquant.quant_paged_decode_attention
                         if isinstance(cache, kvquant.QuantPagedKvCache)
                         else attn_mod.paged_decode_attention)
@@ -350,7 +418,8 @@ def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *
             decode_fn = (kvquant.quant_decode_attention
                          if isinstance(cache, kvquant.QuantKvCache)
                          else attn_mod.decode_attention)
-            m, _ = decode_fn(p["attn"], h, cache, cfg.attn, index=index)
+            m, _ = decode_fn(p["attn"], h, cache, cfg.attn, index=index, window=bd.window)
+        new_caches.append(cache)
         x, _ = _ff_half(p, cfg, x + m)
     x = rmsnorm(params["final_norm"], x)
-    return _logits(params, cfg, x), caches
+    return _logits(params, cfg, x), new_caches

@@ -5,7 +5,10 @@ serving stacks run: full-sequence attention (prefill, through
 :func:`memeff_attention`), decode against a dense ring-buffer cache
 (:func:`decode_attention`, the dense ``Server``) and decode / suffix
 prefill against a page pool (:func:`paged_decode_attention`, through
-the paged-attention kernels).  Projection weights are 2-D: ``wq``
+the paged-attention kernels).  Local windows (a key is visible while
+``q_pos - k_pos < window``) run on the first two; the page pools serve
+global attention only (``models.lm.init_paged_cache`` refuses a windowed
+arch, as in the JAX package).  Projection weights are 2-D: ``wq``
 (d_model, heads*head_dim), ``wo`` (heads*head_dim, d_model).
 
 Caches and page pools are updated **in place** (the JAX package
@@ -146,20 +149,23 @@ def _proj_out(params, o, cfg: AttnConfig):
                           bias=params.get("bo"))
 
 
-def attention(params, x, cfg: AttnConfig, *, positions=None):
-    """Causal self-attention over a full sequence; x (b, seq, d_model).
-    Returns ``(out, (k, v))`` — the keys and values, for the prefill
-    cache."""
+def attention(params, x, cfg: AttnConfig, *, positions=None, window: int | None = None):
+    """Causal self-attention over a full sequence (``window``: a local
+    window, banded where it is narrower than the sequence); x (b, seq,
+    d_model).  Returns ``(out, (k, v))`` — the keys and values, for the
+    prefill cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, x, cfg, positions)
     pos = positions.expand(b, s).to(torch.int32)
-    o = memeff_attention(q, k, v, pos, pos, causal=True, softcap=cfg.logit_softcap)
+    o = memeff_attention(q, k, v, pos, pos, causal=True, window=window,
+                         softcap=cfg.logit_softcap)
     return _proj_out(params, o, cfg), (k, v)
 
 
-def decode_attention(params, x, cache: KvCache, cfg: AttnConfig, *, index):
+def decode_attention(params, x, cache: KvCache, cfg: AttnConfig, *, index,
+                     window: int | None = None):
     """One (or a few) decode steps against a dense ring-buffer cache,
     which is updated in place.
 
@@ -167,7 +173,8 @@ def decode_attention(params, x, cache: KvCache, cfg: AttnConfig, *, index):
     first new token — a scalar, or (b,) for ragged continuous batching
     (every slot at its own position).  New K/V rows land at slot
     ``position % slots``; a key is visible when its stored position is
-    set and not after the query's."""
+    set, not after the query's and, with a ``window``, less than
+    ``window`` before it."""
     b, s_new = x.shape[0], x.shape[1]
     slots = cache.k.shape[1]
     index = torch.as_tensor(index, device=x.device).reshape(-1).long()
@@ -181,8 +188,17 @@ def decode_attention(params, x, cache: KvCache, cfg: AttnConfig, *, index):
     cache.pos[bidx, write] = positions.to(torch.int32)
     qp = positions[:, None, None, :, None]  # (b, 1, 1, s_new, 1)
     kp = cache.pos[:, None, None, None, :]  # (b, 1, 1, 1, slots)
-    o = _attend(q, cache.k, cache.v, (kp >= 0) & (kp <= qp), cfg)
+    o = _attend(q, cache.k, cache.v, visible(qp, kp, window), cfg)
     return _proj_out(params, o, cfg), cache
+
+
+def visible(qp, kp, window: int | None):
+    """The dense-ring mask: a set key position, not after the query's,
+    within ``window`` of it."""
+    mask = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        mask = mask & (qp - kp < window)
+    return mask
 
 
 def paged_decode_attention(params, x, cache: PagedKvCache, cfg: AttnConfig, *,

@@ -34,6 +34,7 @@ from repro_torch.nn.attention import (
     _qkv,
     paged_positions,
     paged_write,
+    visible,
 )
 
 
@@ -75,7 +76,8 @@ def quantize_cache(cache: KvCache) -> QuantKvCache:
     return QuantKvCache(k=kq, v=vq, k_scale=ks, v_scale=vs, pos=cache.pos)
 
 
-def quant_decode_attention(params, x, cache: QuantKvCache, cfg: AttnConfig, *, index):
+def quant_decode_attention(params, x, cache: QuantKvCache, cfg: AttnConfig, *, index,
+                           window: int | None = None):
     """:func:`~repro_torch.nn.attention.decode_attention` against an int8
     ring (same semantics: a position-explicit ring buffer, written in
     place)."""
@@ -98,7 +100,7 @@ def quant_decode_attention(params, x, cache: QuantKvCache, cfg: AttnConfig, *, i
     v = dequantize_kv(cache.v, cache.v_scale)
     qp = positions[:, None, None, :, None]
     kp = cache.pos[:, None, None, None, :]
-    o = _attend(q, k, v, (kp >= 0) & (kp <= qp), cfg)
+    o = _attend(q, k, v, visible(qp, kp, window), cfg)
     return _proj_out(params, o, cfg), cache
 
 

@@ -1,9 +1,13 @@
 """Memory-efficient blockwise attention in plain PyTorch (flash semantics).
 
-The port of the JAX package's ``nn/memeff.py`` full-attention path:
-queries in chunks of ``qc``, keys/values in chunks of ``kc`` with an
-online softmax, so the working set is O(qc * kc).  It keeps the
-reference's numerics exactly, since greedy tokens depend on them:
+The port of the JAX package's ``nn/memeff.py``: queries in chunks of
+``qc``, keys/values in chunks of ``kc`` with an online softmax, so the
+working set is O(qc * kc) (``_full``).  A local window takes the banded
+path where the band is narrower than the keys (``window + qc < sk``):
+each query chunk attends only to the ``round_up(window + qc, 128)`` keys
+ending at its last query (``_banded``, one softmax over the band), which
+makes sliding-window layers sub-quadratic.  It keeps the reference's
+numerics exactly, since greedy tokens depend on them:
 
 * a negative key position marks an invalid slot (padding, empty cache);
 * scores come out of the QK contraction in the operand dtype, are then
@@ -11,8 +15,6 @@ reference's numerics exactly, since greedy tokens depend on them:
 * probabilities are cast to the V dtype before the PV product, whose
   result is rounded to the V dtype too;
 * the denominator ``l`` is clamped at ``1e-30``.
-
-Local windows (the banded path) are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -36,13 +38,33 @@ def _contract(eq: str, a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> 
     return torch.einsum(eq, a.float(), b.float()).to(dtype).float()
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _scores(qi, kj, g, scale, softcap, dtype):
+    """(b, qc, h, d) x (b, t, kvh, d) -> (b, kvh, g, qc, t) fp32 scores."""
+    b, qcs, _, d = qi.shape
+    s = _contract("bqkgd,btkd->bkgqt", qi.reshape(b, qcs, kj.shape[2], g, d), kj, dtype) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def _mask(qp, kp, causal, window):
+    m = kp[:, None, :] >= 0  # (b, qc, t) valid slots
+    if causal:
+        m = m & (kp[:, None, :] <= qp[:, :, None])
+    if window is not None:
+        m = m & (qp[:, :, None] - kp[:, None, :] < window)
+    return m[:, None, None]  # (b, 1, 1, qc, t)
+
+
 def memeff_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                      window: int | None = None, softcap: float | None = None,
                      qc: int = 512, kc: int = 1024) -> torch.Tensor:
     """q (b, sq, h, d), k/v (b, sk, kvh, d), q_pos (b, sq), k_pos (b, sk)
     (-1 = invalid slot) -> (b, sq, h, d)."""
-    if window is not None:
-        raise NotImplementedError("memeff_attention: local windows are not ported yet")
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -60,22 +82,27 @@ def memeff_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
         k_pos = torch.nn.functional.pad(k_pos, (0, pad_k), value=-1)
 
+    kw = dict(qc=qc, window=window, causal=causal, softcap=softcap, scale=scale, g=g)
+    if window is not None and window + qc < k.shape[1]:
+        out = _banded(q, k, v, q_pos, k_pos, band=_round_up(window + qc, 128), **kw)
+    else:
+        out = _full(q, k, v, q_pos, k_pos, kc=kc, **kw)
+    return out[:, :sq]
+
+
+def _full(q, k, v, q_pos, k_pos, *, qc, kc, window, causal, softcap, scale, g):
+    b, _, h, d = q.shape
+    kvh = k.shape[2]
     outs = []
     for q0 in range(0, q.shape[1], qc):
-        qi = q[:, q0:q0 + qc].reshape(b, qc, kvh, g, d)
-        qpi = q_pos[:, q0:q0 + qc]
+        qi, qpi = q[:, q0:q0 + qc], q_pos[:, q0:q0 + qc]
         m = torch.full((b, kvh, g, qc), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((b, kvh, g, qc, d), dtype=torch.float32, device=q.device)
         for k0 in range(0, k.shape[1], kc):
             kj, vj, kpj = k[:, k0:k0 + kc], v[:, k0:k0 + kc], k_pos[:, k0:k0 + kc]
-            s = _contract("bqkgd,btkd->bkgqt", qi, kj, q.dtype) * scale
-            if softcap is not None:
-                s = softcap * torch.tanh(s / softcap)
-            mask = kpj[:, None, :] >= 0  # (b, qc, kc) valid slots
-            if causal:
-                mask = mask & (kpj[:, None, :] <= qpi[:, :, None])
-            s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+            s = _scores(qi, kj, g, scale, softcap, q.dtype)
+            s = torch.where(_mask(qpi, kpj, causal, window), s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -85,4 +112,25 @@ def memeff_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, h, d).to(q.dtype))
-    return torch.cat(outs, dim=1)[:, :sq]
+    return torch.cat(outs, dim=1)
+
+
+def _banded(q, k, v, q_pos, k_pos, *, qc, band, window, causal, softcap, scale, g):
+    """Sliding-window attention: per query chunk, the ``band``-wide key
+    band ending at the chunk's last query, its start clamped into the
+    keys as JAX's ``dynamic_slice`` clamps it — O(s * band) in all."""
+    b, _, h, d = q.shape
+    sk = k.shape[1]
+    outs = []
+    for ci, q0 in enumerate(range(0, q.shape[1], qc)):
+        qi, qpi = q[:, q0:q0 + qc], q_pos[:, q0:q0 + qc]
+        start = min(max((ci + 1) * qc - band, 0), max(sk - band, 0))
+        kj, vj, kpj = (t[:, start:start + band] for t in (k, v, k_pos))
+        s = _scores(qi, kj, g, scale, softcap, q.dtype)
+        s = torch.where(_mask(qpi, kpj, causal, window), s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = torch.clamp(p.sum(dim=-1), min=1e-30)
+        pv = _contract("bkgqt,btkd->bkgqd", p.to(vj.dtype), vj, vj.dtype)
+        out = pv / l[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, h, d).to(q.dtype))
+    return torch.cat(outs, dim=1)

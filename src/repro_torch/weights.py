@@ -1,4 +1,4 @@
-"""Convert a JAX parameter tree of the dense or MoE family into the port's layout.
+"""Convert a JAX parameter tree (dense, MoE, SSM or hybrid family) into the port's layout.
 
 :func:`from_jax_params` takes the tree as nested dicts of numpy arrays
 (``jax.device_get`` of ``repro.models.lm.init``'s output, or arrays
@@ -10,7 +10,10 @@ loaded from a checkpoint) and imports no JAX:
 * the stacked leaves of every stage (``stage{i}/b{j}``, leading axis =
   repeat) are split into one dict per layer under ``layers``, in the
   JAX order: stage by stage, repeat by repeat, block by block
-  (``cfg.layer_defs``); MoE leaves keep their expert axis;
+  (``cfg.layer_defs``), whatever each stage's pattern (recurrentgemma's
+  two stages differ); MoE leaves keep their expert axis, nested leaves
+  (the SSD block's gated-norm ``scale``) their nesting, and every leaf
+  its dtype (the fp32 ``a_log``, ``dt_bias``, ``d_skip`` and ``lam``);
 * headed projections become 2-D: ``wq``/``wk``/``wv`` (d, heads,
   head_dim) -> (d, heads*head_dim), ``wo`` (heads, head_dim, d) ->
   (heads*head_dim, d), biases (heads, head_dim) -> (heads*head_dim,).
@@ -51,7 +54,7 @@ def _layer(tree: dict, i: int, device) -> dict:
 
 
 def from_jax_params(tree: dict, *, device: str | torch.device = DEFAULT) -> dict:
-    """JAX dense- or MoE-family parameter tree (numpy leaves) -> the port's dict."""
+    """JAX parameter tree (numpy leaves) -> the port's dict."""
     dev = resolve(device)
     layers = []
     for i in range(sum(k.startswith("stage") for k in tree)):

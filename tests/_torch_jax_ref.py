@@ -9,11 +9,13 @@ the code says, so with the flag the two agree to float32 round-off.
 Every kernel runs under ``backend=pallas`` (interpret mode on the CPU),
 the numerics the port's kernels implement — except mode ``refserve``,
 which serves on JAX's CPU default, the ``reference`` backend.  Modes
-``serve``, ``refserve``, ``chaos`` and ``loop`` build many engines, and
-let them share their jitted steps (:func:`_share_jits`).
+``serve``, ``refserve``, ``chaos``, ``loop`` and ``recurrent`` build many
+engines or servers, and let them share their jitted steps
+(:func:`_share_jits`).
 
     python tests/_torch_jax_ref.py \
-        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve} OUT.npz
+        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve|recurrent} \
+        OUT.npz
 """
 from __future__ import annotations
 
@@ -491,6 +493,139 @@ def _moeserve(out: dict) -> None:
     out["moeserve_json"] = np.asarray(json.dumps({"runs": runs, "errors": errors}))
 
 
+#: the recurrent archs held against JAX at their reduced configs (mode
+#: ``recurrent``)
+RECURRENT_ARCHS = ("mamba2-780m", "recurrentgemma-2b")
+#: the launcher flags that ask for paged serving (each refused for the
+#: recurrent archs, JAX's error held)
+PAGED_ASKS = {"kv-paged": ["--kv", "paged"], "server": ["--server"],
+              "spec-k": ["--spec-k", "4"],
+              "kv-paged-spec-k": ["--kv", "paged", "--spec-k", "4", "--draft-model", "ngram"]}
+
+
+def recurrent_launch_args(arch: str) -> list[str]:
+    """The dense-Server launcher run on a reduced recurrent arch: no shared
+    prefix, so the prompts are 4-11 tokens (no bucketing for these archs)."""
+    return ["--arch", arch, "--reduced", "--requests", "6", "--max-new", "8", "--seed",
+            str(SEED), "--kv", "dense"]
+
+
+def recurrent_case():
+    """Token arrays for the recurrent logits references (shared with the test)."""
+    rng = np.random.default_rng(13)
+    return {
+        "dense": rng.integers(0, 512, size=(2, 24)).astype(np.int32),
+        "prompt": rng.integers(0, 512, size=(2, 13)).astype(np.int32),
+        "steps": rng.integers(0, 512, size=(2, 8)).astype(np.int32),
+        "long": rng.integers(0, 512, size=(1, 300)).astype(np.int32),
+    }
+
+
+def window16_config(cfg):
+    """``cfg`` (either package's reduced recurrentgemma) with window-16
+    local attention, so that rings wrap and prompts past 144 tokens take
+    the banded path at reduced sizes."""
+    import dataclasses
+
+    stages = tuple((tuple(dataclasses.replace(bd, window=16) if bd.mixer == "attn" else bd
+                          for bd in pattern), repeats) for pattern, repeats in cfg.stages)
+    return dataclasses.replace(cfg, name=cfg.name + "-w16", stages=stages)
+
+
+def window16_requests():
+    """(rid, prompt, max_new) of the window-16 ``Server`` run: prompts of
+    10-30 tokens and 12 new tokens, so every ring wraps while decoding."""
+    rng = np.random.default_rng(21)
+    return [(i, [int(x) for x in rng.integers(0, 512, size=n)], 12)
+            for i, n in enumerate((10, 17, 30, 23, 12))]
+
+
+def _recurrent(out: dict) -> None:
+    """Per recurrent arch: ``forward``'s logits, a prefill's logits at given
+    rows, then 8 one-token decode steps against the caches it built; the
+    dense-Server launcher under every ``DENSE_POLICIES`` entry, and the
+    launcher's refusals of paged serving (``PAGED_ASKS``).  Then the
+    window-16 recurrentgemma (:func:`window16_config`): ``forward`` over
+    300 tokens (the banded path), a 24-token prefill (the
+    full path, a ring shorter than the prompt) and a 300-token one (banded),
+    each followed by decode steps across the ring's wrap, one attention
+    layer's ring after the 24-token prefill, and JAX's ``Server`` over
+    :func:`window16_requests`."""
+    import jax.numpy as jnp
+
+    from repro import kernels
+    from repro.launch.serve import Server
+    from repro.models import lm
+    from repro.serve import Request
+
+    case = recurrent_case()
+    runs, errors = {}, {}
+    for arch in RECURRENT_ARCHS:
+        cfg, params = _setup(arch)
+        with kernels.use_policy("backend=pallas"):
+            out[f"{arch}/forward"] = np.asarray(lm.forward(params, cfg,
+                                                           jnp.asarray(case["dense"]))[0])
+            logits, caches = lm.prefill(params, cfg, jnp.asarray(case["prompt"]), cache_slots=32,
+                                        logit_index=jnp.asarray([12, 7]))
+            out[f"{arch}/prefill"] = np.asarray(logits)
+            for i in range(8):
+                logits, caches = lm.decode_step(params, cfg, caches,
+                                                jnp.asarray(case["steps"][:, i:i + 1]),
+                                                jnp.int32(13 + i))
+                out[f"{arch}/decode{i}"] = np.asarray(logits)
+        out[f"{arch}/params_checksum"] = np.asarray(params_checksum(params))
+        for policy in DENSE_POLICIES:
+            runs[f"{arch} {policy}"] = _launch([*recurrent_launch_args(arch),
+                                                "--kernel-policy", policy])
+        for name, ask in PAGED_ASKS.items():
+            errors[f"{arch} {name}"] = _launch_error(
+                [a for a in recurrent_launch_args(arch) if a not in ("--kv", "dense")] + ask)
+
+    cfg, params = _setup("recurrentgemma-2b")
+    cfg = window16_config(cfg)
+    with kernels.use_policy("backend=pallas"):
+        out["w16/forward300"] = np.asarray(lm.forward(params, cfg, jnp.asarray(case["long"]))[0])
+        for name, toks, rows, steps in (("24", case["dense"], [23, 23], 8),
+                                        ("300", case["long"], [299], 4)):
+            s = toks.shape[1]
+            logits, caches = lm.prefill(params, cfg, jnp.asarray(toks), cache_slots=32,
+                                        logit_index=jnp.asarray(rows))
+            out[f"w16/prefill{name}"] = np.asarray(logits)
+            if name == "24":
+                ring = caches["stage0"]["b2"]
+                out["w16/ring24_k"] = np.asarray(ring.k[0], np.float32)
+                out["w16/ring24_pos"] = np.asarray(ring.pos[0])
+            for i in range(steps):
+                tok = case["steps"][: toks.shape[0], i:i + 1]
+                logits, caches = lm.decode_step(params, cfg, caches, jnp.asarray(tok),
+                                                jnp.int32(s + i))
+                out[f"w16/decode{name}_{i}"] = np.asarray(logits)
+        done = Server(cfg, params).run([Request(rid=r, prompt=p, max_new=m)
+                                        for r, p, m in window16_requests()])
+    runs["w16 server"] = {str(r.rid): [int(x) for x in r.out] for r in done}
+    out["serve_json"] = np.asarray(json.dumps({"runs": runs, "errors": errors}))
+
+
+def _launch_error(args: list[str]) -> list[str]:
+    """How one ``python -m repro.launch.serve ARGS`` run fails, in process:
+    [exception type, its message, the last line of stderr]."""
+    from repro import kernels
+    from repro.launch import serve as jax_serve
+
+    err = io.StringIO()
+    argv = sys.argv
+    sys.argv = ["repro.launch.serve", *args]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+            jax_serve.main()
+    except (ValueError, SystemExit) as e:
+        return [type(e).__name__, str(e), (err.getvalue().strip().splitlines() or [""])[-1]]
+    finally:
+        sys.argv = argv
+        kernels.set_policy(None)
+    raise AssertionError(f"the JAX launcher served {args}")
+
+
 def _setup(arch: str = "qwen1.5-0.5b"):
     import jax
 
@@ -510,11 +645,12 @@ MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5
 
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    if mode in ("serve", "refserve", "chaos", "loop"):
+    if mode in ("serve", "refserve", "chaos", "loop", "recurrent"):
         _share_jits()
     {"model": _model, "serve": _serve, "dense": _dense, "quant": _quant,
      "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,
-     "chaos": _chaos, "loop": _loop, "moe": _moe, "moeserve": _moeserve}[mode](out)
+     "chaos": _chaos, "loop": _loop, "moe": _moe, "moeserve": _moeserve,
+     "recurrent": _recurrent}[mode](out)
     if mode in MODE_ARCH:
         _, params = _setup(MODE_ARCH[mode])
         out["params_checksum"] = np.asarray(params_checksum(params))

@@ -1472,3 +1472,148 @@ def test_engine_on_card_retries_faulted_steps_on_the_reference(cuda_device):
     assert len(plan.fired) == 3
     assert kernels.fallback_stats().fallbacks == eng.stats()["kernel_fallbacks"] == 2
     assert eng.stats()["quarantined_pages"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the recurrent slice: mamba2-780m and recurrentgemma-2b projections, and
+# one decode step of each reduced model, kernels against plain versions
+# ---------------------------------------------------------------------------
+
+#: (label, k, n, linear keywords) of the recurrent models' projections:
+#: mamba2's in_proj and out_proj, recurrentgemma's two branches (gelu and
+#: bare), the RG-LRU gate (bias, sigmoid, fp32 out), the MQA projections
+#: (q, k/v of one 256-wide head, o), the gelu_tanh GLU and its down
+#: projection, and the tied fp32 logits
+RECURRENT_PROJECTIONS = [
+    ("mamba2-in", 1536, 6448, {}), ("mamba2-out", 3072, 1536, {}),
+    ("rg-gate-branch", 2560, 2560, dict(activation="gelu")), ("rg-x-branch", 2560, 2560, {}),
+    ("rg-lru-gate", 2560, 2560, dict(bias=True, activation="sigmoid", out_dtype=torch.float32)),
+    ("rg-kv", 2560, 256, {}), ("rg-mlp-gate", 2560, 7680, dict(activation="gelu_tanh")),
+    ("rg-mlp-down", 7680, 2560, {}), ("rg-logits", 2560, 256000, dict(logits=True)),
+]
+
+
+def _plain_kernels():
+    """Route ``kernels.linear`` to the plain versions on CUDA tensors."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.kernels import api
+
+    stack = ExitStack()
+    for name, plain in (("matmul_tiled", matmul_tiled_plain), ("matmul_mcast", matmul_mcast_plain),
+                        ("matmul_unicast", matmul_unicast_plain)):
+        stack.enter_context(mock.patch.object(api, name, plain))
+    return stack
+
+
+@pytest.mark.parametrize("policy,kernel", [("tiled", "matmul_tiled"), ("mcast", "matmul_mcast"),
+                                           ("unicast", "matmul_unicast")])
+@pytest.mark.parametrize("m", [4, 45])
+@pytest.mark.parametrize("case", RECURRENT_PROJECTIONS, ids=lambda c: c[0])
+def test_recurrent_projections_match_plain(cuda_device, case, m, policy, kernel):
+    """``kernels.linear`` at each projection of the recurrent models, at
+    decode (4) and prefill (45) rows, under each policy: one launch of the
+    policy's kernel on its tensor-core design, the same function as the
+    plain versions (K4 and K5 run bias and activation after the product,
+    as in the JAX package) within ``TOL`` (bf16) or 1e-4 (fp32 results)."""
+    _, k, n, kw = case
+    kw = dict(kw)
+    logits = kw.pop("logits", False)
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n + m)
+    if logits:  # fp32 activations x the bf16 (vocab, d) table read transposed
+        a, b = _rand(gen, m, k, dtype=torch.float32, scale=4.0), _rand(gen, n, k, scale=0.02).t()
+    else:
+        a, b = _rand(gen, m, k), _rand(gen, k, n, scale=k ** -0.5)
+    bias = _rand(gen, n) if kw.pop("bias", False) else None
+    kernels.reset_launch_counts()
+    got = kernels.linear(a, b, bias=bias, policy=policy, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[kernel] == 1 == sum(kernels.launch_counts().values())
+    assert kernels.KERNELS[kernel].design == ("wgmma-swapab-3xbf16" if logits else "wgmma-swapab")
+    with _plain_kernels():
+        want = kernels.linear(a, b, bias=bias, policy=policy, **kw)
+    assert got.dtype == want.dtype == kw.get("out_dtype", a.dtype)
+    # K1 rounds once, to the output dtype; K4 and K5 round the product to
+    # a's dtype before the epilogue, so a bf16 product's fp32 sigmoid
+    # carries bf16 error
+    if (got.dtype if policy == "tiled" else a.dtype) == torch.float32:
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
+    else:
+        close(got.cpu(), want.float().cpu(), torch.bfloat16)
+
+
+class _LayerHold:
+    """Each mixer, MLP and logits call of a kernel run, rerun on its own
+    inputs through the plain versions: the largest error over 2e-2 x the
+    plain output's largest magnitude (chip_smoke's ``TOL_MODEL``)."""
+
+    def __init__(self):
+        self.worst, self.calls = 0.0, 0
+
+    def armed(self):
+        from contextlib import ExitStack
+        from unittest import mock
+
+        from repro_torch.nn import attention, rglru, ssd
+
+        stack = ExitStack()
+        for mod, name in ((attention, "attention"), (attention, "decode_attention"),
+                          (rglru, "rglru"), (rglru, "rglru_step"), (ssd, "ssd"),
+                          (ssd, "ssd_step"), (lm, "mlp"), (lm, "_logits")):
+            real = getattr(mod, name)
+
+            def held(*args, _real=real, _name=name, **kw):
+                plain_args = args
+                if _name == "decode_attention":  # the rerun attends over a copy of the ring
+                    cache = args[2]
+                    plain_args = (*args[:2], type(cache)(*(x.clone() for x in cache)), *args[3:])
+                out = _real(*args, **kw)
+                with _plain_kernels():
+                    want = _real(*plain_args, **kw)
+                got, ref = (out[0], want[0]) if isinstance(out, tuple) else (out, want)
+                err = float((got.float() - ref.float()).abs().max())
+                self.worst = max(self.worst, err / (2e-2 * float(ref.float().abs().max())))
+                self.calls += 1
+                return out
+
+            stack.enter_context(mock.patch.object(mod, name, held))
+        return stack
+
+
+@pytest.mark.parametrize("policy", [None, "mcast", "unicast"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_recurrent_decode_step_matches_plain(cuda_device, arch, policy):
+    """One decode step of the reduced model for a batch of 3 after a
+    13-token prefill (caches copied to every slot): every mixer, MLP and
+    the logits held to the plain versions on the kernel run's own inputs,
+    the whole step's logits to the plain run's within 2e-2 x max |logit|,
+    and only the policy's matmul kernel launched."""
+    cfg = get_config(arch, reduced=True)
+    params = lm.init(cfg, seed=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (1, 13), device=cuda_device, generator=gen)
+    step = torch.randint(0, cfg.vocab, (3, 1), device=cuda_device, generator=gen)
+
+    def run():
+        caches = lm.init_cache(cfg, 3, 32)
+        _, one = lm.prefill(params, cfg, prompt, cache_slots=32)
+        for full, c in zip(caches, one):
+            for dst, src in zip(full, c):
+                dst[:] = src
+        return lm.decode_step(params, cfg, caches, step, 13)[0]
+
+    hold = _LayerHold()
+    kernel = {None: "matmul_tiled", "mcast": "matmul_mcast", "unicast": "matmul_unicast"}[policy]
+    with kernels.use_policy(policy):
+        kernels.reset_launch_counts()
+        with hold.armed():
+            got = run()
+        counts = kernels.launch_counts()
+        with _plain_kernels():
+            want = run()
+    torch.cuda.synchronize()
+    assert counts[kernel] > 0 and sum(counts.values()) == counts[kernel], counts
+    assert hold.calls > cfg.n_layers and hold.worst <= 1, hold.worst
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=2e-2, atol=2e-2 * scale)

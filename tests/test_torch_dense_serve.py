@@ -172,7 +172,8 @@ def test_mask_cache_after_marks_the_padded_tail(model):
 
 def test_unported_dense_cache_options_raise(model):
     """int8 rings are ported (``QuantKvCache`` leaves, ROADMAP Queue 1
-    item 1); local-window rings still raise."""
+    item 1), and local-window rings (min(window, cache_len) slots); a
+    post-block norm still raises."""
     from repro_torch.nn.kvquant import QuantKvCache
 
     cfg = model[0]
@@ -185,5 +186,7 @@ def test_unported_dense_cache_options_raise(model):
         assert c.k_scale.dtype == torch.bfloat16 and c.k_scale.shape == (2, 16, kv, 1)
         assert c.pos.tolist() == [[-1] * 16] * 2
     windowed = dataclasses.replace(cfg, stages=(((BlockDef(window=8),), cfg.n_layers),))
+    assert [c.k.shape[1] for c in lm.init_cache(windowed, 2, 16, device="cpu")] == \
+        [8] * cfg.n_layers
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        lm.init_cache(windowed, 2, 16, device="cpu")
+        lm.init_cache(dataclasses.replace(cfg, post_block_norm=True), 2, 16, device="cpu")
