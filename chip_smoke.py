@@ -31,7 +31,9 @@ each fatal on failure (nothing is caught):
    decode (4 rows) and verify (20 rows) shapes and its untied fp32 logits
    (``PAIR_MATMUL_ROWS``: the bf16 (d, vocab) head read row-major), K2
    at head dim 128, K3 at head dim 128 on int8 pools at s = 5, s = 1 and
-   the 28-token suffix of a prefix hit, and on bf16 pools at s = 5 and 28;
+   the 28-token suffix of a prefix hit, and on bf16 pools at s = 5 and 28
+   (the rows at command-r-35b's and pixtral-12b's heads draw from a
+   generator of their own, ``FAMILY_PAGED``);
 2b. gradients: K6, K7 and K8 (flash attention forward, dQ, dK/dV) each
    against its plain version at six shapes — qwen1.5-0.5b and gemma2-9b's
    local layers at full width, the kernel benchmark's flash row, two
@@ -44,7 +46,9 @@ each fatal on failure (nothing is caught):
    through ``op("flash_attention")`` at the two full-width shapes, every
    launch count at 0 before it, against the same graph on the plain
    versions (one forward must launch K6 once, one backward K7 and K8
-   once each); then ``grad(linear)`` at qwen's gate projection over
+   once each), its dK and dV also against an fp64 autograd reference
+   (the kernel within the allowance of it, or no farther than the plain
+   version is); then ``grad(linear)`` at qwen's gate projection over
    2 x 2048 tokens under ``tiled``, ``mcast`` and ``unicast`` (one
    forward matmul launch, then z, dA and dB, each on K1's ``wgmma``);
 2c. scans: K9 and K10 (the SSD chunked scan with its checkpoints, and its
@@ -163,11 +167,38 @@ each fatal on failure (nothing is caught):
    rings holding the last positions, mamba2 over 32 chunks; and the
    dense ``Server`` over the phase-6 prompts per policy at full depth
    (every request drained, only its policy's matmul kernel launched,
-   streams equal to a plain run's but at near-ties).
+   streams equal to a plain run's but at near-ties);
+8. the last model families at full width and full depth, one model at a
+   time, each built on the card from a seed and freed before the next:
+   K1, K4 and K5 through ``kernels.linear`` at their new projections
+   (``FAMILY_ROWS`` at M 4 and 45; ``FAMILY_WIDE_ROWS``: whisper's
+   encoder input over two 1,500-frame clips, bf16 out, and pixtral's
+   front end over 512 patches), as in phase 7 (K2 and K3 at command-r's
+   group 8 and pixtral's group 4, d 128, are rows of phase 2); then
+   whisper-medium through ``models/encdec.py`` (1,500 seeded frames of
+   1,024 for a batch of 2, a 16-token prompt, 16 greedy decode steps:
+   counted, timed, every layer held — bidirectional encoder layers, self,
+   cross and cached cross attention, MLPs, logits — and the encoder
+   output and every step's logits against a plain run fed the same
+   tokens); pixtral-12b (256 patch embeddings through ``frontend_proj``
+   and a 32-token prompt, batch 2, then 8 decode steps on the dense
+   caches, likewise); gemma2-9b (post-block norms, softcaps, window-4096
+   layers) as phase 7 runs its models, prefill and decode step per
+   policy under ``LayerCheck`` and the dense ``Server`` per policy
+   against a plain run; deepseek-7b's prefill and decode step under the
+   default policy; command-r-35b (60.6 GB of bf16, no depth cut) on the
+   paged path — a prefill and decode step, and a 28-token suffix prefill
+   over a 32-token prefix's pages (K3 at group 8) — under ``LayerCheck``
+   and then the paged engine over the phase-4 requests (prefix hits: K3
+   suffix prefills and K2 decode steps at group 8, their designs
+   asserted).  Where a whole run leaves
+   ``TOL_MODEL`` the depth-gap witness runs (``check_depth_gap``;
+   whisper's: the plain run on frames with their last bit flipped).  It
+   prints the phase's seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
-line, the kernel summary (launches: the serving runs of phases 4 to 7
+line, the kernel summary (launches: the serving runs of phases 4 to 8
 for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for
 K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
@@ -180,6 +211,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -251,7 +283,7 @@ from repro_torch.kernels.ssd import (  # noqa: E402
     ssd_scan_plain,
 )
 from repro_torch.launch.serve import Server  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import encdec, lm  # noqa: E402
 from repro_torch.nn import attention as attn_mod  # noqa: E402
 from repro_torch.nn import memeff as memeff_mod  # noqa: E402
 from repro_torch.nn import moe as moe_mod  # noqa: E402
@@ -362,6 +394,10 @@ DECODE_ROWS = (
     ("long", dict(b=8, n=256, lengths=(4096, 3584, 2048, 1024, 4096, 777, 3000, 1), runs=10)),
     # qwen1.5-1.8b's attention (16 heads of 128, page 16), contexts 40-300
     ("d128", dict(d=128, n=19, lengths=(40, 300, 129, 77))),
+    # command-r-35b's (64 heads over 8 KV heads of 128: group 8) and
+    # pixtral-12b's (32 over 8: group 4)
+    ("cr-g8-d128", dict(h=64, kvh=8, d=128, n=19, lengths=(40, 300, 129, 77))),
+    ("px-g4-d128", dict(h=32, kvh=8, d=128, n=19, lengths=(40, 300, 129, 77))),
 )
 PREFILL_ROWS = (
     ("serving", {}),
@@ -380,7 +416,15 @@ PREFILL_ROWS = (
     ("int8-d128-suffix", dict(s=28, d=128, lengths=(60,), quant=True)),
     ("d128-suffix", dict(s=28, d=128, lengths=(60,))),
     ("d128-verify", dict(b=4, s=5, d=128, n=19, lengths=(40, 300, 129, 77))),
+    # command-r-35b's suffix prefill (64 heads over 8 KV heads: group 8, 28
+    # tokens x 8 = 224 rows a KV head) and pixtral-12b's (32 over 8)
+    ("cr-g8-d128-suffix", dict(s=28, h=64, kvh=8, d=128, lengths=(60,))),
+    ("px-g4-d128-suffix", dict(s=28, h=32, kvh=8, d=128, lengths=(60,))),
 )
+# the rows above at command-r-35b's and pixtral-12b's heads: they draw from
+# a generator of their own, so the draws of every check after them do not
+# depend on them
+FAMILY_PAGED = ("cr-g8-d128", "px-g4-d128", "cr-g8-d128-suffix", "px-g4-d128-suffix")
 
 
 def emit(rec: dict) -> None:
@@ -489,6 +533,19 @@ def check_close(name: str, got, want, tol: float, extra=None) -> float:
         raise AssertionError(f"{name}: kernel and plain version disagree beyond rtol=atol="
                              f"{tol} (max abs err {err})")
     return err
+
+
+def tc_sum_allowance(want: torch.Tensor, k: int) -> torch.Tensor:
+    """What the tensor cores' fp32 accumulation may move an fp32-A matmul
+    (``wgmma-swapab-3xbf16``) from its fp64 plain version at depth ``k``:
+    the accumulator drops the bits below its last place on each of the
+    3 * ceil(k / 16) accumulation steps of the three bf16 passes, up to
+    one ulp (2^-23 relative) of the running sum each time, taken here as
+    |want| + the RMS of want's row.  Measured on an H100: 3.1e-4 at k
+    3584 and |C| ~ 20, beyond TOL_FP32, which was set at k 1024."""
+    w = want.detach().float()
+    steps = 3 * -(-k // 16)
+    return steps * 2.0 ** -23 * (w.abs() + w.square().mean(dim=-1, keepdim=True).sqrt())
 
 
 def flash_atol(want: torch.Tensor, tol: float) -> torch.Tensor:
@@ -940,6 +997,42 @@ def single_key_rounding(c: FlashShape, q, k, v, do) -> dict[str, tuple | None]:
     return out
 
 
+def flash_fp64_grads(c: FlashShape, q, k, v, do) -> list[torch.Tensor]:
+    """dQ, dK and dV of sum(attention(q, k, v) * do) in fp64 autograd, one
+    kv head's group of query heads at a time (dK and dV summed over the
+    group in fp64)."""
+    g = c.h // c.kvh
+    mask = _mask(c.sq, c.sk, c.causal, c.window, "cuda")
+    out = [torch.zeros_like(t, dtype=torch.float64) for t in (q, k, v)]
+    for hk in range(c.kvh):
+        qs = q[:, hk * g:(hk + 1) * g].double().requires_grad_()
+        ks = k[:, hk:hk + 1].double().requires_grad_()
+        vs = v[:, hk:hk + 1].double().requires_grad_()
+        s = qs @ ks.transpose(-1, -2) / math.sqrt(c.d)
+        if c.softcap is not None:
+            s = c.softcap * torch.tanh(s / c.softcap)
+        o = torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ vs
+        grads = torch.autograd.grad((o * do[:, hk * g:(hk + 1) * g].double()).sum(),
+                                    [qs, ks, vs])
+        for dst, (lo, hi), grad in zip(out, ((hk * g, (hk + 1) * g), (hk, hk + 1),
+                                             (hk, hk + 1)), grads):
+            dst[:, lo:hi] = grad
+        del s, o, grads
+    return out
+
+
+def check_fp64_distance(name: str, got, plain, ref, tol: float, rounding=None) -> tuple:
+    """The kernel's and the plain version's largest ratio (:func:`flash_ratios`)
+    against an fp64 reference ``ref``; fails where the kernel's passes 1
+    and the plain version's own.  Returns both ratios."""
+    torch.cuda.synchronize()
+    ratios = [float(flash_ratios(t, ref, tol, rounding).max()) for t in (got, plain)]
+    if not ratios[0] <= max(1.0, ratios[1]):
+        raise AssertionError(f"{name}: the kernel is {ratios[0]:.3g} x the allowance from the "
+                             f"fp64 reference, the plain version {ratios[1]:.3g}")
+    return tuple(ratios)
+
+
 def _sdpa(c: FlashShape):
     """One SDPA call computing K6's function, or None: a window or a
     softcap is not SDPA's (its causal mask, top-left aligned, is ours)."""
@@ -1082,7 +1175,15 @@ def check_flash_path(gen, c: FlashShape) -> dict[str, int]:
     rules = (None, rounding["dq"], rounding["dk"], None)
     errs = [check_flash_close(f"flash path {c.label} {name}", got, ref, tol, rule)
             for name, got, ref, rule in zip(("o", "dq", "dk", "dv"), (out, *grads), want, rules)]
-    del want
+    # dK and dV against fp64 as well, on the dO the path feeds both sides
+    # (w in the output's dtype): each side rounds every query head's share
+    # to the dtype before the group sum, so neither is the other's truth
+    ref = flash_fp64_grads(c, q, k, v, w.to(c.dtype))
+    fp64 = [check_fp64_distance(f"flash path {c.label} {name} vs fp64", got, plain, r, tol,
+                                rule)
+            for name, got, plain, r, rule in zip(("dk", "dv"), grads[1:], want[2:], ref[1:],
+                                                 rules[2:])]
+    del want, ref
     warm = 1 if c.runs < 10 else 3
     sdpa = _sdpa(c)
 
@@ -1104,6 +1205,8 @@ def check_flash_path(gen, c: FlashShape) -> dict[str, int]:
               max_err_o_dq_dk_dv=[e[0] for e in errs],
               err_over_allowance_o_dq_dk_dv=[e[1] for e in errs],
               least_fixed_atol_o_dq_dk_dv=[e[2] for e in errs],
+              fp64_over_allowance_dk_dv=[r[0] for r in fp64],
+              plain_fp64_over_allowance_dk_dv=[r[1] for r in fp64],
               tol=f"{tol} x (|want| + row rms)"))
     return total
 
@@ -1599,13 +1702,36 @@ def check_scans(gen, summary: dict) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
+# a plain matmul whose B would take more fp64 bytes than this runs by
+# column blocks (command-r-35b's 256,000-row head is 16.8 GB in fp64,
+# beside 60.6 GB of weights)
+PLAIN_FP64_BYTES = 2 << 30
+
+
+def _by_columns(fn, limit: int = PLAIN_FP64_BYTES):
+    """``fn(a, b[, bias], **kw)`` over column blocks of a 2-D ``b`` whose
+    fp64 copy would pass ``limit`` bytes: each output column is its own
+    fp64 dot product, so the blocks give the same result."""
+    def run(a, b, *rest, **kw):
+        if b.ndim != 2 or b.numel() * 8 <= limit:
+            return fn(a, b, *rest, **kw)
+        step = max(1, limit // (8 * b.shape[0]))
+        bias = rest[0] if rest else None
+        return torch.cat([fn(a, b[:, n0:n0 + step],
+                             *((None if bias is None else bias[n0:n0 + step],) if rest else ()),
+                             **kw) for n0 in range(0, b.shape[1], step)], dim=-1)
+    return run
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the kernel layer to the plain versions (CUDA tensors and all)
-    for a reference run; the port itself has no such switch."""
-    with mock.patch.object(api, "matmul_tiled", matmul_tiled_plain), \
-            mock.patch.object(api, "matmul_mcast", matmul_mcast_plain), \
-            mock.patch.object(api, "matmul_unicast", matmul_unicast_plain), \
+    for a reference run; the port itself has no such switch.  The plain
+    matmuls run by column blocks where B's fp64 copy is large
+    (:func:`_by_columns`)."""
+    with mock.patch.object(api, "matmul_tiled", _by_columns(matmul_tiled_plain)), \
+            mock.patch.object(api, "matmul_mcast", _by_columns(matmul_mcast_plain)), \
+            mock.patch.object(api, "matmul_unicast", _by_columns(matmul_unicast_plain)), \
             mock.patch.object(api, "paged_attention_decode", paged_attention_decode_plain), \
             mock.patch.object(api, "paged_attention_prefill", paged_attention_prefill_plain), \
             mock.patch.object(api, "flash_attention", flash_attention_plain), \
@@ -1651,6 +1777,24 @@ def model_run(cfg, params, prompt, step_tokens, *, time_step=False):
     if time_step:  # the step rewrites the same rows: repeating it is idempotent
         return pre, dec, step_stats(step)
     return pre, dec
+
+
+def suffix_model_run(cfg, params, prefix, suffix):
+    """The paged engine's prefix hit: the shared prefix's bucketed cold
+    prefill scattered into pages, then the divergent suffix prefilled over
+    those pages at its true positions in one ``decode_step`` call (K3),
+    as the engine's suffix prefill runs it; returns the suffix's logits."""
+    pools = lm.init_paged_cache(cfg, 33, 16, device="cuda")
+    n, s = len(prefix), len(suffix)
+    _, dense = lm.prefill(params, cfg, _bucketed(prefix), logit_index=n - 1)
+    table = torch.zeros((1, 16), dtype=torch.int32, device="cuda")
+    table[0, :-(-(n + s) // 16)] = torch.arange(1, -(-(n + s) // 16) + 1, dtype=torch.int32)
+    lm.prefill_to_pages(dense, pools, table[0, :-(-n // 16)], n)
+    del dense
+    index = torch.tensor([n], dtype=torch.long, device="cuda")
+    lengths = torch.tensor([n + s], dtype=torch.int32, device="cuda")
+    return lm.decode_step(params, cfg, pools, suffix[None], index, block_table=table,
+                          lengths=lengths)[0]
 
 
 def dense_model_run(cfg, params, prompt, step_tokens, *, time_step=False):
@@ -2405,12 +2549,14 @@ class RoutingPin:
 
 class LayerCheck:
     """Every layer of a kernel run held to the plain versions on the same
-    inputs: while armed, each attention (prefill and decode, global or
-    local-window), RG-LRU and SSD block (prefill and decode step), dense
-    MLP, MoE and logits head runs through the kernels as usual and then once
+    inputs: while armed, each attention (prefill, bidirectional and
+    decode, global or local-window, dense rings or page pools), cross
+    attention (prefill and cached), RG-LRU and SSD block (prefill and
+    decode step), dense MLP, MoE and logits head (``lm``'s and the
+    encoder-decoder's) runs through the kernels as usual and then once
     more through the plain versions on the inputs the kernel run gave it
-    (a decode attention on a copy of its cache as it was before the
-    step; an MoE with the kernel call's experts replayed), and each
+    (a decode attention on a copy of its cache or pool as it was before
+    the step; an MoE with the kernel call's experts replayed), and each
     output is held to ``TOL_MODEL`` x its plain output's largest
     magnitude.  The kernel run goes on with its own outputs.
 
@@ -2421,8 +2567,9 @@ class LayerCheck:
     and a kernel run and a plain run of the same prompt end up sharing
     nothing (``model_unpinned``)."""
 
-    KINDS = ("attention", "decode_attention", "mlp", "moe", "rglru", "rglru_step", "ssd",
-             "ssd_step", "logits")
+    KINDS = ("attention", "decode_attention", "paged_attention", "cross_attention",
+             "cached_cross_attention", "mlp", "moe", "rglru", "rglru_step", "ssd", "ssd_step",
+             "logits")
 
     def __init__(self):
         self.stats = {k: dict(calls=0, worst_ratio=0.0, max_err=0.0) for k in self.KINDS}
@@ -2442,7 +2589,9 @@ class LayerCheck:
     @contextlib.contextmanager
     def armed(self):
         real = dict(attention=attn_mod.attention, decode=attn_mod.decode_attention,
-                    mlp=lm.mlp, moe=moe_mod.moe, logits=lm._logits)
+                    paged=attn_mod.paged_decode_attention, cross=attn_mod.cross_attention,
+                    cached_cross=encdec.cached_cross_attention, mlp=lm.mlp, moe=moe_mod.moe,
+                    logits=lm._logits, dec_logits=encdec._dec_logits)
         recurrent = {(mod, name): getattr(mod, name) for mod, name in (
             (rglru_mod, "rglru"), (rglru_mod, "rglru_step"), (ssd_mod, "ssd"),
             (ssd_mod, "ssd_step"))}
@@ -2463,13 +2612,29 @@ class LayerCheck:
             self._hold("attention", out, want)
             return out, kv
 
-        def decode(p, x, cache, cfg, **kw):
-            before = type(cache)(*(t.clone() for t in cache))
-            out, c = real["decode"](p, x, cache, cfg, **kw)
+        def cached(kind, key):
+            def run(p, x, cache, cfg, **kw):  # the plain rerun on the cache as it was
+                before = type(cache)(*(t.clone() for t in cache))
+                out, c = real[key](p, x, cache, cfg, **kw)
+                with plain_versions():
+                    want, _ = real[key](p, x, before, cfg, **kw)
+                self._hold(kind, out, want)
+                return out, c
+            return run
+
+        def cross(p, x, memory, cfg):
+            out, kv = real["cross"](p, x, memory, cfg)
             with plain_versions():
-                want, _ = real["decode"](p, x, before, cfg, **kw)
-            self._hold("decode_attention", out, want)
-            return out, c
+                want, _ = real["cross"](p, x, memory, cfg)
+            self._hold("cross_attention", out, want)
+            return out, kv
+
+        def cached_cross(p, x, cross_kv, cfg):
+            out = real["cached_cross"](p, x, cross_kv, cfg)
+            with plain_versions():
+                want = real["cached_cross"](p, x, cross_kv, cfg)
+            self._hold("cached_cross_attention", out, want)
+            return out
 
         def mlp(p, x, cfg):
             out = real["mlp"](p, x, cfg)
@@ -2490,21 +2655,29 @@ class LayerCheck:
             self._hold("moe", out, want)
             return out, aux
 
-        def logits(params, cfg, x):
-            out = real["logits"](params, cfg, x)
-            with plain_versions():
-                want = real["logits"](params, cfg, x)
-            self._hold("logits", out, want)
-            self.argmax.append(float((out.argmax(-1) == want.argmax(-1)).float().mean()))
-            return out
+        def head(key):
+            def logits(params, cfg, x):
+                out = real[key](params, cfg, x)
+                with plain_versions():
+                    want = real[key](params, cfg, x)
+                self._hold("logits", out, want)
+                self.argmax.append(float((out.argmax(-1) == want.argmax(-1)).float().mean()))
+                return out
+            return logits
 
         with contextlib.ExitStack() as stack:
             for (mod, name), fn in recurrent.items():
                 stack.enter_context(mock.patch.object(mod, name, mixer(name, fn)))
             with mock.patch.object(attn_mod, "attention", attention), \
-                    mock.patch.object(attn_mod, "decode_attention", decode), \
+                    mock.patch.object(attn_mod, "decode_attention",
+                                      cached("decode_attention", "decode")), \
+                    mock.patch.object(attn_mod, "paged_decode_attention",
+                                      cached("paged_attention", "paged")), \
+                    mock.patch.object(attn_mod, "cross_attention", cross), \
+                    mock.patch.object(encdec, "cached_cross_attention", cached_cross), \
                     mock.patch.object(lm, "mlp", mlp), mock.patch.object(moe_mod, "moe", moe), \
-                    mock.patch.object(lm, "_logits", logits):
+                    mock.patch.object(lm, "_logits", head("logits")), \
+                    mock.patch.object(encdec, "_dec_logits", head("dec_logits")):
                 yield self
 
     def worst(self) -> float:
@@ -2513,6 +2686,16 @@ class LayerCheck:
     def summary(self) -> dict:
         return dict(layers=self.stats, logits_argmax_agree=self.argmax, tol_model=TOL_MODEL,
                     **self.routing)
+
+
+def hold_layers(tag: dict, check: LayerCheck, logits_calls: int) -> None:
+    """Emit a :class:`LayerCheck`'s record; fail unless every layer held
+    ``TOL_MODEL`` and the logits head ran ``logits_calls`` times."""
+    emit(dict(check="model_layers", **tag, worst_ratio=check.worst(), **check.summary()))
+    if check.worst() > 1 or check.stats["logits"]["calls"] != logits_calls:
+        raise AssertionError(f"full model {tag}: a layer's kernel output is off its plain "
+                             f"version by {check.worst():.3g} x TOL_MODEL x max |plain|: "
+                             f"{check.stats}")
 
 
 def dense_server_model_run(cfg, params, prompt, step_tokens):
@@ -2579,11 +2762,7 @@ def check_moe_model(cfg, params) -> None:
                   weight_bytes=weight_bytes, weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
                   routed_expert_bytes=experts,
                   routed_expert_bound_ms=experts / HBM_BYTES_PER_S * 1e3, **stats))
-        emit(dict(check="model_layers", **tag, worst_ratio=check.worst(), **check.summary()))
-        if check.worst() > 1 or check.stats["logits"]["calls"] != 2:
-            raise AssertionError(f"full model {tag}: a layer's kernel output is off its plain "
-                                 f"version by {check.worst():.3g} x TOL_MODEL x max |plain|: "
-                                 f"{check.stats}")
+        hold_layers(tag, check, 2)
         del pre_k, dec_k
 
 
@@ -2675,8 +2854,10 @@ POLICY_KERNELS = (("tiled", "matmul_tiled"), ("mcast", "matmul_mcast"),
 LONG_PROMPT = 4096
 
 
-def check_recurrent_matmul(gen, label, m, k, n, kw) -> dict[str, dict]:
-    """``kernels.linear`` at one projection of the recurrent models under
+def check_projection_row(gen, label, m, k, n, kw, check="recurrent_matmul",
+                         tc_sum=False) -> dict[str, dict]:
+    """``kernels.linear`` at one projection of a model (phase 7's recurrent
+    archs, ``check="recurrent_matmul"``; phase 8's families) under
     ``tiled``, ``mcast`` and ``unicast``: one launch of the policy's kernel
     on its tensor-core design, held to the same call on the plain versions
     (K4 and K5 run bias and activation after the product, as in the JAX
@@ -2684,7 +2865,8 @@ def check_recurrent_matmul(gen, label, m, k, n, kw) -> dict[str, dict]:
     bf16 product's fp32 sigmoid is a bf16 result), timed (the call,
     epilogue included) beside the plain version,
     ``torch.addmm`` / ``torch.matmul`` on the same operands and the bound of
-    the product with its epilogue."""
+    the product with its epilogue.  With ``tc_sum``, fp32 results may also
+    move by :func:`tc_sum_allowance` (phase 8's rows, at k up to 8,192)."""
     kw = dict(kw)
     logits = kw.pop("logits", False)
     a, b, bias = matmul_operands(gen, m, k, n, logits=logits, bias=kw.pop("bias", False))
@@ -2714,10 +2896,11 @@ def check_recurrent_matmul(gen, label, m, k, n, kw) -> dict[str, dict]:
             want = call()
         if got.dtype != out_dtype or want.dtype != out_dtype:
             raise AssertionError(f"{label} {policy}: out dtype {got.dtype}, want {out_dtype}")
-        err = check_close(f"{kname} {label} {m}x{k}x{n}", got, want, tol)
+        extra = tc_sum_allowance(want, k) if tc_sum and got.dtype == torch.float32 else None
+        err = check_close(f"{kname} {label} {m}x{k}x{n}", got, want, tol, extra)
         k_ms, k_host = time_ms(call)
         out[kname] = dict(
-            check="recurrent_matmul", name=kname, row=label, policy=policy, shape=[m, k, n],
+            check=check, name=kname, row=label, policy=policy, shape=[m, k, n],
             a_dtype=str(a.dtype), out_dtype=str(out_dtype), bias=bias is not None,
             activation=kw.get("activation", "none"), design=design, kernel_ms=k_ms,
             host_ms=k_host, plain_ms=plain_ms, library=library, library_ms=lib_ms,
@@ -2730,22 +2913,25 @@ def weight_bytes(params) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(params))
 
 
-def check_recurrent_model(cfg, params) -> None:
+def check_dense_model(cfg, params, policies=(None, "mcast", "unicast")) -> float:
     """One 45-token prefill and one decode step for a batch of 4 (the dense
     server's path, :func:`dense_server_model_run`) under the default policy,
-    ``mcast`` and ``unicast``: every layer's mixer (RG-LRU, SSD or
-    local-window attention, prefill and decode step), MLP and the logits
+    ``mcast`` and ``unicast`` (or ``policies``): every layer's mixer
+    (global or local-window attention, RG-LRU or SSD, prefill and decode
+    step), MLP and the logits
     held to the plain versions on the kernel run's own inputs
     (:class:`LayerCheck`, ``TOL_MODEL``), and the whole run's logits to a
     whole plain run (``model_whole``, reported: no MoE amplifies a last-bit
     difference here, so they are predicted to agree).  Each decode step
     timed, profiled and its launches counted by kernel, beside the bound of
-    reading every weight once."""
+    reading every weight once.  Returns the whole runs' worst gap over
+    ``TOL_MODEL`` x max |plain logit|."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
     step_tokens = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
     wbytes = weight_bytes(params)
-    for policy in (None, "mcast", "unicast"):
+    whole = 0.0
+    for policy in policies:
         tag = dict(arch=cfg.name, kv="dense", policy=policy or "default")
         check = LayerCheck()
         with kernels.use_policy(policy):
@@ -2761,17 +2947,15 @@ def check_recurrent_model(cfg, params) -> None:
         torch.cuda.synchronize()
         for name, got, want in (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p)):
             err, scale = max_err(got, want), float(want.abs().max())
+            whole = max(whole, err / (TOL_MODEL * scale))
             emit(dict(check="model_whole", name=name, **tag, max_err=err, max_abs_logit=scale,
                       tol=TOL_MODEL * scale, within_tol=err <= TOL_MODEL * scale,
                       argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float().mean())))
         emit(dict(check="decode_step_time", **tag, batch=4, context=len(prompt) + 1,
                   weight_bytes=wbytes, weight_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3, **stats))
-        emit(dict(check="model_layers", **tag, worst_ratio=check.worst(), **check.summary()))
-        if check.worst() > 1 or check.stats["logits"]["calls"] != 2:
-            raise AssertionError(f"full model {tag}: a layer's kernel output is off its plain "
-                                 f"version by {check.worst():.3g} x TOL_MODEL x max |plain|: "
-                                 f"{check.stats}")
+        hold_layers(tag, check, 2)
         del pre_k, dec_k, pre_p, dec_p
+    return whole
 
 
 #: the whole-run comparison's second witness, at the model's depth over each
@@ -2910,7 +3094,7 @@ def check_long_prefill(cfg, params) -> None:
                              f"by {check.worst():.3g} x TOL_MODEL, or not finite: {check.stats}")
 
 
-def check_recurrent_serving(cfg, params) -> dict[str, int]:
+def check_dense_serving(cfg, params) -> dict[str, int]:
     """The dense ``Server`` over :func:`moe_requests` (4 prompts of 16-64
     tokens, 8-16 new tokens) at full depth under the default policy,
     ``mcast`` and ``unicast``: every request drained, its policy's matmul
@@ -2936,11 +3120,11 @@ def check_recurrent_serving(cfg, params) -> dict[str, int]:
 
 def check_recurrent(gen) -> tuple[dict[str, int], list]:
     """Phase 7: the new projections' rows, then per arch at full width and
-    full depth (built on the card from the seed): :func:`check_recurrent_model`,
+    full depth (built on the card from the seed): :func:`check_dense_model`,
     :func:`check_depth_gap`, :func:`check_long_prefill`,
-    :func:`check_recurrent_serving`.  Returns the serving launches and the
+    :func:`check_dense_serving`.  Returns the serving launches and the
     rows' records."""
-    rows = [check_recurrent_matmul(gen, label, m, k, n, kw)
+    rows = [check_projection_row(gen, label, m, k, n, kw)
             for label, k, n, kw in RECURRENT_ROWS for m in RECURRENT_M]
     launches = dict.fromkeys(kernels.KERNELS, 0)
     for arch in RECURRENT_ARCHS:
@@ -2952,14 +3136,353 @@ def check_recurrent(gen) -> tuple[dict[str, int], list]:
                   params=sum(t.numel() for t in _leaves(params)), bytes=weight_bytes(params),
                   init_s=time.perf_counter() - t0,
                   memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
-        check_recurrent_model(cfg, params)
+        check_dense_model(cfg, params)
         check_depth_gap(cfg, params)
         check_long_prefill(cfg, params)
-        run = check_recurrent_serving(cfg, params)
+        run = check_dense_serving(cfg, params)
         launches = {k: launches[k] + run[k] for k in kernels.KERNELS}
         del params
         torch.cuda.empty_cache()
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the last model families at full width — whisper-medium through
+# the encoder-decoder, pixtral-12b over patch embeddings, gemma2-9b on the
+# dense Server, deepseek-7b, command-r-35b on the paged engine
+# ---------------------------------------------------------------------------
+
+# the new projections, (label, k, n, linear keywords): gemma2-9b's q (16
+# heads of 256), k / v (8 of 256), o, GLU gate (gelu_tanh; up is the bare
+# shape) and down, tied logits; command-r-35b's q / o, k / v (8 heads of
+# 128), GLU gate (silu) and down, tied logits; pixtral-12b's front end and
+# untied head (the bf16 (d, vocab) w read row-major); whisper-medium's MLP
+# in (gelu) and tied logits (an odd N)
+FAMILY_ROWS = (
+    ("g2-q", 3584, 4096, {}),
+    ("g2-kv", 3584, 2048, {}),
+    ("g2-o", 4096, 3584, {}),
+    ("g2-mlp-gate", 3584, 14336, dict(activation="gelu_tanh")),
+    ("g2-mlp-down", 14336, 3584, {}),
+    ("g2-logits", 3584, 256000, dict(logits=True)),
+    ("cr-q-o", 8192, 8192, {}),
+    ("cr-kv", 8192, 1024, {}),
+    ("cr-mlp-gate", 8192, 22528, dict(activation="silu")),
+    ("cr-mlp-down", 22528, 8192, {}),
+    ("cr-logits", 8192, 256000, dict(logits=True)),
+    ("px-frontend", 1024, 5120, {}),
+    ("px-logits", 5120, 131072, dict(logits="untied")),
+    ("wh-mlp-in", 1024, 4096, dict(activation="gelu")),
+    ("wh-logits", 1024, 51865, dict(logits=True)),
+)
+FAMILY_M = (4, 45)  # a decode step of 4 sequences, a 45-token prefill
+# (label, m, k, n, keywords): whisper's encoder input (two clips of 1,500
+# frames, bf16 out) and pixtral's front end over two images' 256 patches
+FAMILY_WIDE_ROWS = (("wh-encoder-in", 3000, 1024, 1024, dict(out_dtype=torch.bfloat16)),
+                    ("px-frontend-patches", 512, 1024, 5120, {}))
+WHISPER = "whisper-medium"
+ENCDEC_NEW = 16  # decode steps after the prefill's token
+
+
+def free_model() -> None:
+    """Return a freed model's memory to the card before the next is built
+    (closures over its tensors can sit in reference cycles)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_model(module, cfg, label: str):
+    """``module.init`` at full width on the card from seed 0, with its size
+    and build time recorded."""
+    t0 = time.perf_counter()
+    params = module.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit(dict(check=label, arch=cfg.name, layers=cfg.n_layers, depth_cut="none",
+              params=sum(t.numel() for t in _leaves(params)), bytes=weight_bytes(params),
+              init_s=time.perf_counter() - t0,
+              memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
+    return params
+
+
+def hold_whole(tag: dict, pairs) -> float:
+    """Each (name, kernel output, plain output) of a whole run, reported
+    over ``TOL_MODEL`` x max |plain| with its argmax agreement (not gated:
+    every layer is, by :class:`LayerCheck`); returns the worst ratio."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, got, want in pairs:
+        err, scale = max_err(got, want), float(want.abs().max())
+        worst = max(worst, err / (TOL_MODEL * scale))
+        emit(dict(check="model_whole", name=name, **tag, max_err=err, max_abs=scale,
+                  tol=TOL_MODEL * scale, within_tol=err <= TOL_MODEL * scale,
+                  finite=bool(torch.isfinite(got).all()),
+                  argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float().mean())))
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} {name}: non-finite kernel output")
+    return worst
+
+
+def dispatched(cfg, rows, logits_rows, extra=()) -> tuple[str, ...]:
+    """The matmul wrappers dispatch picks (under the policy in force) for
+    ``cfg``'s projections at each row count of ``rows``, its fp32 logits
+    at each of ``logits_rows`` and the (m, k, n) bf16 calls of ``extra``."""
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv = (cfg.attn.n_heads * cfg.attn.head_dim, cfg.attn.n_kv_heads * cfg.attn.head_dim)
+    wrapper = {"tiled": "matmul_tiled", "mcast": "matmul_mcast", "unicast": "matmul_unicast"}
+    calls = [(m, k, n, torch.bfloat16) for m in rows
+             for k, n in ((d, hq), (d, hkv), (hq, d), (d, f), (f, d))]
+    calls += [(m, d, cfg.vocab, torch.float32) for m in logits_rows]
+    calls += [(m, k, n, torch.bfloat16) for m, k, n in extra]
+    return tuple(sorted({wrapper[kernels.resolve("matmul", (m, k, n), dt).schedule]
+                         for m, k, n, dt in calls}))
+
+
+def count_path(path: tuple[str, ...], label: str):
+    """A context that sets every launch count to 0 and, on exit, fails
+    unless exactly the kernels of ``path`` were launched; yields the
+    counts."""
+    @contextlib.contextmanager
+    def ctx():
+        counts: dict[str, int] = {}
+        kernels.reset_launch_counts()
+        yield counts
+        counts.update(kernels.launch_counts())
+        missing = [k for k in path if not counts[k]]
+        stray = [k for k, v in counts.items() if v and k not in path]
+        if missing or stray:
+            raise AssertionError(f"{label}: kernels never launched {missing}, off the path "
+                                 f"{stray}")
+    return ctx()
+
+
+def encdec_run(cfg, params, frames, prompt, forced=None):
+    """The encoder-decoder's main path: encode and prefill, then
+    ``ENCDEC_NEW`` greedy decode steps (or steps on the ``forced`` tokens)
+    -> (logits of the prefill's last row and of every step (b, steps + 1,
+    vocab), the tokens fed, the caches, the last step for timing)."""
+    s = prompt.shape[1]
+    logits, caches = encdec.prefill(params, cfg, prompt, frames, cache_slots=s + ENCDEC_NEW + 1)
+    rows, toks = [logits[:, -1]], []
+    for i in range(ENCDEC_NEW):
+        tok = rows[-1].argmax(-1) if forced is None else forced[:, i]
+        toks.append(tok)
+        logits, caches = encdec.decode_step(params, cfg, caches, tok[:, None], s + i)
+        rows.append(logits[:, -1])
+    toks = torch.stack(toks, 1)
+
+    def step():  # the last step again: it rewrites the same ring row
+        return encdec.decode_step(params, cfg, caches, toks[:, -1:], s + ENCDEC_NEW - 1)[0]
+
+    return torch.stack(rows, 1), toks, caches, step
+
+
+def check_whisper(gen) -> dict[str, int]:
+    """whisper-medium through ``models/encdec.py`` at full width and depth
+    (24 + 24 layers): 1,500 seeded frames of 1,024 for a batch of 2, a
+    16-token prompt, then 16 greedy decode steps — timed once unchecked
+    with its launches counted (K1 only: attention is plain PyTorch), then
+    with every layer held to the plain versions (:class:`LayerCheck`: the
+    bidirectional encoder layers, self and cross attention, the cached
+    cross attention, MLPs and logits), and the encoder output and each
+    step's logits against a plain run fed the same tokens; where those
+    leave ``TOL_MODEL``, a plain run on the frames with their last bit
+    flipped says how far one ulp moves them."""
+    cfg = get_config(WHISPER)
+    params = build_model(encdec, cfg, "family_model")
+    frames = torch.randn(2, cfg.encoder.n_frames, cfg.frontend_dim, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab, (2, 16), device="cuda", generator=gen)
+    tag = dict(arch=cfg.name, model="encdec", policy="default")
+    b, s, t = 2, prompt.shape[1], cfg.encoder.n_frames
+    # the encoder's rows (its input projection, layers and the cross K / V),
+    # the decoder prefill's, a decode step's; the logits of one row a sequence
+    path = dispatched(cfg, (b * t, b * s, b), (b,), extra=((b * t, cfg.frontend_dim, cfg.d_model),))
+    with count_path(path, f"{cfg.name} encdec") as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_k, toks, _, step = encdec_run(cfg, params, frames, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit(dict(check="encdec_run", **tag, batch=2, frames=cfg.encoder.n_frames,
+              prompt=prompt.shape[1], new_tokens=ENCDEC_NEW, wall_s=wall,
+              tokens_per_s=2 * ENCDEC_NEW / wall, path=path, launches=dict(launches)))
+    wbytes = weight_bytes(params)
+    emit(dict(check="decode_step_time", **tag, batch=2, context=prompt.shape[1] + ENCDEC_NEW,
+              weight_bytes=wbytes, weight_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
+              **step_stats(step, top=8)))
+    check = LayerCheck()
+    with check.armed():
+        encdec_run(cfg, params, frames, prompt, forced=toks)
+    hold_layers(tag, check, ENCDEC_NEW + 1)
+    memory_k = encdec.encode(params, cfg, frames)
+    with plain_versions():
+        memory_p = encdec.encode(params, cfg, frames)
+        logits_p = encdec_run(cfg, params, frames, prompt, forced=toks)[0]
+    worst = hold_whole(tag, (("encode", memory_k, memory_p), ("prefill_and_steps", logits_k,
+                                                               logits_p)))
+    if worst > 1:
+        flipped = (frames.view(torch.int16) ^ 1).view(torch.bfloat16)
+        with plain_versions():
+            memory_f = encdec.encode(params, cfg, flipped)
+            logits_f = encdec_run(cfg, params, flipped, prompt, forced=toks)[0]
+        for name, k, p, f in (("encode", memory_k, memory_p, memory_f),
+                              ("prefill_and_steps", logits_k, logits_p, logits_f)):
+            scale = TOL_MODEL * float(p.abs().max())
+            emit(dict(check="flipped_bit_gap", name=name, **tag, kernels_over_tol=max_err(k, p)
+                      / scale, flipped_bit_over_tol=max_err(f, p) / scale))
+    del params
+    free_model()
+    return dict(launches)
+
+
+def lm_greedy_run(cfg, params, tokens, frontend_embeds, steps: int, forced=None):
+    """``lm.prefill`` of a batch (``frontend_embeds`` prepended) into rings
+    of ``steps`` slots past it, then ``steps`` greedy decode steps on the
+    dense caches (or steps on the ``forced`` tokens) -> (logits (b, steps
+    + 1, vocab), tokens fed, the last step for timing)."""
+    s = tokens.shape[1] + (0 if frontend_embeds is None else frontend_embeds.shape[1])
+    logits, caches = lm.prefill(params, cfg, tokens, frontend_embeds=frontend_embeds,
+                                cache_slots=s + steps)
+    rows, toks = [logits[:, -1]], []
+    for i in range(steps):
+        tok = rows[-1].argmax(-1) if forced is None else forced[:, i]
+        toks.append(tok)
+        logits, caches = lm.decode_step(params, cfg, caches, tok[:, None], s + i)
+        rows.append(logits[:, -1])
+    toks = torch.stack(toks, 1)
+
+    def step():
+        return lm.decode_step(params, cfg, caches, toks[:, -1:], s + steps - 1)[0]
+
+    return torch.stack(rows, 1), toks, step
+
+
+def check_pixtral(gen) -> dict[str, int]:
+    """pixtral-12b at full width and depth: ``lm.prefill`` over 256 seeded
+    patch embeddings of 1,024 (through ``frontend_proj``) and a 32-token
+    text prompt, batch 2, then 8 greedy decode steps on the dense caches —
+    timed and counted unchecked, then every layer held to the plain
+    versions (:class:`LayerCheck`), the logits of each step against a plain
+    run fed the same tokens (reported)."""
+    cfg = get_config("pixtral-12b")
+    params = build_model(lm, cfg, "family_model")
+    patches = torch.randn(2, 256, cfg.frontend_dim, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    text = torch.randint(0, cfg.vocab, (2, 32), device="cuda", generator=gen)
+    tag = dict(arch=cfg.name, kv="dense", policy="default", frontend_patches=256)
+    steps = 8
+    path = dispatched(cfg, (2 * (256 + 32), 2), (2,), extra=((2 * 256, cfg.frontend_dim,
+                                                               cfg.d_model),))
+    with count_path(path, f"{cfg.name} frontend") as launches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_k, toks, step = lm_greedy_run(cfg, params, text, patches, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit(dict(check="frontend_run", **tag, batch=2, prompt=256 + 32, new_tokens=steps,
+              wall_s=wall, path=path, launches=dict(launches)))
+    wbytes = weight_bytes(params)
+    emit(dict(check="decode_step_time", **tag, batch=2, context=256 + 32 + steps,
+              weight_bytes=wbytes, weight_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
+              **step_stats(step, top=8)))
+    check = LayerCheck()
+    with check.armed():
+        lm_greedy_run(cfg, params, text, patches, steps, forced=toks)
+    hold_layers(tag, check, steps + 1)
+    with plain_versions():
+        logits_p = lm_greedy_run(cfg, params, text, patches, steps, forced=toks)[0]
+    if hold_whole(tag, (("prefill_and_steps", logits_k, logits_p),)) > 1:
+        check_depth_gap(cfg, params)
+    del params
+    free_model()
+    return dict(launches)
+
+
+def check_dense_family(arch: str, policies, serve: bool) -> dict[str, int]:
+    """An arch at full width and depth on the dense path: the 45-token
+    prefill and batch-4 decode step per policy under :class:`LayerCheck`
+    with the whole-run comparison (:func:`check_dense_model`), the
+    depth-gap witness where a whole run leaves ``TOL_MODEL``, and with
+    ``serve`` the dense ``Server`` per policy against a plain run
+    (:func:`check_dense_serving`)."""
+    cfg = get_config(arch)
+    params = build_model(lm, cfg, "family_model")
+    if check_dense_model(cfg, params, policies) > 1:
+        check_depth_gap(cfg, params)
+    launches = check_dense_serving(cfg, params) if serve else {}
+    del params
+    free_model()
+    return launches
+
+
+def check_command_r(gen) -> dict[str, int]:
+    """command-r-35b at full width and depth (60.6 GB of bf16) on the paged
+    path, its 64 query heads over 8 KV heads (group 8, d 128): a bucketed
+    45-token prefill into pages and a batch-4 decode step on them (K1, K2),
+    and a prefix hit — a 28-token suffix prefilled over the pages of the
+    prompt's first 32 tokens (K3 at group 8: 224 rows a KV head) — with
+    every layer held to the plain versions (:class:`LayerCheck`) and the
+    whole runs against plain ones (reported); then the paged engine over
+    :func:`serving_requests` (8 prompts after a 32-token shared prefix:
+    prefix hits, suffix prefills on K3 at group 8, decode on K2)."""
+    cfg = get_config("command-r-35b")
+    params = build_model(lm, cfg, "family_model")
+    prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
+    step_tokens = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
+    suffix = torch.randint(0, cfg.vocab, (28,), device="cuda", generator=gen)
+    tag = dict(arch=cfg.name, kv="paged", policy="default", group=cfg.attn.n_heads
+               // cfg.attn.n_kv_heads)
+    pre_k, dec_k, stats = model_run(cfg, params, prompt, step_tokens, time_step=True)
+    wbytes = weight_bytes(params)
+    emit(dict(check="decode_step_time", **tag, batch=4, context=len(prompt) + 1,
+              weight_bytes=wbytes, weight_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
+              logits_bytes=params["embed"]["table"].numel() * 2, **stats))
+    suf_k = suffix_model_run(cfg, params, prompt[:32], suffix)
+    check = LayerCheck()
+    with check.armed():
+        model_run(cfg, params, prompt, step_tokens)
+        suffix_model_run(cfg, params, prompt[:32], suffix)
+    hold_layers(tag, check, 4)  # the prefill's, the decode step's, the suffix's
+    with plain_versions():
+        pre_p, dec_p = model_run(cfg, params, prompt, step_tokens)
+        suf_p = suffix_model_run(cfg, params, prompt[:32], suffix)
+    worst = hold_whole(tag, (("prefill", pre_k, pre_p), ("decode_step", dec_k, dec_p),
+                             ("suffix_prefill", suf_k, suf_p)))
+    del pre_k, dec_k, pre_p, dec_p, suf_k, suf_p
+    if worst > 1:
+        check_depth_gap(cfg, params)
+    paged = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+    launches = serve_path(f"{cfg.name} paged", PagedEngine(cfg, params, config=ServeConfig(),
+                                                           device="cuda"),
+                          serving_requests(cfg), paged)
+    # the serving run's last K2 and K3 launches, at group 8
+    emit(dict(check="paged_designs", arch=cfg.name, group=tag["group"],
+              decode=_paged_design(paged_attention_decode, torch.bfloat16),
+              prefill=_paged_design(paged_attention_prefill, torch.bfloat16)))
+    del params
+    free_model()
+    return launches
+
+
+def check_families(gen) -> dict[str, int]:
+    """Phase 8: the new projections' rows, then one model at a time, each
+    freed before the next is built: whisper-medium (encdec), pixtral-12b,
+    gemma2-9b (dense ``Server`` under default / mcast / unicast),
+    deepseek-7b (model check), command-r-35b (paged).  Returns each
+    kernel's launches summed over the phase's main-path runs."""
+    t0 = time.perf_counter()
+    for label, k, n, kw in FAMILY_ROWS:
+        for m in FAMILY_M:
+            check_projection_row(gen, label, m, k, n, kw, check="family_matmul", tc_sum=True)
+    for label, m, k, n, kw in FAMILY_WIDE_ROWS:
+        check_projection_row(gen, label, m, k, n, kw, check="family_matmul", tc_sum=True)
+    runs = [check_whisper(gen), check_pixtral(gen),
+            check_dense_family("gemma2-9b", (None, "mcast", "unicast"), serve=True),
+            check_dense_family("deepseek-7b", (None,), serve=False),
+            check_command_r(gen)]
+    emit(dict(check="phase", phase=8, seconds=time.perf_counter() - t0))
+    return {k: sum(r.get(k, 0) for r in runs) for k in kernels.KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -2998,10 +3521,13 @@ def main() -> None:
         flat = check_schedules(gen, m, k, n, logits=logits)
         for kname, rec in flat.items():
             summary.setdefault(kname, rec)  # the first shape: decode q/k/v
+    family_gen = torch.Generator(device="cuda").manual_seed(8)
     for label, kw in DECODE_ROWS:
-        summary.setdefault("paged_attention_decode", check_decode(gen, label=label, **kw))
+        g = family_gen if label in FAMILY_PAGED else gen
+        summary.setdefault("paged_attention_decode", check_decode(g, label=label, **kw))
     for label, kw in PREFILL_ROWS:
-        summary.setdefault("paged_attention_prefill", check_prefill(gen, label=label, **kw))
+        g = family_gen if label in FAMILY_PAGED else gen
+        summary.setdefault("paged_attention_prefill", check_prefill(g, label=label, **kw))
     grad_launches = check_gradients(gen, summary)
     scan_launches = check_scans(gen, summary)
 
@@ -3047,6 +3573,12 @@ def main() -> None:
     run, _ = check_recurrent(gen)
     serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     check_clean("phase 7")
+
+    # phase 8: whisper-medium, pixtral-12b, gemma2-9b, deepseek-7b and
+    # command-r-35b at full width and depth, one at a time
+    run = check_families(gen)
+    serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
+    check_clean("phase 8")
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
                 for k in kernels.KERNELS}
 

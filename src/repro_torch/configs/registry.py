@@ -1,12 +1,16 @@
 """Architecture registry of the port: ``get_config(arch_id)`` -> ModelConfig.
 
-The registry holds the architectures the port has been held against
-the JAX package on: the dense decoders qwen1.5-0.5b and qwen1.5-1.8b,
-the mixture-of-experts moonshot-v1-16b-a3b and
+The registry holds the JAX package's eleven architectures, in its order:
+the dense decoders qwen1.5-0.5b, qwen1.5-1.8b, deepseek-7b, command-r-35b
+(layernorm) and gemma2-9b (alternating local / global attention,
+softcaps, post-block norms), the vision-language pixtral-12b (projected
+patch embeddings prepended to the text), the audio model whisper-medium
+(``models/encdec.py``; through ``models/lm.py`` as the launcher serves it,
+with learned positions), the mixture-of-experts moonshot-v1-16b-a3b and
 llama4-maverick-400b-a17b, the SSD model mamba2-780m and the RG-LRU /
-local-attention hybrid recurrentgemma-2b (the last four dense ``Server``
-only: paged serving refuses MoE, recurrent mixers and local windows, as
-in the JAX package).
+local-attention hybrid recurrentgemma-2b.  Paged serving refuses MoE,
+recurrent mixers and local windows (gemma2, the MoE and recurrent archs
+take the dense ``Server`` only), as in the JAX package.
 
 Also the draft-pairing API of speculative decoding, as in the JAX
 package: a config module may export ``DRAFT = "<arch>"`` naming the
@@ -20,8 +24,19 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS: tuple[str, ...] = ("qwen1.5-0.5b", "qwen1.5-1.8b", "llama4-maverick-400b-a17b",
-                          "moonshot-v1-16b-a3b", "mamba2-780m", "recurrentgemma-2b")
+ARCHS: tuple[str, ...] = (
+    "recurrentgemma-2b",
+    "deepseek-7b",
+    "qwen1.5-0.5b",
+    "qwen1.5-1.8b",
+    "command-r-35b",
+    "gemma2-9b",
+    "whisper-medium",
+    "llama4-maverick-400b-a17b",
+    "moonshot-v1-16b-a3b",
+    "mamba2-780m",
+    "pixtral-12b",
+)
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

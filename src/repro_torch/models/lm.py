@@ -1,7 +1,9 @@
-"""Decoder-only LM, dense, MoE, SSM and hybrid families: the port of the
-JAX package's ``models/lm.py``.
+"""Decoder-only LM — dense, MoE, SSM, hybrid and vision-language
+families: the port of the JAX package's ``models/lm.py``.
 
-Parameters are a dict: ``embed``, ``layers`` (a list with one dict per
+Parameters are a dict: ``embed``, ``pos`` (learned absolute positions,
+where ``cfg.attn.learned_pos``), ``frontend_proj`` (the front end's
+projection, where ``cfg.frontend``), ``layers`` (a list with one dict per
 layer — the JAX package's stacked ``stage{i}/b{j}`` leaves, split, in
 the JAX order: stage by stage, repeat by repeat, block by block, which is
 ``cfg.layer_defs``) and ``final_norm``.  The JAX ``lax.scan`` over each
@@ -9,12 +11,14 @@ stage becomes a Python loop over its layers.  A layer's mixer is
 attention (global, or a local window), the Griffin RG-LRU block
 (``nn/rglru.py``) or the Mamba-2 SSD block (``nn/ssd.py``), as its
 ``BlockDef`` says; its feed-forward is the dense MLP, the MoE
-(``nn/moe.py``) or none.  The MoE's aux losses are summed in fp32 per
-stage, then over stages, as JAX's ``_run_stage`` does.  Caches are one
-entry per layer in the same order: a :class:`KvCache` ring of
-``min(window, cache_len)`` slots for attention (a local window's ring
-wraps), an ``RglruState`` / ``SsdState`` for the recurrent mixers.
-Entry points:
+(``nn/moe.py``) or none.  Norms are ``cfg.norm``'s (rmsnorm or
+layernorm); with ``cfg.post_block_norm`` (gemma2) the mixer's and the
+feed-forward's outputs are normed again before their residual adds.
+The MoE's aux losses are summed in fp32 per stage, then over stages, as
+JAX's ``_run_stage`` does.  Caches are one entry per layer in the same
+order: a :class:`KvCache` ring of ``min(window, cache_len)`` slots for
+attention (a local window's ring wraps), an ``RglruState`` /
+``SsdState`` for the recurrent mixers.  Entry points:
 
 * :func:`forward`     — full-sequence forward (no caches),
 * :func:`prefill`     — full-sequence forward that also returns the
@@ -30,13 +34,19 @@ Entry points:
 * :func:`decode_step` — one (or a few) tokens against dense caches or
   the page pools, bf16 or int8 (dispatch on the cache type).
 
-Configuration features not ported yet raise ``NotImplementedError``
-naming them (layernorm, learned positions, front ends, encoders,
-post-block norms).  The page pools refuse MoE, recurrent mixers and
-local windows with JAX's ``ValueError``: expert capacity scales with the
-padded call length, so the bucketed and suffix-only prefills of paged
-serving would route real tokens differently, and a recurrent state or a
-ring has no pages (serve these with the dense ``Server``).
+``forward`` and ``prefill`` take ``frontend_embeds`` (batch, n, frontend
+dim): projected by ``frontend_proj`` and prepended to the token
+embeddings, before the positions are added.  Learned positions are added
+as the JAX package adds them: rows ``0 .. s-1`` of the table for a call of
+``s`` tokens, whatever the tokens' absolute positions, so a decode step
+or a paged suffix prefill adds the rows of its own call (ROADMAP Queue 3
+entry 20).  An encoder-decoder config (whisper-medium) runs here as the
+JAX launcher serves it, its encoder unused; ``models/encdec.py`` runs it
+whole.  The page pools refuse MoE, recurrent mixers and local windows
+with JAX's ``ValueError``: expert capacity scales with the padded call
+length, so the bucketed and suffix-only prefills of paged serving would
+route real tokens differently, and a recurrent state or a ring has no
+pages (serve these with the dense ``Server``).
 """
 from __future__ import annotations
 
@@ -54,8 +64,13 @@ from repro_torch.nn import rglru as rglru_mod
 from repro_torch.nn import ssd as ssd_mod
 from repro_torch.nn.attention import KvCache, PagedKvCache
 from repro_torch.nn.module import (
+    dense,
+    dense_spec,
     embed,
     embed_spec,
+    layernorm,
+    layernorm_spec,
+    positional_embed_spec,
     rmsnorm,
     rmsnorm_spec,
     softcap,
@@ -65,30 +80,36 @@ from repro_torch.nn.spec import ParamSpec, init_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for configuration features the port
-    does not run yet."""
-    unsupported = {
-        "encoder": cfg.encoder is not None,
-        "frontend": bool(cfg.frontend),
-        "norm=" + cfg.norm: cfg.norm != "rmsnorm",
-        "post_block_norm": cfg.post_block_norm,
-        "learned_pos": cfg.attn is not None and cfg.attn.learned_pos,
-    }
+    """Raise ``ValueError`` for a block the JAX package cannot build
+    either: an unknown mixer or feed-forward, or one without its
+    sub-config."""
     need = {"attn": ("attn", cfg.attn), "ssd": ("ssm", cfg.ssm), "rglru": ("rglru", cfg.rglru)}
+    bad = []
     for i, bd in enumerate(cfg.layer_defs):
         field, sub = need.get(bd.mixer, (None, None))
-        unsupported[f"layer {i} mixer={bd.mixer}"] = field is None
-        unsupported[f"layer {i} mixer={bd.mixer} without cfg.{field}"] = (
-            field is not None and sub is None)
-        unsupported[f"layer {i} ff={bd.ff}"] = bd.ff not in ("mlp", "moe", "none")
-        unsupported[f"layer {i} ff=moe without cfg.moe"] = bd.ff == "moe" and cfg.moe is None
-    bad = [name for name, hit in unsupported.items() if hit]
+        if field is None:
+            bad.append(f"layer {i} mixer={bd.mixer}")
+        elif sub is None:
+            bad.append(f"layer {i} mixer={bd.mixer} without cfg.{field}")
+        if bd.ff not in ("mlp", "moe", "none"):
+            bad.append(f"layer {i} ff={bd.ff}")
+        elif bd.ff == "moe" and cfg.moe is None:
+            bad.append(f"layer {i} ff=moe without cfg.moe")
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoders of attention (global or local-window), "
-            f"RG-LRU and SSD blocks with dense, MoE or no feed-forwards only; "
-            f"unsupported: {', '.join(bad)} (post-block norms, encoders and front ends: "
-            f"ROADMAP Queue 1 item 5)")
+        raise ValueError(f"{cfg.name}: unsupported blocks: {', '.join(bad)}")
+
+
+def _norm_spec(cfg: ModelConfig):
+    return rmsnorm_spec(cfg.d_model) if cfg.norm == "rmsnorm" else layernorm_spec(cfg.d_model)
+
+
+def _norm(cfg: ModelConfig, params, x):
+    return rmsnorm(params, x) if cfg.norm == "rmsnorm" else layernorm(params, x)
+
+
+def _post(cfg: ModelConfig, p, name: str, y):
+    """``y`` normed by the layer's post-block norm ``name``, where it has one."""
+    return _norm(cfg, p[name], y) if name in p else y
 
 
 def mlp_spec(cfg: ModelConfig):
@@ -110,29 +131,35 @@ def mlp(params, x, cfg: ModelConfig):
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef):
-    spec: dict[str, Any] = {"norm1": rmsnorm_spec(cfg.d_model)}
+    spec: dict[str, Any] = {"norm1": _norm_spec(cfg)}
     if bd.mixer == "attn":
         spec["attn"] = attn_mod.attn_spec(cfg.d_model, cfg.attn)
     elif bd.mixer == "rglru":
         spec["rglru"] = rglru_mod.rglru_spec(cfg.d_model, cfg.rglru)
     else:
         spec["ssd"] = ssd_mod.ssd_spec(cfg.d_model, cfg.ssm)
+    if cfg.post_block_norm:
+        spec["norm1_post"] = _norm_spec(cfg)
     if bd.ff == "mlp":
-        spec["norm2"] = rmsnorm_spec(cfg.d_model)
+        spec["norm2"] = _norm_spec(cfg)
         spec["mlp"] = mlp_spec(cfg)
     elif bd.ff == "moe":
-        spec["norm2"] = rmsnorm_spec(cfg.d_model)
+        spec["norm2"] = _norm_spec(cfg)
         spec["moe"] = moe_mod.moe_spec(cfg.d_model, cfg.moe, glu=cfg.glu)
+    if bd.ff != "none" and cfg.post_block_norm:
+        spec["norm2_post"] = _norm_spec(cfg)
     return spec
 
 
 def model_spec(cfg: ModelConfig):
     check_supported(cfg)
-    spec: dict[str, Any] = {
-        "embed": embed_spec(cfg.vocab, cfg.d_model),
-        "layers": [block_spec(cfg, bd) for bd in cfg.layer_defs],
-        "final_norm": rmsnorm_spec(cfg.d_model),
-    }
+    spec: dict[str, Any] = {"embed": embed_spec(cfg.vocab, cfg.d_model)}
+    if cfg.attn is not None and cfg.attn.learned_pos:
+        spec["pos"] = positional_embed_spec(cfg.max_position, cfg.d_model)
+    if cfg.frontend:
+        spec["frontend_proj"] = dense_spec(cfg.frontend_dim, cfg.d_model)
+    spec["layers"] = [block_spec(cfg, bd) for bd in cfg.layer_defs]
+    spec["final_norm"] = _norm_spec(cfg)
     if not cfg.tie_embeddings:
         spec["unembed"] = {"w": ParamSpec((cfg.d_model, cfg.vocab))}
     return spec
@@ -234,10 +261,18 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
             for _ in range(cfg.n_layers)]
 
 
-def _embed_inputs(params, cfg: ModelConfig, tokens):
+def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+    """Token embeddings (scaled by sqrt(d) where ``cfg.embed_scale``), the
+    projected front-end embeddings prepended, then rows ``0 .. s-1`` of the
+    position table added, whatever positions the call's tokens hold."""
     x = embed(params["embed"], tokens)
     if cfg.embed_scale:
         x = (x.float() * float(cfg.d_model) ** 0.5).to(x.dtype)
+    if frontend_embeds is not None:
+        fe = dense(params["frontend_proj"], frontend_embeds).to(x.dtype)
+        x = torch.cat([fe, x], dim=1)
+    if cfg.attn is not None and cfg.attn.learned_pos:
+        x = x + params["pos"]["table"][:x.shape[1]][None].to(x.dtype)
     return x
 
 
@@ -259,11 +294,11 @@ def _ff_half(p, cfg, x):
     loss or None)."""
     if "norm2" not in p:  # ff="none"
         return x, None
-    h = rmsnorm(p["norm2"], x)
+    h = _norm(cfg, p["norm2"], x)
     if "moe" in p:
         f, aux = moe_mod.moe(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu)
-        return x + f, aux
-    return x + mlp(p["mlp"], h, cfg), None
+        return x + _post(cfg, p, "norm2_post", f), aux
+    return x + _post(cfg, p, "norm2_post", mlp(p["mlp"], h, cfg)), None
 
 
 def _kv_from_full(k, v, bd: BlockDef, cache_slots: int | None) -> KvCache:
@@ -312,25 +347,28 @@ def _stage_ends(cfg: ModelConfig) -> set[int]:
     return ends
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """(batch, seq) tokens -> ((batch, seq, vocab) fp32 logits, fp32 aux
-    loss): the MoE layers' aux losses summed within each stage, then the
-    stages' sums, in JAX's order (0 without MoE)."""
-    x = _embed_inputs(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend_embeds: torch.Tensor | None = None):
+    """(batch, seq) tokens -> ((batch, [n +] seq, vocab) fp32 logits, fp32
+    aux loss): the MoE layers' aux losses summed within each stage, then
+    the stages' sums, in JAX's order (0 without MoE).  ``frontend_embeds``
+    (batch, n, frontend dim) are projected and prepended."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_total, aux_stage = zero, zero
     ends = _stage_ends(cfg)
     for i, (p, bd) in enumerate(zip(params["layers"], cfg.layer_defs)):
-        m, _ = _mixer(p, bd, cfg, rmsnorm(p["norm1"], x))
-        x, aux = _ff_half(p, cfg, x + m)
+        m, _ = _mixer(p, bd, cfg, _norm(cfg, p["norm1"], x))
+        x, aux = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m))
         aux_stage = aux_stage + (zero if aux is None else aux)
         if i in ends:
             aux_total, aux_stage = aux_total + aux_stage, zero
-    x = rmsnorm(params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x), aux_total
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend_embeds: torch.Tensor | None = None,
             cache_slots: int | None = None, logit_index=None):
     """Forward over the prompt -> (logits (b, 1, vocab), per-layer caches:
     :class:`KvCache` rings, recurrent states).  ``cache_slots`` sizes the
@@ -338,16 +376,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``min(window, max(cache_slots, s))`` slots, keeping the last
     positions where the prompt is longer); ``logit_index`` (scalar or
     (b,)) picks the position whose logits are returned instead of the
-    last — right-padded bucketed prompts read their true last token."""
+    last — right-padded bucketed prompts read their true last token.
+    ``frontend_embeds`` (batch, n, frontend dim) are projected and
+    prepended: the caches then hold ``n + seq`` positions."""
     b = tokens.shape[0]
-    x = _embed_inputs(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     caches = []
     for p, bd in zip(params["layers"], cfg.layer_defs):
-        m, cache = _mixer(p, bd, cfg, rmsnorm(p["norm1"], x), cache_slots=cache_slots,
+        m, cache = _mixer(p, bd, cfg, _norm(cfg, p["norm1"], x), cache_slots=cache_slots,
                           want_cache=True)
         caches.append(cache)
-        x, _ = _ff_half(p, cfg, x + m)
-    x = rmsnorm(params["final_norm"], x)
+        x, _ = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m))
+    x = _norm(cfg, params["final_norm"], x)
     if logit_index is None:
         sel = x[:, -1:, :]
     else:
@@ -403,7 +443,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *
     x = _embed_inputs(params, cfg, tokens)
     new_caches = []
     for p, bd, cache in zip(params["layers"], cfg.layer_defs, caches):
-        h = rmsnorm(p["norm1"], x)
+        h = _norm(cfg, p["norm1"], x)
         if bd.mixer == "rglru":
             m, cache = rglru_mod.rglru_step(p["rglru"], h, cache, cfg.rglru)
         elif bd.mixer == "ssd":
@@ -420,6 +460,6 @@ def decode_step(params, cfg: ModelConfig, caches, tokens: torch.Tensor, index, *
                          else attn_mod.decode_attention)
             m, _ = decode_fn(p["attn"], h, cache, cfg.attn, index=index, window=bd.window)
         new_caches.append(cache)
-        x, _ = _ff_half(p, cfg, x + m)
-    x = rmsnorm(params["final_norm"], x)
+        x, _ = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m))
+    x = _norm(cfg, params["final_norm"], x)
     return _logits(params, cfg, x), new_caches

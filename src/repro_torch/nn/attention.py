@@ -1,8 +1,9 @@
 """Grouped-query attention with RoPE and QKV bias over dense or paged KV.
 
-The port of the JAX package's ``nn/attention.py`` for the paths the
-serving stacks run: full-sequence attention (prefill, through
-:func:`memeff_attention`), decode against a dense ring-buffer cache
+The port of the JAX package's ``nn/attention.py``: full-sequence
+attention (prefill, through :func:`memeff_attention`; causal, or
+bidirectional for an encoder), encoder-decoder cross attention
+(:func:`cross_attention`, no RoPE), decode against a dense ring-buffer cache
 (:func:`decode_attention`, the dense ``Server``) and decode / suffix
 prefill against a page pool (:func:`paged_decode_attention`, through
 the paged-attention kernels).  Local windows (a key is visible while
@@ -109,12 +110,19 @@ def paged_write(pages: torch.Tensor, values: torch.Tensor, page_ids, rows) -> No
     pages[:, page_ids, rows] = values.permute(2, 0, 1, 3).to(pages.dtype)
 
 
-def _qkv(params, x, cfg: AttnConfig, positions):
+def proj_heads(x, params, name: str, heads: int, head_dim: int):
+    """Headed projection ``w{name}`` (with its bias ``b{name}``, if any):
+    (b, s, d) -> (b, s, heads, head_dim)."""
     b, s, _ = x.shape
+    w, bias = params["w" + name], params.get("b" + name)
+    return kernels.linear(x, w, bias=bias).reshape(b, s, heads, head_dim)
+
+
+def _qkv(params, x, cfg: AttnConfig, positions):
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = kernels.linear(x, params["wq"], bias=params.get("bq")).reshape(b, s, h, hd)
-    k = kernels.linear(x, params["wk"], bias=params.get("bk")).reshape(b, s, kv, hd)
-    v = kernels.linear(x, params["wv"], bias=params.get("bv")).reshape(b, s, kv, hd)
+    q = proj_heads(x, params, "q", h, hd)
+    k = proj_heads(x, params, "k", kv, hd)
+    v = proj_heads(x, params, "v", kv, hd)
     if cfg.rope:
         q = rope(q, positions, theta=cfg.rope_theta)
         k = rope(k, positions, theta=cfg.rope_theta)
@@ -149,18 +157,35 @@ def _proj_out(params, o, cfg: AttnConfig):
                           bias=params.get("bo"))
 
 
-def attention(params, x, cfg: AttnConfig, *, positions=None, window: int | None = None):
-    """Causal self-attention over a full sequence (``window``: a local
-    window, banded where it is narrower than the sequence); x (b, seq,
-    d_model).  Returns ``(out, (k, v))`` — the keys and values, for the
-    prefill cache."""
+def attention(params, x, cfg: AttnConfig, *, positions=None, window: int | None = None,
+              causal: bool = True):
+    """Self-attention over a full sequence, causal (a decoder) or not (an
+    encoder); ``window``: a local window, banded where it is narrower than
+    the sequence.  x (b, seq, d_model).  Returns ``(out, (k, v))`` — the
+    keys and values, for the prefill cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, x, cfg, positions)
     pos = positions.expand(b, s).to(torch.int32)
-    o = memeff_attention(q, k, v, pos, pos, causal=True, window=window,
+    o = memeff_attention(q, k, v, pos, pos, causal=causal, window=window,
                          softcap=cfg.logit_softcap)
+    return _proj_out(params, o, cfg), (k, v)
+
+
+def cross_attention(params, x, kv_input, cfg: AttnConfig):
+    """Encoder-decoder cross attention (no RoPE on either side, every key
+    visible): queries from ``x`` (b, s, d), keys and values from
+    ``kv_input`` (b, t, d).  Returns ``(out, (k, v))`` — the keys and
+    values, for the decode cache."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = proj_heads(x, params, "q", h, hd)
+    k = proj_heads(kv_input, params, "k", kv, hd)
+    v = proj_heads(kv_input, params, "v", kv, hd)
+    b, s, t = x.shape[0], x.shape[1], kv_input.shape[1]
+    qp = torch.arange(s, device=x.device, dtype=torch.int32).expand(b, s)
+    kp = torch.arange(t, device=x.device, dtype=torch.int32).expand(b, t)
+    o = memeff_attention(q, k, v, qp, kp, causal=False, softcap=cfg.logit_softcap)
     return _proj_out(params, o, cfg), (k, v)
 
 

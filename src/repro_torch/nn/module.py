@@ -1,4 +1,4 @@
-"""Basic layers: dense, rmsnorm, embeddings, rotary embeddings, softcap.
+"""Basic layers: dense, norms, embeddings, rotary embeddings, softcap.
 
 Plain functions over parameter dicts, mirroring the JAX package's
 ``nn/module.py``.  Compute dtype is bf16; norms and rope run in fp32.
@@ -12,6 +12,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import api
 from repro_torch.nn.spec import ParamSpec
+
+
+def dense_spec(d_in: int, d_out: int):
+    return {"w": ParamSpec((d_in, d_out))}
 
 
 def dense(params, x, *, activation: str | None = None):
@@ -30,6 +34,21 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def layernorm_spec(d: int):
+    return {"scale": ParamSpec((d,), dtype=torch.float32, init="ones"),
+            "bias": ParamSpec((d,), dtype=torch.float32, init="zeros")}
+
+
+def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and population variance in fp32 (``jnp.var``'s form: the mean
+    of the squared deviations), one rounding to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(x.dtype)
+
+
 def embed_spec(vocab: int, d: int):
     return {"table": ParamSpec((vocab, d), init="normal", scale=0.02)}
 
@@ -44,6 +63,12 @@ def unembed(params, x: torch.Tensor) -> torch.Tensor:
     ``x.float() @ table.T.float()`` without materialising the fp32
     transposed table."""
     return kernels.linear(x.float(), params["table"].t())
+
+
+def positional_embed_spec(max_len: int, d: int):
+    """A learned position table, ``{"table": (max_len, d)}``: the leaf that
+    ``lm``'s and the encoder-decoder's ``pos`` keys hold."""
+    return {"table": ParamSpec((max_len, d), init="normal", scale=0.02)}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:

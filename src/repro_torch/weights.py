@@ -1,8 +1,10 @@
-"""Convert a JAX parameter tree (dense, MoE, SSM or hybrid family) into the port's layout.
+"""Convert a JAX parameter tree into the port's layout: every family of
+``models/lm.py`` (:func:`from_jax_params`) and the encoder-decoder of
+``models/encdec.py`` (:func:`from_jax_encdec_params`).
 
-:func:`from_jax_params` takes the tree as nested dicts of numpy arrays
-(``jax.device_get`` of ``repro.models.lm.init``'s output, or arrays
-loaded from a checkpoint) and imports no JAX:
+Both take the tree as nested dicts of numpy arrays (``jax.device_get`` of
+the JAX package's ``init`` output, or arrays loaded from a checkpoint)
+and import no JAX:
 
 * bf16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``) cross into
   torch through a ``uint16`` view, since ``torch.from_numpy`` rejects
@@ -16,7 +18,12 @@ loaded from a checkpoint) and imports no JAX:
   its dtype (the fp32 ``a_log``, ``dt_bias``, ``d_skip`` and ``lam``);
 * headed projections become 2-D: ``wq``/``wk``/``wv`` (d, heads,
   head_dim) -> (d, heads*head_dim), ``wo`` (heads, head_dim, d) ->
-  (heads*head_dim, d), biases (heads, head_dim) -> (heads*head_dim,).
+  (heads*head_dim, d), biases (heads, head_dim) -> (heads*head_dim,);
+* the leaves outside the stacks (``embed``, ``pos``, ``frontend_proj``,
+  ``final_norm`` with layernorm's ``bias``, ``unembed``) keep their
+  nesting; the encoder-decoder's ``encoder.stage`` and ``decoder.stage``
+  stacks become the per-layer lists ``encoder.layers`` and
+  ``decoder.layers`` (``self_attn`` and ``cross_attn`` made 2-D as above).
 """
 from __future__ import annotations
 
@@ -53,20 +60,36 @@ def _layer(tree: dict, i: int, device) -> dict:
     return out
 
 
+def _tree(tree: dict, device) -> dict:
+    return {k: _tree(v, device) if isinstance(v, dict) else to_torch(v, device)
+            for k, v in tree.items()}
+
+
+def _repeats(block: dict) -> int:
+    return len(next(iter(block["norm1"].values())))
+
+
 def from_jax_params(tree: dict, *, device: str | torch.device = DEFAULT) -> dict:
-    """JAX parameter tree (numpy leaves) -> the port's dict."""
+    """JAX ``models/lm.py`` parameter tree (numpy leaves) -> the port's dict."""
     dev = resolve(device)
     layers = []
     for i in range(sum(k.startswith("stage") for k in tree)):
         stage = tree[f"stage{i}"]
         blocks = [stage[f"b{j}"] for j in range(len(stage))]
-        repeats = len(next(iter(blocks[0]["norm1"].values())))
-        layers += [_layer(block, r, dev) for r in range(repeats) for block in blocks]
-    out = {
-        "embed": {"table": to_torch(tree["embed"]["table"], dev)},
-        "layers": layers,
-        "final_norm": {"scale": to_torch(tree["final_norm"]["scale"], dev)},
-    }
-    if "unembed" in tree:
-        out["unembed"] = {"w": to_torch(tree["unembed"]["w"], dev)}
+        layers += [_layer(block, r, dev) for r in range(_repeats(blocks[0])) for block in blocks]
+    out = {k: _tree(v, dev) for k, v in tree.items() if not k.startswith("stage")}
+    out["layers"] = layers
+    return out
+
+
+def from_jax_encdec_params(tree: dict, *, device: str | torch.device = DEFAULT) -> dict:
+    """JAX ``models/encdec.py`` parameter tree (numpy leaves) -> the port's
+    dict."""
+    dev = resolve(device)
+    out = {}
+    for side in ("encoder", "decoder"):
+        part = tree[side]
+        out[side] = {k: _tree(v, dev) for k, v in part.items() if k != "stage"}
+        out[side]["layers"] = [_layer(part["stage"], r, dev)
+                               for r in range(_repeats(part["stage"]))]
     return out

@@ -14,8 +14,8 @@ engines or servers, and let them share their jitted steps
 (:func:`_share_jits`).
 
     python tests/_torch_jax_ref.py \
-        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve|recurrent} \
-        OUT.npz
+        {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve|
+         recurrent|families|famserve|encdec} OUT.npz
 """
 from __future__ import annotations
 
@@ -606,6 +606,201 @@ def _recurrent(out: dict) -> None:
     out["serve_json"] = np.asarray(json.dumps({"runs": runs, "errors": errors}))
 
 
+#: the families of the last model slice, held against JAX at their reduced
+#: configs through ``models/lm.py`` (whisper-medium as the JAX launcher
+#: serves it; ``models/encdec.py`` runs it whole, mode ``encdec``)
+FAMILY_ARCHS = ("gemma2-9b", "command-r-35b", "deepseek-7b", "pixtral-12b", "whisper-medium")
+#: the archs the JAX launcher serves on ``--kv paged`` (gemma2's local
+#: windows are refused)
+PAGED_FAMILY_ARCHS = ("command-r-35b", "deepseek-7b", "pixtral-12b", "whisper-medium")
+#: the family archs whose launcher runs each mode makes (two modes, so
+#: that each test file's child stays short)
+FAMILY_SERVED = {"families": ("pixtral-12b", "whisper-medium"),
+                 "famserve": ("gemma2-9b", "command-r-35b", "deepseek-7b")}
+
+
+def family_case():
+    """Token arrays and front-end embeddings of the family logits
+    references (shared with the test)."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(17)
+    return {
+        "dense": rng.integers(0, 512, size=(2, 24)).astype(np.int32),
+        "prompt": rng.integers(0, 512, size=(2, 13)).astype(np.int32),
+        "steps": rng.integers(0, 512, size=(2, 4)).astype(np.int32),
+        "patches": rng.standard_normal((2, 6, 32)).astype(ml_dtypes.bfloat16),
+    }
+
+
+def family_launch_args(arch: str) -> list[str]:
+    """The launcher run of a reduced family arch: six requests after a
+    24-token shared prefix (bucketed prefills, prefix hits on ``--kv
+    paged``); gemma2 without the prefix, since JAX's banded attention
+    raises on its window-16 layers for prompts of 33-48 tokens (its band,
+    128 keys, outgrows the 64 padded keys: ROADMAP Queue 3 entry 21)."""
+    prefix = [] if arch == "gemma2-9b" else ["--shared-prefix", "24"]
+    return ["--arch", arch, "--reduced", "--requests", "6", "--max-new", "8", "--seed",
+            str(SEED), *prefix]
+
+
+def _family_logits(arch: str, params, cfg, case, out: dict, rows0=None) -> None:
+    """``forward``, a prefill and 4 decode steps, each jitted once; with
+    ``rows0`` (params) the decode steps run again on those params from the
+    same prefill caches (``{arch}/decode_rows0_{i}``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import lm
+
+    fe = jnp.asarray(case["patches"]) if cfg.frontend == "vision" else None
+    n = 0 if fe is None else fe.shape[1]
+    forward = jax.jit(lambda p, t, f: lm.forward(p, cfg, t, frontend_embeds=f)[0])
+    prefill = jax.jit(lambda p, t, f, li: lm.prefill(p, cfg, t, frontend_embeds=f,
+                                                     cache_slots=32, logit_index=li))
+    step = jax.jit(lambda p, c, t, i: lm.decode_step(p, cfg, c, t, i))
+    out[f"{arch}/forward"] = np.asarray(forward(params, jnp.asarray(case["dense"]), fe))
+    logits, prefilled = prefill(params, jnp.asarray(case["prompt"]), fe,
+                                jnp.asarray([n + 12, n + 7]))
+    out[f"{arch}/prefill"] = np.asarray(logits)
+    for name, p in (("decode", params), ("decode_rows0_", rows0)):
+        caches = prefilled
+        for i in range(case["steps"].shape[1] if p is not None else 0):
+            logits, caches = step(p, caches, jnp.asarray(case["steps"][:, i:i + 1]),
+                                  jnp.int32(n + 13 + i))
+            out[f"{arch}/{name}{i}"] = np.asarray(logits)
+
+
+def _family_launches(mode: str) -> dict[str, str]:
+    """The JAX launcher on the family archs of ``FAMILY_SERVED[mode]``:
+    the dense ``Server`` under every ``DENSE_POLICIES`` entry, and the
+    paged engine (default policy) where JAX serves it."""
+    runs = {}
+    for arch in FAMILY_SERVED[mode]:
+        for policy in DENSE_POLICIES:
+            runs[f"{arch} dense {policy}"] = _launch([*family_launch_args(arch), "--kv", "dense",
+                                                      "--kernel-policy", policy])
+        if arch in PAGED_FAMILY_ARCHS:
+            runs[f"{arch} paged"] = _launch([*family_launch_args(arch), "--kv", "paged",
+                                             "--kernel-policy", "backend=pallas"])
+    return runs
+
+
+def _families(out: dict) -> None:
+    """Per family arch: ``forward``'s logits (pixtral's over its projected
+    patches and the tokens), a prefill's logits at given rows into 32-slot
+    caches, then 4 one-token decode steps.  For whisper-medium also the
+    same decode steps with every position row but row 0 zeroed
+    (``decode_rows0_{i}``): a step adds row 0, whatever its index.  Then
+    the launcher runs of ``FAMILY_SERVED["families"]``."""
+    import jax.numpy as jnp
+
+    from repro import kernels
+
+    case = family_case()
+    with kernels.use_policy("backend=pallas"):
+        for arch in FAMILY_ARCHS:
+            cfg, params = _setup(arch)
+            rows0 = None
+            if cfg.attn.learned_pos:
+                table = params["pos"]["table"]
+                rows0 = dict(params, pos={"table": jnp.zeros_like(table).at[0].set(table[0])})
+            _family_logits(arch, params, cfg, case, out, rows0)
+            out[f"{arch}/params_checksum"] = np.asarray(params_checksum(params))
+    out["serve_json"] = np.asarray(json.dumps({"runs": _family_launches("families")}))
+
+
+def _famserve(out: dict) -> None:
+    """The launcher runs of ``FAMILY_SERVED["famserve"]``, and the errors
+    of ``--kv paged`` under ``mcast`` / ``unicast`` (command-r) and for
+    gemma2's windows."""
+    errors = {}
+    for policy in ("mcast", "unicast"):
+        errors[f"command-r-35b paged {policy}"] = _launch_error(
+            [*family_launch_args("command-r-35b"), "--kv", "paged", "--kernel-policy", policy])
+    errors["gemma2-9b paged"] = _launch_error([*family_launch_args("gemma2-9b"), "--kv", "paged"])
+    out["serve_json"] = np.asarray(json.dumps({"runs": _family_launches("famserve"),
+                                               "errors": errors}))
+
+
+#: whisper-medium through ``models/encdec.py`` (mode ``encdec``): the
+#: reduced config's 24 frames of 32 dims, a 7-token prompt, ragged decode
+ENCDEC_ARCH = "whisper-medium"
+
+
+def encdec_case():
+    """Frames and tokens of the encoder-decoder references (shared with the test)."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(19)
+    return {
+        "frames": rng.standard_normal((2, 24, 32)).astype(ml_dtypes.bfloat16),
+        "tokens": rng.integers(0, 512, size=(2, 7)).astype(np.int32),
+        "steps": rng.integers(0, 512, size=(2, 4)).astype(np.int32),
+        "index": np.asarray([7, 4], np.int32),  # ragged: row 1's prompt ends at 4
+    }
+
+
+def encdec_greedy(mod, params, cfg, case, n: int, asarray):
+    """Greedy decoding of ``n`` tokens after the prompt, batch 2, one
+    position per row (``case["index"]``): the stream the encdec tests
+    hold equal across the two packages."""
+    logits, caches = mod.prefill(params, cfg, asarray(case["tokens"]), asarray(case["frames"]),
+                                 cache_slots=16)
+    index = case["index"].copy()
+    toks = [np.asarray(logits[:, -1]).argmax(-1).astype(np.int32)]
+    for _ in range(n - 1):
+        logits, caches = mod.decode_step(params, cfg, caches, asarray(toks[-1][:, None]),
+                                         asarray(index))
+        toks.append(np.asarray(logits[:, -1]).argmax(-1).astype(np.int32))
+        index = index + 1
+    return np.stack(toks, axis=1)
+
+
+def flip_last_bit(a: np.ndarray) -> np.ndarray:
+    """A bf16 array with the last bit of every element flipped (one ulp)."""
+    return (np.asarray(a).view(np.uint16) ^ 1).view(a.dtype)
+
+
+def _encdec(out: dict) -> None:
+    """whisper-medium (reduced) through ``models/encdec.py``: ``encode``,
+    ``forward`` and a prefill into 16-slot rings, each also on the frames
+    with their last bit flipped (``*_flipped``: how far one ulp at the
+    input moves JAX itself); the prefill's caches (``cache_*``), then 4
+    decode steps from them at a ragged (batch,) index; an 8-token greedy
+    stream."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import kernels
+    from repro.configs import get_config
+    from repro.models import encdec
+
+    cfg = get_config(ENCDEC_ARCH, reduced=True)
+    params = encdec.init(cfg, jax.random.PRNGKey(SEED))
+    case = encdec_case()
+    tokens = jnp.asarray(case["tokens"])
+    with kernels.use_policy("backend=pallas"):
+        # the plain frames last: their prefill's caches feed the decode steps
+        for tag, frames in (("_flipped", flip_last_bit(case["frames"])), ("", case["frames"])):
+            frames = jnp.asarray(frames)
+            out[f"encode{tag}"] = np.asarray(encdec.encode(params, cfg, frames), np.float32)
+            out[f"forward{tag}"] = np.asarray(encdec.forward(params, cfg, tokens, frames)[0])
+            logits, caches = encdec.prefill(params, cfg, tokens, frames, cache_slots=16)
+            out[f"prefill{tag}"] = np.asarray(logits)
+        for name in ("k", "v", "pos"):
+            out[f"cache_self_{name}"] = np.asarray(getattr(caches["self"], name), np.float32)
+        for name in ("k", "v"):
+            out[f"cache_cross_{name}"] = np.asarray(getattr(caches["cross"], name), np.float32)
+        for i in range(case["steps"].shape[1]):
+            logits, caches = encdec.decode_step(params, cfg, caches,
+                                                jnp.asarray(case["steps"][:, i:i + 1]),
+                                                jnp.asarray(case["index"] + i))
+            out[f"decode{i}"] = np.asarray(logits)
+        out["greedy"] = encdec_greedy(encdec, params, cfg, case, 8, jnp.asarray)
+    out["params_checksum"] = np.asarray(params_checksum(params))
+
+
 def _launch_error(args: list[str]) -> list[str]:
     """How one ``python -m repro.launch.serve ARGS`` run fails, in process:
     [exception type, its message, the last line of stderr]."""
@@ -645,12 +840,13 @@ MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5
 
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    if mode in ("serve", "refserve", "chaos", "loop", "recurrent"):
+    if mode in ("serve", "refserve", "chaos", "loop", "recurrent", "families", "famserve"):
         _share_jits()
     {"model": _model, "serve": _serve, "dense": _dense, "quant": _quant,
      "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,
      "chaos": _chaos, "loop": _loop, "moe": _moe, "moeserve": _moeserve,
-     "recurrent": _recurrent}[mode](out)
+     "recurrent": _recurrent, "families": _families, "famserve": _famserve,
+     "encdec": _encdec}[mode](out)
     if mode in MODE_ARCH:
         _, params = _setup(MODE_ARCH[mode])
         out["params_checksum"] = np.asarray(params_checksum(params))

@@ -285,6 +285,59 @@ def test_mcast_designs_by_rule_match_plain(cuda_device, case):
         close(got.cpu(), want)
 
 
+# (m, k, n, form, activation) at the projections of the last model
+# families: gemma2-9b's q, k / v, o, GLU gate (gelu_tanh) and down and tied
+# logits; command-r-35b's q / o, k / v, GLU gate (silu), down and tied
+# logits; pixtral-12b's front end (also over two images' 512 patches) and
+# untied head; whisper-medium's MLP in (gelu), its tied logits (N 51,865,
+# odd) and its encoder input over two 1,500-frame clips
+FAMILY_CASES = [
+    (4, 3584, 4096, "bf16", "none"), (4, 3584, 2048, "bf16", "none"),
+    (45, 4096, 3584, "bf16", "none"), (4, 3584, 14336, "bf16", "gelu_tanh"),
+    (45, 14336, 3584, "bf16", "none"), (4, 3584, 256000, "logits", "none"),
+    (4, 8192, 8192, "bf16", "none"), (45, 8192, 1024, "bf16", "none"),
+    (4, 8192, 22528, "bf16", "silu"), (4, 22528, 8192, "bf16", "none"),
+    (4, 8192, 256000, "logits", "none"), (4, 1024, 5120, "bf16", "none"),
+    (512, 1024, 5120, "bf16", "none"), (4, 5120, 131072, "untied", "none"),
+    (45, 1024, 4096, "bf16", "gelu"), (4, 1024, 51865, "logits", "none"),
+    (45, 1024, 51865, "logits", "none"), (3000, 1024, 1024, "bf16", "none"),
+]
+
+
+@pytest.mark.parametrize("case", FAMILY_CASES, ids=str)
+def test_family_projections_match_plain(cuda_device, case):
+    """K1 (with the activation fused), K4 and K5 at each shape, each on
+    its tensor-core design, against its plain version: bf16 outputs within
+    2e-2, the fp32 logits (fp32 activations x the bf16 table read
+    transposed, or ``unembed.w`` read row-major) within 1e-4 plus what the
+    tensor cores' fp32 accumulation may drop over k (chip_smoke's
+    ``tc_sum_allowance``: one ulp of the running sum on each of the
+    3 * ceil(k / 16) steps)."""
+    m, k, n, form, activation = case
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    a, b = _schedule_operands(gen, m, k, n, "bf16" if form == "untied" else form)
+    if form == "untied":
+        a = _rand(gen, m, k, dtype=torch.float32, scale=4.0)
+        b = _rand(gen, k, n, scale=0.02)
+    design = ("wgmma-swapab-3xbf16" if a.dtype == torch.float32
+              else "wgmma-swapab" if m <= 64 else None)
+    for fn, plain, kw in ((matmul_tiled, matmul_tiled_plain, dict(activation=activation)),
+                          (matmul_mcast, matmul_mcast_plain, {}),
+                          (matmul_unicast, matmul_unicast_plain, {})):
+        got = fn(a, b, **kw)
+        torch.cuda.synchronize()
+        want = design or ("wgmma-cluster" if fn is matmul_mcast else "wgmma")
+        assert fn.design == want, fn.__name__
+        assert got.dtype == a.dtype and got.shape == (m, n)
+        ref = plain(a, b, **kw).float().cpu()
+        if got.dtype == torch.float32:
+            allow = 1e-4 * (1 + ref.abs()) + 3 * -(-k // 16) * 2.0 ** -23 * (
+                ref.abs() + ref.square().mean(dim=-1, keepdim=True).sqrt())
+            assert bool(((got.cpu() - ref).abs() <= allow).all()), fn.__name__
+        else:
+            close(got.cpu(), ref)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=str)
 @pytest.mark.parametrize("m", [4, 300])
 def test_tiled_out_dtype_and_no_bias(cuda_device, out_dtype, m):
@@ -486,6 +539,34 @@ def test_paged_kernels_match_plain(cuda_device, kvh, d):
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all()
         close(got.cpu(), want.float().cpu())
+
+
+# the attention of the last model families on the paged path: command-r-35b
+# (64 heads over 8 KV heads of 128: group 8) and pixtral-12b (32 over 8)
+@pytest.mark.parametrize("h,kvh", [(64, 8), (32, 8)], ids=["group8", "group4"])
+def test_paged_kernels_match_plain_at_wide_groups(cuda_device, h, kvh):
+    """K2 (``split-kv``) and K3 (``wgmma``) at d 128, bf16 pools, each
+    against its plain version: decode tokens at contexts 1-300, and suffix
+    prefills of 1, 5 and 28 tokens (28 x 8 = 224 query rows of a KV head
+    at group 8)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(h)
+    b, ps, d, n = 4, 16, 128, 19
+    kp, vp, table, lengths = _paged_case(cuda_device, gen, b=b, kvh=kvh, ps=ps, d=d, n=n,
+                                         lengths=(40, 300, 129, 1))
+    q = _rand(gen, b, h, d)
+    got = paged_attention_decode(q, kp, vp, table, lengths - 1, lengths)
+    torch.cuda.synchronize()
+    assert paged_attention_decode.design == "split-kv"
+    close(got.cpu(), paged_attention_decode_plain(q, kp, vp, table, lengths - 1,
+                                                  lengths).float().cpu())
+    for s in (1, 5, 28):
+        qs = _rand(gen, b, s, h, d)
+        start = torch.clamp(lengths - s, min=0)
+        got = paged_attention_prefill(qs, kp, vp, table, start, lengths)
+        torch.cuda.synchronize()
+        assert paged_attention_prefill.design == "wgmma"
+        close(got.cpu(), paged_attention_prefill_plain(qs, kp, vp, table, start,
+                                                       lengths).float().cpu())
 
 
 def test_prefill_kernel_int8_pools(cuda_device):

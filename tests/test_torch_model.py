@@ -159,8 +159,13 @@ def test_unsupported_config_features_raise():
     import dataclasses
 
     cfg = get_config("qwen1.5-0.5b", reduced=True)
-    with pytest.raises(NotImplementedError, match="post_block_norm"):
-        lm.model_spec(dataclasses.replace(cfg, post_block_norm=True))
+    # post-block norms are ported (tests/test_torch_families.py); a block
+    # the JAX package cannot build either is refused by name
+    spec = lm.model_spec(dataclasses.replace(cfg, post_block_norm=True))
+    assert {"norm1_post", "norm2_post"} <= set(spec["layers"][0])
+    with pytest.raises(ValueError, match="mixer=conv"):
+        lm.model_spec(dataclasses.replace(cfg, stages=(((dataclasses.replace(
+            cfg.stages[0][0][0], mixer="conv"),), cfg.n_layers),)))
     # int8 and f32 pools are ported (tests/test_torch_kvquant.py); a
     # kv_dtype no ServeConfig accepts is refused by name
     with pytest.raises(ValueError, match="kv_dtype"):

@@ -524,8 +524,8 @@ def test_paged_serving_refuses_moe_as_jax_does(moonshot, served):
 
 def test_dense_caches_admit_moe(moonshot):
     """MoE blocks take dense caches; a block without a feed-forward is
-    ported too (mamba2's, ``tests/test_torch_recurrent.py``), a post-block
-    norm is not yet."""
+    ported too (mamba2's, ``tests/test_torch_recurrent.py``), and a
+    post-block norm; an MoE block without its config is refused."""
     cfg = moonshot[0]
     caches = lm.init_cache(cfg, 2, 16, device="cpu")
     assert len(caches) == cfg.n_layers
@@ -534,5 +534,6 @@ def test_dense_caches_admit_moe(moonshot):
         cfg.stages[0][0][0], ff="none"),), 1), cfg.stages[1]))
     lm.check_supported(no_ff)
     assert "norm2" not in lm.block_spec(no_ff, no_ff.stages[0][0][0])
-    with pytest.raises(NotImplementedError, match="post_block_norm"):
-        lm.check_supported(dataclasses.replace(cfg, post_block_norm=True))
+    lm.check_supported(dataclasses.replace(cfg, post_block_norm=True))
+    with pytest.raises(ValueError, match="ff=moe without cfg.moe"):
+        lm.check_supported(dataclasses.replace(cfg, moe=None))
