@@ -195,12 +195,31 @@ each fatal on failure (nothing is caught):
    ``TOL_MODEL`` the depth-gap witness runs (``check_depth_gap``;
    whisper's: the plain run on frames with their last bit flipped).  It
    prints the phase's seconds.
+9. training (``check_training``, after every earlier model is freed):
+   ``grad(grouped_linear)`` with silu at moonshot-v1-16b-a3b's expert
+   shapes (64 x (24 | 60 x 2048 -> 1408)) under each policy — one grouped
+   launch forward, z, dA and dB one grouped K1 launch each, each held to
+   its plain version on its own inputs and timed beside its bound and
+   ``torch.matmul``, dx and dw to the plain graph with the dz-rounding
+   allowance of ``check_linear_grad``; the tied head's three fp32
+   products at the training shape (1,024 tokens x 1,024 -> 151,936:
+   forward, dA, dB), their design, time, bound and ``torch.matmul``; a
+   train step of qwen1.5-0.5b at full width and depth (batch 8, seq 128,
+   ``build_train_step``'s loss) per policy, every gradient leaf held to
+   the same step on the plain versions (``GRAD_REL`` or the flipped-ulp
+   witness); the step split into forward, backward and optimizer (host
+   and device ms), profiled, its launches and peak memory; the launcher
+   (``launch.train.main``) for 8 steps with a checkpoint every 4, crashed
+   at step 6 and resumed from step 4; and a train step of
+   moonshot-v1-16b-a3b at full width, its depth cut to 2 layers (full
+   depth needs about 190 GB), held as qwen's.  It prints the phase's
+   seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
 line, the kernel summary (launches: the serving runs of phases 4 to 8
-for K1–K5, phase 2b's autograd paths for K6–K8, phase 2c's for
-K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
+and the training runs of phase 9 for K1–K5, phase 2b's autograd paths
+for K6–K8, phase 2c's for K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or run outside a checkout of the repository, it
@@ -282,7 +301,13 @@ from repro_torch.kernels.ssd import (  # noqa: E402
     ssd_scan_bwd_plain,
     ssd_scan_plain,
 )
+from repro_torch.configs.shapes import ShapeCfg  # noqa: E402
+from repro_torch.data.pipeline import DataConfig  # noqa: E402
+from repro_torch.data.pipeline import batch as data_batch  # noqa: E402
+from repro_torch.dist.step import build_train_step, value_and_grad  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.tree import flatten_with_paths, map_structure  # noqa: E402
 from repro_torch.models import encdec, lm  # noqa: E402
 from repro_torch.nn import attention as attn_mod  # noqa: E402
 from repro_torch.nn import memeff as memeff_mod  # noqa: E402
@@ -618,22 +643,25 @@ def matmul_operands(gen, m, k, n, *, logits=False, bias=False):
 
 
 def matmul_bound(a, b, bias, out_dtype) -> tuple[float, str]:
-    """The least time of ``a @ b`` (+ ``bias``) into ``out_dtype``: each
-    operand read once and the output written once; 2 m n k flops at
-    PEAK_BF16 for bf16 x bf16, else at PEAK_FP32_ACCURATE (an fp32 operand
-    runs on the tensor cores, fp32-accurate: wgmma-swapab-3xbf16)."""
-    (m, k), n = a.shape, b.shape[1]
+    """The least time of ``a @ b`` (+ ``bias``) into ``out_dtype`` (2-D, or
+    (g, m, k) x (g, k, n) for g products): each operand read once and the
+    output written once; 2 g m n k flops at PEAK_BF16 for bf16 x bf16, else
+    at PEAK_FP32_ACCURATE (an fp32 operand runs on the tensor cores,
+    fp32-accurate: wgmma-swapab-3xbf16)."""
+    (m, k), n = a.shape[-2:], b.shape[-1]
+    g = a.numel() // (m * k)
     nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() \
-        + m * n * torch.empty((), dtype=out_dtype).element_size() \
+        + g * m * n * torch.empty((), dtype=out_dtype).element_size() \
         + (0 if bias is None else bias.numel() * bias.element_size())
     both_bf16 = a.dtype == b.dtype == torch.bfloat16
-    return bound(2.0 * m * n * k, nbytes, PEAK_BF16 if both_bf16 else PEAK_FP32_ACCURATE)
+    return bound(2.0 * g * m * n * k, nbytes, PEAK_BF16 if both_bf16 else PEAK_FP32_ACCURATE)
 
 
 def matmul_library(a, b, bias=None, activation="none") -> tuple[str | None, float | None]:
-    """The library call timed beside a matmul kernel on its operands: none
-    for fp32 x bf16 (no single call multiplies them), ``torch.addmm`` for a
-    bias alone, else ``torch.matmul`` (without the epilogue, if any)."""
+    """The library call timed beside a matmul kernel on its operands (2-D,
+    or one batch of groups): none for fp32 x bf16 (no single call
+    multiplies them), ``torch.addmm`` for a bias alone, else
+    ``torch.matmul`` (without the epilogue, if any)."""
     if a.dtype != b.dtype:
         return None, None
     if bias is not None and activation == "none":
@@ -3488,6 +3516,447 @@ def check_families(gen) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training — grad(grouped_linear) at moonshot's expert shapes, the
+# tied head's three fp32 products at the training shape, train steps of
+# qwen1.5-0.5b (full width and depth) per policy and of a 2-layer
+# full-width moonshot, and the launcher through a crash and a resume
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+# the launcher's defaults: M = 1,024 tokens a step
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# grad(grouped_linear) rows: phase 6's gate projection at a decode step's 24
+# rows an expert and at a 512-token prompt's capacity of 60
+GROUPED_GRAD_ROWS = (GROUPED_ROWS[0], GROUPED_ROWS[3])
+# a train step's gradient leaves against the same step on the plain
+# versions: relative L2 error within two bf16 ulps, or within the gap one
+# flipped bf16 ulp of the plain run's layer-0 input opens (the witness of
+# phases 7 and 8, check_depth_gap); its loss within 1e-3 of the plain
+# loss, or within the witness's loss gap
+GRAD_REL = 2e-2
+LOSS_REL = 1e-3
+# moonshot's depth in its training step: the dense first layer and one MoE
+# layer.  At full depth its bf16 weights, their bf16 gradients and fp32
+# moments take about 190 GB
+MOE_TRAIN_LAYERS = 2
+# the launcher run: 8 steps, a checkpoint every 4, a crash at step 6
+LAUNCH_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_CRASH_AT = 8, 4, 6
+_PLAIN = {"matmul_tiled": matmul_tiled_plain, "matmul_mcast": matmul_mcast_plain,
+          "matmul_unicast": matmul_unicast_plain}
+
+
+@contextlib.contextmanager
+def noting_matmuls(calls: list, plain: bool = False):
+    """Route the kernel layer's three matmul wrappers (with ``plain``: the
+    plain versions, as :func:`plain_versions` does) through a recorder:
+    each call appends (wrapper name, args, keywords, output, the launch's
+    design or None)."""
+    def wrap(name):
+        fn = _PLAIN[name] if plain else kernels.KERNELS[name]
+
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out, None if plain else kernels.KERNELS[name].design))
+            return out
+        return run
+
+    with mock.patch.object(api, "matmul_tiled", wrap("matmul_tiled")), \
+            mock.patch.object(api, "matmul_mcast", wrap("matmul_mcast")), \
+            mock.patch.object(api, "matmul_unicast", wrap("matmul_unicast")):
+        yield
+
+
+def launch_record(name, args, kw, out, design) -> dict:
+    """One matmul launch of a backward re-run on its own inputs: held to
+    its plain version (fp32 outputs with the tensor cores' accumulation
+    allowance over K), timed beside :func:`matmul_bound` and
+    :func:`matmul_library` on the same (strided) operands."""
+    a, b = args[:2]
+    g, m, k = (1, *a.shape) if a.ndim == 2 else a.shape
+    n = b.shape[-1]
+    want = _PLAIN[name](*args, **kw)
+    if out.dtype == torch.float32:
+        err = check_close(f"{name} launch {g}x{m}x{k}x{n}", out, want, TOL_FP32,
+                          tc_sum_allowance(want, k))
+    else:
+        err = check_close(f"{name} launch {g}x{m}x{k}x{n}", out, want, TOL_BF16)
+    b_ms, b_by = matmul_bound(a, b, None, out.dtype)
+    library, library_ms = matmul_library(a, b)
+    fn = kernels.KERNELS[name]
+    return dict(kernel=name, design=design, shape=[g, m, k, n], a_dtype=str(a.dtype),
+                b_dtype=str(b.dtype), out_dtype=str(out.dtype),
+                a_k_major=a.stride(-1) == 1, b_n_major=b.stride(-1) == 1,
+                kernel_ms=time_ms(lambda: fn(*args, **kw), runs=10)[0],
+                plain_ms=time_ms(lambda: _PLAIN[name](*args, **kw), runs=3)[0],
+                library=library, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, max_err=err)
+
+
+def check_grouped_grad(gen, policy: str, label, g, m, k, n, activation) -> dict[str, int]:
+    """``grad(grouped_linear)`` with ``activation`` under a forced schedule
+    (A (g, m, k), B (g, k, n), bf16): one grouped launch forward, then z,
+    dA and dB backward, one grouped launch each (under ``backend=pallas``:
+    K1).  Each backward launch is held to its plain version on its own
+    inputs and timed beside its bound and ``torch.matmul`` on the same
+    (strided) operands; dA and dB against the same graph on the plain
+    versions, with :func:`check_linear_grad`'s allowance for the bf16 dz
+    elements the two runs round apart.  Returns the launches."""
+    x = torch.randn(g, m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(g, k, n, device="cuda", generator=gen) / math.sqrt(k)).to(torch.bfloat16)
+    cot = torch.randn(g, m, n, device="cuda", generator=gen)
+
+    def path():
+        leaves = [t.detach().requires_grad_() for t in (x, w)]
+        y = kernels.grouped_linear(*leaves, activation=activation, policy=policy)
+        return (y, *torch.autograd.grad((y.float() * cot).sum(), leaves))
+
+    forced = dict(zip(POLICIES, MATMULS))[policy]
+    leaves = [t.detach().requires_grad_() for t in (x, w)]
+    kernels.reset_launch_counts()
+    y = kernels.grouped_linear(*leaves, activation=activation, policy=policy)
+    fwd = kernels.launch_counts()
+    fwd_design = kernels.KERNELS[forced].design
+    calls, plain_calls = [], []
+    with noting_matmuls(calls):
+        grads = torch.autograd.grad((y.float() * cot).sum(), leaves)
+    torch.cuda.synchronize()
+    bwd = {name: cnt - fwd[name] for name, cnt in kernels.launch_counts().items()}
+    if fwd[forced] != 1 or sum(fwd.values()) != 1 or sum(bwd.values()) != 3 \
+            or bwd["matmul_tiled"] != 3 or any(c[1][0].ndim != 3 for c in calls):
+        raise AssertionError(f"grad(grouped_linear) {policy} {label}: forward launched {fwd}, "
+                             f"backward {bwd} (want 3 grouped K1 launches: z, dA, dB)")
+    products = []
+    for product, (name, args, kw, out, design) in zip(("z", "dA", "dB"), calls):
+        products.append(dict(product=product, **launch_record(name, args, kw, out, design)))
+    with plain_versions(), noting_matmuls(plain_calls, plain=True):
+        want = path()
+    # bf16 dz, the first operand of the dA product, in each run
+    flips = (calls[1][1][0].double() - plain_calls[2][1][0].double()).abs()
+    extra = {"dx": torch.bmm(flips, w.double().abs().transpose(1, 2)),
+             "dw": torch.bmm(x.double().abs().transpose(1, 2), flips)}
+    errs = [check_close(f"grad(grouped_linear) {policy} {label} {name}", got, ref, TOL_BF16,
+                        extra.get(name))
+            for name, got, ref in zip(("y", "dx", "dw"), (y, *grads), want)]
+    emit(dict(check="grouped_grad", policy=policy, row=label, shape=[g, m, k, n],
+              activation=activation, forward_launches={k_: v for k_, v in fwd.items() if v},
+              backward_launches={k_: v for k_, v in bwd.items() if v},
+              forward_design=fwd_design, backward=products,
+              fwd_bwd_ms=time_ms(path, 10, max_spin_s=0.5)[0],
+              plain_fwd_bwd_ms=time_ms(lambda: _plain_call(path), 3, max_spin_s=0.5)[0],
+              dz_bf16_elements_differing=int((flips > 0).sum()),
+              max_err_y_dx_dw=errs, tol=TOL_BF16))
+    del extra, flips
+    return {k_: fwd[k_] + bwd[k_] for k_ in fwd}
+
+
+def _plain_call(fn):
+    with plain_versions():
+        return fn()
+
+
+def check_logits_products(gen) -> list[dict]:
+    """The tied head's three fp32 products at the training shape (M =
+    batch x seq = 1,024 tokens, d 1,024, vocab 151,936), as a train step
+    launches them: the forward (fp32 x, the bf16 table read as
+    ``table.t()``), dA (fp32 dz x the bf16 table) and dB (``x.t()``,
+    M-major fp32, x fp32 dz).  dz is the mean cross entropy's gradient of
+    these logits over seeded labels.  Each held to its plain version at
+    ``TOL_FP32`` x (|want| + the RMS of want's row) (dz's entries are
+    ~1e-9: a fixed absolute term would pass anything), timed beside
+    :func:`matmul_bound` (operations at the fp32-accurate tensor-core rate:
+    the bound of the function on this card, not of the design that runs
+    it; ``design_rate_ms`` is the same work at the CUDA-core fp32 rate of
+    the ``cuda-core`` design, a note) and :func:`matmul_library`'s
+    ``torch.matmul`` of the same operands with the bf16 table widened to
+    fp32 beforehand (TF32 off)."""
+    m, k, n = TRAIN_BATCH * TRAIN_SEQ, 1024, 151936
+    table = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    labels = torch.randint(0, n, (m,), device="cuda", generator=gen)
+    logits = matmul_tiled_plain(x, table.t())
+    dz = torch.softmax(logits, dim=-1)
+    dz[torch.arange(m, device="cuda"), labels] -= 1.0
+    dz /= m
+    del logits
+    out = []
+    for product, a, b in (("forward", x, table.t()), ("dA", dz, table), ("dB", x.t(), dz)):
+        before = matmul_tiled.launches
+        got = matmul_tiled(a, b)
+        if matmul_tiled.launches != before + 1:
+            raise AssertionError(f"logits {product}: {matmul_tiled.launches - before} launches")
+        design = matmul_tiled.design
+        want = matmul_tiled_plain(a, b)
+        err, ratio, fixed = check_flash_close(f"logits {product}", got, want, TOL_FP32)
+        del got, want
+        b_ms, b_by = matmul_bound(a, b, None, torch.float32)
+        library, library_ms = matmul_library(a, b.float())
+        mm, kk, nn_ = a.shape[0], a.shape[1], b.shape[1]
+        rec = dict(check="train_logits", product=product, shape=[mm, kk, nn_],
+                   a_dtype=str(a.dtype), b_dtype=str(b.dtype), a_k_major=a.stride(-1) == 1,
+                   b_n_major=b.stride(-1) == 1, design=design,
+                   kernel_ms=time_ms(lambda: matmul_tiled(a, b), runs=5, max_spin_s=0.5)[0],
+                   plain_ms=time_ms(lambda: matmul_tiled_plain(a, b), runs=3,
+                                    max_spin_s=0.5)[0],
+                   library=f"{library} (fp32, TF32 off, B widened beforehand)",
+                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                   design_rate_ms=2.0 * mm * nn_ * kk / PEAK_FP32 * 1e3,
+                   max_err=err, err_over_allowance=ratio, least_fixed_atol=fixed, tol=TOL_FP32)
+        emit(rec)
+        out.append(rec)
+    del table, dz
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flip_layer0(real_embed):
+    """``lm._embed_inputs`` with the last bit of every element of its bf16
+    output flipped (one ulp)."""
+    def flipped(*args, **kw):
+        x = real_embed(*args, **kw)
+        return (x.view(torch.int16) ^ 1).view(torch.bfloat16)
+    return flipped
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+
+def plain_and_witness(bundle, params, batch) -> tuple:
+    """(loss, gradients) of ``bundle``'s step on the plain versions, and of
+    the witness: the same plain run with the last bit of every layer-0
+    input element flipped."""
+    with plain_versions():
+        plain = value_and_grad(bundle.loss_of, params, batch)
+        with mock.patch.object(lm, "_embed_inputs", _flip_layer0(lm._embed_inputs)):
+            witness = value_and_grad(bundle.loss_of, params, batch)
+    return plain, witness
+
+
+def leaf_gaps(params, grads, plain, witness) -> list[tuple[float, str, float]]:
+    """(rel L2 of ``grads`` against ``plain``, the leaf's path, the
+    witness's rel L2 against ``plain``) for every gradient leaf."""
+    return [(_rel(g, p), path, _rel(f, p)) for path, g, p, f in zip(
+        flatten_with_paths(params), _leaves(grads), _leaves(plain), _leaves(witness))]
+
+
+def leaf_passes(rel: float, wit: float) -> bool:
+    """The gradient gate of a train step: within ``GRAD_REL`` or the
+    witness's gap."""
+    return math.isfinite(rel) and (rel <= GRAD_REL or rel <= wit)
+
+
+def check_train_step(cfg, params, batch, policy=None, label="") -> dict[str, int]:
+    """One train step's loss and gradients (``build_train_step``'s loss,
+    ``dist.step.value_and_grad``) through the kernels under ``policy``,
+    held leaf by leaf to the same step on the plain versions
+    (:func:`leaf_passes`: ``GRAD_REL``, or the flipped-ulp witness of
+    :func:`plain_and_witness`); the launches by kernel and the K1 designs
+    of the kernel run.  Returns the kernel run's launches."""
+    bundle = build_train_step(cfg, ShapeCfg("chip", "train", *batch["tokens"].shape[::-1]),
+                              loss_chunk=None)
+    pol = kernels.use_policy(policy) if policy else contextlib.nullcontext()
+    calls = []
+    with pol:
+        kernels.reset_launch_counts()
+        with noting_matmuls(calls):
+            loss, grads = value_and_grad(bundle.loss_of, params, batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        (p_loss, p_grads), (f_loss, f_grads) = plain_and_witness(bundle, params, batch)
+    rows = leaf_gaps(params, grads, p_grads, f_grads)
+    for rel, path, wit in rows:
+        if not leaf_passes(rel, wit):
+            raise AssertionError(f"train step {cfg.name} {policy or 'default'}: gradient {path} "
+                                 f"rel L2 {rel:.3g} beyond {GRAD_REL} and the witness's {wit:.3g}")
+    worst = max(r[0] for r in rows)
+    worst_witness = max(r[0] / max(r[2], 1e-30) for r in rows)
+    loss_gap, loss_wit = abs(float(loss) - float(p_loss)), abs(float(f_loss) - float(p_loss))
+    if not (math.isfinite(float(loss)) and (loss_gap <= LOSS_REL * abs(float(p_loss))
+                                            or loss_gap <= loss_wit)):
+        raise AssertionError(f"train step {cfg.name} {policy or 'default'}: loss {float(loss)} "
+                             f"vs plain {float(p_loss)} (witness gap {loss_wit})")
+    designs = collections.Counter(f"{c[0]}:{c[4]}" for c in calls)
+    emit(dict(check="train_step_grads", arch=cfg.name, row=label, layers=cfg.n_layers,
+              policy=policy or "default", batch=list(batch["tokens"].shape),
+              loss=float(loss), plain_loss=float(p_loss), witness_loss=float(f_loss),
+              leaves=len(rows), worst_rel_l2=worst, worst_over_witness=worst_witness,
+              worst_leaves=[dict(leaf=p_, rel_l2=r, witness_rel_l2=w_)
+                            for r, p_, w_ in sorted(rows, reverse=True)[:4]],
+              grad_rel=GRAD_REL, launches={k_: v for k_, v in launches.items() if v},
+              matmul_designs=dict(designs)))
+    del grads, p_grads, f_grads
+    return launches
+
+
+def time_train_step(cfg, params, batch) -> dict:
+    """One AdamW step split as ``dist.step``'s train step runs it: the
+    loss (forward), ``torch.autograd.grad`` (backward) and
+    ``adamw.update`` (optimizer), each part's host ms (the wall time to
+    enqueue it) and device ms (CUDA events around it: the span, waits for
+    the host included), after a synchronised start; then the whole step
+    under ``torch.profiler`` (device ops and their summed ms, the top
+    ops), its launches by kernel and the peak memory."""
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=LAUNCH_STEPS)
+    bundle = build_train_step(cfg, ShapeCfg("chip", "train", TRAIN_SEQ, TRAIN_BATCH),
+                              opt_cfg=opt_cfg, loss_chunk=None)
+    params = map_structure(lambda p: p.detach().clone().requires_grad_(), params)
+    opt_state = adamw.init(params, opt_cfg)
+    leaves = list(_leaves(params))
+
+    def split(step):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        host = [time.perf_counter()]
+        ev[0].record()
+        with torch.enable_grad():
+            loss = bundle.loss_of(params, batch)
+        ev[1].record()
+        host.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        host.append(time.perf_counter())
+        it = iter(grads)
+        adamw.update(map_structure(lambda _: next(it), params), opt_state, params, step, opt_cfg)
+        ev[3].record()
+        host.append(time.perf_counter())
+        torch.cuda.synchronize()
+        host.append(time.perf_counter())
+        return ([ev[i].elapsed_time(ev[i + 1]) for i in range(3)],
+                [1e3 * (host[i + 1] - host[i]) for i in range(3)], 1e3 * (host[4] - host[0]))
+
+    for step in range(2):  # warm-up: the allocator, the memoised schedule picks
+        split(step)
+    runs = [split(2 + i) for i in range(5)]
+    med = lambda xs: statistics.median(xs)  # noqa: E731
+    device = [med([r[0][i] for r in runs]) for i in range(3)]
+    host = [med([r[1][i] for r in runs]) for i in range(3)]
+    wall = med([r[2] for r in runs])
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bundle.fn(params, opt_state, batch, 7)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_step(lambda: bundle.fn(params, opt_state, batch, 8), top=8)
+    rec = dict(check="train_step_time", arch=cfg.name, layers=cfg.n_layers,
+               batch=[TRAIN_BATCH, TRAIN_SEQ], tokens=TRAIN_BATCH * TRAIN_SEQ,
+               device_ms_fwd_bwd_opt=device, host_ms_fwd_bwd_opt=host, step_wall_ms=wall,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (wall / 1e3),
+               launches={k_: v for k_, v in launches.items() if v},
+               peak_memory_gb=peak / 1e9, **prof)
+    emit(rec)
+    del params, opt_state
+    return rec
+
+
+def check_launcher() -> dict[str, int]:
+    """``launch.train.main`` on the card at the launcher's defaults
+    (qwen1.5-0.5b, batch 8, seq 128, seed 0): ``LAUNCH_STEPS`` steps with a
+    checkpoint every ``LAUNCH_CKPT_EVERY``, crashed at ``LAUNCH_CRASH_AT``
+    (its ``RuntimeError`` is the check), then ``--resume``: restarts from
+    the step-4 checkpoint and runs to the end.  Losses finite; whether they
+    fall after the warmup is a reading.  Returns the launches of both
+    runs."""
+    import io
+    import os
+    import tempfile
+
+    from repro_torch.launch import train as train_launcher
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--arch", TRAIN_ARCH, "--steps", str(LAUNCH_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--ckpt-every", str(LAUNCH_CKPT_EVERY),
+                "--log-every", "1", "--ckpt-dir", d, "--seed", "0"]
+        first, second = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(first):
+                train_launcher.main([*args, "--simulate-failure-at", str(LAUNCH_CRASH_AT)])
+        except RuntimeError as e:
+            if str(e) != f"simulated node failure at step {LAUNCH_CRASH_AT}":
+                raise
+        else:
+            raise AssertionError("the launcher ran past --simulate-failure-at")
+        with contextlib.redirect_stdout(second):
+            out = train_launcher.main([*args, "--resume"])
+        steps = sorted(int(n[5:]) for n in os.listdir(d) if n.startswith("step_"))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    lines = first.getvalue().splitlines() + second.getvalue().splitlines()
+    crashed = [float(ln.split()[3]) for ln in first.getvalue().splitlines()
+               if ln.startswith("step ")]
+    resumed = out["losses"]
+    want_resume = (LAUNCH_CRASH_AT // LAUNCH_CKPT_EVERY) * LAUNCH_CKPT_EVERY
+    if second.getvalue().splitlines()[0] != f"resuming from checkpoint step {want_resume}" \
+            or out["start"] != want_resume or len(crashed) != LAUNCH_CRASH_AT \
+            or len(resumed) != LAUNCH_STEPS - want_resume \
+            or not all(math.isfinite(v) for v in crashed + resumed) \
+            or steps != [LAUNCH_STEPS - LAUNCH_CKPT_EVERY, LAUNCH_STEPS]:
+        raise AssertionError(f"launcher: crash / resume went wrong: {lines}, checkpoints {steps}")
+    secs = out["step_seconds"]
+    emit(dict(check="train_launcher", arch=TRAIN_ARCH, steps=LAUNCH_STEPS,
+              crash_at=LAUNCH_CRASH_AT, resumed_from=out["start"], checkpoints_kept=steps,
+              losses_before_crash=crashed, losses_after_resume=resumed,
+              resumed_first_equals_crashed_run=f"{resumed[0]:.4f}" == f"{crashed[want_resume]:.4f}",
+              falls_after_warmup=resumed[-1] < crashed[5 if LAUNCH_CRASH_AT > 5 else -1],
+              resumed_step_seconds=secs,
+              tokens_per_s_median_resumed=TRAIN_BATCH * TRAIN_SEQ / statistics.median(secs),
+              launches={k_: v for k_, v in launches.items() if v},
+              seconds=time.perf_counter() - t0, stdout=lines))
+    return launches
+
+
+def check_embed_grad_accumulation() -> None:
+    """How the embedding lookup's backward sums a repeated token's
+    gradient rows on the card (one side of the tied table's gradient; the
+    head's dB, summed in fp32 and rounded once, is the other): 3,000
+    copies of 0.01 into one bf16 row.  fp32 accumulation rounded once
+    gives 30; bf16 rounding after every add stalls at 4, as both packages
+    do on the CPU (a reading, not a check)."""
+    t = torch.zeros(4, 8, dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    rows = t[torch.zeros(3000, dtype=torch.long, device="cuda")]
+    g, = torch.autograd.grad(rows.float().sum() * 0.01, [t])
+    emit(dict(check="embed_grad_accumulation", copies=3000, each=0.01,
+              got=float(g[0, 0]), fp32_once=30.0, bf16_every_add=4.0))
+
+
+def check_training(gen) -> dict[str, int]:
+    """Phase 9; returns each kernel's launches over the main-path runs
+    (the launcher, the train steps through the kernels)."""
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    check_embed_grad_accumulation()
+    for label, g, m, k, n, act in GROUPED_GRAD_ROWS:
+        for policy in POLICIES:
+            check_grouped_grad(gen, policy, label, g, m, k, n, act)
+    check_logits_products(gen)
+
+    cfg = get_config(TRAIN_ARCH)
+    params = lm.init(cfg, seed=0, device="cuda")
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batch = data_batch(data_cfg, 0, "cuda")
+    for policy in (None, "mcast", "unicast"):
+        total.update(check_train_step(cfg, params, batch, policy, label="qwen full depth"))
+    time_train_step(cfg, params, batch)
+    del params
+    torch.cuda.empty_cache()
+    total.update(check_launcher())
+
+    cfg_moe = cut_depth(get_config(MOE_ARCH), {"layers": []}, MOE_TRAIN_LAYERS)[0]
+    params_moe = lm.init(cfg_moe, seed=0, device="cuda")
+    moe_batch = data_batch(DataConfig(vocab=cfg_moe.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0), 0, "cuda")
+    total.update(check_train_step(cfg_moe, params_moe, moe_batch, label=(
+        f"depth cut to {MOE_TRAIN_LAYERS} of 48 layers: at full depth the weights, their "
+        f"gradients and fp32 moments need about 190 GB")))
+    del params_moe
+    torch.cuda.empty_cache()
+    emit(dict(check="phase", phase=9, seconds=time.perf_counter() - t0))
+    return {k_: total[k_] for k_ in kernels.KERNELS}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False — this check needs a "
@@ -3579,7 +4048,11 @@ def main() -> None:
     run = check_families(gen)
     serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     check_clean("phase 8")
-    launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k]
+
+    # phase 9: training on the card
+    train_launches = check_training(torch.Generator(device="cuda").manual_seed(9))
+    check_clean("phase 9")
+    launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k] + train_launches[k]
                 for k in kernels.KERNELS}
 
     kernels_line = []

@@ -62,7 +62,8 @@ own shapes), as JAX's ``_bwd_policy_token`` does.
 * :func:`grouped_linear` — one independent ``act(x_g @ w_g)`` per group
   (the MoE expert matmuls): the picked schedule's kernel launched once
   over every group, the group in its grid, as the JAX package's ``vmap``
-  of ``linear`` lifts the expert axis into the ``pallas_call``'s grid.
+  of ``linear`` lifts the expert axis into the ``pallas_call``'s grid;
+  its backward (z, dA, dB) is grouped launches too.
 * :func:`op` — ``op("flash_attention")(q, k, v, causal=..., window=...,
   softcap=...)``, ``op("paged_attention")(q, k_pages, v_pages, table,
   start, lengths, *scales, softcap=...)``, ``op("matmul")(a, b[, bias],
@@ -348,7 +349,8 @@ class KernelOp:
         sched = self.resolve(problem, pol, needs_vjp=needs_vjp)
         if needs_vjp and sched.backend == "pallas":  # the oracle differentiates natively
             if self.name == "matmul":  # the one backward that dispatches again
-                return _LinearFunction.apply(sched, _bwd_policy_token(pol), full, *tensors)
+                return _LinearFunction.apply(sched, linear, _bwd_policy_token(pol), full,
+                                             *tensors)
             return _VJP[self.name].apply(sched, full, *tensors)
         return sched.fn(*tensors, **full)
 
@@ -536,7 +538,7 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None
     opts = dict(activation=activation or "none", out_dtype=out_dtype)
     args = (x.reshape(m, k), w.reshape(k, n)) + (() if bias is None else (bias.reshape(n),))
     if needs_vjp and sched.backend == "pallas":
-        y = _LinearFunction.apply(sched, _bwd_policy_token(pol), opts, *args)
+        y = _LinearFunction.apply(sched, linear, _bwd_policy_token(pol), opts, *args)
     else:
         y = sched.fn(*args, **opts)
     return y.reshape(*lead, *out_dims)
@@ -555,8 +557,9 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor, *, activation: str | None =
     the lead axes behind the group axis (JAX's transpose, a copy only
     where the lead axes are not 1) and launches its kernel once over all
     groups (K1 with the activation in its epilogue, K4 / K5 with it after
-    them in fp32, as :func:`linear`).  Differentiating a kernel schedule
-    raises: its backward is not ported yet."""
+    them in fp32, as :func:`linear`); differentiated, it runs
+    :class:`_LinearFunction` over the groups, whose backward is grouped
+    launches too."""
     g, k, n = w.shape
     lead, m = x.shape[:-3], x.shape[-2]
     if tuple(x.shape[-3:]) != (g, m, k):
@@ -570,25 +573,42 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor, *, activation: str | None =
     if sched.backend == "reference":
         y = torch.matmul(x.float(), w.float()).to(torch.promote_types(x.dtype, w.dtype))
         return REFERENCE_ACTIVATIONS[act](y)
-    if needs_vjp:
-        raise NotImplementedError(
-            "grouped_linear: the backward of the grouped kernels is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
     xt = x.reshape(-1, g, m, k).transpose(0, 1).reshape(g, -1, k)
-    y = sched.fn(xt, w, activation=act, out_dtype=None)
+    if needs_vjp:
+        y = _LinearFunction.apply(sched, _grouped, _bwd_policy_token(pol),
+                                  dict(activation=act, out_dtype=None), xt, w)
+    else:
+        y = sched.fn(xt, w, activation=act, out_dtype=None)
     return y.reshape(g, -1, m, n).transpose(0, 1).reshape(*lead, g, m, n)
 
 
+def _grouped(a: torch.Tensor, b: torch.Tensor, *, bias=None, out_dtype=None,
+             policy=None) -> torch.Tensor:
+    """``a`` (g, m, k) @ ``b`` (g, k, n), one product per group, through
+    the schedule dispatch picks for one group's (m, k, n) under
+    ``policy``: a kernel schedule's one launch over all groups.  Operands
+    are read through their strides (a transposed group operand is a view,
+    not a copy).  ``bias`` is :func:`linear`'s keyword, never given here."""
+    pol = as_policy(policy) or get_policy()
+    g, m, k = a.shape
+    sched = op("matmul").resolve(Problem((m, k, b.shape[2]), autotune.dtype_name(a.dtype)), pol)
+    return sched.fn(a, b, bias, activation="none", out_dtype=out_dtype)
+
+
 class _LinearFunction(torch.autograd.Function):
-    """The matmul VJP (JAX ``_matmul_vjp_fwd`` / ``_matmul_vjp_bwd``):
-    the forward runs the dispatched schedule and saves its inputs; the
-    backward re-enters :func:`linear` — for ``z`` only with an
-    activation, then ``dA = dz @ B^T`` and ``dB = A^T @ dz`` — under the
-    backward policy token, casting where the JAX package casts."""
+    """The matmul VJP (JAX ``_matmul_vjp_fwd`` / ``_matmul_vjp_bwd``), for
+    :func:`linear` (``product`` = :func:`linear`, 2-D operands) and for
+    :func:`grouped_linear` (``product`` = :func:`_grouped`, (g, m, k) x
+    (g, k, n): JAX's ``vmap`` of the VJP over the group axis): the forward
+    runs the dispatched schedule and saves its inputs; the backward
+    re-enters ``product`` — for ``z`` only with an activation, then
+    ``dA = dz @ B^T`` and ``dB = A^T @ dz`` (transposed operands as
+    strided views), each one launch — under the backward policy token,
+    casting where the JAX package casts."""
 
     @staticmethod
-    def forward(ctx, sched, bwd_policy, opts, a, b, bias=None):
-        ctx.bwd_policy, ctx.activation = bwd_policy, opts["activation"]
+    def forward(ctx, sched, product, bwd_policy, opts, a, b, bias=None):
+        ctx.product, ctx.bwd_policy, ctx.activation = product, bwd_policy, opts["activation"]
         ctx.save_for_backward(a, b, bias)
         return sched.fn(a, b, bias, **opts)
 
@@ -596,24 +616,24 @@ class _LinearFunction(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         a, b, bias = ctx.saved_tensors
-        pol, g32 = ctx.bwd_policy, g.float()
+        product, pol, g32 = ctx.product, ctx.bwd_policy, g.float()
         if ctx.activation != "none":
             # recompute the pre-activation (one more dispatched matmul)
             # rather than keep an (M, N) fp32 residual from the forward;
             # the bias joins the product's epilogue: K1 adds it to its fp32
             # sum, K4 / K5 add it in fp32 after, so z is JAX's z + bias
             # (one fp32 rounding either way) in one pass fewer
-            z = linear(a, b, bias=bias, out_dtype=torch.float32, policy=pol)
+            z = product(a, b, bias=bias, out_dtype=torch.float32, policy=pol)
             with torch.enable_grad():
                 z = z.requires_grad_()
                 dz, = torch.autograd.grad(ACTIVATIONS[ctx.activation](z), z, g32)
         else:
             dz = g32
         dz_a = dz.to(a.dtype)
-        da = linear(dz_a, b.t(), policy=pol).to(a.dtype)  # g . B^T
-        db = linear(a.t(), dz_a, policy=pol).to(b.dtype)  # A^T . g
+        da = product(dz_a, b.mT, policy=pol).to(a.dtype)  # g . B^T
+        db = product(a.mT, dz_a, policy=pol).to(b.dtype)  # A^T . g
         dbias = None if bias is None else dz.sum(dim=0).to(bias.dtype)
-        return None, None, None, da, db, dbias
+        return None, None, None, None, da, db, dbias
 
 
 # ---------------------------------------------------------------------------

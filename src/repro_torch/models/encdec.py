@@ -129,6 +129,13 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, frames: torch.Tensor
     return _dec_logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            frames: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy on the fp32 logits (no chunking, as
+    in the JAX package; its ``remat`` is not ported: no caller sets it)."""
+    return lm_mod.cross_entropy(forward(params, cfg, tokens, frames)[0], labels)
+
+
 def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> dict[str, Any]:
     """The decode caches' shapes and dtypes, allocating nothing (tensors on
     the ``meta`` device): per decoder layer a ``cache_len``-slot

@@ -21,6 +21,9 @@ attention (a local window's ring wraps), an ``RglruState`` /
 ``SsdState`` for the recurrent mixers.  Entry points:
 
 * :func:`forward`     — full-sequence forward (no caches),
+* :func:`loss_fn`     — the training loss (next-token cross entropy plus
+  the MoE aux loss), differentiable by ``torch.autograd``; ``forward``
+  and it share one layer stack (``_trunk``),
 * :func:`prefill`     — full-sequence forward that also returns the
   per-layer caches (``logit_index`` picks the row whose logits are
   returned, for bucket-padded prompts),
@@ -53,6 +56,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import kernels
 from repro_torch.configs.base import BlockDef, ModelConfig
@@ -308,7 +312,8 @@ def _kv_from_full(k, v, bd: BlockDef, cache_slots: int | None) -> KvCache:
     slot ``position % slots``."""
     b, s = k.shape[0], k.shape[1]
     slots = _slots(bd, max(cache_slots or s, s))
-    positions = torch.arange(s, device=k.device, dtype=torch.int32).expand(b, s)
+    # a row of its own per sequence: decode writes each row's positions
+    positions = torch.arange(s, device=k.device, dtype=torch.int32).repeat(b, 1)
     if slots >= s:
         pad = slots - s
         if pad:
@@ -347,24 +352,82 @@ def _stage_ends(cfg: ModelConfig) -> set[int]:
     return ends
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            frontend_embeds: torch.Tensor | None = None):
-    """(batch, seq) tokens -> ((batch, [n +] seq, vocab) fp32 logits, fp32
-    aux loss): the MoE layers' aux losses summed within each stage, then
-    the stages' sums, in JAX's order (0 without MoE).  ``frontend_embeds``
-    (batch, n, frontend dim) are projected and prepended."""
-    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+def _layer(p, bd: BlockDef, cfg: ModelConfig, x):
+    """One layer over a full sequence -> (x, its fp32 aux loss: 0 without
+    MoE)."""
+    m, _ = _mixer(p, bd, cfg, _norm(cfg, p["norm1"], x))
+    x, aux = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
+
+
+def _trunk(params, cfg: ModelConfig, x, *, remat: bool = False):
+    """The layer stack over a full sequence, then the final norm -> (x,
+    fp32 aux loss): the MoE layers' aux losses summed within each stage,
+    then the stages' sums, in JAX's order (0 without MoE).  ``remat``
+    recomputes each layer in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps
+    JAX's stage body)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_total, aux_stage = zero, zero
     ends = _stage_ends(cfg)
     for i, (p, bd) in enumerate(zip(params["layers"], cfg.layer_defs)):
-        m, _ = _mixer(p, bd, cfg, _norm(cfg, p["norm1"], x))
-        x, aux = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m))
-        aux_stage = aux_stage + (zero if aux is None else aux)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(_layer, p, bd, cfg, x,
+                                                       use_reentrant=False)
+        else:
+            x, aux = _layer(p, bd, cfg, x)
+        aux_stage = aux_stage + aux
         if i in ends:
             aux_total, aux_stage = aux_total + aux_stage, zero
-    x = _norm(cfg, params["final_norm"], x)
+    return _norm(cfg, params["final_norm"], x), aux_total
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend_embeds: torch.Tensor | None = None):
+    """(batch, seq) tokens -> ((batch, [n +] seq, vocab) fp32 logits, fp32
+    aux loss, see :func:`_trunk`).  ``frontend_embeds`` (batch, n,
+    frontend dim) are projected and prepended."""
+    x, aux_total = _trunk(params, cfg, _embed_inputs(params, cfg, tokens, frontend_embeds))
     return _logits(params, cfg, x), aux_total
+
+
+def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
+            frontend_embeds: torch.Tensor | None = None, remat: bool = False,
+            loss_chunk: int | None = 512, aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross entropy on the fp32 logits, plus
+    ``aux_weight`` x the MoE aux loss.
+
+    Above ``loss_chunk`` positions the cross entropy runs over sequence
+    chunks of that length (the sequence must divide into them, as JAX's
+    reshape requires), each chunk's (batch, chunk, vocab) logits
+    recomputed in the backward instead of kept (``torch.utils.checkpoint``,
+    as JAX's ``jax.checkpoint`` of its scan body): the full fp32 logits
+    never exist at once."""
+    x, aux_total = _trunk(params, cfg, _embed_inputs(params, cfg, tokens, frontend_embeds),
+                          remat=remat)
+    b, s, d = x.shape
+    if loss_chunk is None or s <= loss_chunk:
+        ce = _ce(params, cfg, x, labels)
+    else:
+        n = s // loss_chunk
+        xc = x.reshape(b, n, loss_chunk, d)
+        lc = labels.reshape(b, n, loss_chunk)
+        ce = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            ce = ce + torch.utils.checkpoint.checkpoint(
+                _ce, params, cfg, xc[:, i], lc[:, i], use_reentrant=False) * (1.0 / n)
+    return ce + aux_weight * aux_total
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean of logsumexp(logits) - the labels' logits, over every position."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _ce(params, cfg: ModelConfig, x, labels):
+    return cross_entropy(_logits(params, cfg, x), labels)  # fp32 logits
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,

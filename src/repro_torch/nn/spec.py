@@ -2,7 +2,8 @@
 
 Each module describes its parameters as a nested dict of
 :class:`ParamSpec` leaves (shape, dtype, initialiser).  From one tree the
-port derives real parameters (:func:`init_params`) and parameter counts
+port derives real parameters (:func:`init_params`), their ``meta``
+stand-ins (:func:`abstract_params`) and parameter counts
 (:func:`tree_params`), so the model functions, the weight converter and
 the tests agree on every shape.
 
@@ -68,6 +69,19 @@ def init_params(spec_tree: SpecTree, *, seed: int, device) -> SpecTree:
         return [build(v, prefix + (str(i),)) for i, v in enumerate(tree)]
 
     return build(spec_tree, ())
+
+
+def abstract_params(spec_tree: SpecTree) -> SpecTree:
+    """The parameters' shapes and dtypes as ``meta`` tensors (no
+    allocation): the JAX package's ``abstract_params``."""
+    def build(tree):
+        if isinstance(tree, ParamSpec):
+            return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+        if isinstance(tree, dict):
+            return {k: build(v) for k, v in tree.items()}
+        return [build(v) for v in tree]
+
+    return build(spec_tree)
 
 
 def tree_params(spec_tree: SpecTree) -> int:

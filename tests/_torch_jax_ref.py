@@ -15,7 +15,7 @@ engines or servers, and let them share their jitted steps
 
     python tests/_torch_jax_ref.py \
         {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve|
-         recurrent|families|famserve|encdec} OUT.npz
+         recurrent|families|famserve|encdec|train|trainloop} OUT.npz
 """
 from __future__ import annotations
 
@@ -801,6 +801,138 @@ def _encdec(out: dict) -> None:
     out["params_checksum"] = np.asarray(params_checksum(params))
 
 
+#: the reduced archs whose loss and gradients the training tests hold, and
+#: the ``loss_fn`` keywords each runs under (``loss_chunk`` 8 splits the
+#: 24 positions of ``train_case`` into three chunks; qwen carries the
+#: chunked and recomputed variants, the others the whole loss)
+TRAIN_RUNS = {
+    "qwen1.5-0.5b": {"whole": dict(loss_chunk=None), "chunked": dict(loss_chunk=8),
+                     "remat": dict(loss_chunk=8, remat=True)},
+    "moonshot-v1-16b-a3b": {"whole": dict(loss_chunk=None)},
+    "mamba2-780m": {"whole": dict(loss_chunk=None)},
+}
+
+
+def train_case():
+    """Tokens and next-token labels of the loss references (shared with the test)."""
+    rng = np.random.default_rng(17)
+    toks = rng.integers(0, 512, size=(2, 25)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays -> {"a/b/c": fp32 numpy array} (bf16 widens
+    exactly)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def _train(out: dict) -> None:
+    """Per arch of ``TRAIN_RUNS``: ``jax.value_and_grad(lm.loss_fn)`` under
+    ``backend=pallas`` (interpret mode) on ``train_case``, per variant; and
+    the witness ``flip``: the ``whole`` variant with the last bit of every
+    element of the layer-0 input (the bf16 embeddings) flipped, one ulp."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import kernels
+    from repro.models import lm
+
+    case = {k: jnp.asarray(v) for k, v in train_case().items()}
+    real_embed = lm._embed_inputs
+
+    def flipped(*args, **kw):
+        x = real_embed(*args, **kw)
+        return jax.lax.bitcast_convert_type(
+            jax.lax.bitcast_convert_type(x, jnp.int16) ^ 1, jnp.bfloat16)
+
+    for arch, runs in TRAIN_RUNS.items():
+        cfg, params = _setup(arch)
+        for name, kw in (*runs.items(), ("flip", runs["whole"])):
+            def loss(p, kw=kw):
+                return lm.loss_fn(p, cfg, case["tokens"], case["labels"], **kw)
+
+            lm._embed_inputs = flipped if name == "flip" else real_embed
+            with kernels.use_policy("backend=pallas"):
+                value, grads = jax.jit(jax.value_and_grad(loss))(params)
+            out[f"{arch}/{name}/loss"] = np.asarray(value)
+            for path, g in flat_tree(jax.device_get(grads)).items():
+                out[f"{arch}/{name}/grad/{path}"] = g
+        lm._embed_inputs = real_embed
+        out[f"{arch}/params_checksum"] = np.asarray(params_checksum(params))
+
+
+#: the launcher runs of the loop references: the JAX launcher's flags
+#: (without ``--ckpt-dir``), on its CPU default, the reference backend
+TRAIN_LOOP_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--batch", "4", "--seq", "32",
+                   "--steps", "12", "--ckpt-every", "4", "--log-every", "1",
+                   "--seed", str(SEED)]
+TRAIN_CRASH_AT = 9
+
+
+def train_loop_runs(ckpt_dir) -> dict[str, list[str]]:
+    """name -> the launcher's argv: a whole run, then in a directory of
+    their own a run that crashes at ``TRAIN_CRASH_AT`` and its resume."""
+    import os
+
+    whole, crash = os.path.join(ckpt_dir, "whole"), os.path.join(ckpt_dir, "crash")
+    return {"whole": [*TRAIN_LOOP_ARGS, "--ckpt-dir", whole],
+            "crash": [*TRAIN_LOOP_ARGS, "--ckpt-dir", crash,
+                      "--simulate-failure-at", str(TRAIN_CRASH_AT)],
+            "resume": [*TRAIN_LOOP_ARGS, "--ckpt-dir", crash, "--resume"]}
+
+
+def _train_launch(args: list[str]) -> tuple[dict | None, str, str]:
+    """One JAX ``train_loop`` over ``args`` (parsed by the port's
+    launcher, whose flags are the JAX launcher's and ``--device``) ->
+    (its result or None, stdout, the exception it raised or "")."""
+    from repro import kernels
+    from repro.launch import train as jax_train
+    from repro_torch.launch.train import parser
+
+    stdout, res, err = io.StringIO(), None, ""
+    try:
+        with contextlib.redirect_stdout(stdout):
+            res = jax_train.train_loop(parser().parse_args(args))
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        kernels.set_policy(None)
+    return res, stdout.getvalue(), err
+
+
+def _trainloop(out: dict) -> None:
+    """The JAX launcher's runs of ``train_loop_runs``: each run's losses,
+    stdout and error; and the witness ``flip``: the whole run with the
+    last bit of every element of the layer-0 input flipped at every step
+    (one bf16 ulp, the size of a rounding difference)."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import lm
+
+    with tempfile.TemporaryDirectory() as d:
+        runs = train_loop_runs(d)
+        runs["flip"] = [a if a != runs["whole"][-1] else a + "_flip" for a in runs["whole"]]
+        real_embed = lm._embed_inputs
+        for name, args in runs.items():
+            if name == "flip":
+                lm._embed_inputs = lambda *a, **kw: jax.lax.bitcast_convert_type(
+                    jax.lax.bitcast_convert_type(real_embed(*a, **kw), jnp.int16) ^ 1,
+                    jnp.bfloat16)
+            res, text, err = _train_launch(args)
+            lm._embed_inputs = real_embed
+            out[f"{name}/losses"] = np.asarray(res["losses"] if res else [], np.float64)
+            out[f"{name}/stdout"] = np.asarray(text)
+            out[f"{name}/error"] = np.asarray(err)
+
 def _launch_error(args: list[str]) -> list[str]:
     """How one ``python -m repro.launch.serve ARGS`` run fails, in process:
     [exception type, its message, the last line of stderr]."""
@@ -835,7 +967,7 @@ def _setup(arch: str = "qwen1.5-0.5b"):
 MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5-0.5b",
              "quant": TARGET, "int8serve": TARGET, "spec": TARGET,
              "refserve": "qwen1.5-0.5b", "chaos": "qwen1.5-0.5b", "loop": "qwen1.5-0.5b",
-             "moeserve": "moonshot-v1-16b-a3b"}
+             "moeserve": "moonshot-v1-16b-a3b", "trainloop": "qwen1.5-0.5b"}
 
 
 def main(mode: str, path: str) -> None:
@@ -846,7 +978,7 @@ def main(mode: str, path: str) -> None:
      "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,
      "chaos": _chaos, "loop": _loop, "moe": _moe, "moeserve": _moeserve,
      "recurrent": _recurrent, "families": _families, "famserve": _famserve,
-     "encdec": _encdec}[mode](out)
+     "encdec": _encdec, "train": _train, "trainloop": _trainloop}[mode](out)
     if mode in MODE_ARCH:
         _, params = _setup(MODE_ARCH[mode])
         out["params_checksum"] = np.asarray(params_checksum(params))

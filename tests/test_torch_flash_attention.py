@@ -65,6 +65,16 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The suite runs in several workers: torch on one thread each, as in
+    the other files of the port's tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _id(case):
     b, h, kvh, sq, sk, causal, window, softcap, dtype, _ = case
     return (f"b{b}-h{h}kv{kvh}-sq{sq}sk{sk}-{'causal' if causal else 'full'}-w{window}"

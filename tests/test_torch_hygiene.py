@@ -10,15 +10,19 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.data import pipeline
 from repro_torch.launch import serve as launcher
+from repro_torch.launch import train as train_launcher
 from repro_torch.models import lm
 from repro_torch.serve import PagedEngine, Request
 from repro_torch.weights import from_jax_params
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# ml_dtypes too: the card's machine has no such package
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -52,7 +56,9 @@ def test_scan_covers_every_port_module():
                 "kernels/matmul/matmul.py",
                 "kernels/flash_attention/flash_attention.py", "kernels/flash_attention/ref.py",
                 "kernels/ssd/ssd.py", "kernels/ssd/ref.py", "kernels/rglru/rglru.py",
-                "kernels/rglru/ref.py", "nn/attention.py", "models/lm.py", "launch/serve.py"):
+                "kernels/rglru/ref.py", "nn/attention.py", "models/lm.py", "launch/serve.py",
+                "launch/train.py", "optim/adamw.py", "data/pipeline.py",
+                "checkpoint/manager.py", "configs/shapes.py", "dist/step.py", "tree.py"):
         assert f"src/repro_torch/{rel}" in names, rel
 
 
@@ -85,6 +91,10 @@ ENTRY_POINTS = [
     lambda cfg: PagedEngine(cfg, lm.init(cfg, device="cpu")),
     lambda cfg: launcher.main(["--reduced"]),
     lambda cfg: launcher.main(["--reduced", "--kv", "paged"]),
+    lambda cfg: train_launcher.main(["--reduced"]),
+    lambda cfg: pipeline.batch(pipeline.DataConfig(cfg.vocab, 8, 2), 0),
+    # restore resolves its device before it touches the manager or the disk
+    lambda cfg: CheckpointManager.restore(None, 0, {}),
 ]
 
 
@@ -99,9 +109,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(call):
 
 def test_entry_point_signatures_default_to_cuda():
     for fn in (lm.init, lm.init_paged_cache, lm.init_cache, from_jax_params,
-               PagedEngine.__init__, launcher.Server.__init__):
+               PagedEngine.__init__, launcher.Server.__init__, pipeline.batch,
+               CheckpointManager.restore):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert launcher.parser().parse_args([]).device == "cuda"
+    assert train_launcher.parser().parse_args([]).device == "cuda"
 
 
 def test_plain_path_leaves_launch_counters_at_zero():
