@@ -206,19 +206,45 @@ each fatal on failure (nothing is caught):
    forward, dA, dB), their design, time, bound and ``torch.matmul``; a
    train step of qwen1.5-0.5b at full width and depth (batch 8, seq 128,
    ``build_train_step``'s loss) per policy, every gradient leaf held to
-   the same step on the plain versions (``GRAD_REL`` or the flipped-ulp
-   witness); the step split into forward, backward and optimizer (host
+   the same step on the plain versions (``GRAD_REL`` or the spread of two
+   flipped-ulp witnesses, ``spread``); the step split into forward, backward and optimizer (host
    and device ms), profiled, its launches and peak memory; the launcher
    (``launch.train.main``) for 8 steps with a checkpoint every 4, crashed
-   at step 6 and resumed from step 4; and a train step of
+   at step 6 and resumed from step 4; a train step of
    moonshot-v1-16b-a3b at full width, its depth cut to 2 layers (full
-   depth needs about 190 GB), held as qwen's.  It prints the phase's
+   depth needs about 190 GB), held as qwen's; and the down projection's
+   weight gradient (hᵀ dz, 2,816 x 1,024 x 1,024, hᵀ M-major) on K4 as
+   the default policy sends it, its design, time, bound and
+   ``torch.matmul`` on the same strided operands.  It prints the phase's
    seconds.
+10. the trace tooling (``check_trace_tooling``): the port's launchers at
+   full width, each run untraced and then with ``--trace`` into a
+   temporary directory — (a) qwen1.5-0.5b on the paged engine with a
+   32-token shared prefix, (b) qwen1.5-1.8b speculating (k = 4) with its
+   registered draft, (c) the ``--server`` loop over a seeded Poisson
+   trace, (d) ``launch.train`` for 2 steps.  Weights and requests come from
+   the launchers' seeds (nothing from the shared generator); each runs
+   untraced and traced twice over, alternating.  Each fails unless every
+   run's streams (losses) are equal, the
+   trace and its ``obs.analyze`` report validate with nothing dropped, the
+   report's kernel calls, pool and prefix keys equal the engine's live
+   counters (the speculation keys its ``stats()``; the loop's TTFT p50 from
+   the spans its metrics' within the trace's microsecond), and the run
+   launched the kernels its untraced twin did.  Each record carries event
+   counts, dispatch spans by ``<op>_<schedule>`` and by design, the
+   B-fetch share the tiles avoid, the step's wall ms with and without
+   tracing, and where each ``engine.*`` span closes against the device work
+   it enqueued (CUDA events at the span's ends).  Before them,
+   ``check_tracing_cost`` reads what tracing costs the host inside one
+   process: µs per unarmed check, per dispatch record and per traced
+   ``kernels.linear`` call, and the paged launcher with a recorder armed
+   on every other engine step (each armed step against its neighbours).
+   It prints the phase's seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
-line, the kernel summary (launches: the serving runs of phases 4 to 8
-and the training runs of phase 9 for K1–K5, phase 2b's autograd paths
+line, the kernel summary (launches: the serving runs of phases 4 to 8,
+the training runs of phase 9 and the traced runs of phase 10 for K1–K5, phase 2b's autograd paths
 for K6–K8, phase 2c's for K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -231,6 +257,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import statistics
@@ -3530,10 +3557,11 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 128
 # rows an expert and at a 512-token prompt's capacity of 60
 GROUPED_GRAD_ROWS = (GROUPED_ROWS[0], GROUPED_ROWS[3])
 # a train step's gradient leaves against the same step on the plain
-# versions: relative L2 error within two bf16 ulps, or within the gap one
-# flipped bf16 ulp of the plain run's layer-0 input opens (the witness of
-# phases 7 and 8, check_depth_gap); its loss within 1e-3 of the plain
-# loss, or within the witness's loss gap
+# versions: relative L2 error within two bf16 ulps, or within the spread of
+# the rounding model (plain_and_witnesses, spread: the largest distance
+# between the plain run and two witnesses, the plain run with one ulp of
+# its bf16 residual stream flipped at layer 0's input and at every layer's
+# input); its loss within 1e-3 of the plain loss, or within that spread
 GRAD_REL = 2e-2
 LOSS_REL = 1e-3
 # moonshot's depth in its training step: the dense first layer and one MoE
@@ -3709,40 +3737,102 @@ def check_logits_products(gen) -> list[dict]:
     return out
 
 
-def _flip_layer0(real_embed):
-    """``lm._embed_inputs`` with the last bit of every element of its bf16
-    output flipped (one ulp)."""
-    def flipped(*args, **kw):
-        x = real_embed(*args, **kw)
-        return (x.view(torch.int16) ^ 1).view(torch.bfloat16)
-    return flipped
+def check_down_projection_db(gen) -> dict:
+    """The down projection's weight gradient in a default train step, dB =
+    hᵀ dz: (2,816 x 1,024 tokens) x (1,024 tokens x 1,024), hᵀ a view of
+    the bf16 activations (M-major).  The default policy's cost model sends
+    it to K4 (above 2,048 rows), whose ``wgmma-cluster`` design takes
+    K-major A only, so K4 runs ``cuda-core``.  Held to its plain version
+    and timed beside :func:`matmul_bound` and ``torch.matmul`` on the same
+    strided operands (:func:`launch_record`)."""
+    m_tok, d_ff, d = TRAIN_BATCH * TRAIN_SEQ, 2816, 1024
+    h = torch.randn(m_tok, d_ff, device="cuda", generator=gen).to(torch.bfloat16)
+    dz = (torch.randn(m_tok, d, device="cuda", generator=gen) * 1e-3).to(torch.bfloat16)
+    pick = kernels.resolve("matmul", (d_ff, m_tok, d), torch.bfloat16)
+    before = matmul_mcast.launches
+    out = matmul_mcast(h.t(), dz)
+    if pick.schedule != "mcast" or matmul_mcast.launches != before + 1:
+        raise AssertionError(f"down projection dB: dispatch picks {pick.schedule}")
+    rec = dict(check="train_down_projection_db", dispatch=pick.schedule,
+               **launch_record("matmul_mcast", (h.t(), dz), {}, out, matmul_mcast.design))
+    emit(rec)
+    del h, dz, out
+    return rec
+
+
+def flip_last_bit(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with the last mantissa bit of every element flipped (one ulp
+    of its dtype), the gradient passed straight through to ``x``."""
+    d = x.detach()
+    ints = torch.int16 if d.element_size() == 2 else torch.int32
+    return x + ((d.view(ints) ^ 1).view(d.dtype) - d)
+
+
+def _flip_output(real):
+    """``real`` with the last bit of every element of its output flipped."""
+    return lambda *args, **kw: flip_last_bit(real(*args, **kw))
+
+
+def _flip_layer_input(real_layer):
+    """``lm._layer`` with the last bit of every element of its input
+    flipped."""
+    return lambda p, bd, cfg, x: real_layer(p, bd, cfg, flip_last_bit(x))
+
+
+#: perturbed plain runs (``lm`` functions patched): one ulp flipped in
+#: every element of the residual stream at layer 0's input (``layer 0``)
+#: or at every layer's input (``every layer``)
+WITNESSES = {"layer 0": ("_embed_inputs", _flip_output),
+             "every layer": ("_layer", _flip_layer_input)}
+#: the gate's rounding model: two members of one family, the plain run with
+#: one ulp of its residual stream flipped, once where the stream starts and
+#: once at every layer (where the kernel and plain runs each round their
+#: own layer outputs into bf16)
+GATE_WITNESSES = ("layer 0", "every layer")
 
 
 def _rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
 
 
-def plain_and_witness(bundle, params, batch) -> tuple:
-    """(loss, gradients) of ``bundle``'s step on the plain versions, and of
-    the witness: the same plain run with the last bit of every layer-0
-    input element flipped."""
+def plain_and_witnesses(bundle, params, batch, names=GATE_WITNESSES) -> tuple:
+    """(loss, gradients) of ``bundle``'s step on the plain versions, and
+    the same of each witness of ``names`` (:data:`WITNESSES`)."""
+    runs = []
     with plain_versions():
         plain = value_and_grad(bundle.loss_of, params, batch)
-        with mock.patch.object(lm, "_embed_inputs", _flip_layer0(lm._embed_inputs)):
-            witness = value_and_grad(bundle.loss_of, params, batch)
-    return plain, witness
+        for name in names:
+            site, flip = WITNESSES[name]
+            with mock.patch.object(lm, site, flip(getattr(lm, site))):
+                runs.append(value_and_grad(bundle.loss_of, params, batch))
+    return plain, runs
 
 
-def leaf_gaps(params, grads, plain, witness) -> list[tuple[float, str, float]]:
+def spread(plain: torch.Tensor, witnesses) -> float:
+    """How far runs of the rounding model lie apart, relative to the plain
+    run: the largest distance between any two of the plain run and the
+    witnesses, over ``|plain|``.  The kernel run is one more member of the
+    model's family (the plain run with its roundings moved by an ulp), so
+    it should lie no farther from the plain run than two members lie from
+    each other.  A leaf any run of which is not finite gets nan."""
+    runs = [plain, *witnesses]
+    norm = plain.float().norm().clamp(min=1e-30)
+    return max(float((a.float() - b.float()).norm() / norm)
+               for i, a in enumerate(runs) for b in runs[i + 1:])
+
+
+def leaf_gaps(params, grads, plain, witnesses) -> list[tuple[float, str, float]]:
     """(rel L2 of ``grads`` against ``plain``, the leaf's path, the
-    witness's rel L2 against ``plain``) for every gradient leaf."""
-    return [(_rel(g, p), path, _rel(f, p)) for path, g, p, f in zip(
-        flatten_with_paths(params), _leaves(grads), _leaves(plain), _leaves(witness))]
+    :func:`spread` of ``plain`` and the ``witnesses``' gradients) for every
+    gradient leaf."""
+    return [(_rel(g, p), path, spread(p, ws)) for path, g, p, *ws in zip(
+        flatten_with_paths(params), _leaves(grads), _leaves(plain),
+        *(_leaves(w) for w in witnesses))]
 
 
 def leaf_passes(rel: float, wit: float) -> bool:
-    """The gradient gate of a train step: within ``GRAD_REL`` or the
-    witness's gap."""
+    """The gradient gate of a train step: a finite gap within ``GRAD_REL``
+    or the rounding model's spread (:func:`spread`)."""
     return math.isfinite(rel) and (rel <= GRAD_REL or rel <= wit)
 
 
@@ -3750,8 +3840,8 @@ def check_train_step(cfg, params, batch, policy=None, label="") -> dict[str, int
     """One train step's loss and gradients (``build_train_step``'s loss,
     ``dist.step.value_and_grad``) through the kernels under ``policy``,
     held leaf by leaf to the same step on the plain versions
-    (:func:`leaf_passes`: ``GRAD_REL``, or the flipped-ulp witness of
-    :func:`plain_and_witness`); the launches by kernel and the K1 designs
+    (:func:`leaf_passes`: ``GRAD_REL``, or the :func:`spread` of the
+    flipped-ulp witnesses of :func:`plain_and_witnesses`); the launches by kernel and the K1 designs
     of the kernel run.  Returns the kernel run's launches."""
     bundle = build_train_step(cfg, ShapeCfg("chip", "train", *batch["tokens"].shape[::-1]),
                               loss_chunk=None)
@@ -3763,29 +3853,31 @@ def check_train_step(cfg, params, batch, policy=None, label="") -> dict[str, int
             loss, grads = value_and_grad(bundle.loss_of, params, batch)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-        (p_loss, p_grads), (f_loss, f_grads) = plain_and_witness(bundle, params, batch)
-    rows = leaf_gaps(params, grads, p_grads, f_grads)
+        (p_loss, p_grads), witnesses = plain_and_witnesses(bundle, params, batch)
+    rows = leaf_gaps(params, grads, p_grads, [w[1] for w in witnesses])
     for rel, path, wit in rows:
         if not leaf_passes(rel, wit):
             raise AssertionError(f"train step {cfg.name} {policy or 'default'}: gradient {path} "
-                                 f"rel L2 {rel:.3g} beyond {GRAD_REL} and the witness's {wit:.3g}")
+                                 f"rel L2 {rel:.3g} beyond {GRAD_REL} and the spread {wit:.3g}")
     worst = max(r[0] for r in rows)
-    worst_witness = max(r[0] / max(r[2], 1e-30) for r in rows)
-    loss_gap, loss_wit = abs(float(loss) - float(p_loss)), abs(float(f_loss) - float(p_loss))
+    worst_allowance = max(r[0] / max(GRAD_REL, r[2]) for r in rows)
+    loss_gap = abs(float(loss) - float(p_loss))
+    loss_wit = spread(p_loss, [w[0] for w in witnesses]) * abs(float(p_loss))
     if not (math.isfinite(float(loss)) and (loss_gap <= LOSS_REL * abs(float(p_loss))
                                             or loss_gap <= loss_wit)):
         raise AssertionError(f"train step {cfg.name} {policy or 'default'}: loss {float(loss)} "
-                             f"vs plain {float(p_loss)} (witness gap {loss_wit})")
+                             f"vs plain {float(p_loss)} (spread {loss_wit})")
     designs = collections.Counter(f"{c[0]}:{c[4]}" for c in calls)
     emit(dict(check="train_step_grads", arch=cfg.name, row=label, layers=cfg.n_layers,
               policy=policy or "default", batch=list(batch["tokens"].shape),
-              loss=float(loss), plain_loss=float(p_loss), witness_loss=float(f_loss),
-              leaves=len(rows), worst_rel_l2=worst, worst_over_witness=worst_witness,
-              worst_leaves=[dict(leaf=p_, rel_l2=r, witness_rel_l2=w_)
+              loss=float(loss), plain_loss=float(p_loss),
+              witness_losses=[float(w[0]) for w in witnesses],
+              leaves=len(rows), worst_rel_l2=worst, worst_over_allowance=worst_allowance,
+              worst_leaves=[dict(leaf=p_, rel_l2=r, spread=w_)
                             for r, p_, w_ in sorted(rows, reverse=True)[:4]],
               grad_rel=GRAD_REL, launches={k_: v for k_, v in launches.items() if v},
               matmul_designs=dict(designs)))
-    del grads, p_grads, f_grads
+    del grads, p_grads, witnesses
     return launches
 
 
@@ -3953,7 +4045,382 @@ def check_training(gen) -> dict[str, int]:
         f"gradients and fp32 moments need about 190 GB")))
     del params_moe
     torch.cuda.empty_cache()
+    check_down_projection_db(gen)
     emit(dict(check="phase", phase=9, seconds=time.perf_counter() - t0))
+    return {k_: total[k_] for k_ in kernels.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the trace tooling on the card — the launchers' --trace, the
+# dispatch records, obs.export and obs.analyze at full width
+# ---------------------------------------------------------------------------
+
+#: the traced launcher runs (full width; weights and requests from the
+#: launchers' own seeds, nothing from the shared generator): (a) the paged
+#: engine with a shared prefix, (b) qwen1.5-1.8b speculating with its
+#: registered draft, (c) the async ServeLoop over a seeded Poisson trace
+#: (no shared prefix: every prefill is cold whatever the arrival timing,
+#: so the streams cannot depend on it), (d) two training steps
+TRACE_RUNS = {
+    "paged": ["--arch", "qwen1.5-0.5b", "--kv", "paged", "--requests", "8", "--max-new", "16",
+              "--shared-prefix", "32", "--seed", "0"],
+    "spec": ["--arch", "qwen1.5-1.8b", "--kv", "paged", "--spec-k", "4", "--draft-model", "auto",
+             "--requests", "8", "--max-new", "16", "--shared-prefix", "32", "--seed", "0"],
+    "server": ["--arch", "qwen1.5-0.5b", "--server", "--qps", "4", "--duration", "2",
+               "--max-slots", "4", "--max-new", "16", "--seed", "0"],
+}
+TRACE_TRAIN = ["--arch", "qwen1.5-0.5b", "--steps", "2", "--batch", str(TRAIN_BATCH),
+               "--seq", str(TRAIN_SEQ), "--log-every", "1", "--seed", "0"]
+#: the trace's unit, in ms: its timestamps are microseconds
+TRACE_RESOLUTION_MS = 1e-3
+
+
+class TimedEngine(PagedEngine):
+    """``PagedEngine`` timing each ``step()`` (wall ms: the steps are
+    host-bound) and bracketing each model step's dispatch with CUDA
+    events recorded where its ``engine.<name>`` span opens and closes."""
+
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.step_ms, self.marks = [], []
+        TimedEngine.made.append(self)
+
+    def step(self):
+        t0 = time.perf_counter()
+        out = super().step()
+        self.step_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def _dispatch(self, name, *args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = super()._dispatch(name, *args)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[1].record()
+        self.marks.append((name, host_ms, *ev))
+        return out
+
+
+#: a span closed before the device finished the work it enqueued when the
+#: device's time between the span's two events passes the span's host time
+#: by more than this (ms): event timestamps resolve about half a microsecond
+SPAN_LAG_MS = 0.1
+
+
+def span_ends(marks) -> dict:
+    """Per model step kind: the median host ms of its ``engine.*`` span,
+    the median device ms between the span's two events (from the span's
+    start until the device has run all the work the span enqueued: never
+    less than the host ms, as the end event is recorded when the span
+    closes), the median and largest lag of the device past the span's
+    end, and the share of spans that closed more than ``SPAN_LAG_MS``
+    before the device finished their work."""
+    out = collections.defaultdict(list)
+    for name, host_ms, e0, e1 in marks:
+        out[name].append((host_ms, e0.elapsed_time(e1)))
+    return {name: dict(spans=len(v), host_ms_p50=statistics.median(h for h, _ in v),
+                       device_ms_p50=statistics.median(d for _, d in v),
+                       lag_ms_p50=statistics.median(d - h for h, d in v),
+                       lag_ms_max=max(d - h for h, d in v),
+                       closed_before_device=sum(d - h > SPAN_LAG_MS for h, d in v) / len(v))
+            for name, v in out.items()}
+
+
+def _quiet(fn, *args, **kw):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        res = fn(*args, **kw)
+    return res, out.getvalue(), err.getvalue()
+
+
+def read_trace(path: str) -> tuple[dict, dict]:
+    """The trace at ``path`` validated, with its analysis; fails unless
+    nothing was dropped."""
+    from repro_torch.obs import analyze as obs_analyze
+    from repro_torch.obs import export as obs_export
+
+    trace = obs_export.validate_trace(obs_export.load(path))
+    report = obs_analyze.analyze(trace)
+    if trace["metadata"]["n_dropped"] or report["trace_dropped"]:
+        raise AssertionError(f"trace {path}: {trace['metadata']['n_dropped']} events dropped")
+    return trace, report
+
+
+def trace_summary(trace: dict, report: dict) -> dict:
+    """Event counts by name, dispatch spans by ``<op>_<schedule>`` and by
+    design, and the B-fetch share the tiles avoid."""
+    events = trace["traceEvents"]
+    disp = [e["args"] for e in events if e["ph"] == "X" and e["name"].startswith("dispatch.")]
+    return dict(events=len(events),
+                events_by_name=dict(collections.Counter(e["name"] for e in events).most_common(12)),
+                dispatch_by_schedule=dict(collections.Counter(
+                    f"{a['op']}_{a['schedule']}" for a in disp)),
+                dispatch_by_design=dict(collections.Counter(
+                    f"{a['op']}_{a['schedule']}:{a.get('design')}" for a in disp)),
+                matmul_b_fetch_avoided_frac=report["matmul_b_fetch_avoided_frac"],
+                matmul_b_block_fetches=report["matmul_b_block_fetches"],
+                matmul_b_block_fetches_unicast=report["matmul_b_block_fetches_unicast"])
+
+
+def hold_equal(label: str, pairs: dict) -> None:
+    bad = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"trace {label}: report != live counters: {bad}")
+
+
+#: each launcher runs untraced and traced twice over, alternating, so that
+#: the step's wall ms with and without tracing are read through the host's
+#: drift (one pair alone moved it by a third)
+TRACE_ORDER = (False, True, False, True)
+
+
+def check_traced_serving(label: str, args: list[str], d: str) -> dict[str, int]:
+    """The launcher run of ``args`` untraced and with ``--trace``, in
+    ``TRACE_ORDER``: stdout (the token streams) equal in every run; the last
+    traced run's trace and report valid, nothing dropped; its report's
+    kernel calls, pool and prefix keys (and the speculation keys, or the
+    loop's TTFT decomposition) equal to its engine's live counters; the
+    step's wall ms with and without tracing; where each ``engine.*`` span
+    closes against the device work.  Returns the last traced run's
+    launches."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.obs import analyze as obs_analyze
+
+    path = f"{d}/{label}.json"
+    runs = []
+    for i, traced in enumerate(TRACE_ORDER):
+        extra = ["--trace", path] if traced else []
+        if label == "server":
+            extra += ["--metrics-json", f"{d}/{label}{i}.metrics.json"]
+        TimedEngine.made.clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(serve_launcher, "PagedEngine", TimedEngine):
+            _, out, _ = _quiet(serve_launcher.main, [*args, *extra])
+        torch.cuda.synchronize()
+        runs.append(dict(traced=traced, out=out, engine=TimedEngine.made[-1],
+                         launches=kernels.launch_counts(), seconds=time.perf_counter() - t0,
+                         metrics=f"{d}/{label}{i}.metrics.json"))
+    run = runs[-1]
+    if any(r["out"] != run["out"] for r in runs) or "req " not in run["out"]:
+        raise AssertionError(f"trace {label}: the traced runs' streams differ from the "
+                             f"untraced runs'")
+    used = {k for k, v in run["launches"].items() if v}
+    if not used or any({k for k, v in r["launches"].items() if v} != used for r in runs):
+        raise AssertionError(f"trace {label}: launches {[r['launches'] for r in runs]}")
+    trace, report = read_trace(path)
+    written = json.load(open(path + ".report.json"))
+    obs_analyze.validate_report(written)
+    eng = run["engine"]
+    calls = {f"kernel_calls_{k}": (report.get(f"kernel_calls_{k}"), v)
+             for k, v in eng.kernel_calls.items()}
+    hold_equal(label, dict(
+        calls, kernel_calls_total=(report["kernel_calls_total"], sum(eng.kernel_calls.values())),
+        pool_pages_allocated=(report["pool_pages_allocated"], eng.pool.stats.allocated),
+        pool_pages_freed=(report["pool_pages_freed"], eng.pool.stats.freed),
+        pool_pages_shared=(report["pool_pages_shared"], eng.pool.stats.shared),
+        pool_cow_copies=(report["pool_cow_copies"], eng.pool.stats.cow_copies),
+        prefix_hit_tokens=(report["prefix_hit_tokens"], eng.prefix.hit_tokens),
+        prefix_miss_tokens=(report["prefix_miss_tokens"], eng.prefix.miss_tokens),
+        written_report=(written, report)))
+    extra = {}
+    if label == "spec":
+        st = eng.stats()
+        hold_equal(label, {k: (report[k], st[k]) for k in (
+            "spec_rounds", "spec_drafted", "spec_accepted", "spec_rollback_pages")} | dict(
+            spec_accept_rate=(report["spec_accept_rate"], st["accept_rate"])))
+        if not report["spec_rounds"]:
+            raise AssertionError("trace spec: no speculative round ran")
+        extra = {k: report[k] for k in ("spec_rounds", "spec_drafted", "spec_accepted",
+                                        "spec_accept_rate")}
+    if label == "server":
+        snaps = [json.load(open(r["metrics"])) for r in runs]
+        snap = snaps[-1]
+        gap = abs(report["ttft_decomposed_p50_ms"] - snap["ttft_p50_ms"])
+        hold_equal(label, dict(requests=(report["requests_submitted"], snap["requests_total"]),
+                               finished=(report["requests_finished"], snap["requests_total"]),
+                               tokens=(report["tokens_emitted"], snap["tokens_out"]),
+                               ticks=(report["decode_ticks"], snap["decode_ticks"])))
+        if gap > TRACE_RESOLUTION_MS:
+            raise AssertionError(f"trace server: TTFT p50 {report['ttft_decomposed_p50_ms']} "
+                                 f"from spans vs {snap['ttft_p50_ms']} from the metrics")
+        extra = dict(ttft_decomposed_p50_ms=report["ttft_decomposed_p50_ms"],
+                     ttft_p50_ms_metrics=snap["ttft_p50_ms"], ttft_gap_ms=gap,
+                     itl_p50_ms_by_run=[x["itl_p50_ms"] for x in snaps],
+                     queue_wait_p50_ms=report["queue_wait_p50_ms"])
+    step = [statistics.median(r["engine"].step_ms) for r in runs]
+    emit(dict(check="trace_serving", run=label, args=args, **trace_summary(trace, report),
+              order=["traced" if t else "untraced" for t in TRACE_ORDER],
+              step_ms_p50_by_run=step,
+              step_ms_p50_untraced=statistics.median(x for x, t in zip(step, TRACE_ORDER)
+                                                     if not t),
+              step_ms_p50_traced=statistics.median(x for x, t in zip(step, TRACE_ORDER) if t),
+              steps=[len(r["engine"].step_ms) for r in runs],
+              run_seconds_by_run=[r["seconds"] for r in runs],
+              span_ends=span_ends(eng.marks),
+              kernel_calls=dict(eng.kernel_calls), **extra,
+              launches={k: v for k, v in run["launches"].items() if v}))
+    launches = run["launches"]
+    del runs, run, eng
+    TimedEngine.made.clear()
+    return launches
+
+
+def check_traced_training(d: str) -> dict[str, int]:
+    """``launch.train`` for two steps, untraced and with ``--trace`` in
+    ``TRACE_ORDER``: equal losses and launches in every run, a valid trace
+    with nothing dropped, its dispatch spans (forward and the backward's
+    re-dispatch, one per call), the second step's wall ms with and without
+    tracing (the first carries the run's warm-up).  Returns the last
+    traced run's launches."""
+    from repro_torch.launch import train as train_launcher
+
+    runs = []
+    for i, traced in enumerate(TRACE_ORDER):
+        extra = ["--trace", f"{d}/train.json"] if traced else []
+        kernels.reset_launch_counts()
+        res, _, _ = _quiet(train_launcher.main, [*TRACE_TRAIN, "--ckpt-dir", f"{d}/ckpt{i}",
+                                                 *extra])
+        torch.cuda.synchronize()
+        runs.append((res, kernels.launch_counts()))
+    res, launches = runs[-1]
+    if any(r["losses"] != res["losses"] or lc != launches for r, lc in runs) \
+            or not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError(f"trace train: losses {[r['losses'] for r, _ in runs]}")
+    trace, report = read_trace(f"{d}/train.json")
+    step = [1e3 * r["step_seconds"][-1] for r, _ in runs]
+    emit(dict(check="trace_training", args=TRACE_TRAIN, losses=res["losses"],
+              **trace_summary(trace, report),
+              order=["traced" if t else "untraced" for t in TRACE_ORDER],
+              last_step_ms_by_run=step,
+              step_ms_untraced=statistics.median(x for x, t in zip(step, TRACE_ORDER) if not t),
+              step_ms_traced=statistics.median(x for x, t in zip(step, TRACE_ORDER) if t),
+              launches={k: v for k, v in launches.items() if v}))
+    return launches
+
+
+#: the record-cost reading: calls in each timed block, blocks each way
+COST_CALLS, COST_BLOCKS = 500, 10
+#: the paged run with tracing armed on every other engine step: longer
+#: streams than ``TRACE_RUNS["paged"]`` for more pairs of steps
+ALTERNATING_RUN = [*TRACE_RUNS["paged"][:-6], "--max-new", "64", *TRACE_RUNS["paged"][-4:]]
+
+
+class AlternatingEngine(TimedEngine):
+    """``TimedEngine`` with :attr:`rec` armed on every odd-numbered step
+    only, the events each armed step records counted."""
+
+    rec = None
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.armed_events = []
+
+    def step(self):
+        from repro_torch.obs import trace as obs_trace
+
+        if len(self.step_ms) % 2 == 0:
+            return super().step()
+        n0 = len(self.rec)
+        obs_trace.start(self.rec)
+        try:
+            return super().step()
+        finally:
+            obs_trace.stop()
+            self.armed_events.append(len(self.rec) - n0)
+
+
+def per_call_us(fn, n: int = COST_CALLS) -> float:
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def check_tracing_cost(gen) -> None:
+    """What tracing costs this card's host, each reading inside one
+    process so that the host's drift between runs stays out of it:
+
+    * per call, the medians over ``COST_BLOCKS`` blocks: one unarmed
+      ``trace.active()`` check; ``kernels.linear`` at decode q/k/v's shape
+      (4 x 1,024 x 1,024, bf16) in blocks alternating unarmed and armed,
+      the difference being what tracing adds to a dispatched call; one
+      ``_record_dispatch`` of that call's launch (its design and tile
+      read) on a recorder;
+    * per engine step: the paged launcher (``ALTERNATING_RUN``) with a
+      recorder armed on every other step; each armed step's wall ms less
+      the mean of its two unarmed neighbours, the median of those
+      differences, and the events an armed step records.
+
+    A measurement: it gates nothing but the run itself."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.obs import trace as obs_trace
+
+    active_us = statistics.median(per_call_us(obs_trace.active) for _ in range(COST_BLOCKS))
+    x = torch.randn(4, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(1024, 1024, device="cuda", generator=gen) / 32).to(torch.bfloat16)
+    linear_us = {False: [], True: []}
+    for _ in range(COST_BLOCKS):
+        for armed in (False, True):
+            torch.cuda.synchronize()
+            with (obs_trace.tracing() if armed else contextlib.nullcontext()):
+                linear_us[armed].append(per_call_us(lambda: kernels.linear(x, w)))
+            torch.cuda.synchronize()
+    problem = api.Problem((4, 1024, 1024), "bfloat16")
+    sched = kernels.op("matmul").resolve(problem)  # the schedule linear ran above
+    wrapper = kernels.KERNELS[sched.kernel]
+    rec = obs_trace.Recorder()
+    record_us = statistics.median(
+        per_call_us(lambda: api._record_dispatch(rec, rec.now(), "matmul", sched, problem,
+                                                 wrapper.launches - 1))
+        for _ in range(COST_BLOCKS))
+    AlternatingEngine.rec = obs_trace.Recorder()
+    TimedEngine.made.clear()
+    with mock.patch.object(serve_launcher, "PagedEngine", AlternatingEngine):
+        _, out, _ = _quiet(serve_launcher.main, ALTERNATING_RUN)
+    torch.cuda.synchronize()
+    eng = TimedEngine.made[-1]
+    ms = eng.step_ms
+    diffs = [ms[j] - (ms[j - 1] + ms[j + 1]) / 2 for j in range(1, len(ms) - 1, 2)]
+    if "req " not in out or not diffs or not all(eng.armed_events):
+        raise AssertionError(f"trace cost: run {len(ms)} steps, armed events "
+                             f"{eng.armed_events}")
+    events = statistics.median(eng.armed_events[:len(diffs)])
+    diff_ms = statistics.median(diffs)
+    unarmed, armed = (statistics.median(linear_us[k]) for k in (False, True))
+    emit(dict(check="trace_cost", active_check_us=active_us, dispatch_record_us=record_us,
+              linear_us_unarmed=unarmed, linear_us_armed=armed,
+              linear_us_by_block={str(k): v for k, v in linear_us.items()},
+              linear_tracing_us=armed - unarmed,
+              alternating_args=ALTERNATING_RUN, steps=len(ms), step_pairs=len(diffs),
+              step_ms_p50_unarmed=statistics.median(ms[0::2]),
+              step_ms_p50_armed=statistics.median(ms[1::2]),
+              armed_step_minus_neighbours_ms_p50=diff_ms,
+              armed_step_minus_neighbours_ms=diffs,
+              events_per_armed_step_p50=events,
+              us_per_event_from_steps=1e3 * diff_ms / events,
+              step_ms_predicted_from_records=events * record_us / 1e3))
+    AlternatingEngine.rec = None
+    TimedEngine.made.clear()
+
+
+def check_trace_tooling() -> dict[str, int]:
+    """Phase 10; returns each kernel's launches over its traced runs."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    check_tracing_cost(torch.Generator(device="cuda").manual_seed(10))
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as d:
+        for label, args in TRACE_RUNS.items():
+            total.update(check_traced_serving(label, args, d))
+            torch.cuda.empty_cache()
+        total.update(check_traced_training(d))
+    torch.cuda.empty_cache()
+    emit(dict(check="phase", phase=10, seconds=time.perf_counter() - t0))
     return {k_: total[k_] for k_ in kernels.KERNELS}
 
 
@@ -4052,8 +4519,12 @@ def main() -> None:
     # phase 9: training on the card
     train_launches = check_training(torch.Generator(device="cuda").manual_seed(9))
     check_clean("phase 9")
+
+    # phase 10: the launchers traced at full width
+    trace_launches = check_trace_tooling()
+    check_clean("phase 10")
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k] + train_launches[k]
-                for k in kernels.KERNELS}
+                + trace_launches[k] for k in kernels.KERNELS}
 
     kernels_line = []
     for kname in kernels.KERNELS:

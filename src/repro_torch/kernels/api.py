@@ -75,6 +75,11 @@ own shapes), as JAX's ``_bwd_policy_token`` does.
   so the port reports none.)
 * :func:`launch_counts` / :func:`reset_launch_counts` — one launch
   counter per kernel; the plain CPU path never moves them.
+* dispatch records — with a recorder armed (:mod:`repro_torch.obs.trace`)
+  every dispatched call records one ``dispatch.<op>`` span (schedule,
+  backend, shape, dtype, and the design and tile of the kernel that ran;
+  :func:`_record_dispatch`); unarmed, the cost is one ``trace.active()``
+  check.
 * :func:`call_with_fallback` — run a kernel call, and on an exception (or
   a failed output check, :func:`all_finite`) retry it once on the
   reference backend, counted in the process-wide :class:`FallbackStats`
@@ -101,6 +106,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.matmul.matmul import (
     ACTIVATIONS,
+    design_tiles,
     matmul_mcast,
     matmul_tiled,
     matmul_unicast,
@@ -272,7 +278,9 @@ class Schedule:
     schedule can be differentiated — a kernel schedule through its
     family's autograd function (its backward is kernels too), a reference
     schedule natively.  Under differentiation, dispatch skips schedules
-    without one and refuses to force them."""
+    without one and refuses to force them.  ``kernel``: the wrapper of
+    :data:`KERNELS` that a kernel schedule launches forward (its dispatch
+    record reads the launch's design from it)."""
 
     name: str
     fn: Callable[..., torch.Tensor]
@@ -280,6 +288,7 @@ class Schedule:
     available: Callable[[Problem], bool] = lambda p: True
     vjp: bool = False
     backend: str = "pallas"
+    kernel: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,13 +355,15 @@ class KernelOp:
         problem = Problem(tuple(self.problem(*tensors)), autotune.dtype_name(tensors[0].dtype))
         pol = get_policy()
         needs_vjp = _needs_vjp(*tensors)
-        sched = self.resolve(problem, pol, needs_vjp=needs_vjp)
-        if needs_vjp and sched.backend == "pallas":  # the oracle differentiates natively
-            if self.name == "matmul":  # the one backward that dispatches again
-                return _LinearFunction.apply(sched, linear, _bwd_policy_token(pol), full,
-                                             *tensors)
-            return _VJP[self.name].apply(sched, full, *tensors)
-        return sched.fn(*tensors, **full)
+
+        def run(sched: Schedule) -> torch.Tensor:
+            if needs_vjp and sched.backend == "pallas":  # the oracle differentiates natively
+                if self.name == "matmul":  # the one backward that dispatches again
+                    return _LinearFunction.apply(sched, linear, _bwd_policy_token(pol), full,
+                                                 *tensors)
+                return _VJP[self.name].apply(sched, full, *tensors)
+            return sched.fn(*tensors, **full)
+        return _dispatched(self, problem, pol, needs_vjp, run)
 
 
 _REGISTRY: dict[str, KernelOp] = {}
@@ -396,6 +407,58 @@ def resolve(name: str, shape: Sequence[int], dtype,
         Problem(tuple(int(s) for s in shape), autotune.dtype_name(dtype)), policy,
         needs_vjp=needs_vjp)
     return Resolution(sched.name, sched.backend, sched.vjp)
+
+
+def _dispatched(kop: KernelOp, problem: Problem, pol: DispatchPolicy, needs_vjp: bool,
+                run: Callable[[Schedule], Any]) -> Any:
+    """``run`` the schedule that ``kop`` resolves for ``problem`` under
+    ``pol``; with a recorder armed, time the resolution and the run and
+    record them (:func:`_record_dispatch`).  Unarmed, the cost over the
+    call is one ``trace.active()`` check."""
+    rec = trace.active()
+    if rec is None:
+        return run(kop.resolve(problem, pol, needs_vjp=needs_vjp))
+    t0 = rec.now()
+    sched = kop.resolve(problem, pol, needs_vjp=needs_vjp)
+    n0 = KERNELS[sched.kernel].launches if sched.kernel else 0
+    out = run(sched)
+    _record_dispatch(rec, t0, kop.name, sched, problem, n0)
+    return out
+
+
+def _record_dispatch(rec, t0: float, op_name: str, sched: Schedule, problem: Problem,
+                     launches0: int) -> None:
+    """Record one ``dispatch.<op>`` complete-span on the armed recorder,
+    with the JAX package's args: ``op``, ``schedule``, ``backend``,
+    ``shape`` (the problem dispatch resolved), ``dtype``.
+
+    Two differences from the JAX package's ``_record_dispatch``, by design:
+
+    * **One span per call, not per compilation.**  JAX records a span per
+      kernel site per jit trace (its dispatch runs at trace time); the
+      port runs eagerly, so every call of :meth:`KernelOp.__call__`,
+      :func:`linear`, :func:`grouped_linear` and the matmul backward's
+      re-dispatch records one.  A run's dispatch counts are calls, JAX's
+      are compiled sites.
+    * **Tile keys.**  Where JAX records ``gm`` / ``bm`` / ``bn`` / ``bk``
+      from its TPU block config, the port records the tile of the CUDA
+      design that ran (``kernels.matmul.design_tiles``: rows per group or
+      cluster ``gm``, ``bm``, ``bn``, ``bk``) and the design's name
+      (``design``, for every family whose kernel launched in the call).
+      The plain versions on the CPU launch nothing and record neither, as
+      JAX records no block config with its autotuner off.
+
+    The CUDA kernels' tiles are fixed, so there is no autotuner outcome
+    (``autotune_cached``) to record."""
+    args = {"op": op_name, "schedule": sched.name, "backend": sched.backend,
+            "shape": list(problem.shape), "dtype": problem.dtype}
+    kname = sched.kernel
+    if kname is not None and KERNELS[kname].launches != launches0:
+        design = KERNELS[kname].design
+        args["design"] = design
+        if op_name == "matmul":
+            args.update(design_tiles(kname, design, problem.shape[0]))
+    rec.complete(f"dispatch.{op_name}", t0, cat="kernel", args=args)
 
 
 def _bwd_policy_token(pol: DispatchPolicy) -> str | None:
@@ -505,10 +568,12 @@ register(KernelOp(
     opt_defaults=(("activation", "none"), ("out_dtype", None)),
     # ties go to the first: tiled, mcast, unicast (the JAX package's order)
     schedules=(
-        Schedule("tiled", _mm_tiled, _model_cost("matmul", "tiled"), vjp=True),
+        Schedule("tiled", _mm_tiled, _model_cost("matmul", "tiled"), vjp=True,
+                 kernel="matmul_tiled"),
         Schedule("mcast", _mm_mcast, _model_cost("matmul", "mcast"),
-                 available=_fits("matmul", "mcast"), vjp=True),
-        Schedule("unicast", _mm_unicast, _model_cost("matmul", "unicast"), vjp=True),
+                 available=_fits("matmul", "mcast"), vjp=True, kernel="matmul_mcast"),
+        Schedule("unicast", _mm_unicast, _model_cost("matmul", "unicast"), vjp=True,
+                 kernel="matmul_unicast"),
         Schedule("reference", _mm_reference, None, vjp=True, backend="reference"),
     ),
 ))
@@ -533,15 +598,15 @@ def linear(x: torch.Tensor, w: torch.Tensor, *, bias: torch.Tensor | None = None
     m, k, n = math.prod(lead), math.prod(k_dims), math.prod(out_dims)
     pol = as_policy(policy) or get_policy()
     needs_vjp = _needs_vjp(x, w, bias)
-    sched = op("matmul").resolve(Problem((m, k, n), autotune.dtype_name(x.dtype)), pol,
-                                 needs_vjp=needs_vjp)
+    problem = Problem((m, k, n), autotune.dtype_name(x.dtype))
     opts = dict(activation=activation or "none", out_dtype=out_dtype)
     args = (x.reshape(m, k), w.reshape(k, n)) + (() if bias is None else (bias.reshape(n),))
-    if needs_vjp and sched.backend == "pallas":
-        y = _LinearFunction.apply(sched, linear, _bwd_policy_token(pol), opts, *args)
-    else:
-        y = sched.fn(*args, **opts)
-    return y.reshape(*lead, *out_dims)
+
+    def run(sched: Schedule) -> torch.Tensor:
+        if needs_vjp and sched.backend == "pallas":
+            return _LinearFunction.apply(sched, linear, _bwd_policy_token(pol), opts, *args)
+        return sched.fn(*args, **opts)
+    return _dispatched(op("matmul"), problem, pol, needs_vjp, run).reshape(*lead, *out_dims)
 
 
 def grouped_linear(x: torch.Tensor, w: torch.Tensor, *, activation: str | None = None,
@@ -567,19 +632,20 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor, *, activation: str | None =
     act = activation or "none"
     pol = as_policy(policy) or get_policy()
     needs_vjp = _needs_vjp(x, w)
-    sched = op("matmul").resolve(
-        Problem((max(1, math.prod(lead)) * m, k, n), autotune.dtype_name(x.dtype)), pol,
-        needs_vjp=needs_vjp)
-    if sched.backend == "reference":
-        y = torch.matmul(x.float(), w.float()).to(torch.promote_types(x.dtype, w.dtype))
-        return REFERENCE_ACTIVATIONS[act](y)
-    xt = x.reshape(-1, g, m, k).transpose(0, 1).reshape(g, -1, k)
-    if needs_vjp:
-        y = _LinearFunction.apply(sched, _grouped, _bwd_policy_token(pol),
-                                  dict(activation=act, out_dtype=None), xt, w)
-    else:
-        y = sched.fn(xt, w, activation=act, out_dtype=None)
-    return y.reshape(g, -1, m, n).transpose(0, 1).reshape(*lead, g, m, n)
+    problem = Problem((max(1, math.prod(lead)) * m, k, n), autotune.dtype_name(x.dtype))
+
+    def run(sched: Schedule) -> torch.Tensor:
+        if sched.backend == "reference":
+            y = torch.matmul(x.float(), w.float()).to(torch.promote_types(x.dtype, w.dtype))
+            return REFERENCE_ACTIVATIONS[act](y)
+        xt = x.reshape(-1, g, m, k).transpose(0, 1).reshape(g, -1, k)
+        if needs_vjp:
+            y = _LinearFunction.apply(sched, _grouped, _bwd_policy_token(pol),
+                                      dict(activation=act, out_dtype=None), xt, w)
+        else:
+            y = sched.fn(xt, w, activation=act, out_dtype=None)
+        return y.reshape(g, -1, m, n).transpose(0, 1).reshape(*lead, g, m, n)
+    return _dispatched(op("matmul"), problem, pol, needs_vjp, run)
 
 
 def _grouped(a: torch.Tensor, b: torch.Tensor, *, bias=None, out_dtype=None,
@@ -589,10 +655,11 @@ def _grouped(a: torch.Tensor, b: torch.Tensor, *, bias=None, out_dtype=None,
     ``policy``: a kernel schedule's one launch over all groups.  Operands
     are read through their strides (a transposed group operand is a view,
     not a copy).  ``bias`` is :func:`linear`'s keyword, never given here."""
-    pol = as_policy(policy) or get_policy()
     g, m, k = a.shape
-    sched = op("matmul").resolve(Problem((m, k, b.shape[2]), autotune.dtype_name(a.dtype)), pol)
-    return sched.fn(a, b, bias, activation="none", out_dtype=out_dtype)
+    problem = Problem((m, k, b.shape[2]), autotune.dtype_name(a.dtype))
+    return _dispatched(op("matmul"), problem, as_policy(policy) or get_policy(), False,
+                       lambda sched: sched.fn(a, b, bias, activation="none",
+                                              out_dtype=out_dtype))
 
 
 class _LinearFunction(torch.autograd.Function):
@@ -656,7 +723,8 @@ register(KernelOp(
     # that): the CUDA tiles are fixed and mask ragged edges, so every
     # (sq, sk, d <= 256) runs.  The one schedule's cost decides nothing.
     schedules=(
-        Schedule("pallas", _flash_pallas, _model_cost("flash_attention"), vjp=True),
+        Schedule("pallas", _flash_pallas, _model_cost("flash_attention"), vjp=True,
+                 kernel="flash_attention"),
         Schedule("reference", attention_ref, None, vjp=True, backend="reference"),
     ),
 ))
@@ -736,10 +804,11 @@ register(KernelOp(
     opt_defaults=(("softcap", None),),
     schedules=(
         Schedule("pallas", _paged_decode, _model_cost("paged_attention"),
-                 available=lambda p: p.shape[1] == 1 and p.shape[-1] == 0 and _paged_fits(p)),
+                 available=lambda p: p.shape[1] == 1 and p.shape[-1] == 0 and _paged_fits(p),
+                 kernel="paged_attention_decode"),
         Schedule("pallas_prefill", _paged_prefill,
                  _model_cost("paged_attention", "prefill"),
-                 available=_fits("paged_attention", "prefill")),
+                 available=_fits("paged_attention", "prefill"), kernel="paged_attention_prefill"),
         # the one differentiable schedule: auto-dispatch under autograd
         # lands here, as in the JAX package
         Schedule("reference", _paged_reference, None, vjp=True, backend="reference"),
@@ -768,7 +837,7 @@ register(KernelOp(
     # the sequence and whose (P, N) state must fit VMEM: the CUDA kernels
     # run a short last chunk and stream the state through N tiles.
     schedules=(
-        Schedule("pallas", _ssd_pallas, _model_cost("ssd"), vjp=True),
+        Schedule("pallas", _ssd_pallas, _model_cost("ssd"), vjp=True, kernel="ssd_scan"),
         Schedule("reference", ssd_scan_ref, None, vjp=True, backend="reference"),
     ),
 ))
@@ -816,7 +885,8 @@ register(KernelOp(
     # must be the whole (prime) sequence and overflows VMEM; the CUDA
     # kernels cut any length into 64-step chunks, the last one short.
     schedules=(
-        Schedule("pallas", _rglru_pallas, _model_cost("rglru"), vjp=True),
+        Schedule("pallas", _rglru_pallas, _model_cost("rglru"), vjp=True,
+                 kernel="rglru_scan"),
         Schedule("reference", rglru_scan_ref, None, vjp=True, backend="reference"),
     ),
 ))

@@ -1,6 +1,7 @@
 from repro_torch.kernels.matmul.matmul import (  # noqa: F401
     ACT_CODES,
     ACTIVATIONS,
+    design_tiles,
     hbm_traffic_model,
     kernel_blocks,
     matmul_mcast,

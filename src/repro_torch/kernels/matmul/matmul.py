@@ -310,6 +310,40 @@ def kernel_blocks(m: int) -> dict[str, dict[str, int]]:
             "mcast": dict(large, bm=128 * mcast_cluster(m)), "unicast": large}
 
 
+#: the CUDA-core design's tiles (bm, bn, bk) by kernel, up to 16 rows /
+#: above it (K4: up to 64 rows / above it, where one CTA per column walks
+#: every row in 256-row panels, each re-reading B); K1 numbers its tiles
+#: in groups of ``GROUP_M`` = 8 row blocks (``csrc/matmul_tiled.cu``
+#: ``dispatch``, ``csrc/matmul_mcast.cu`` and ``csrc/matmul_unicast.cu``
+#: ``launch_cuda_core``)
+_CUDA_CORE_TILES = {"matmul_tiled": ((16, 32, 128), (64, 64, 16)),
+                    "matmul_mcast": ((16, 64, 32), (64, 64, 32), (256, 64, 16)),
+                    "matmul_unicast": ((16, 64, 32), (64, 64, 32))}
+_GROUP_M = 8
+
+
+def design_tiles(kernel: str, design: str, m: int) -> dict[str, int]:
+    """The tile of ``kernel``'s ``design`` at ``m`` rows, in
+    :func:`hbm_traffic_model`'s terms: ``bm`` x ``bn`` output tiles walked
+    ``bk`` deep, and ``gm`` the rows that share one B fetch where more
+    than one row block does (K1's grouped raster of 8 row blocks, K4's
+    thread-block clusters).  From the C rules: ``csrc/matmul_wgmma.cuh``
+    (``LARGE_BM``, ``LARGE_BN``, ``SMALL_M_MAX``, ``SMALL_BN``, ``BK``)
+    and each kernel's CUDA-core tiles."""
+    if design == "cuda-core":
+        tiles = _CUDA_CORE_TILES[kernel]
+        bm, bn, bk = tiles[0] if m <= 16 else tiles[1] if m <= 64 or len(tiles) == 2 \
+            else tiles[2]
+        return dict(gm=_GROUP_M * bm, bm=bm, bn=bn, bk=bk) if kernel == "matmul_tiled" \
+            else dict(bm=bm, bn=bn, bk=bk)
+    if design.startswith("wgmma-swapab"):  # one 64-row block, K split over CTAs
+        return dict(bm=64, bn=64, bk=64)
+    large = dict(bm=128, bn=128, bk=64)
+    if design == "wgmma-cluster":
+        return dict(large, gm=128 * mcast_cluster(m))
+    return dict(large, gm=_GROUP_M * 128) if kernel == "matmul_tiled" else large
+
+
 def hbm_traffic_model(m: int, n: int, k: int, *, bm: int, bn: int, bk: int,
                       gm: int | None = None,
                       dtype_bytes: int = 4) -> dict[str, float]:

@@ -48,7 +48,13 @@ flat metrics snapshot against the schema (printed to stderr; written to
 ``--metrics-json`` when given), and without ``--chaos`` fails unless
 every request drained.  ``--queue-cap`` bounds the loop's queue.
 
-Not ported yet: ``--trace``, and the options :class:`PagedEngine`
+``--trace PATH`` arms a recorder (:mod:`repro_torch.obs.trace`) before
+the engine is built and writes, even when the run ends in a
+``SystemExit``, the Chrome/Perfetto trace at ``PATH`` (``.jsonl``: one
+event per line) and beside it ``PATH.report.json``, the
+multicast-efficiency report of :mod:`repro_torch.obs.analyze`, validated
+against its schema; the status line goes to stderr, stdout stays the
+token-stream surface.  Not ported yet: the options :class:`PagedEngine`
 rejects (sharded pools).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
@@ -62,6 +68,8 @@ rejects (sharded pools).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --server --qps 1.5 --duration 6 --max-slots 4 --shared-prefix 32 \\
         [--server-driver sync] [--kv-guard --kernel-fallback --chaos pool.alloc]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --kv paged --shared-prefix 32 --trace /tmp/serve.json
 """
 from __future__ import annotations
 
@@ -261,10 +269,20 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> li
                  "runs on the paged engine's COW page machinery)")
     serve_cfg = serve_config.from_args(
         args, max_slots=(args.max_slots or args.max_batch) if args.server else args.max_batch)
-    if serve_cfg.trace is not None:
-        raise NotImplementedError("--trace is not ported yet")
     cfg = get_config(args.arch, reduced=args.reduced)
     device = resolve(args.device)
+    rec = _arm_trace(serve_cfg)
+    try:
+        return _drive(args, cfg, serve_cfg, device, params, draft_params)
+    finally:
+        # the trace lands even on a SystemExit from undrained requests:
+        # the failing run is the one worth reading
+        if rec is not None:
+            _finish_trace(rec, serve_cfg.trace)
+
+
+def _drive(args, cfg, serve_cfg, device, params, draft_params) -> list[Request]:
+    """Build the model and the server ``args`` ask for, and serve."""
     if params is None:
         params = lm.init(cfg, seed=serve_cfg.seed, device=device)
     sampler = get_sampler(serve_cfg.sampler)
@@ -334,6 +352,42 @@ def run_server(args, cfg, serve_cfg, engine: PagedEngine) -> list[Request]:
         if bad:
             raise SystemExit(f"requests did not drain: {bad}")
     return drained
+
+
+def _arm_trace(serve_cfg):
+    """Arm the global recorder when ``--trace PATH`` was given, before the
+    engine is built, so every span of the run lands in the trace."""
+    if not serve_cfg.trace:
+        return None
+    from repro_torch.obs import trace as obs_trace
+
+    # the Recorder's default clock is time.monotonic, the clock ServeLoop
+    # and the metrics read, so span endpoints share their timebase
+    return obs_trace.start(meta={
+        "tool": "launch.serve",
+        "seed": serve_cfg.seed,
+        "num_shards": serve_cfg.num_shards,
+        "mcast_mode": serve_cfg.mcast_mode,
+    })
+
+
+def _finish_trace(rec, path: str) -> None:
+    """Disarm, export the trace, and write the schema-validated report
+    beside it (``PATH.report.json``).  The status line goes to stderr:
+    stdout is the token-stream surface."""
+    from repro_torch.obs import analyze as obs_analyze
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import trace as obs_trace
+
+    obs_trace.stop()
+    obs_export.write(rec, path)
+    report = obs_analyze.analyze(obs_export.validate_trace(obs_export.to_chrome(rec)))
+    report_path = path + ".report.json"
+    with open(report_path, "w") as f:
+        json.dump(report, f, indent=2, sort_keys=True)
+        f.write("\n")
+    print(f"# wrote trace {path} ({len(rec)} events, {rec.n_dropped} dropped) + report "
+          f"{report_path}", file=sys.stderr)
 
 
 if __name__ == "__main__":

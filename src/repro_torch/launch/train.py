@@ -20,15 +20,20 @@ checkpoint step N`` and ``done; final loss …``.  As in the JAX launcher:
   K4, ``unicast`` K5; ``reference`` the plain oracle); the default is
   the cost model's pick.
 
+``--trace PATH`` arms a recorder (:mod:`repro_torch.obs.trace`) for the
+run and writes its Chrome/Perfetto trace at ``PATH`` (``.jsonl``: one
+event per line) when the loop ends or raises: one ``dispatch.<op>`` span
+per kernel call (the port dispatches eagerly, where the JAX launcher's
+trace holds one per compiled program), then ``wrote trace …``.
+
 Refused, each raising with the ROADMAP item it waits for: a mesh other
-than 1 x 1, ``--fsdp`` and ``--compress`` (Queue 1 item 7, distribution),
-``--trace`` (item 8, tooling).  Encoder-decoder archs exit, as in the
-JAX launcher.
+than 1 x 1, ``--fsdp`` and ``--compress`` (Queue 1 item 7, distribution).
+Encoder-decoder archs exit, as in the JAX launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --reduced --device cpu --steps 12 --batch 4 --seq 32
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
-        --steps 100 --batch 8 --seq 128 --ckpt-every 20
+        --steps 100 --batch 8 --seq 128 --ckpt-every 20 [--trace /tmp/train.json]
 """
 from __future__ import annotations
 
@@ -48,8 +53,6 @@ from repro_torch.dist.step import MESH_ITEM, build_train_step
 from repro_torch.models import lm
 from repro_torch.nn.spec import abstract_params
 from repro_torch.optim import adamw
-
-TOOLING_ITEM = "ROADMAP Queue 1 item 8 (tooling)"
 
 
 def train_loop(args, *, params=None) -> dict:
@@ -135,7 +138,8 @@ def parser() -> argparse.ArgumentParser:
                     help='kernel dispatch policy, e.g. "tiled", "mcast", "unicast" or '
                          '"reference" (see repro_torch.kernels.api)')
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help=f"not ported yet ({TOOLING_ITEM}): raises")
+                    help="write a Perfetto/Chrome trace-event JSON of the run here "
+                         "(one dispatch span per kernel call)")
     ap.add_argument("--device", default=DEFAULT,
                     help="torch device to train on (default cuda; cpu runs the plain "
                          "versions of the kernels)")
@@ -147,8 +151,18 @@ def main(argv: list[str] | None = None, *, params=None) -> dict:
     seeded initial parameters (the tests pass JAX's, converted)."""
     args = parser().parse_args(argv)
     if args.trace:
-        raise NotImplementedError(f"--trace is not ported yet: {TOOLING_ITEM}")
-    out = train_loop(args, params=params)
+        from repro_torch.obs import export as obs_export
+        from repro_torch.obs import trace as obs_trace
+
+        rec = obs_trace.start(meta={"tool": "launch.train", "seed": args.seed})
+        try:
+            out = train_loop(args, params=params)
+        finally:
+            obs_trace.stop()
+            obs_export.write(rec, args.trace)
+            print(f"wrote trace {args.trace} ({len(rec)} events)")
+    else:
+        out = train_loop(args, params=params)
     print(f"done; final loss {out['final_loss']:.4f}")
     return out
 

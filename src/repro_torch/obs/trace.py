@@ -17,7 +17,21 @@ and counted in :attr:`Recorder.n_dropped`.
 
 Events are stored directly in Chrome/Perfetto trace-event form
 (``ph`` ∈ {X, i, C, b, e, M}; timestamps in microseconds relative to the
-recorder's arm time) so export is a plain JSON dump.
+recorder's arm time) so export is a plain JSON dump — see
+:mod:`repro_torch.obs.export`.
+
+**Spans measure the host.**  The port launches its kernels
+asynchronously, so a span around a model step (``engine.<name>``, cat
+``kernel``) closes when the host has enqueued the step's work, not when
+the device has run it; the device time lands in the first later span
+that waits for a result (the sampler reading the logits).  This is the
+JAX package's meaning too: its jitted steps dispatch asynchronously, and
+its ``engine.*`` spans close before the engine reads the result on the
+host.  No synchronisation is added when tracing is armed: a traced run
+measures what an untraced run does.  While the host is the bottleneck
+(every serving step of the port on the H100), the device finishes each
+step's work within a fraction of a millisecond of the span's end, so the
+span is the step's time.
 
 Timestamps use ``time.monotonic`` by default, the same clock
 ``serve.server.ServeLoop`` and ``serve.metrics`` use, so span endpoints

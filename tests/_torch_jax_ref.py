@@ -15,7 +15,7 @@ engines or servers, and let them share their jitted steps
 
     python tests/_torch_jax_ref.py \
         {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve|
-         recurrent|families|famserve|encdec|train|trainloop} OUT.npz
+         recurrent|families|famserve|encdec|train|trainloop|trace} OUT.npz
 """
 from __future__ import annotations
 
@@ -953,6 +953,26 @@ def _launch_error(args: list[str]) -> list[str]:
     raise AssertionError(f"the JAX launcher served {args}")
 
 
+#: the traced launcher run of mode ``trace``: the paged engine on the
+#: shared-prefix workload under ``backend=pallas`` (the port adds
+#: ``--device cpu`` and its own ``--trace PATH``)
+TRACE_LAUNCH_ARGS = [*LAUNCH_ARGS, "--kv", "paged", "--kernel-policy", "backend=pallas"]
+
+
+def _trace(out: dict) -> None:
+    """The JAX launcher's stdout and its ``--trace`` report for
+    ``TRACE_LAUNCH_ARGS``."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "jax_trace.json")
+        stdout = _launch([*TRACE_LAUNCH_ARGS, "--trace", path])
+        with open(path + ".report.json") as f:
+            report = json.load(f)
+    out["trace_json"] = np.asarray(json.dumps({"stdout": stdout, "report": report}))
+
+
 def _setup(arch: str = "qwen1.5-0.5b"):
     import jax
 
@@ -967,7 +987,8 @@ def _setup(arch: str = "qwen1.5-0.5b"):
 MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5-0.5b",
              "quant": TARGET, "int8serve": TARGET, "spec": TARGET,
              "refserve": "qwen1.5-0.5b", "chaos": "qwen1.5-0.5b", "loop": "qwen1.5-0.5b",
-             "moeserve": "moonshot-v1-16b-a3b", "trainloop": "qwen1.5-0.5b"}
+             "moeserve": "moonshot-v1-16b-a3b", "trainloop": "qwen1.5-0.5b",
+             "trace": "qwen1.5-0.5b"}
 
 
 def main(mode: str, path: str) -> None:
@@ -978,7 +999,7 @@ def main(mode: str, path: str) -> None:
      "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,
      "chaos": _chaos, "loop": _loop, "moe": _moe, "moeserve": _moeserve,
      "recurrent": _recurrent, "families": _families, "famserve": _famserve,
-     "encdec": _encdec, "train": _train, "trainloop": _trainloop}[mode](out)
+     "encdec": _encdec, "train": _train, "trainloop": _trainloop, "trace": _trace}[mode](out)
     if mode in MODE_ARCH:
         _, params = _setup(MODE_ARCH[mode])
         out["params_checksum"] = np.asarray(params_checksum(params))

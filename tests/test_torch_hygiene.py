@@ -58,8 +58,28 @@ def test_scan_covers_every_port_module():
                 "kernels/ssd/ssd.py", "kernels/ssd/ref.py", "kernels/rglru/rglru.py",
                 "kernels/rglru/ref.py", "nn/attention.py", "models/lm.py", "launch/serve.py",
                 "launch/train.py", "optim/adamw.py", "data/pipeline.py",
-                "checkpoint/manager.py", "configs/shapes.py", "dist/step.py", "tree.py"):
+                "checkpoint/manager.py", "configs/shapes.py", "dist/step.py", "tree.py",
+                "obs/trace.py", "obs/export.py", "obs/analyze.py", "core/__init__.py",
+                "core/encoding.py", "core/xbar.py", "core/timing.py", "core/noc.py",
+                "core/occamy.py", "core/area.py"):
         assert f"src/repro_torch/{rel}" in names, rel
+
+
+#: what the host-side copies may import: ``core/`` numpy and the standard
+#: library, ``obs/`` the standard library (``analyze`` reaches the port's
+#: metrics histogram lazily, inside a function)
+HOST_ONLY = {"core": {"numpy"}, "obs": set()}
+
+
+@pytest.mark.parametrize("pkg", sorted(HOST_ONLY))
+def test_host_copies_import_only_numpy_and_the_standard_library(pkg):
+    import sys
+
+    files = sorted((REPO / "src" / "repro_torch" / pkg).glob("*.py"))
+    assert files
+    for path in files:
+        roots = _imported_roots(path) - {"repro_torch", "__future__"}
+        assert roots <= set(sys.stdlib_module_names) | HOST_ONLY[pkg], (path.name, roots)
 
 
 def test_every_kernel_source_is_built_and_counted():

@@ -6,9 +6,10 @@ CPU ``reference`` backend (JAX's default off a TPU, the port's
 --steps 12 --ckpt-every 4``, whole, and crashed at step 9
 (``--simulate-failure-at``) then resumed (``--resume``).  JAX runs in a
 child process with excess precision off (``_torch_jax_ref.py`` mode
-``trainloop``).  Then the refusals: a mesh above 1 x 1, ``--fsdp``,
-``--compress`` and ``--trace`` each raise naming the ROADMAP item they
-wait for; encoder-decoder archs exit as the JAX launcher's do.
+``trainloop``).  Then the refusals: a mesh above 1 x 1, ``--fsdp`` and
+``--compress`` each raise naming the ROADMAP item they wait for
+(``--trace`` is ported: ``tests/test_torch_trace.py``); encoder-decoder
+archs exit as the JAX launcher's do.
 
 Stated tolerances:
 
@@ -114,7 +115,7 @@ def test_crash_and_resume_match_jax(ref, port):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-data", "2"], "item 7"), (["--mesh-model", "4"], "item 7"),
-    (["--fsdp"], "item 7"), (["--compress"], "item 7"), (["--trace", "t.json"], "item 8")])
+    (["--fsdp"], "item 7"), (["--compress"], "item 7")])
 def test_refusals_name_their_roadmap_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         train.main(["--reduced", "--device", "cpu", "--steps", "1", "--batch", "1",
