@@ -240,11 +240,37 @@ each fatal on failure (nothing is caught):
    ``kernels.linear`` call, and the paged launcher with a recorder armed
    on every other engine step (each armed step against its neighbours).
    It prints the phase's seconds.
+11. distribution (``check_distribution``): (a) qwen1.5-0.5b at full width
+   on the paged engine over phase 4's requests, first with one shard (the
+   reference, its top-two margins recorded), then over 4 shards
+   (``ServeConfig(num_shards=4)``) once per ``mcast_mode``: each run's
+   streams held to the one-shard run's by the near-tie rule, its
+   ``broadcast_*`` counters equal to the host's prediction (the shared
+   prefix's pages sent once to each of the 3 other shards, the payload
+   those pages' K/V bytes, the fabric bytes ``bytes_model``'s multiple),
+   and the device ms of one chain broadcast (``_copy_pages``) beside its
+   byte bound (the chain read and written once); then, on a one-rank
+   NCCL group (a ``FileStore`` in a temporary directory, 60 s timeout)
+   and its 1 x 1 mesh, (c) the three modes deliver the payload with no
+   point-to-point round (one card cannot show the hierarchy) and the
+   NCCL calls the mesh code makes (an fp32 ``broadcast``, the bf16
+   ``all_gather_into_tensor`` of the full-width embedding table, the
+   train step's fp32 gradient all-reduce over the whole gradient tree),
+   made on the one-rank group itself, each exact; and (b)
+   the mesh train step with FSDP and compressed gradients (batch 8 x seq
+   128) against the plain one-device step with ``compress_grads`` applied
+   to its gradients — the loss and every parameter and error-state leaf
+   within what two plain runs differ by — the kernels it launched equal to
+   the plain step's, ``compress_grads``' device ms over the full gradient
+   tree beside its byte bound, and the step's wall / device ms beside the
+   plain step's without compression, in turns.  It prints the phase's
+   seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
 line, the kernel summary (launches: the serving runs of phases 4 to 8,
-the training runs of phase 9 and the traced runs of phase 10 for K1–K5, phase 2b's autograd paths
+the training runs of phase 9, the traced runs of phase 10 and phase 11's sharded serving runs
+and mesh train step for K1–K5, phase 2b's autograd paths
 for K6–K8, phase 2c's for K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -331,6 +357,11 @@ from repro_torch.kernels.ssd import (  # noqa: E402
 from repro_torch.configs.shapes import ShapeCfg  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.data.pipeline import batch as data_batch  # noqa: E402
+from repro_torch.data.pipeline import sharded_batch  # noqa: E402
+from repro_torch.dist import mcast  # noqa: E402
+from repro_torch.dist.compression import compress_grads, init_error_state  # noqa: E402
+from repro_torch.dist.sharding import shard_tree  # noqa: E402
+from repro_torch.launch.mesh import bind, make_debug_mesh  # noqa: E402
 from repro_torch.dist.step import build_train_step, value_and_grad  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -4424,6 +4455,280 @@ def check_trace_tooling() -> dict[str, int]:
     return {k_: total[k_] for k_ in kernels.KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: distribution — the sharded page pool, the multicast collectives
+# and the mesh train step on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+#: the sharded run of phase 11: phase 4's engine and requests over 4 shards
+DIST_SHARDS = 4
+#: the shared prefix of serving_requests, in tokens
+SERVE_PREFIX = 32
+#: the mesh train step's step index: past the warmup, lr at its peak
+DIST_STEP = 5
+
+
+def predicted_broadcast(cfg, conf: ServeConfig, n_requests: int) -> dict:
+    """What the host predicts a sharded run over ``serving_requests``
+    broadcasts: the shared prefix's whole pages, prefilled on the first
+    shard and sent once to every other shard as its first request arrives
+    (each admission goes to the shard with the most free pages, and every
+    later request finds a local copy); the payload is those pages' bytes in
+    every layer's K and V pools, the fabric bytes ``bytes_model``'s
+    per-device multiple for the mode."""
+    a = cfg.attn
+    page_nbytes = cfg.n_layers * 2 * a.n_kv_heads * conf.page_size * a.head_dim * 2  # bf16
+    chains = min(conf.num_shards, n_requests) - 1
+    pages = chains * (SERVE_PREFIX // conf.page_size)
+    payload = pages * page_nbytes
+    mult = mcast.bytes_model(1, conf.num_shards, per_device=True)[conf.mcast_mode]
+    return dict(broadcast_chains=chains, broadcast_pages=pages, page_nbytes=page_nbytes,
+                broadcast_payload_bytes=payload, broadcast_fabric_bytes=payload * mult)
+
+
+def check_sharded_serving(cfg, params) -> dict[str, int]:
+    """Phase 11a: qwen1.5-0.5b paged over ``DIST_SHARDS`` shards, phase 4's
+    workload, once per ``mcast_mode``: streams held to the one-shard paged
+    run's (near-tie rule), the broadcast counters to the host's prediction,
+    and the device ms of one chain broadcast (one indexed copy per pool
+    tensor) beside its byte bound (the chain read once and written once)."""
+    paged = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+    sampler = MarginSampler()
+    one = sampler.attach(PagedEngine(cfg, params, config=ServeConfig(), device="cuda",
+                                     sampler=sampler))
+    reqs = serving_requests(cfg)
+    launches = collections.Counter(serve_path("paged one shard", one, reqs, paged))
+    streams = {r.rid: list(r.out) for r in reqs}
+    del one
+    for mode in mcast.MODES:
+        conf = ServeConfig(num_shards=DIST_SHARDS, mcast_mode=mode)
+        eng = PagedEngine(cfg, params, config=conf, device="cuda")
+        reqs = serving_requests(cfg)
+        launches.update(serve_path(f"paged {DIST_SHARDS} shards {mode}", eng, reqs, paged,
+                                   compare=("paged one shard", streams, sampler.margins)))
+        st = eng.stats()
+        want = predicted_broadcast(cfg, conf, len(reqs))
+        got = {k: (eng.page_nbytes if k == "page_nbytes" else st[k]) for k in want}
+        # one chain broadcast on the card: the prefix's pages of shard 0
+        # into free pages of shard 1, timed alone
+        n = SERVE_PREFIX // conf.page_size
+        src, dst = eng.pool.alloc(n, 0), eng.pool.alloc(n, 1)
+        ms, host_ms = time_ms(lambda: eng._copy_pages(src, dst))
+        eng.pool.release(src + dst)
+        nbytes = 2 * n * eng.page_nbytes
+        emit(dict(check="sharded_serving", mode=mode, shards=DIST_SHARDS,
+                  pages_per_shard=eng.pool.pages_per_shard, page_nbytes=eng.page_nbytes,
+                  broadcast=got, predicted=want, prefill_calls=st["kernel_calls"],
+                  prefix_hit_tokens=st["prefix_hit_tokens"],
+                  shard_in_use=[st[f"shard{s}_in_use"] for s in range(DIST_SHARDS)],
+                  chain_pages=n, chain_broadcast_ms=ms, chain_broadcast_host_ms=host_ms,
+                  chain_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, chain_bytes_moved=nbytes))
+        if got != want:
+            raise AssertionError(f"sharded serving {mode}: broadcast {got}, predicted {want}")
+        del eng
+    return {k: launches[k] for k in kernels.KERNELS}
+
+
+def _step_ms(fn, runs: int = 5) -> tuple[float, float]:
+    """(median wall ms to a synchronised end, median device ms between CUDA
+    events) of ``fn()`` over ``runs`` after one warm-up."""
+    fn()
+    walls, devs = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        devs.append(start.elapsed_time(end))
+    return statistics.median(walls), statistics.median(devs)
+
+
+def _max_leaf_gaps(a, b) -> dict[str, float]:
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return {k: float((fa[k].detach().float() - fb[k].detach().float()).abs().max())
+            for k in fa}
+
+
+def check_mesh_training(cfg, params, mesh) -> dict[str, int]:
+    """Phase 11b: the 1 x 1-mesh train step (``mesh=`` bound on a one-rank
+    NCCL group) with FSDP and compressed gradients, batch 8 x seq 128,
+    against the plain one-device step with ``compress_grads`` applied to
+    its gradients: the loss and every parameter and error-state leaf
+    within what two runs of the plain step differ by (0 where the card's
+    sums are deterministic); ``compress_grads``' device ms on the full
+    gradient tree beside its byte bound; the step's wall / device ms
+    beside the one-device step without compression, timed in turns."""
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=DIST_STEP, total_steps=LAUNCH_STEPS)
+    shape = ShapeCfg("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batch = data_batch(data_cfg, DIST_STEP, "cuda")
+    plain = build_train_step(cfg, shape, opt_cfg=opt_cfg, loss_chunk=None)
+    meshed = build_train_step(cfg, shape, mesh=mesh, fsdp=True, compress_pod_grads=True,
+                              opt_cfg=opt_cfg, loss_chunk=None)
+    mbatch = sharded_batch(data_cfg, DIST_STEP, mesh, meshed.batch_axes, "cuda")
+    if not all(torch.equal(mbatch[k], batch[k]) for k in batch):
+        raise AssertionError("mesh train step: the 1 x 1 mesh's rows are not the whole batch")
+
+    def fresh():
+        p = map_structure(lambda t: t.detach().clone(), params)
+        return p, adamw.init(p, opt_cfg), init_error_state(p)
+
+    def plain_compressed():
+        p, opt, err = fresh()
+        loss, grads = value_and_grad(plain.loss_of, p, batch)
+        gq, err = compress_grads(grads, err)
+        adamw.update(gq, opt, p, DIST_STEP, opt_cfg)
+        return loss, p, err, grads
+
+    l1, p1, e1, grads = plain_compressed()
+    l2, p2, e2, _ = plain_compressed()
+    p, opt, err = fresh()
+    p = shard_tree(p, meshed.placements, mesh)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    p, opt, err, loss, metrics = meshed.fn(p, opt, err, mbatch, DIST_STEP)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    plain.fn(*fresh()[:2], batch, DIST_STEP)
+    torch.cuda.synchronize()
+    plain_launches = kernels.launch_counts()
+    witness = {"params": _max_leaf_gaps(p2, p1), "err": _max_leaf_gaps(e2, e1)}
+    gaps = {"params": _max_leaf_gaps(p, p1), "err": _max_leaf_gaps(err, e1)}
+    over = [f"{part}/{k}" for part in gaps for k, v in gaps[part].items()
+            if v > witness[part][k]]
+    loss_gap, loss_wit = abs(float(loss) - float(l1)), abs(float(l2) - float(l1))
+
+    check_one_rank_nccl(params, grads)
+    n_el = sum(g.numel() for g in _leaves(grads))
+    g_bytes = sum(g.numel() * g.element_size() for g in _leaves(grads))
+    err0 = init_error_state(grads)
+    comp_ms, comp_host_ms = time_ms(lambda: compress_grads(grads, err0), runs=10)
+    comp_bytes = 2 * g_bytes + 2 * 4 * n_el  # read g and err, write gq and err, once each
+    del grads, err0, p1, p2, e1, e2
+
+    timed = {}
+    state = {"plain": fresh()[:2], "mesh": fresh()}
+    state["mesh"] = (shard_tree(state["mesh"][0], meshed.placements, mesh), *state["mesh"][1:])
+    for name in ("plain", "mesh", "mesh", "plain"):  # in turns
+        if name == "plain":
+            fn = lambda: plain.fn(*state["plain"], batch, DIST_STEP)  # noqa: E731
+        else:
+            fn = lambda: meshed.fn(*state["mesh"], mbatch, DIST_STEP)  # noqa: E731
+        timed.setdefault(name, []).append(_step_ms(fn))
+    rec = dict(check="mesh_train_step", arch=cfg.name, mesh=mesh.shape, fsdp=True,
+               compress=True, batch=[TRAIN_BATCH, TRAIN_SEQ], loss=float(loss),
+               plain_loss=float(l1), loss_gap=loss_gap, loss_witness=loss_wit,
+               worst_param_gap=max(gaps["params"].values()),
+               worst_param_witness=max(witness["params"].values()),
+               worst_err_gap=max(gaps["err"].values()), leaves_over_witness=over[:8],
+               grad_norm=float(metrics["grad_norm"]),
+               launches={k: v for k, v in launches.items() if v},
+               compress_ms=comp_ms, compress_host_ms=comp_host_ms, compress_elements=n_el,
+               compress_bound_ms=comp_bytes / HBM_BYTES_PER_S * 1e3, compress_bytes=comp_bytes,
+               step_wall_ms_device_ms={k: v for k, v in timed.items()},
+               tokens_per_s={k: TRAIN_BATCH * TRAIN_SEQ / (statistics.median(w for w, _ in v)
+                                                            / 1e3) for k, v in timed.items()})
+    emit(rec)
+    if loss_gap > loss_wit or over:
+        raise AssertionError(f"mesh train step: loss gap {loss_gap} (plain runs {loss_wit}); "
+                             f"leaves beyond the plain runs' spread: {over[:8]}")
+    if {k for k, v in launches.items() if v} != {k for k, v in plain_launches.items() if v} \
+            or not launches["matmul_tiled"]:
+        raise AssertionError(f"mesh train step launched {dict(launches)}, the plain step "
+                             f"{dict(plain_launches)}")
+    del state, p, opt, err
+    return {k: launches[k] for k in kernels.KERNELS}
+
+
+def check_one_rank_nccl(params, grads) -> None:
+    """Phase 11c: the NCCL calls of the mesh code, made on the one-rank
+    group itself (the mesh step and the modes skip them where an axis
+    holds one rank): an fp32 ``broadcast``, ``sharding.all_gather_into``
+    (``all_gather_into_tensor``) of the full-width bf16 embedding table,
+    and the train step's fp32 gradient all-reduce (``_mean_over``) over
+    the whole gradient tree of phase 11b's plain step.  Each result is
+    exact, its device ms recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import all_gather_into
+    from repro_torch.dist.step import _mean_over
+
+    x = torch.randn(4096, 1024, device="cuda", generator=torch.Generator(device="cuda")
+                    .manual_seed(12))
+    y = x.clone()
+    dist.broadcast(y, src=0)
+    table = params["embed"]["table"]
+    gathered = torch.empty_like(table)
+    all_gather_into(gathered, table, None)
+    leaves = list(_leaves(grads))
+    mean = _mean_over(leaves, None, 1)
+    exact = {"broadcast": torch.equal(y, x), "all_gather_into_tensor": torch.equal(gathered, table),
+             "grad_all_reduce": all(m.dtype == g.dtype and torch.equal(m, g)
+                                    for m, g in zip(mean, leaves))}
+    del mean
+    rec = dict(check="one_rank_nccl", backend=dist.get_backend(), ranks=dist.get_world_size(),
+               exact=exact, gather_leaf=[list(table.shape), str(table.dtype)],
+               grad_elements=sum(g.numel() for g in leaves))
+    for name, fn in (("broadcast", lambda: dist.broadcast(y, src=0)),
+                     ("all_gather_into_tensor", lambda: all_gather_into(gathered, table, None)),
+                     ("grad_all_reduce", lambda: _mean_over(leaves, None, 1))):
+        rec[f"{name}_ms"], rec[f"{name}_host_ms"] = time_ms(fn, runs=5)
+    emit(rec)
+    if not all(exact.values()):
+        raise AssertionError(f"one-rank NCCL: {exact}")
+
+
+def check_one_rank_collectives(mesh) -> None:
+    """Phase 11c: the three modes on the one-rank group deliver the payload
+    with no point-to-point round (one card cannot show the hierarchy)."""
+    x = torch.randn(256, 1024, device="cuda", generator=torch.Generator(device="cuda")
+                    .manual_seed(11))
+    rec = dict(check="one_rank_collectives", ranks=1)
+    for mode in mcast.MODES:
+        b = mcast.make_broadcast_fn(mesh, x.shape, x.dtype, mode)
+        g = mcast.make_weight_gather_fn(mesh, x.shape, x.dtype, mode)
+        ok = torch.equal(b(x), x) and torch.equal(g(x), x)
+        rec[mode] = dict(exact=ok, broadcast_rounds=b.rounds, gather_rounds=g.rounds)
+        if not ok or b.rounds or g.rounds:
+            raise AssertionError(f"one-rank {mode}: {rec[mode]}")
+    emit(rec)
+
+
+def check_distribution() -> dict[str, int]:
+    """Phase 11; returns each kernel's launches over its main-path runs (the
+    sharded serving runs and the mesh train step)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    params = lm.init(cfg, seed=0, device="cuda")
+    total = collections.Counter(check_sharded_serving(cfg, params))
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = bind(make_debug_mesh(1, 1))
+            emit(dict(check="process_group", backend=dist.get_backend(), world=1,
+                      mesh=mesh.shape, coords=mesh.coords))
+            check_one_rank_collectives(mesh)
+            total.update(check_mesh_training(cfg, params, mesh))
+        finally:
+            dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    emit(dict(check="phase", phase=11, seconds=time.perf_counter() - t0))
+    return {k: total[k] for k in kernels.KERNELS}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False — this check needs a "
@@ -4523,8 +4828,12 @@ def main() -> None:
     # phase 10: the launchers traced at full width
     trace_launches = check_trace_tooling()
     check_clean("phase 10")
+
+    # phase 11: distribution on one card
+    dist_launches = check_distribution()
+    check_clean("phase 11")
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k] + train_launches[k]
-                + trace_launches[k] for k in kernels.KERNELS}
+                + trace_launches[k] + dist_launches[k] for k in kernels.KERNELS}
 
     kernels_line = []
     for kname in kernels.KERNELS:

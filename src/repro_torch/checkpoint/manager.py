@@ -11,12 +11,21 @@ JAX package's ``checkpoint/manager.py``, in its on-disk format.
   tensor (``KeyError`` on a missing leaf);
 * keep-last-k garbage collection.
 
+**Elastic restore**, as in the JAX package: leaves are saved
+mesh-agnostic, as full logical arrays.  A sharded run saves by gathering
+every leaf from its pieces (``save(..., mesh=, placements=)``: every
+rank calls it, rank 0 writes), and ``restore(..., mesh=, placements=)``
+cuts each rank's piece for the *target* mesh, so a run saved on a 2 x 2
+mesh resumes on 4 x 1 or on one device.
+
 The two packages read each other's checkpoints of the same tree.  numpy
 cannot store bf16 (the JAX package holds it through ``ml_dtypes``, which
 the port does not use): bf16 and fp8 leaves are stored as same-width
 unsigned ints and the manifest records the true dtype; tensors cross
 through that integer view, as ``weights.to_torch`` does.  Restore takes
-the target ``device`` where the JAX package takes shardings.
+the target ``device`` (and, sharded, a bound mesh and a
+:class:`~repro_torch.dist.sharding.Placement` tree) where the JAX package
+takes shardings.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DEFAULT, resolve
-from repro_torch.tree import flatten_with_paths
+from repro_torch.tree import flatten_with_paths, map_structure
 
 # numpy containers can't serialise bf16 / fp8 — store them as same-width
 # unsigned ints and record the true dtype in the manifest
@@ -86,7 +95,28 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree, *, meta: dict | None = None) -> str:
+    def save(self, step: int, tree, *, meta: dict | None = None, mesh=None,
+             placements=None) -> str:
+        """Write ``tree`` as step ``step``.  With ``mesh`` (bound) and
+        ``placements`` every rank calls this with its pieces: the leaves are
+        gathered to full arrays, rank 0 writes them, and the ranks meet at
+        a barrier before they return."""
+        if placements is not None:
+            import torch.distributed as dist
+
+            from repro_torch.dist import sharding
+
+            tree = sharding.gather_tree(tree, placements, mesh)
+            if mesh.rank != 0:
+                dist.barrier()
+                return os.path.join(self.dir, f"step_{step:08d}")
+            try:
+                return self._write(step, tree, meta)
+            finally:
+                dist.barrier()
+        return self._write(step, tree, meta)
+
+    def _write(self, step: int, tree, meta: dict | None) -> str:
         flat, dtypes = {}, {}
         for k, v in flatten_with_paths(tree).items():
             flat[k], dtypes[k] = _encode(v)
@@ -130,10 +160,13 @@ class CheckpointManager:
         with open(os.path.join(self.dir, f"step_{step:08d}", "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, step: int, template, *, device: str | torch.device = DEFAULT):
+    def restore(self, step: int, template, *, device: str | torch.device = DEFAULT,
+                mesh=None, placements=None):
         """Restore into ``template``'s structure (its leaves only name the
         paths), each leaf a tensor on ``device`` in the dtype it was saved
-        in.  ``KeyError`` if the checkpoint lacks a leaf of the template."""
+        in; with ``mesh`` (bound) and ``placements``, each leaf is this
+        rank's piece for that mesh.  ``KeyError`` if the checkpoint lacks a
+        leaf of the template."""
         dev = resolve(device)
         path = os.path.join(self.dir, f"step_{step:08d}", "arrays.npz")
         dtypes = self.manifest(step).get("dtypes", {})
@@ -142,5 +175,10 @@ class CheckpointManager:
             missing = [p for p in wanted if p not in z.files]
             if missing:
                 raise KeyError(f"checkpoint missing leaf {missing[0]!r}")
-            flat = {p: _decode(z[p], dtypes.get(p, z[p].dtype.name)).to(dev) for p in wanted}
-        return _unflatten_into(flat, template)
+            flat = {p: _decode(z[p], dtypes.get(p, z[p].dtype.name)) for p in wanted}
+        tree = _unflatten_into(flat, template)
+        if placements is not None:
+            from repro_torch.dist import sharding
+
+            tree = sharding.shard_tree(tree, placements, mesh)
+        return map_structure(lambda x: x.to(dev), tree)

@@ -6,9 +6,8 @@ resumes bit-identically from the checkpointed step.  The numpy generator
 is copied from the JAX package (``_tokens_for``), so the port's batches
 are bit-equal to JAX's ``global_batch_np``.  The token stream stitches
 together 16-token motifs drawn from a fixed per-seed bank, so the next
-token is learnable.  The JAX package builds each device's shard of the
-batch in place (``sharded_batch``); the port runs on one device, and
-:func:`batch` puts the whole batch there.
+token is learnable.  :func:`batch` puts the whole batch on one device;
+:func:`sharded_batch` puts a rank's rows of it on that rank's device.
 """
 from __future__ import annotations
 
@@ -54,3 +53,32 @@ def batch(cfg: DataConfig, step: int, device: str | torch.device = DEFAULT
     dev = resolve(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in global_batch_np(cfg, step).items()}
+
+
+def shard_rows(global_batch: int, mesh, batch_axes) -> tuple[int, int]:
+    """(first row, row count) of this rank's block of the global batch:
+    ``P(batch_axes, None)``'s row split, the first axis major."""
+    n = mesh.size(batch_axes) if batch_axes else 1
+    if global_batch % n:
+        raise ValueError(f"{global_batch} rows do not split over {n} ranks")
+    rows = global_batch // n
+    return (mesh.index(batch_axes) if batch_axes else 0) * rows, rows
+
+
+def sharded_batch(cfg: DataConfig, step: int, mesh, batch_axes,
+                  device: str | torch.device = DEFAULT) -> dict[str, torch.Tensor]:
+    """This rank's rows of the step's batch on ``device`` (``mesh`` a bound
+    mesh; ranks along axes outside ``batch_axes`` get the same rows): the
+    union over the ranks is ``global_batch_np`` bit for bit, so a sharded
+    step sees the one-device step's data.
+
+    The rows are cut from ``_tokens_for(cfg, step, 0, global_batch)`` on
+    the host (int32 tokens: a few MB at any configuration).  The JAX
+    package's ``sharded_batch`` instead draws each shard from its own
+    ``(start_row, n_rows)`` seed, so its batches on more than one device
+    are other tokens than its one-device batch."""
+    start, n = shard_rows(cfg.global_batch, mesh, batch_axes)
+    t = _tokens_for(cfg, step, 0, cfg.global_batch)[start:start + n]
+    dev = resolve(device)
+    return {"tokens": torch.from_numpy(np.ascontiguousarray(t[:, :-1])).to(dev),
+            "labels": torch.from_numpy(np.ascontiguousarray(t[:, 1:])).to(dev)}

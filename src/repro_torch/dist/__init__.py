@@ -1,1 +1,3 @@
-"""Step builders of the port (one device; sharding is not ported yet)."""
+"""Distribution of the port: step builders (one device or a mesh of
+ranks), sharding rules, gradient compression and the multicast
+collectives on ``torch.distributed``."""

@@ -1,5 +1,4 @@
-"""Step builders, one device: the port of the JAX package's
-``dist/step.py`` without its shardings.
+"""Step builders: the port of the JAX package's ``dist/step.py``.
 
 A bundle carries the step function and its abstract inputs (``meta``
 tensors: shapes and dtypes, no allocation), built when they are read, so
@@ -16,9 +15,39 @@ autograd function, whose backward launches kernels too), then
 :func:`repro_torch.optim.adamw.update`, which writes the parameters and
 moments in place (the port's counterpart of JAX's ``donate_argnums``).
 The parameters are leaves that require gradients; the step marks them so.
+With ``compress_pod_grads=True`` it is ``(params, opt_state, err_state,
+batch, step) -> (params, opt_state, err_state, loss, metrics)``: the
+gradients pass through :func:`repro_torch.dist.compression.compress_grads`
+before the update, as in the JAX package.
 
-FSDP and compressed gradients need a device mesh and wait for the
-distributed slice (ROADMAP Queue 1 item 7): asking for them raises.
+**Over a mesh** (``mesh=``, a mesh bound by
+:func:`repro_torch.launch.mesh.bind`), each rank:
+
+* holds its pieces of the parameters and moments, placed by
+  :func:`repro_torch.dist.sharding.param_shardings` (``bundle.placements``;
+  ``fsdp=True`` adds the data axis), and of ``err_state`` likewise;
+* gathers the full parameters before the forward (one ``all_gather``
+  per sharded dimension: the ``hw`` mode's collective, the FSDP fetch);
+* computes the loss on its rows of the batch
+  (:func:`repro_torch.data.pipeline.sharded_batch` over
+  ``bundle.batch_axes``);
+* all-reduces the gradients (summed in fp32, divided by the rank count,
+  rounded once to each leaf's dtype) and the loss to their means over
+  the batch ranks, so every rank holds the full mean gradient;
+* compresses the full gradient leaves when asked (the blocks run over
+  the whole leaf), takes the global norm of the full tree (the
+  one-device value), and updates its own pieces.
+
+The port shards **storage** over the model axis and gathers on use:
+ranks along ``model`` compute the same rows unless ``batch_axes``
+spreads the batch over that axis (small recurrent models).  Computing
+over the model axis (column/row-parallel projections, a vocab-parallel
+cross entropy), as GSPMD partitions the JAX package's compiled step, is
+a later item (ROADMAP Queue 1 item 7, second half).  MoE archs refuse a
+batch split over more than one rank: the aux loss averages router
+statistics over the whole batch, which per-rank losses do not
+(``MOE_ITEM``).  With ``mesh=None``, or a mesh of one rank, the step is
+the one-device step, bit for bit.
 """
 from __future__ import annotations
 
@@ -29,11 +58,14 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.shapes import ShapeCfg, input_specs, shape_of
+from repro_torch.dist import sharding
+from repro_torch.dist.compression import compress_grads
+from repro_torch.launch.mesh import MESH_ITEM
 from repro_torch.nn.spec import abstract_params
 from repro_torch.optim import adamw
 
-#: why the sharded options raise
-MESH_ITEM = "ROADMAP Queue 1 item 7 (distribution)"
+#: why a MoE arch refuses a batch split over ranks
+MOE_ITEM = f"{MESH_ITEM}: MoE's aux loss over the batch ranks"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +74,8 @@ class StepBundle:
     fn: Callable
     inputs: Callable[[], tuple]  # () -> the abstract inputs
     loss_of: Callable | None = None  # a train step's (params, batch) -> loss
+    placements: object = None  # a train step's Placement tree over its mesh
+    batch_axes: tuple = ()  # the mesh axes a train step's batch rows split over
 
     @property
     def abstract_inputs(self) -> tuple:
@@ -65,13 +99,10 @@ def _batch_specs(cfg, shape_name: str | ShapeCfg) -> dict:
             if k in ("tokens", "labels", "frames", "frontend_embeds")}
 
 
-def _refuse_sharding(fsdp: bool, compress_pod_grads: bool = False) -> None:
+def _refuse_sharding(fsdp: bool) -> None:
     if fsdp:
-        raise NotImplementedError(f"fsdp=True shards the parameters over a device mesh: "
-                                  f"not ported yet, {MESH_ITEM}")
-    if compress_pod_grads:
-        raise NotImplementedError(f"compress_pod_grads=True compresses gradients across "
-                                  f"pods: not ported yet, {MESH_ITEM}")
+        raise NotImplementedError(f"fsdp=True for a serving step shards its parameters over "
+                                  f"a device mesh: not ported yet, {MESH_ITEM}")
 
 
 def value_and_grad(loss_of: Callable, params, batch) -> tuple[torch.Tensor, object]:
@@ -90,13 +121,28 @@ def value_and_grad(loss_of: Callable, params, batch) -> tuple[torch.Tensor, obje
     return loss.detach(), tree.map_structure(lambda _: next(it), params)
 
 
-def build_train_step(cfg, shape_name: str | ShapeCfg, *, fsdp: bool = False,
+def _mean_over(leaves: list[torch.Tensor], group, n: int) -> list[torch.Tensor]:
+    """Each leaf's mean over the ``n`` ranks of ``group``: one fp32
+    all-reduce over the leaves laid end to end, then one rounding back."""
+    import torch.distributed as dist
+
+    flat = torch.cat([x.float().reshape(-1) for x in leaves])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    out, i = [], 0
+    for x in leaves:
+        out.append(flat[i:i + x.numel()].reshape(x.shape).to(x.dtype))
+        i += x.numel()
+    return out
+
+
+def build_train_step(cfg, shape_name: str | ShapeCfg, *, mesh=None, fsdp: bool = False,
                      compress_pod_grads: bool = False,
                      opt_cfg: adamw.AdamWConfig | None = None,
                      loss_chunk: int | None = 512) -> StepBundle:
-    _refuse_sharding(fsdp, compress_pod_grads)
     mod = _model_module(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    shape = shape_of(shape_name)
 
     def loss_of(params, batch):
         if "frames" in batch:
@@ -107,18 +153,62 @@ def build_train_step(cfg, shape_name: str | ShapeCfg, *, fsdp: bool = False,
         return mod.loss_fn(params, cfg, batch["tokens"], batch["labels"],
                            loss_chunk=loss_chunk, **kw)
 
-    def fn(params, opt_state, batch, step):
-        loss, grads = value_and_grad(loss_of, params, batch)
-        new_p, new_s, metrics = adamw.update(grads, opt_state, params, step, opt_cfg)
-        return new_p, new_s, loss, metrics
+    placements, ba, group, n_batch = None, (), None, 1
+    if mesh is not None:
+        if not hasattr(mesh, "group"):
+            raise TypeError("mesh= takes a bound mesh (repro_torch.launch.mesh.bind)")
+        placements = sharding.param_shardings(cfg, mod.model_spec(cfg), mesh, fsdp=fsdp)
+        ba = sharding.batch_axes(mesh, shape.global_batch, cfg)
+        group, n_batch = (mesh.group(ba), mesh.size(ba)) if ba else (None, 1)
+        if cfg.moe is not None and n_batch > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the batch splits over {n_batch} ranks, and the MoE aux loss "
+                f"averages router statistics over the whole batch: {MOE_ITEM}")
+
+    def grads_step(params, batch, err_state):
+        full = params if placements is None else sharding.gather_tree(params, placements, mesh)
+        loss, grads = value_and_grad(loss_of, full, batch)
+        if n_batch > 1:
+            loss, *leaves = _mean_over([loss, *tree.leaves(grads)], group, n_batch)
+            it = iter(leaves)
+            grads = tree.map_structure(lambda _: next(it), grads)
+        if err_state is not None:
+            err = err_state if placements is None else \
+                sharding.gather_tree(err_state, placements, mesh)
+            grads, err = compress_grads(grads, err)
+            err_state = err if placements is None else \
+                sharding.shard_tree(err, placements, mesh)
+        if placements is None:
+            return loss, grads, None, err_state
+        # every rank holds the full mean gradient: its norm is the
+        # one-device value, and each rank updates its own pieces
+        gnorm = adamw.global_norm(grads)
+        return loss, sharding.shard_tree(grads, placements, mesh), gnorm, err_state
+
+    if compress_pod_grads:
+        def fn(params, opt_state, err_state, batch, step):
+            loss, grads, gnorm, err_state = grads_step(params, batch, err_state)
+            new_p, new_s, metrics = adamw.update(grads, opt_state, params, step, opt_cfg,
+                                                 grad_norm=gnorm)
+            return new_p, new_s, err_state, loss, metrics
+    else:
+        def fn(params, opt_state, batch, step):
+            loss, grads, gnorm, _ = grads_step(params, batch, None)
+            new_p, new_s, metrics = adamw.update(grads, opt_state, params, step, opt_cfg,
+                                                 grad_norm=gnorm)
+            return new_p, new_s, loss, metrics
 
     def inputs():
         abs_p = abstract_params(mod.model_spec(cfg))
-        return (abs_p, adamw.abstract_state(abs_p, opt_cfg), _batch_specs(cfg, shape_name),
+        head = (abs_p, adamw.abstract_state(abs_p, opt_cfg))
+        if compress_pod_grads:
+            head += (tree.map_structure(
+                lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), abs_p),)
+        return (*head, _batch_specs(cfg, shape_name),
                 torch.empty((), dtype=torch.int32, device="meta"))
 
-    return StepBundle(name=f"train:{cfg.name}:{shape_of(shape_name).name}", fn=fn,
-                      inputs=inputs, loss_of=loss_of)
+    return StepBundle(name=f"train:{cfg.name}:{shape.name}", fn=fn, inputs=inputs,
+                      loss_of=loss_of, placements=placements, batch_axes=ba)
 
 
 def build_prefill_step(cfg, shape_name: str | ShapeCfg, *, fsdp: bool = False) -> StepBundle:

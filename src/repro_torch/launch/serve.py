@@ -54,8 +54,14 @@ the engine is built and writes, even when the run ends in a
 event per line) and beside it ``PATH.report.json``, the
 multicast-efficiency report of :mod:`repro_torch.obs.analyze`, validated
 against its schema; the status line goes to stderr, stdout stays the
-token-stream surface.  Not ported yet: the options :class:`PagedEngine`
-rejects (sharded pools).
+token-stream surface.
+
+``--num-shards S --mcast-mode {unicast,sw_tree,hw} [--pages-per-shard
+N] [--mesh-axis A]`` turn on the sharded page pool with page-chain
+broadcast (``--kv paged``), on one device as in the JAX launcher without
+``--mesh``.  ``--mesh`` (the page arrays split over a device mesh)
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 7's second
+half.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
@@ -85,6 +91,7 @@ from repro_torch import kernels
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.registry import draft_for
 from repro_torch.device import DEFAULT, resolve
+from repro_torch.launch.mesh import MESH_ITEM
 from repro_torch.models import lm
 from repro_torch.serve import (
     Lifecycle,
@@ -240,6 +247,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=DEFAULT,
                     help="torch device: cuda (the kernels) or cpu (their plain "
                          "versions)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="paged: shard the device page arrays over a --num-shards 1-D mesh "
+                         "(not ported yet: raises)")
     # every ServeConfig knob becomes a flag, one definition (serve/config.py)
     add_serve_args(ap)
     return ap
@@ -267,6 +277,10 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> li
     if args.spec_k and args.kv != "paged":
         ap.error("--spec-k requires --kv paged (speculative verify-accept "
                  "runs on the paged engine's COW page machinery)")
+    if args.mesh:
+        raise NotImplementedError(
+            f"--mesh shards the page arrays over a device mesh: not ported yet, "
+            f"{MESH_ITEM}")
     serve_cfg = serve_config.from_args(
         args, max_slots=(args.max_slots or args.max_batch) if args.server else args.max_batch)
     cfg = get_config(args.arch, reduced=args.reduced)

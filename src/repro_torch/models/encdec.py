@@ -32,8 +32,8 @@ from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm as lm_mod
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn.attention import KvCache
-from repro_torch.nn.module import positional_embed_spec, softcap, unembed
-from repro_torch.nn.spec import ParamSpec, init_params
+from repro_torch.nn.module import embed_spec, positional_embed_spec, softcap, unembed
+from repro_torch.nn.spec import ParamSpec, init_params, stacked
 
 
 class CrossKv(NamedTuple):
@@ -67,15 +67,15 @@ def model_spec(cfg: ModelConfig):
         raise ValueError(f"{cfg.name} has no encoder: run it with models.lm")
     return {
         "encoder": {
-            "proj": {"w": ParamSpec((cfg.frontend_dim, cfg.d_model))},
+            "proj": {"w": ParamSpec((cfg.frontend_dim, cfg.d_model), axes=(None, "embed"))},
             "pos": positional_embed_spec(enc.n_frames, cfg.d_model),
-            "layers": [_enc_block_spec(cfg) for _ in range(enc.n_layers)],
+            "layers": [stacked(_enc_block_spec(cfg), enc.n_layers) for _ in range(enc.n_layers)],
             "final_norm": lm_mod._norm_spec(cfg),
         },
         "decoder": {
-            "embed": {"table": ParamSpec((cfg.vocab, cfg.d_model), init="normal", scale=0.02)},
+            "embed": embed_spec(cfg.vocab, cfg.d_model),
             "pos": positional_embed_spec(cfg.max_position, cfg.d_model),
-            "layers": [_dec_block_spec(cfg) for _ in range(cfg.n_layers)],
+            "layers": [stacked(_dec_block_spec(cfg), cfg.n_layers) for _ in range(cfg.n_layers)],
             "final_norm": lm_mod._norm_spec(cfg),
         },
     }

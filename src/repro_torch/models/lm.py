@@ -80,7 +80,7 @@ from repro_torch.nn.module import (
     softcap,
     unembed,
 )
-from repro_torch.nn.spec import ParamSpec, init_params
+from repro_torch.nn.spec import ParamSpec, init_params, stacked
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -118,9 +118,10 @@ def _post(cfg: ModelConfig, p, name: str, y):
 
 def mlp_spec(cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
-    spec = {"w_in": ParamSpec((d, f)), "w_out": ParamSpec((f, d))}
+    spec = {"w_in": ParamSpec((d, f), axes=("embed", "ff")),
+            "w_out": ParamSpec((f, d), axes=("ff", "embed"))}
     if cfg.glu:
-        spec["w_gate"] = ParamSpec((d, f))
+        spec["w_gate"] = ParamSpec((d, f), axes=("embed", "ff"))
     return spec
 
 
@@ -161,11 +162,15 @@ def model_spec(cfg: ModelConfig):
     if cfg.attn is not None and cfg.attn.learned_pos:
         spec["pos"] = positional_embed_spec(cfg.max_position, cfg.d_model)
     if cfg.frontend:
-        spec["frontend_proj"] = dense_spec(cfg.frontend_dim, cfg.d_model)
-    spec["layers"] = [block_spec(cfg, bd) for bd in cfg.layer_defs]
+        spec["frontend_proj"] = dense_spec(cfg.frontend_dim, cfg.d_model, axes=(None, "embed"))
+    # one dict per layer, stage by stage, repeat by repeat, block by block
+    # (``cfg.layer_defs``' order), each marked with its stage's repeats
+    spec["layers"] = [stacked(block_spec(cfg, bd), repeats)
+                      for pattern, repeats in cfg.stages for _ in range(repeats)
+                      for bd in pattern]
     spec["final_norm"] = _norm_spec(cfg)
     if not cfg.tie_embeddings:
-        spec["unembed"] = {"w": ParamSpec((cfg.d_model, cfg.vocab))}
+        spec["unembed"] = {"w": ParamSpec((cfg.d_model, cfg.vocab), axes=("embed", "vocab"))}
     return spec
 
 

@@ -34,18 +34,22 @@ NEG_INF = -(2.0**30)  # large-negative in fp32, as the reference
 def attn_spec(d_model: int, cfg: AttnConfig):
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     spec = {
-        "wq": ParamSpec((d_model, h * hd)),
-        "wk": ParamSpec((d_model, kv * hd)),
-        "wv": ParamSpec((d_model, kv * hd)),
+        "wq": ParamSpec((d_model, h * hd), dims=(d_model, h, hd),
+                        axes=("embed", "heads", None)),
+        "wk": ParamSpec((d_model, kv * hd), dims=(d_model, kv, hd),
+                        axes=("embed", "kv_heads", None)),
+        "wv": ParamSpec((d_model, kv * hd), dims=(d_model, kv, hd),
+                        axes=("embed", "kv_heads", None)),
         # the reference initialises wo (h, hd, d) with fan-in h
-        "wo": ParamSpec((h * hd, d_model), init="normal", scale=1.0 / math.sqrt(h)),
+        "wo": ParamSpec((h * hd, d_model), init="normal", scale=1.0 / math.sqrt(h),
+                        dims=(h, hd, d_model), axes=("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        spec["bq"] = ParamSpec((h * hd,), init="zeros")
-        spec["bk"] = ParamSpec((kv * hd,), init="zeros")
-        spec["bv"] = ParamSpec((kv * hd,), init="zeros")
+        spec["bq"] = ParamSpec((h * hd,), init="zeros", dims=(h, hd), axes=("heads", None))
+        spec["bk"] = ParamSpec((kv * hd,), init="zeros", dims=(kv, hd), axes=("kv_heads", None))
+        spec["bv"] = ParamSpec((kv * hd,), init="zeros", dims=(kv, hd), axes=("kv_heads", None))
     if cfg.out_bias:
-        spec["bo"] = ParamSpec((d_model,), init="zeros")
+        spec["bo"] = ParamSpec((d_model,), init="zeros", axes=("embed",))
     return spec
 
 

@@ -14,8 +14,8 @@ from repro_torch.kernels import api
 from repro_torch.nn.spec import ParamSpec
 
 
-def dense_spec(d_in: int, d_out: int):
-    return {"w": ParamSpec((d_in, d_out))}
+def dense_spec(d_in: int, d_out: int, *, axes=("embed", "ff")):
+    return {"w": ParamSpec((d_in, d_out), axes=axes)}
 
 
 def dense(params, x, *, activation: str | None = None):
@@ -24,7 +24,7 @@ def dense(params, x, *, activation: str | None = None):
 
 def rmsnorm_spec(d: int):
     # gemma-style (1 + scale) parameterisation, initialised to zeros
-    return {"scale": ParamSpec((d,), dtype=torch.float32, init="zeros")}
+    return {"scale": ParamSpec((d,), dtype=torch.float32, init="zeros", axes=("embed",))}
 
 
 def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -35,8 +35,8 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
 
 
 def layernorm_spec(d: int):
-    return {"scale": ParamSpec((d,), dtype=torch.float32, init="ones"),
-            "bias": ParamSpec((d,), dtype=torch.float32, init="zeros")}
+    return {"scale": ParamSpec((d,), dtype=torch.float32, init="ones", axes=("embed",)),
+            "bias": ParamSpec((d,), dtype=torch.float32, init="zeros", axes=("embed",))}
 
 
 def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -50,7 +50,7 @@ def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
 
 
 def embed_spec(vocab: int, d: int):
-    return {"table": ParamSpec((vocab, d), init="normal", scale=0.02)}
+    return {"table": ParamSpec((vocab, d), init="normal", scale=0.02, axes=("vocab", "embed"))}
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -68,7 +68,7 @@ def unembed(params, x: torch.Tensor) -> torch.Tensor:
 def positional_embed_spec(max_len: int, d: int):
     """A learned position table, ``{"table": (max_len, d)}``: the leaf that
     ``lm``'s and the encoder-decoder's ``pos`` keys hold."""
-    return {"table": ParamSpec((max_len, d), init="normal", scale=0.02)}
+    return {"table": ParamSpec((max_len, d), init="normal", scale=0.02, axes=(None, "embed"))}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:

@@ -39,18 +39,18 @@ from repro_torch.nn.spec import ParamSpec
 def moe_spec(d_model: int, cfg: MoeConfig, *, glu: bool = True):
     e, f = cfg.n_experts, cfg.d_ff_expert
     spec = {
-        "router": ParamSpec((d_model, e), dtype=torch.float32),
-        "w_in": ParamSpec((e, d_model, f)),
-        "w_out": ParamSpec((e, f, d_model)),
+        "router": ParamSpec((d_model, e), dtype=torch.float32, axes=("embed", "expert")),
+        "w_in": ParamSpec((e, d_model, f), axes=("expert", "embed", "ff")),
+        "w_out": ParamSpec((e, f, d_model), axes=("expert", "ff", "embed")),
     }
     if glu:
-        spec["w_gate"] = ParamSpec((e, d_model, f))
+        spec["w_gate"] = ParamSpec((e, d_model, f), axes=("expert", "embed", "ff"))
     if cfg.n_shared_experts:
         sf = cfg.n_shared_experts * f
-        spec["shared_in"] = ParamSpec((d_model, sf))
-        spec["shared_out"] = ParamSpec((sf, d_model))
+        spec["shared_in"] = ParamSpec((d_model, sf), axes=("embed", "ff"))
+        spec["shared_out"] = ParamSpec((sf, d_model), axes=("ff", "embed"))
         if glu:
-            spec["shared_gate"] = ParamSpec((d_model, sf))
+            spec["shared_gate"] = ParamSpec((d_model, sf), axes=("embed", "ff"))
     return spec
 
 

@@ -34,16 +34,17 @@ from repro_torch.nn.ssd import softplus
 def rglru_spec(d_model: int, cfg: RglruConfig):
     d_rnn = cfg.d_rnn or d_model
     return {
-        "w_gate_branch": ParamSpec((d_model, d_rnn)),
-        "w_x_branch": ParamSpec((d_model, d_rnn)),
-        "conv_w": ParamSpec((cfg.conv_width, d_rnn)),
-        "conv_b": ParamSpec((d_rnn,), init="zeros"),
-        "w_a": ParamSpec((d_rnn, d_rnn)),
-        "b_a": ParamSpec((d_rnn,), init="zeros"),
-        "w_i": ParamSpec((d_rnn, d_rnn)),
-        "b_i": ParamSpec((d_rnn,), init="zeros"),
-        "lam": ParamSpec((d_rnn,), dtype=torch.float32, init="normal", scale=0.5),
-        "w_out": ParamSpec((d_rnn, d_model)),
+        "w_gate_branch": ParamSpec((d_model, d_rnn), axes=("embed", "rnn")),
+        "w_x_branch": ParamSpec((d_model, d_rnn), axes=("embed", "rnn")),
+        "conv_w": ParamSpec((cfg.conv_width, d_rnn), axes=(None, "rnn")),
+        "conv_b": ParamSpec((d_rnn,), init="zeros", axes=("rnn",)),
+        "w_a": ParamSpec((d_rnn, d_rnn), axes=("rnn", "rnn_in")),
+        "b_a": ParamSpec((d_rnn,), init="zeros", axes=("rnn",)),
+        "w_i": ParamSpec((d_rnn, d_rnn), axes=("rnn", "rnn_in")),
+        "b_i": ParamSpec((d_rnn,), init="zeros", axes=("rnn",)),
+        "lam": ParamSpec((d_rnn,), dtype=torch.float32, init="normal", scale=0.5,
+                         axes=("rnn",)),
+        "w_out": ParamSpec((d_rnn, d_model), axes=("rnn", "embed")),
     }
 
 

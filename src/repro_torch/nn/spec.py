@@ -9,6 +9,15 @@ the tests agree on every shape.
 
 Projection weights are stored 2-D, in the layout ``kernels.linear``
 contracts: ``(d_in, d_out)``.  Weights are bf16, norm scales fp32.
+
+Each leaf also carries what the sharding rules (``dist/sharding.py``)
+read, in the JAX package's terms: its *logical* axis names (``axes``,
+one per logical dimension), its logical shape where the stored one
+merges dimensions (``dims``: a headed projection stored as
+``(d, heads * head_dim)`` is logically ``(d, heads, head_dim)``), and,
+for a layer's leaf, the repeat count of the stage it belongs to
+(``stack``: the JAX package stacks a stage's layers into one leaf, and
+its rules see that leading dimension).
 """
 from __future__ import annotations
 
@@ -27,6 +36,23 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "fan_in"  # fan_in | normal | zeros | ones
     scale: float = 1.0  # stddev multiplier
+    axes: tuple[str | None, ...] | None = None  # logical axis names, one per logical dim
+    dims: tuple[int, ...] | None = None  # logical shape, where ``shape`` merges dims
+    stack: int | None = None  # repeats of the stage a layer's leaf belongs to
+
+    def __post_init__(self):
+        if self.dims is not None and math.prod(self.dims) != math.prod(self.shape):
+            raise ValueError(f"dims {self.dims} do not match shape {self.shape}")
+        if self.axes is not None and len(self.axes) != len(self.logical_shape):
+            raise ValueError(f"axes {self.axes} do not match {self.logical_shape}")
+
+    @property
+    def logical_shape(self) -> tuple[int, ...]:
+        return self.dims if self.dims is not None else self.shape
+
+    @property
+    def logical_axes(self) -> tuple[str | None, ...]:
+        return self.axes if self.axes is not None else (None,) * len(self.logical_shape)
 
 
 def _leaves(tree, prefix=()):
@@ -82,6 +108,16 @@ def abstract_params(spec_tree: SpecTree) -> SpecTree:
         return [build(v) for v in tree]
 
     return build(spec_tree)
+
+
+def stacked(spec_tree: SpecTree, n: int) -> SpecTree:
+    """``spec_tree`` (one layer's) with every leaf marked as one of the
+    ``n`` layers of a stage (``ParamSpec.stack``)."""
+    if isinstance(spec_tree, ParamSpec):
+        return dataclasses.replace(spec_tree, stack=n)
+    if isinstance(spec_tree, dict):
+        return {k: stacked(v, n) for k, v in spec_tree.items()}
+    return [stacked(v, n) for v in spec_tree]
 
 
 def tree_params(spec_tree: SpecTree) -> int:

@@ -44,14 +44,15 @@ def ssd_spec(d_model: int, cfg: SsmConfig):
     d_inner, n_heads, conv_dim = _dims(d_model, cfg)
     proj_out = 2 * d_inner + 2 * cfg.d_state + n_heads  # z, x, B, C, dt
     return {
-        "in_proj": ParamSpec((d_model, proj_out)),
-        "conv_w": ParamSpec((cfg.conv_width, conv_dim)),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "a_log": ParamSpec((n_heads,), dtype=torch.float32, init="normal", scale=0.5),
-        "dt_bias": ParamSpec((n_heads,), dtype=torch.float32, init="zeros"),
-        "d_skip": ParamSpec((n_heads,), dtype=torch.float32, init="ones"),
+        "in_proj": ParamSpec((d_model, proj_out), axes=("embed", "rnn")),
+        "conv_w": ParamSpec((cfg.conv_width, conv_dim), axes=(None, "rnn")),
+        "conv_b": ParamSpec((conv_dim,), init="zeros", axes=("rnn",)),
+        "a_log": ParamSpec((n_heads,), dtype=torch.float32, init="normal", scale=0.5,
+                           axes=("rnn",)),
+        "dt_bias": ParamSpec((n_heads,), dtype=torch.float32, init="zeros", axes=("rnn",)),
+        "d_skip": ParamSpec((n_heads,), dtype=torch.float32, init="ones", axes=("rnn",)),
         "norm": rmsnorm_spec(d_inner),
-        "out_proj": ParamSpec((d_inner, d_model)),
+        "out_proj": ParamSpec((d_inner, d_model), axes=("rnn", "embed")),
     }
 
 

@@ -20,9 +20,9 @@ and computes a flat, schema-validated report:
   ``prefix.unmatch`` / ``prefix.commit_broadcast`` instants; sums match
   the live ``PrefixCache`` counters exactly.
 * **Broadcast fabric bytes per mode vs the unicast baseline** — from
-  ``mcast.broadcast`` instants.  The port has no sharded page pool yet
-  (ROADMAP Queue 1 item 7), so no run emits them and every
-  ``broadcast_*`` key reads 0.
+  ``mcast.broadcast`` instants, which the sharded page pool
+  (``num_shards > 1``) emits per page-chain broadcast; with one shard
+  every ``broadcast_*`` key reads 0.
 * **TTFT/ITL decomposition** — per-request ``request.queue_wait`` +
   ``request.prefill`` span durations (TTFT), ``decode.tick`` spans (ITL
   proxy) and ``token.emit`` lag instants (emit).  Percentiles run

@@ -80,9 +80,12 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params, step, cfg: AdamWConfig):
-    """One AdamW step, in place -> (params, state, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+def update(grads, state: AdamWState, params, step, cfg: AdamWConfig, *,
+           grad_norm: torch.Tensor | None = None):
+    """One AdamW step, in place -> (params, state, {"grad_norm", "lr"}).
+    ``grad_norm`` replaces ``global_norm(grads)`` where ``grads`` are one
+    rank's shards of the gradient tree whose norm clips them."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     dev = gnorm.device
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(step, cfg, device=dev)

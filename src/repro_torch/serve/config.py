@@ -1,8 +1,7 @@
 """One typed, validated config for the whole serving stack.
 
 The port's copy of the JAX package's ``serve/config.py``: every serving
-knob of the stack, including those the port does not run yet (the engine
-refuses them by name).  :class:`ServeConfig` is the single definition:
+knob of the stack.  :class:`ServeConfig` is the single definition:
 
 * every field carries its CLI help string and type in ``metadata``, so
   :func:`add_serve_args` derives the ``launch/serve.py`` flags from the
@@ -22,11 +21,8 @@ import sys
 import warnings
 from typing import Any
 
+from repro_torch.dist.mcast import MODES as MCAST_MODES  # the page-chain broadcast's modes
 from repro_torch.serve.faults import Fault, FaultPlan
-
-#: multicast delivery modes for the page-chain broadcast (the port serves
-#: one shard only, so only the default is reachable).
-MCAST_MODES = ("unicast", "sw_tree", "hw")
 
 #: token-selection rules — must match ``repro_torch.serve.sampling.SAMPLERS``
 #: (kept literal here so importing the config doesn't pull in torch).

@@ -77,8 +77,24 @@ whose scatter writes the pools only after the whole prefill ran.  After
 a retry the pools equal those of a step run on the reference backend
 from the start (``tests/test_torch_chaos.py`` holds this bit for bit).
 
-Not ported yet (each raises ``NotImplementedError`` naming it): sharded
-pools (``num_shards > 1``, a mesh).
+**Sharded pools** (``num_shards > 1``): the pool is partitioned into
+per-shard free lists (``pagepool.py``) and every admission is routed to
+one shard — pinned by ``Request.shard`` or balanced to the shard with
+the most free pages — where all its fresh pages, COW copies and
+watermark accounting live.  A prefix hit is matched against that
+shard's **local** page copies; where the cached chain continues on
+other shards, the engine allocates local pages and **broadcasts** the
+chain's bytes into them (one indexed copy per pool tensor — the paper's
+crossbar multicast at pod scale), then registers the copies so every
+later consumer on the shard hits locally.  The ``broadcast_*`` counters
+account the payload and the per-device fabric bytes under
+``mcast_mode`` (``dist.mcast.bytes_model(per_device=True)``: the
+unicast / sw_tree / hw hierarchy of ``dist/mcast.py``'s collectives),
+and each broadcast leaves an ``mcast.broadcast`` trace instant.  As in
+the JAX engine without a mesh, the sharded bookkeeping runs on one
+device; ``num_shards=1`` is the unsharded engine.  Not ported yet:
+``mesh=`` (the page arrays split over a device mesh), which raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 7's second half.
 """
 from __future__ import annotations
 
@@ -91,6 +107,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.device import DEFAULT, resolve
+from repro_torch.dist import mcast
+from repro_torch.launch.mesh import MESH_ITEM
 from repro_torch.models import lm
 from repro_torch.obs import trace
 from repro_torch.serve import faults, guard, sampling, spec
@@ -116,6 +134,9 @@ class Request:
     prompt: list[int]
     max_new: int
     out: list[int] = dataclasses.field(default_factory=list)
+    # pinned pool shard (host-side routing); None = balance to the shard
+    # with the most free pages at admission
+    shard: int | None = None
     # set when the engine permanently fails the request (typed reason)
     error: str | None = None
     # preemption swap state:
@@ -133,14 +154,7 @@ class _Slot:
     length: int  # valid tokens (prompt + generated context so far)
     last_tok: int
     admit_seq: int
-
-
-def _unsupported(config: ServeConfig, mesh) -> list[str]:
-    checks = {
-        f"num_shards={config.num_shards}": config.num_shards > 1,
-        "mesh": mesh is not None,
-    }
-    return [name for name, hit in checks.items() if hit]
+    shard: int = 0  # pool shard this slot allocates from
 
 
 class PagedEngine:
@@ -159,10 +173,10 @@ class PagedEngine:
                 f"not both: {sorted(legacy)}")
         if config is None:
             config = config_from_legacy(legacy)
-        bad = _unsupported(config, mesh)
-        if bad:
+        if mesh is not None:
             raise NotImplementedError(
-                f"PagedEngine: not ported yet: {', '.join(bad)}")
+                f"PagedEngine: not ported yet: mesh (the page arrays split over a device "
+                f"mesh): {MESH_ITEM}")
         self.device = resolve(device)
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
@@ -176,14 +190,21 @@ class PagedEngine:
         self.cache_len = config.cache_len
         self.prompt_bucket = config.prompt_bucket
         self.prefill_chunk = config.prefill_chunk
+        self.num_shards = config.num_shards
+        self.mcast_mode = config.mcast_mode
         num_pages = config.num_pages
         if num_pages is None:
             # the dense fallback's footprint: one full-length cache per
-            # batch slot, plus the null page
-            num_pages = 1 + max(self.max_batch * self.table_width, self.table_width)
-        self.pool = PagePool(num_pages, page_size)
+            # batch slot, plus the null page — rounded up so every shard
+            # owns an equal page range and can hold one full-length
+            # request (an admission allocates on a single shard)
+            per_shard = max(-(-self.max_batch * self.table_width // self.num_shards),
+                            self.table_width)
+            num_pages = 1 + self.num_shards * per_shard
+        self.pool = PagePool(num_pages, page_size, num_shards=self.num_shards)
         self.prefix = PrefixCache(self.pool, page_size)
         self.sched = Scheduler(self.pool, self.prefix, watermark=config.watermark)
+        self.num_device_pages = num_pages
         self.caches = lm.init_paged_cache(cfg, num_pages, page_size, config.kv_dtype,
                                           device=self.device)
         self.slots: dict[int, _Slot] = {}
@@ -211,7 +232,19 @@ class PagedEngine:
         self.n_spec_accepted = 0
         self.n_spec_rollbacks = 0
         self.n_spec_rollback_pages = 0
-        self.num_shards = config.num_shards  # 1: sharded pools are not ported
+
+        # page-chain broadcast accounting: payload = bytes of the pages
+        # delivered (once), fabric = what each participant moves under the
+        # configured multicast mode (the per-device bytes_model)
+        self.n_broadcast_chains = 0
+        self.n_broadcast_pages = 0
+        self.broadcast_payload_bytes = 0
+        self.broadcast_fabric_bytes = 0.0
+        total_bytes = sum(t.numel() * t.element_size() for c in self.caches for t in c)
+        self.page_nbytes = total_bytes // self.num_device_pages
+        per_device = mcast.bytes_model(1, self.num_shards, per_device=True)
+        self._fabric_mult = per_device[self.mcast_mode]
+        self._fabric_mult_unicast = per_device["unicast"]
 
         # degradation: detectors are opt-in flags; the counters below show
         # in stats(), so a degraded-but-alive server is visible
@@ -241,6 +274,39 @@ class PagedEngine:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _pick_shard(self, req: Request) -> int:
+        """The pool shard an admission allocates from: the request's pinned
+        shard when set, else the shard with the most free pages, ties to
+        the lowest index.  Decided from committed pool state only, so the
+        async loop and the sync oracle route identically."""
+        if req.shard is not None:
+            if not 0 <= req.shard < self.num_shards:
+                raise ValueError(
+                    f"request {req.rid}: pinned shard {req.shard} out of "
+                    f"range (num_shards={self.num_shards})")
+            return req.shard
+        return max(range(self.num_shards), key=lambda s: (self.pool.free_pages_on(s), -s))
+
+    def _broadcast_chain(self, src: list[int], dst: list[int]) -> None:
+        """Deliver the bytes of cached pages ``src`` (copies on other
+        shards) into freshly allocated local pages ``dst`` — one indexed
+        copy per pool tensor (K, V and, in int8 pools, their scales) — and
+        account the traffic under the configured ``mcast_mode``."""
+        self._copy_pages(src, dst)
+        self.n_broadcast_chains += 1
+        self.n_broadcast_pages += len(dst)
+        payload = len(dst) * self.page_nbytes
+        self.broadcast_payload_bytes += payload
+        self.broadcast_fabric_bytes += payload * self._fabric_mult
+        rec = trace.active()
+        if rec is not None:
+            rec.instant("mcast.broadcast", cat="engine", args={
+                "pages": len(dst), "payload_bytes": payload,
+                "fabric_bytes": payload * self._fabric_mult,
+                "unicast_bytes": payload * self._fabric_mult_unicast,
+                "mode": self.mcast_mode,
+            })
 
     # -- model steps --------------------------------------------------------
     def _ref_variant(self, name: str):
@@ -338,30 +404,54 @@ class PagedEngine:
                 f"request {req.rid}: prompt+max_new exceeds cache_len "
                 f"{self.cache_len}")
         ref0 = list(self.pool._ref) if self.kv_guard else None
+        shard = self._pick_shard(req)
         # match BEFORE the watermark check: the refs it takes pin the
         # chain against can_admit's prefix eviction; a rejected admission
-        # fully unwinds it
-        shared, n_matched = self.prefix.match(tokens)
-        if self.kv_guard and shared:
-            bad = self.fp.verify(self.caches, shared)
+        # fully unwinds it.  Only this shard's local copies match; the
+        # chain's continuation on other shards is a broadcast candidate
+        # (refs taken only on commit)
+        shared, n_matched = self.prefix.match(tokens, shard)
+        remote = self.prefix.remote_continuation(tokens, shard, len(shared))
+        if self.kv_guard and (shared or remote):
+            bad = self.fp.verify(self.caches, shared + [pid for _, pid in remote])
             if bad:
                 # corruption caught at the sharing point: quarantine the
                 # chain (and its poisoned readers) instead of letting it
-                # reach this and every later consumer
+                # reach — or be broadcast to — this and every later consumer
                 self.prefix.unmatch(shared, len(tokens))
                 self._quarantine(bad)
-                shared, n_matched = [], 0
+                shared, n_matched, remote = [], 0, []
                 ref0 = list(self.pool._ref)
+        # broadcast pages count as fresh demand: they are allocated on this
+        # shard like any other fresh page; only their bytes come over the
+        # fabric instead of through a re-prefill
         fresh_needed = self.sched.pages_for(len(tokens) + 1) - len(shared)
-        rej = self.sched.check_admission(fresh_needed)
+        rej = self.sched.check_admission(fresh_needed, shard)
         if rej is not None:
             self.prefix.unmatch(shared, len(tokens))
             self._assert_refs_unchanged(ref0, "rejected admission")
             return self._reject(rej)
+        if remote:
+            # the owning shard prefilled the chain once; this shard
+            # receives its bytes instead of re-running the model over it
+            got = self.pool.alloc(len(remote), shard)
+            if got is None:  # injected exhaustion after a green check
+                self.prefix.unmatch(shared, len(tokens))
+                self._assert_refs_unchanged(ref0, "rejected admission")
+                return self._reject(Rejected("pool-dry", len(remote)))
+            self._broadcast_chain([pid for _, pid in remote], got)
+            self.prefix.commit_broadcast([n for n, _ in remote], shard, got)
+            if self.kv_guard:
+                self.fp.record(self.caches, got)
+            shared = shared + got
+            n_matched += len(got) * self.page_size
+            # the commit is durable even if the admission later unwinds
+            # (the tree keeps the copies): re-baseline the refcount net
+            ref0 = list(self.pool._ref) if self.kv_guard else None
 
         if n_matched == 0:
             # cold prompt: the dense prefill, scattered into pages
-            pages = self.pool.alloc(fresh_needed)
+            pages = self.pool.alloc(fresh_needed, shard)
             if pages is None:  # injected exhaustion after a green check
                 self._assert_refs_unchanged(ref0, "rejected admission")
                 return self._reject(Rejected("pool-dry", fresh_needed))
@@ -382,7 +472,7 @@ class PagedEngine:
                 end = len(tokens) + 1 if last_chunk else n_matched + c0 + len(ctoks)
                 need = self.sched.pages_for_range(len(pages) * self.page_size, end)
                 if need:
-                    got = self.pool.alloc(need)
+                    got = self.pool.alloc(need, shard)
                     if got is None:  # injected mid-suffix exhaustion
                         fresh_far = [p for p in pages if p not in shared]
                         if fresh_far:
@@ -397,7 +487,7 @@ class PagedEngine:
                     len(ctoks) - 1, self._tensor(self._table_row(pages))[None],
                     self._tensor([n_matched + c0]),
                     self._tensor(np.asarray([n_matched + c0 + len(ctoks)], np.int32)))
-        self.prefix.insert(tokens, pages)
+        self.prefix.insert(tokens, pages, shard)
         n_tree = len(tokens) // self.page_size
         if self.kv_guard and n_tree:
             self.fp.record(self.caches, pages[:n_tree])
@@ -410,7 +500,7 @@ class PagedEngine:
             req=req, pages=pages, length=len(tokens),
             last_tok=(req.out[-1] if replay
                       else int(self.sampler.select(logits)[0, -1])),
-            admit_seq=self._admit_seq,
+            admit_seq=self._admit_seq, shard=shard,
         )
         self._admit_seq += 1
         if not replay:
@@ -479,7 +569,7 @@ class PagedEngine:
         rec = trace.active()
         if rec is not None:
             rec.instant("engine.preempt", cat="engine",
-                        args={"rid": st.req.rid, "pages": len(st.pages)})
+                        args={"rid": st.req.rid, "pages": len(st.pages), "shard": st.shard})
         self.pool.release(st.pages)
         self._requeue.append(st.req)
         self.n_preempted += 1
@@ -493,10 +583,11 @@ class PagedEngine:
             return _SWAP_LOST
         if checksum is not None and guard.blob_checksum(data) != checksum:
             return _SWAP_LOST
-        rej = self.sched.check_admission(n_pages)
+        shard = self._pick_shard(req)  # swap-in re-routes like any admission
+        rej = self.sched.check_admission(n_pages, shard)
         if rej is not None:
             return self._reject(rej)
-        pages = self.pool.alloc(n_pages)
+        pages = self.pool.alloc(n_pages, shard)
         if pages is None:  # injected exhaustion after a green check
             return self._reject(Rejected("pool-dry", n_pages))
         ids = self._tensor(np.asarray(pages, np.int64))
@@ -507,51 +598,69 @@ class PagedEngine:
         rec = trace.active()
         if rec is not None:
             rec.instant("engine.swap_in", cat="engine",
-                        args={"rid": req.rid, "pages": n_pages})
+                        args={"rid": req.rid, "pages": n_pages, "shard": shard})
         self.slots[slot] = _Slot(req=req, pages=pages, length=length,
-                                 last_tok=last_tok, admit_seq=self._admit_seq)
+                                 last_tok=last_tok, admit_seq=self._admit_seq, shard=shard)
         self._admit_seq += 1
         return True
 
-    def _pick_victim(self, exclude: set[int] = frozenset()) -> int | None:
-        """Youngest running slot outside ``exclude``."""
-        order = sorted((s for s in self.slots if s not in exclude),
+    def _pick_victim(self, exclude: set[int] = frozenset(),
+                     shard: int | None = None) -> int | None:
+        """Youngest running slot outside ``exclude`` — restricted to
+        ``shard``'s slots when given: preempting a slot on another shard
+        frees pages the starved allocation cannot use."""
+        order = sorted((s for s in self.slots
+                        if s not in exclude and (shard is None or self.slots[s].shard == shard)),
                        key=lambda s: self.slots[s].admit_seq)
         return self.sched.pick_victim(order)
 
     # -- copy-on-write / fork ----------------------------------------------
-    def fork(self, slot: int, req: Request) -> int | None:
+    def fork(self, slot: int, req: Request, shard: int | None = None) -> int | None:
         """Fork a running request: the child shares *every* page of the
         parent (one refcount bump per page, no copies); the next write to
-        the shared tail page copies it.  Returns the child slot."""
+        the shared tail page copies it.  Returns the child slot.
+
+        ``shard`` routes the child's *future* allocations (page faults,
+        COW copies) to another shard — a cross-shard fork keeps reading
+        the parent's pages where they are and localises only its
+        divergence; the default is the parent's shard (or the request's
+        pinned one)."""
         child_slot = self._free_slot()
         if child_slot is None:
             return None
         st = self.slots[slot]
+        if shard is None:
+            shard = st.shard if req.shard is None else req.shard
         self.pool.share(st.pages)
         self.slots[child_slot] = _Slot(
             req=req, pages=list(st.pages), length=st.length,
-            last_tok=st.last_tok, admit_seq=self._admit_seq)
+            last_tok=st.last_tok, admit_seq=self._admit_seq, shard=shard)
         self._admit_seq += 1
         req.out.extend(st.req.out)
         return child_slot
 
-    def _copy_page(self, src: int, dst: int) -> None:
+    def _copy_pages(self, src: list[int], dst: list[int]) -> None:
+        """Pages ``src`` -> pages ``dst`` in every layer's pools: one indexed
+        copy per pool tensor (K, V and, in int8 pools, their scales)."""
+        s, d = self._tensor(np.asarray(src, np.int64)), self._tensor(np.asarray(dst, np.int64))
         for c in self.caches:
-            for t in c:  # K, V and, in int8 pools, their scales
-                t[:, dst] = t[:, src]
+            for t in c:
+                t.index_copy_(1, d, t.index_select(1, s))
 
-    def _alloc_for_decode(self, n: int, *, exclude: set[int]) -> list[int] | None:
-        """Allocate decode pages, escalating: free list -> prefix eviction
-        -> preemption of the youngest request not in ``exclude``."""
+    def _alloc_for_decode(self, n: int, *, exclude: set[int],
+                          shard: int = 0) -> list[int] | None:
+        """Allocate decode pages on ``shard``, escalating: free list ->
+        prefix eviction -> preemption of the youngest same-shard request
+        not in ``exclude`` (a slot on another shard is never preempted:
+        its pages could not satisfy this shard's demand)."""
         while True:
-            if self.sched.reclaim(n):
-                got = self.pool.alloc(n)
+            if self.sched.reclaim(n, shard):
+                got = self.pool.alloc(n, shard)
                 if got is not None:
                     return got
                 # an armed fault plan can fail the alloc even after a
                 # green reclaim — fall through to the escalation below
-            victim = self._pick_victim(exclude)
+            victim = self._pick_victim(exclude, shard)
             if victim is None:
                 return None
             self._preempt(victim)
@@ -567,24 +676,26 @@ class PagedEngine:
             raise RuntimeError(f"request {st.req.rid} overran cache_len")
         for need in range(st.length // self.page_size, last + 1):
             if need >= len(st.pages):
-                got = self._alloc_for_decode(1, exclude={slot})
+                got = self._alloc_for_decode(1, exclude={slot}, shard=st.shard)
                 if got is None:
                     self._requeue_degraded(slot, "page fault with pool exhausted")
                     return False
                 st.pages.extend(got)
             elif self.pool.refcount(st.pages[need]) > 1:
-                res = self.pool.cow(st.pages[need])
+                # the private copy lands on the slot's own shard — a
+                # forked child routed cross-shard localises its divergence
+                res = self.pool.cow(st.pages[need], st.shard)
                 if res is None:  # pool dry: make room, then retry the COW
-                    got = self._alloc_for_decode(1, exclude={slot})
+                    got = self._alloc_for_decode(1, exclude={slot}, shard=st.shard)
                     if got is not None:
                         self.pool.release(got)
-                        res = self.pool.cow(st.pages[need])
+                        res = self.pool.cow(st.pages[need], st.shard)
                 if res is None:
                     self._requeue_degraded(slot, "COW failure with pool exhausted")
                     return False
                 new_id, copied = res
                 if copied:
-                    self._copy_page(st.pages[need], new_id)
+                    self._copy_pages([st.pages[need]], [new_id])
                     self.n_cow += 1
                 st.pages[need] = new_id
         return True
@@ -783,6 +894,10 @@ class PagedEngine:
             "degrade_requeues": self.n_degrade_requeues,
             "failed": len(self.failed),
             "num_shards": self.num_shards,
+            "broadcast_chains": self.n_broadcast_chains,
+            "broadcast_pages": self.n_broadcast_pages,
+            "broadcast_payload_bytes": self.broadcast_payload_bytes,
+            "broadcast_fabric_bytes": self.broadcast_fabric_bytes,
             "kernel_calls": dict(self.kernel_calls),
             "spec_rounds": self.n_spec_rounds,
             "spec_drafted": self.n_spec_drafted,

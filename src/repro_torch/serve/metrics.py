@@ -24,8 +24,9 @@ batch occupancy — none of which exist at the engine level, where a
 
 Latencies are recorded in **seconds** (monotonic-clock deltas) and
 reported in the snapshot as ``*_ms`` fields.  The snapshot's schema is
-the JAX package's, key for key; the port has no page-chain broadcast
-(sharded pools are not ported), so its ``broadcast_*`` keys stay 0.
+the JAX package's, key for key; the ``broadcast_*`` keys carry the
+engine's page-chain broadcast counters (sharded pools, ``num_shards >
+1``), 0 with one shard.
 """
 from __future__ import annotations
 
@@ -265,6 +266,10 @@ class ServeMetrics:
         if engine is not None:
             snap["num_shards"] = engine.num_shards
             snap["mcast_mode"] = engine.config.mcast_mode
+            snap["broadcast_chains"] = engine.n_broadcast_chains
+            snap["broadcast_pages"] = engine.n_broadcast_pages
+            snap["broadcast_payload_bytes"] = engine.broadcast_payload_bytes
+            snap["broadcast_fabric_bytes"] = engine.broadcast_fabric_bytes
             snap["spec_drafted"] = engine.n_spec_drafted
             snap["spec_accepted"] = engine.n_spec_accepted
             snap["spec_rollbacks"] = engine.n_spec_rollbacks

@@ -1,0 +1,235 @@
+"""The rank functions of the port's multi-rank tests
+(``tests/test_torch_dist.py``), started by ``repro_torch.dist.spawn.run``
+on gloo ranks: importable by name, no JAX, results as plain Python and
+numpy values (each rank's, the test reads them by rank).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeCfg
+from repro_torch.data import pipeline
+from repro_torch.dist import compression, mcast, sharding
+from repro_torch.dist.step import build_train_step
+from repro_torch.launch.mesh import bind, make_debug_mesh
+from repro_torch.models import lm
+from repro_torch.nn.spec import abstract_params
+from repro_torch.optim import adamw
+
+ARCH = "qwen1.5-0.5b"
+#: the train step's shape and schedule, shared with the one-device runs
+TRAIN = dict(batch=8, seq=32, steps=4, lr=3e-3, seed=0)
+#: the (fsdp, compress) runs of every mesh
+TRAIN_RUNS = ((False, False), (True, False), (True, True))
+
+
+def payload(seed: int, shape=(6, 10)) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                            .astype(np.float32))
+
+
+def collectives(data: int) -> dict:
+    """Every mode on a ``data`` x 1 mesh: what the broadcast delivers (the
+    source's payload; every other rank offers garbage) and its rounds, the
+    row-shard weight gather against ``all_gather`` and the full weight,
+    and ``mcast_matmul`` against ``x @ w``."""
+    import torch.distributed as dist
+
+    mesh = bind(make_debug_mesh(data, 1))
+    r = mesh.rank
+    out = {"coords": mesh.coords}
+    src = payload(0)
+    mine = src if r == 0 else payload(100 + r)
+    full = payload(1, (4 * data, 5))
+    local = full[4 * r:4 * (r + 1)].clone()
+    x = payload(2, (2 * data, 6))
+    w = payload(3, (6, 5)) if r == 0 else torch.zeros(6, 5)
+    for mode in mcast.MODES:
+        bcast = mcast.make_broadcast_fn(mesh, src.shape, src.dtype, mode)
+        out[f"{mode}/bcast_exact"] = bool(torch.equal(bcast(mine), src))
+        out[f"{mode}/bcast_rounds"] = bcast.rounds
+        gather = mcast.make_weight_gather_fn(mesh, full.shape, full.dtype, mode)
+        g = gather(local)
+        ref = [torch.empty_like(local) for _ in range(data)]
+        dist.all_gather(ref, local)
+        out[f"{mode}/gather_exact"] = bool(torch.equal(g, torch.cat(ref))) \
+            and bool(torch.equal(g, full))
+        out[f"{mode}/gather_rounds"] = gather.rounds
+        xs = x[2 * r:2 * (r + 1)]
+        out[f"{mode}/matmul_exact"] = bool(torch.equal(mcast.mcast_matmul(xs, w, mesh, mode=mode),
+                                                       xs @ payload(3, (6, 5))))
+    return out
+
+
+#: the data of the ``sharded_batch`` cases
+BATCH_DATA = pipeline.DataConfig(vocab=512, seq_len=16, global_batch=8, seed=5)
+
+
+def batches(mesh_shape: tuple[int, int]) -> dict:
+    """This rank's ``sharded_batch`` rows (step 3) on a ``mesh_shape`` mesh,
+    for the batch split over the data axis, over both axes and over none."""
+    mesh = bind(make_debug_mesh(*mesh_shape))
+    out = {"coords": mesh.coords}
+    for ba in (("data",), ("data", "model"), ()):
+        b = pipeline.sharded_batch(BATCH_DATA, 3, mesh, ba, "cpu")
+        out[ba] = (pipeline.shard_rows(8, mesh, ba), b["tokens"].numpy(), b["labels"].numpy())
+    return out
+
+
+def four_ranks() -> dict:
+    """The 4-rank cases: the collectives on 4 x 1, the batches on 4 x 1 and
+    2 x 2, and where ``DeviceMesh`` puts this rank on a 2 x 2 mesh."""
+    return {"collectives": collectives(4), "batches 4x1": batches((4, 1)),
+            "batches 2x2": batches((2, 2)),
+            "device_mesh 2x2": tuple(bind(make_debug_mesh(2, 2)).device_mesh.get_coordinate())}
+
+
+def two_ranks(params: dict) -> dict:
+    """The 2-rank cases: the 2 x 1 train runs and the MoE refusal."""
+    return {"train": train_on((2, 1), params), "moe": moe_refusal()}
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().float().numpy()
+
+
+def train_on(mesh_shape: tuple[int, int], params: dict, ckpt_dir: str | None = None,
+             restore_from: tuple[str, int] | None = None) -> dict:
+    """The reduced qwen's train step on a ``mesh_shape`` mesh, ``TRAIN``'s
+    steps from ``params`` (full), per ``TRAIN_RUNS`` case: the losses and,
+    on rank 0, the final parameters gathered.  ``ckpt_dir``: the fsdp run
+    saves its final parameters there (step ``TRAIN["steps"]``) and, on a
+    second mesh of the same ranks, ``restore_from`` = (dir, step) is
+    restored onto this mesh (fsdp placements) and gathered back."""
+    cfg = get_config(ARCH, reduced=True)
+    mesh = bind(make_debug_mesh(*mesh_shape))
+    out = {}
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], warmup_steps=5, total_steps=TRAIN["steps"])
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                               global_batch=TRAIN["batch"], seed=TRAIN["seed"])
+    shape = ShapeCfg("custom", "train", TRAIN["seq"], TRAIN["batch"])
+    for fsdp, compress in TRAIN_RUNS:
+        name = f"fsdp={fsdp},compress={compress}"
+        b = build_train_step(cfg, shape, mesh=mesh, fsdp=fsdp, compress_pod_grads=compress,
+                             opt_cfg=opt_cfg, loss_chunk=None)
+        p = sharding.shard_tree(tree.map_structure(torch.clone, params), b.placements, mesh)
+        opt = adamw.init(p, opt_cfg)
+        err = compression.init_error_state(p) if compress else None
+        losses, norms = [], []
+        for step in range(TRAIN["steps"]):
+            batch = pipeline.sharded_batch(data, step, mesh, b.batch_axes, "cpu")
+            if compress:
+                p, opt, err, loss, metrics = b.fn(p, opt, err, batch, step)
+            else:
+                p, opt, loss, metrics = b.fn(p, opt, batch, step)
+            losses.append(float(loss))
+            norms.append(float(metrics["grad_norm"]))
+        out[f"{name}/losses"] = losses
+        out[f"{name}/grad_norms"] = norms
+        out[f"{name}/batch_axes"] = b.batch_axes
+        out[f"{name}/cut_leaves"] = {  # leaves cut over each axis of more than one rank
+            a: sum(a in pl.spec for pl in tree.leaves(b.placements))
+            for a in mesh.axis_names if mesh.shape[a] > 1}
+        full = sharding.gather_tree(p, b.placements, mesh)
+        if mesh.rank == 0:
+            out[f"{name}/params"] = {k: _np(v) for k, v in
+                                     tree.flatten_with_paths(full).items()}
+        if ckpt_dir is not None and fsdp and not compress:
+            CheckpointManager(ckpt_dir).save(TRAIN["steps"], p, mesh=mesh,
+                                             placements=b.placements,
+                                             meta={"mesh": mesh.shape})
+            out["saved_full"] = {k: _np(v) for k, v in tree.flatten_with_paths(full).items()} \
+                if mesh.rank == 0 else None
+    if restore_from is not None:
+        placements = sharding.param_shardings(cfg, lm.model_spec(cfg), mesh, fsdp=True)
+        ckpt_dir, step = restore_from
+        template = abstract_params(lm.model_spec(cfg))
+        pieces = CheckpointManager(ckpt_dir).restore(step, template, device="cpu",
+                                                     mesh=mesh, placements=placements)
+        out["restored_shapes"] = {k: tuple(v.shape) for k, v in
+                                  tree.flatten_with_paths(pieces).items()}
+        full = sharding.gather_tree(pieces, placements, mesh)
+        if mesh.rank == 0:
+            out["restored_full"] = {k: v.clone() for k, v in
+                                    tree.flatten_with_paths(full).items()}
+    return out
+
+
+def train_alone(params: dict, compress: bool, flip: bool = False) -> dict:
+    """The same steps on one device (``mesh=None``); ``flip``: the witness,
+    with the last bit of every layer-0 input element flipped (one bf16
+    ulp), as ``tests/_torch_jax_ref.py``'s train witness flips JAX's."""
+    from unittest import mock
+
+    cfg = get_config(ARCH, reduced=True)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN["lr"], warmup_steps=5, total_steps=TRAIN["steps"])
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                               global_batch=TRAIN["batch"], seed=TRAIN["seed"])
+    b = build_train_step(cfg, ShapeCfg("custom", "train", TRAIN["seq"], TRAIN["batch"]),
+                         compress_pod_grads=compress, opt_cfg=opt_cfg, loss_chunk=None)
+    real = lm._embed_inputs
+
+    def flipped(*a, **k):
+        return (real(*a, **k).view(torch.int16) ^ 1).view(torch.bfloat16)
+
+    p = tree.map_structure(torch.clone, params)
+    opt = adamw.init(p, opt_cfg)
+    err = compression.init_error_state(p) if compress else None
+    losses = []
+    with mock.patch.object(lm, "_embed_inputs", flipped) if flip else _nothing():
+        for step in range(TRAIN["steps"]):
+            batch = pipeline.batch(data, step, "cpu")
+            if compress:
+                p, opt, err, loss, _ = b.fn(p, opt, err, batch, step)
+            else:
+                p, opt, loss, _ = b.fn(p, opt, batch, step)
+            losses.append(float(loss))
+    return {"losses": losses, "params": {k: _np(v) for k, v in
+                                         tree.flatten_with_paths(p).items()}}
+
+
+def _nothing():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def train_then_restore(params: dict, ckpt_dir: str) -> list[dict]:
+    """On 4 ranks: the 2 x 2 runs (saving the fsdp one), then the 4 x 1
+    runs on the same ranks, restoring the 2 x 2 checkpoint onto 4 x 1."""
+    first = train_on((2, 2), params, ckpt_dir=ckpt_dir)
+    second = train_on((4, 1), params, restore_from=(ckpt_dir, TRAIN["steps"]))
+    return [first, second]
+
+
+def moe_refusal() -> str:
+    """The MoE refusal on a 2 x 1 mesh: the message."""
+    cfg = get_config("moonshot-v1-16b-a3b", reduced=True)
+    mesh = bind(make_debug_mesh(2, 1))
+    try:
+        build_train_step(cfg, ShapeCfg("custom", "train", 8, 4), mesh=mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def fail_on_rank_one() -> None:
+    """Rank 1 raises; rank 0 waits for it in a barrier it never joins."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise ValueError("planted failure on rank 1")
+    dist.barrier()
+
+
+def sleep_then_return(seconds: float) -> float:
+    """Sleep ``seconds``, then return them: a rank that outlives a join
+    deadline shorter than that."""
+    import time
+
+    time.sleep(seconds)
+    return seconds

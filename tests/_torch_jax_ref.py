@@ -66,14 +66,17 @@ SERVE_RUNS = {
                 dict(max_batch=2, cache_len=64, page_size=4, num_pages=7, watermark=1)),
 }
 
-#: the paged-engine options that construct since the guard, fallback and
-#: fault plans were ported, each run over ``serve_requests()`` on the
-#: default ServeConfig (an option's ``chaos`` plan armed around the run)
+#: the paged-engine options that construct since the guard, fallback,
+#: fault plans and sharded pools were ported, each run over
+#: ``serve_requests()`` on the default ServeConfig (an option's ``chaos``
+#: plan armed around the run)
 SERVE_OPTION_RUNS = {
     "int8+kv_guard": dict(kv_dtype="int8", kv_guard=True),
     "kv_guard": dict(kv_guard=True),
     "kernel_fallback": dict(kernel_fallback=True),
     "chaos": dict(chaos=("pool.alloc",)),
+    "num_shards": dict(num_shards=2),
+    "spec+num_shards": dict(spec_k=2, draft_model="ngram", num_shards=2),
 }
 #: stats() keys of the option runs held equal to JAX's
 OPTION_STATS = ("prefix_hit_tokens", "preempted", "cow_copies", "kernel_fallbacks",

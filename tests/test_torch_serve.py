@@ -126,20 +126,17 @@ OPTIONS = [
 
 @pytest.mark.parametrize("option", OPTIONS)
 def test_unported_options_raise_naming_the_option(model, ref, option):
-    """Sharded pools (``num_shards``) still raise, named — also beside the
-    ported speculative decoding.  The page fingerprints (``kv_guard``, also
-    on int8 pools), the reference-kernel retry (``kernel_fallback``) and
-    fault plans (``chaos``, armed around the run as the launcher arms it)
-    construct now, and serve the JAX engine's streams with its fault log
-    and its ``stats()``."""
+    """Every option of the list constructs now and serves the JAX engine's
+    streams with its fault log and its ``stats()``: the page fingerprints
+    (``kv_guard``, also on int8 pools), the reference-kernel retry
+    (``kernel_fallback``), fault plans (``chaos``, armed around the run as
+    the launcher arms it) and sharded pools (``num_shards``, also beside
+    speculative decoding).  What still raises, named, is a device mesh
+    (``tests/test_torch_dist_serve.py``)."""
     cfg, _, params = model
     conf = ServeConfig(**option)
-    name = list(option)[-1]
-    if name == "num_shards":
-        with pytest.raises(NotImplementedError, match=name):
-            PagedEngine(cfg, params, device="cpu", config=conf)
-        return
-    key = "int8+kv_guard" if "kv_dtype" in option else name
+    key = {"kv_dtype": "int8+kv_guard", "spec_k": "spec+num_shards"}.get(
+        list(option)[0], list(option)[-1])
     want = ref[f"option {key}"]
     eng = PagedEngine(cfg, params, device="cpu", config=conf)
     plan = conf.fault_plan()
@@ -150,6 +147,7 @@ def test_unported_options_raise_naming_the_option(model, ref, option):
     assert ([list(f) for f in plan.fired] if plan else []) == want["fired"]
     st = eng.stats()
     assert {k: st[k] for k in OPTION_STATS} == want["stats"]
+    assert st["num_shards"] == conf.num_shards
 
 
 def test_armed_fault_plan_raises(model, ref):

@@ -22,8 +22,8 @@ features, and held to the JAX package's ``PagedEngine``.
   registry pairing, ``make_draft`` and ``ServeConfig``'s validation.
 
 The JAX file's ``kv_guard`` and chaos cases are held in
-``test_torch_chaos.py``; its sharded case waits for sharded pools (ROADMAP
-Queue 1 item 7)."""
+``test_torch_chaos.py``; its sharded case is
+``test_spec_matches_plain_greedy_sharded``."""
 import contextlib
 import dataclasses
 import io
@@ -190,6 +190,19 @@ def test_spec_ngram_matches_plain_greedy(small, chunk, kv_dtype):
     assert st["spec_rounds"] > 0 and st["spec_drafted"] > 0
     assert st["spec_rollbacks"] > 0  # rejections happened, and their pages came back
     assert st["prefix_hit_tokens"] > 0
+
+
+def test_spec_matches_plain_greedy_sharded(small):
+    """Speculation over a 4-shard pool (the prefix broadcast across shards)
+    serves the plain one-shard streams."""
+    cfg, params = small
+    reqs = _requests(n=4, shared_prefix=16, max_new=8)
+    plain, _ = _run(cfg, params, reqs, **SHAPE)
+    spec, eng = _run(cfg, params, reqs, spec_k=4, draft_model="ngram", max_slots=2,
+                     cache_len=64, page_size=8, num_shards=4, pages_per_shard=8)
+    assert spec == plain
+    st = eng.stats()
+    assert st["spec_rounds"] > 0 and st["broadcast_chains"] > 0
 
 
 def test_self_draft_full_acceptance(small):

@@ -8,8 +8,8 @@ analyzer's exact cross-checks against the live engine, pool and prefix
 counters, and the loop's TTFT decomposition against its metrics — plus
 what the port adds: the dispatch records (one ``dispatch.<op>`` span
 per call, the CUDA design's tile where a kernel launched) and both
-launchers' ``--trace``.  The sharded-pool broadcast case waits for the
-port's sharded pool (ROADMAP Queue 1 item 7).  Engines run on the CPU
+launchers' ``--trace``, and the sharded pool's broadcast instants
+against its counters and ``bytes_model``.  Engines run on the CPU
 (the kernels' plain versions) at the reduced qwen1.5-0.5b."""
 import contextlib
 import io
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config
+from repro_torch.dist import mcast
 from repro_torch.kernels import api
 from repro_torch.kernels.matmul import design_tiles, kernel_blocks
 from repro_torch.launch import serve as launcher
@@ -290,6 +291,31 @@ def test_loop_trace_ttft_decomposition_matches_metrics(small):
 # ---------------------------------------------------------------------------
 # dispatch records
 # ---------------------------------------------------------------------------
+
+
+def test_sharded_broadcast_bytes_match_bytes_model(small):
+    cfg, params = small
+    eng = _engine(cfg, params, max_slots=2, cache_len=64, page_size=8, num_shards=4,
+                  pages_per_shard=8, mcast_mode="sw_tree")
+    reqs = _mk_requests(cfg, shared_prefix=32, n=4, max_new=4)
+    with obs_trace.tracing() as rec:
+        eng.run(reqs)
+    report = obs_analyze.analyze(obs_export.to_chrome(rec))
+    st = eng.stats()
+    assert report["broadcast_chains"] == st["broadcast_chains"] > 0
+    assert report["broadcast_pages"] == st["broadcast_pages"]
+    assert report["broadcast_payload_bytes"] == st["broadcast_payload_bytes"]
+    assert report["broadcast_fabric_bytes"] == st["broadcast_fabric_bytes"]
+    # fabric bytes follow dist/mcast's per-device model for the mode...
+    mult = mcast.bytes_model(1, 4, per_device=True)["sw_tree"]
+    assert report["broadcast_fabric_bytes"] == report["broadcast_payload_bytes"] * mult
+    assert report["broadcast_fabric_bytes_sw_tree"] == report["broadcast_fabric_bytes"]
+    # ...and beat the all-unicast baseline the analyzer reconstructs
+    uni = mcast.bytes_model(1, 4, per_device=True)["unicast"]
+    assert report["broadcast_unicast_bytes"] == report["broadcast_payload_bytes"] * uni
+    assert 0.0 < report["broadcast_savings_frac"] < 1.0
+    assert report["prefix_pages_broadcast"] > 0
+    eng.check()
 
 
 def _dispatches(rec):

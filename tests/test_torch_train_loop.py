@@ -6,8 +6,11 @@ CPU ``reference`` backend (JAX's default off a TPU, the port's
 --steps 12 --ckpt-every 4``, whole, and crashed at step 9
 (``--simulate-failure-at``) then resumed (``--resume``).  JAX runs in a
 child process with excess precision off (``_torch_jax_ref.py`` mode
-``trainloop``).  Then the refusals: a mesh above 1 x 1, ``--fsdp`` and
-``--compress`` each raise naming the ROADMAP item they wait for
+``trainloop``).  Then the flags that raised before the distribution
+slice: ``--mesh-data``, ``--mesh-model``, ``--fsdp`` and ``--compress``
+train (a mesh on gloo ranks the launcher starts), held to the port's
+one-device run, and a 2 x 2 run's checkpoint resumes on 4 x 1 and on one
+device; a mesh refuses ``--trace``, which takes one process
 (``--trace`` is ported: ``tests/test_torch_trace.py``); encoder-decoder
 archs exit as the JAX launcher's do.
 
@@ -26,7 +29,11 @@ Stated tolerances:
   gaps grow along the run, as a flipped ulp's do (measured: 0.021 at
   most, against the witness's 0.050);
 * the resumed run's first loss equals the whole run's at that step bit
-  for bit on each side: the checkpoint restores the parameters exactly.
+  for bit on each side: the checkpoint restores the parameters exactly;
+* a mesh run against the port's one-device run: step 0 at rtol 1e-5 (a
+  mean of per-rank means), later steps within the one-device run's own
+  flipped-ulp witness; a mesh whose ranks compute the same rows, and FSDP
+  on one device, bit for bit.
 """
 import contextlib
 import io
@@ -41,6 +48,7 @@ from _torch_util import TOL, jax_reference
 from repro.configs import get_config as jax_config
 from repro.launch import train as jax_train
 from repro.models import lm as jax_lm
+from repro_torch.dist import spawn
 from repro_torch.launch import train
 from repro_torch.weights import from_jax_params
 
@@ -113,14 +121,113 @@ def test_crash_and_resume_match_jax(ref, port):
     assert float(np.abs(got - want).max()) <= witness
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh-data", "2"], "item 7"), (["--mesh-model", "4"], "item 7"),
-    (["--fsdp"], "item 7"), (["--compress"], "item 7")])
-def test_refusals_name_their_roadmap_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        train.main(["--reduced", "--device", "cpu", "--steps", "1", "--batch", "1",
-                    "--seq", "8", "--ckpt-dir", str(tmp_path), *flags])
+#: the launcher's mesh runs: the seeded reduced qwen, one device and meshes
+MESH_ARGS = ["--reduced", "--device", "cpu", "--steps", "4", "--batch", "4", "--seq", "16",
+             "--log-every", "1"]
+#: the limits of the ranks those runs start: every collective within 60 s,
+#: every run joined within 600 s (the launcher's own have no join deadline)
+LIMITS = dict(timeout=spawn.DEFAULT_TIMEOUT, join_timeout=600.0)
+
+
+def _losses(args: list[str], tmp_path, flip: bool = False) -> list[float]:
+    """The launcher's losses (a mesh's ranks started by ``main``); ``flip``:
+    the one-device witness, one bf16 ulp flipped in every layer-0 input."""
+    from unittest import mock
+
+    from repro_torch.models import lm
+
+    real = lm._embed_inputs
+
+    def flipped(*a, **k):
+        return (real(*a, **k).view(torch.int16) ^ 1).view(torch.bfloat16)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        if flip:
+            stack.enter_context(mock.patch.object(lm, "_embed_inputs", flipped))
+        return train.main([*MESH_ARGS, "--ckpt-dir", str(tmp_path), *args], **LIMITS)["losses"]
+
+
+@pytest.fixture(scope="module")
+def one_device(tmp_path_factory):
+    d = tmp_path_factory.mktemp("one_device")
+    return {name: _losses(flags, d / name, flip=name.endswith("flip"))
+            for name, flags in (("plain", []), ("plain flip", []), ("compress", ["--compress"]),
+                                ("compress flip", ["--compress"]))}
+
+
+@pytest.mark.parametrize("flags,ref_name,exact", [
+    (["--mesh-data", "2"], "plain", False),
+    (["--mesh-model", "4"], "plain", True),
+    (["--fsdp"], "plain", True),
+    (["--mesh-data", "2", "--mesh-model", "2", "--fsdp", "--compress"], "compress", False)])
+def test_mesh_fsdp_and_compress_train(tmp_path, one_device, flags, ref_name, exact):
+    """The flags that raised before the distribution slice now train:
+    ``--mesh-data 2`` splits the batch over two gloo ranks (step 0 within
+    1e-5 relative, then within the flipped-ulp witness of the one-device
+    run); ``--mesh-model 4`` shards storage over four ranks that compute
+    the same rows, and ``--fsdp`` on one device cuts nothing, both the
+    one-device run bit for bit; ``--compress`` on a 2 x 2 FSDP mesh holds
+    to the one-device compressed run as ``--mesh-data 2`` does."""
+    got, want = np.asarray(_losses(flags, tmp_path)), np.asarray(one_device[ref_name])
+    assert len(got) == 4
+    if exact:
+        np.testing.assert_array_equal(got, want)
+        return
+    assert got[0] == pytest.approx(want[0], rel=1e-5)
+    witness = float(np.abs(np.asarray(one_device[f"{ref_name} flip"]) - want).max())
+    assert float(np.abs(got - want).max()) <= witness
+
+
+def test_mesh_resume_restores_another_meshes_checkpoint(tmp_path):
+    """A 2 x 2 FSDP run crashes after its step-2 checkpoint; a 4 x 1 run and
+    a one-device run resume from copies of it (elastic restore): the same
+    first loss, within step 0's 1e-5, and every later step run."""
+    import shutil
+
+    args = [*MESH_ARGS, "--steps", "6", "--ckpt-every", "2"]
+    with pytest.raises(RuntimeError, match="simulated node failure at step 3"):
+        train.main([*args, "--ckpt-dir", str(tmp_path / "a"), "--mesh-data", "2",
+                    "--mesh-model", "2", "--fsdp", "--simulate-failure-at", "3"], **LIMITS)
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    with contextlib.redirect_stdout(io.StringIO()):
+        four = train.main([*args, "--ckpt-dir", str(tmp_path / "a"), "--mesh-data", "4",
+                           "--fsdp", "--resume"], **LIMITS)
+        one = train.main([*args, "--ckpt-dir", str(tmp_path / "b"), "--resume"])
+    assert four["start"] == one["start"] == 2 and len(four["losses"]) == len(one["losses"]) == 4
+    assert four["losses"][0] == pytest.approx(one["losses"][0], rel=1e-5)
+
+
+@pytest.mark.parametrize("flags", [["--mesh-data", "2", "--trace", "t.json"]])
+def test_mesh_refusals_name_what_they_need(tmp_path, flags):
+    with pytest.raises(ValueError, match="take one process"):
+        train.main([*MESH_ARGS, "--ckpt-dir", str(tmp_path), *flags], **LIMITS)
     assert list(tmp_path.iterdir()) == []
+
+
+def test_launcher_mesh_runs_have_no_join_deadline(tmp_path, monkeypatch):
+    """The launcher's own ranks are not bound by the tests' limits: no
+    join deadline (a run lasts as long as its steps), and a collective
+    timeout of torch's default plus the checkpoint's write time, so the
+    ranks waiting on rank 0's save are not timed out."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+
+    seen = {}
+
+    def fake_run(fn, world, argv, **kw):
+        seen.update(kw, world=world)
+        return [{"final_loss": 1.0}]
+
+    monkeypatch.setattr(spawn, "run", fake_run)
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(["--arch", "qwen1.5-0.5b", "--device", "cpu", "--mesh-data", "2",
+                    "--mesh-model", "2", "--ckpt-dir", str(tmp_path)])
+    want = train.collective_timeout(get_config("qwen1.5-0.5b"))
+    assert seen == {"backend": "gloo", "timeout": want, "join_timeout": None, "world": 4}
+    n_params = 463_987_712  # qwen1.5-0.5b's, at two bytes or more each
+    assert want >= dist.default_pg_timeout.total_seconds() + 2 * n_params / train.CKPT_WRITE_RATE
 
 
 def test_audio_archs_exit_as_jax_does(tmp_path):
