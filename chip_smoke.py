@@ -263,14 +263,24 @@ each fatal on failure (nothing is caught):
    within what two plain runs differ by — the kernels it launched equal to
    the plain step's, ``compress_grads``' device ms over the full gradient
    tree beside its byte bound, and the step's wall / device ms beside the
-   plain step's without compression, in turns.  It prints the phase's
+   plain step's without compression, in turns; (d) ``PagedEngine(mesh=)``
+   on a one-rank NCCL mesh holding the 4 shards, phase 4's requests per
+   ``mcast_mode``: its streams and K1 / K2 / K3 launches equal (a)'s run of
+   the mode, its counters the host's prediction, every chain broadcast
+   packed, delivered by the mode's collective in 0 rounds and unpacked,
+   the pool bytes the rank holds, one chain's pack + collective + unpack
+   device ms beside its byte bound; and (e) phase 9's moonshot step, cut
+   to 2 layers, on the one-rank mesh, issuing each MoE layer's routing
+   all-reduce, against the plain step (loss and every parameter leaf
+   within what two plain runs differ by; the same launches).  A mesh of
+   several cards is untried: one card is on hand.  It prints the phase's
    seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
 line, the kernel summary (launches: the serving runs of phases 4 to 8,
-the training runs of phase 9, the traced runs of phase 10 and phase 11's sharded serving runs
-and mesh train step for K1–K5, phase 2b's autograd paths
+the training runs of phase 9, the traced runs of phase 10 and phase 11's sharded and
+mesh serving runs and mesh train steps for K1–K5, phase 2b's autograd paths
 for K6–K8, phase 2c's for K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -361,7 +371,7 @@ from repro_torch.data.pipeline import sharded_batch  # noqa: E402
 from repro_torch.dist import mcast  # noqa: E402
 from repro_torch.dist.compression import compress_grads, init_error_state  # noqa: E402
 from repro_torch.dist.sharding import shard_tree  # noqa: E402
-from repro_torch.launch.mesh import bind, make_debug_mesh  # noqa: E402
+from repro_torch.launch.mesh import bind, make_debug_mesh, make_serve_mesh  # noqa: E402
 from repro_torch.dist.step import build_train_step, value_and_grad  # noqa: E402
 from repro_torch.launch.serve import Server  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -3807,7 +3817,7 @@ def _flip_output(real):
 def _flip_layer_input(real_layer):
     """``lm._layer`` with the last bit of every element of its input
     flipped."""
-    return lambda p, bd, cfg, x: real_layer(p, bd, cfg, flip_last_bit(x))
+    return lambda p, bd, cfg, x, *rest: real_layer(p, bd, cfg, flip_last_bit(x), *rest)
 
 
 #: perturbed plain runs (``lm`` functions patched): one ulp flipped in
@@ -4486,12 +4496,14 @@ def predicted_broadcast(cfg, conf: ServeConfig, n_requests: int) -> dict:
                 broadcast_payload_bytes=payload, broadcast_fabric_bytes=payload * mult)
 
 
-def check_sharded_serving(cfg, params) -> dict[str, int]:
+def check_sharded_serving(cfg, params) -> tuple[dict[str, int], dict]:
     """Phase 11a: qwen1.5-0.5b paged over ``DIST_SHARDS`` shards, phase 4's
     workload, once per ``mcast_mode``: streams held to the one-shard paged
     run's (near-tie rule), the broadcast counters to the host's prediction,
     and the device ms of one chain broadcast (one indexed copy per pool
-    tensor) beside its byte bound (the chain read once and written once)."""
+    tensor) beside its byte bound (the chain read once and written once).
+    Returns the launches over the runs, and each mode's (streams, launches)
+    for phase 11d."""
     paged = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
     sampler = MarginSampler()
     one = sampler.attach(PagedEngine(cfg, params, config=ServeConfig(), device="cuda",
@@ -4500,12 +4512,15 @@ def check_sharded_serving(cfg, params) -> dict[str, int]:
     launches = collections.Counter(serve_path("paged one shard", one, reqs, paged))
     streams = {r.rid: list(r.out) for r in reqs}
     del one
+    runs = {}
     for mode in mcast.MODES:
         conf = ServeConfig(num_shards=DIST_SHARDS, mcast_mode=mode)
         eng = PagedEngine(cfg, params, config=conf, device="cuda")
         reqs = serving_requests(cfg)
-        launches.update(serve_path(f"paged {DIST_SHARDS} shards {mode}", eng, reqs, paged,
-                                   compare=("paged one shard", streams, sampler.margins)))
+        run = serve_path(f"paged {DIST_SHARDS} shards {mode}", eng, reqs, paged,
+                         compare=("paged one shard", streams, sampler.margins))
+        launches.update(run)
+        runs[mode] = ({r.rid: list(r.out) for r in reqs}, dict(run))
         st = eng.stats()
         want = predicted_broadcast(cfg, conf, len(reqs))
         got = {k: (eng.page_nbytes if k == "page_nbytes" else st[k]) for k in want}
@@ -4526,6 +4541,135 @@ def check_sharded_serving(cfg, params) -> dict[str, int]:
         if got != want:
             raise AssertionError(f"sharded serving {mode}: broadcast {got}, predicted {want}")
         del eng
+    return {k: launches[k] for k in kernels.KERNELS}, runs
+
+
+class _CountedCollective:
+    """A ``dist.mcast`` collective that logs (source index, rounds) of
+    each delivery."""
+
+    def __init__(self, c):
+        self.c, self.log = c, []
+
+    @property
+    def rounds(self) -> int:
+        return self.c.rounds
+
+    def __call__(self, buf, source: int):
+        out = self.c(buf, source=source)
+        self.log.append((source, self.c.rounds))
+        return out
+
+
+def check_mesh_serving(cfg, params, runs: dict) -> dict[str, int]:
+    """Phase 11d: ``PagedEngine(mesh=)`` on a one-rank NCCL mesh holding all
+    ``DIST_SHARDS`` shards, phase 4's workload, once per ``mcast_mode``:
+    its streams and its K1 / K2 / K3 launches equal phase 11a's 4-shard
+    run of that mode (``runs``), its counters the host's prediction, and
+    every chain goes pack -> the mode's collective -> unpack in 0
+    point-to-point rounds (one rank: hw makes one ``broadcast``, the
+    others none); the pool bytes the rank holds; one chain's pack +
+    collective + unpack device ms beside its byte bound (the chain read
+    once and written once)."""
+    paged = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+    mesh = bind(make_serve_mesh(1))
+    launches = collections.Counter()
+    for mode in mcast.MODES:
+        conf = ServeConfig(num_shards=DIST_SHARDS, mcast_mode=mode)
+        eng = PagedEngine(cfg, params, config=conf, device="cuda", mesh=mesh)
+        bcast = eng._bcast = _CountedCollective(eng._bcast)
+        reqs = serving_requests(cfg)
+        run = serve_path(f"paged mesh 1 rank {DIST_SHARDS} shards {mode}", eng, reqs, paged)
+        launches.update(run)
+        chains = list(bcast.log)  # the run's deliveries, not the timed ones below
+        st = eng.stats()
+        want = predicted_broadcast(cfg, conf, len(reqs))
+        got = {k: (eng.page_nbytes if k == "page_nbytes" else st[k]) for k in want}
+        streams, want_launches = runs[mode]
+        same_streams = {r.rid: list(r.out) for r in reqs} == streams
+        pool_bytes = sum(t.numel() * t.element_size() for c in eng.caches for t in c)
+        n = SERVE_PREFIX // conf.page_size
+        src, dst = eng.pool.alloc(n, 0), eng.pool.alloc(n, 1)
+        ms, host_ms = time_ms(lambda: eng._deliver(src, dst))
+        eng.pool.release(src + dst)
+        nbytes = 2 * n * eng.page_nbytes
+        emit(dict(check="mesh_serving", mode=mode, ranks=1, shards=DIST_SHARDS,
+                  backend="nccl", broadcast=got, predicted=want, chains=chains,
+                  streams_equal_11a=same_streams,
+                  launches={k: v for k, v in run.items() if v},
+                  launches_11a={k: v for k, v in want_launches.items() if v},
+                  pool_pages=eng.num_device_pages, pool_bytes_per_rank=pool_bytes,
+                  chain_pages=n, chain_deliver_ms=ms, chain_deliver_host_ms=host_ms,
+                  chain_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, chain_bytes_moved=nbytes))
+        if got != want or not same_streams or dict(run) != dict(want_launches):
+            raise AssertionError(f"mesh serving {mode}: broadcast {got} (predicted {want}), "
+                                 f"streams equal 11a's: {same_streams}, launches {dict(run)} "
+                                 f"(11a {dict(want_launches)})")
+        if len(chains) != want["broadcast_chains"] or any(r for _, r in chains):
+            raise AssertionError(f"mesh serving {mode}: deliveries {chains}, "
+                                 f"{want['broadcast_chains']} chains of 0 rounds expected")
+        if pool_bytes != eng.num_device_pages * eng.page_nbytes:
+            raise AssertionError(f"mesh serving {mode}: {pool_bytes} pool bytes for "
+                                 f"{eng.num_device_pages} pages")
+        del eng
+    return {k: launches[k] for k in kernels.KERNELS}
+
+
+def check_mesh_moe_step(mesh) -> dict[str, int]:
+    """Phase 11e: phase 9's moonshot-v1-16b-a3b step (full width, depth cut
+    to ``MOE_TRAIN_LAYERS``) on the one-rank mesh, which makes each MoE
+    layer's ``ce`` all-reduce over the rank, against the plain step: the
+    loss and every parameter leaf within what two plain runs differ by (0
+    where the card's sums are deterministic), the same kernels launched."""
+    cfg, _ = cut_depth(get_config(MOE_ARCH), {"layers": []}, MOE_TRAIN_LAYERS)
+    params = lm.init(cfg, seed=0, device="cuda")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=DIST_STEP, total_steps=LAUNCH_STEPS)
+    shape = ShapeCfg("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batch = data_batch(data_cfg, DIST_STEP, "cuda")
+    plain = build_train_step(cfg, shape, opt_cfg=opt_cfg, loss_chunk=None)
+    meshed = build_train_step(cfg, shape, mesh=mesh, opt_cfg=opt_cfg, loss_chunk=None)
+    mbatch = sharded_batch(data_cfg, DIST_STEP, mesh, meshed.batch_axes, "cuda")
+    if not all(torch.equal(mbatch[k], batch[k]) for k in batch):
+        raise AssertionError("mesh MoE step: the 1 x 1 mesh's rows are not the whole batch")
+
+    def run(bundle, b):
+        p = map_structure(lambda t: t.detach().clone(), params)
+        opt = adamw.init(p, opt_cfg)
+        if bundle.placements is not None:
+            p = shard_tree(p, bundle.placements, mesh)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        p, opt, loss, _ = bundle.fn(p, opt, b, DIST_STEP)
+        torch.cuda.synchronize()
+        return float(loss), p, kernels.launch_counts()
+
+    l1, p1, plain_launches = run(plain, batch)
+    l2, p2, _ = run(plain, batch)
+    calls0 = meshed.ce_reduce.calls
+    loss_m, pm, launches = run(meshed, mbatch)
+    ce_calls = meshed.ce_reduce.calls - calls0
+    kernels.reset_launch_counts()
+    witness, gaps = _max_leaf_gaps(p2, p1), _max_leaf_gaps(pm, p1)
+    over = [k for k, v in gaps.items() if v > witness[k]]
+    n_moe = sum(bd.ff == "moe" for bd in cfg.layer_defs)
+    rec = dict(check="mesh_moe_step", arch=cfg.name, layers=cfg.n_layers, mesh=mesh.shape,
+               batch=[TRAIN_BATCH, TRAIN_SEQ], loss=loss_m, plain_loss=l1,
+               loss_gap=abs(loss_m - l1), loss_witness=abs(l2 - l1),
+               bit_equal=loss_m == l1 and not any(gaps.values()),
+               worst_param_gap=max(gaps.values()), worst_param_witness=max(witness.values()),
+               leaves_over_witness=over[:8], ce_all_reduces=ce_calls, moe_layers=n_moe,
+               launches={k: v for k, v in launches.items() if v},
+               plain_launches={k: v for k, v in plain_launches.items() if v})
+    emit(rec)
+    if rec["loss_gap"] > rec["loss_witness"] or over:
+        raise AssertionError(f"mesh MoE step: loss gap {rec['loss_gap']} (plain runs "
+                             f"{rec['loss_witness']}); leaves beyond the plain spread: {over[:8]}")
+    if ce_calls != n_moe or dict(launches) != dict(plain_launches):
+        raise AssertionError(f"mesh MoE step: {ce_calls} ce all-reduces for {n_moe} MoE layers; "
+                             f"launched {dict(launches)}, the plain step {dict(plain_launches)}")
+    del params, p1, p2, pm
+    torch.cuda.empty_cache()
     return {k: launches[k] for k in kernels.KERNELS}
 
 
@@ -4701,7 +4845,7 @@ def check_one_rank_collectives(mesh) -> None:
 
 def check_distribution() -> dict[str, int]:
     """Phase 11; returns each kernel's launches over its main-path runs (the
-    sharded serving runs and the mesh train step)."""
+    sharded and mesh serving runs, the mesh train steps)."""
     import datetime
     import tempfile
 
@@ -4710,7 +4854,8 @@ def check_distribution() -> dict[str, int]:
     t0 = time.perf_counter()
     cfg = get_config("qwen1.5-0.5b")
     params = lm.init(cfg, seed=0, device="cuda")
-    total = collections.Counter(check_sharded_serving(cfg, params))
+    launches, runs = check_sharded_serving(cfg, params)
+    total = collections.Counter(launches)
     torch.cuda.set_device(0)
     with tempfile.TemporaryDirectory() as d:
         dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
@@ -4721,9 +4866,12 @@ def check_distribution() -> dict[str, int]:
                       mesh=mesh.shape, coords=mesh.coords))
             check_one_rank_collectives(mesh)
             total.update(check_mesh_training(cfg, params, mesh))
+            total.update(check_mesh_serving(cfg, params, runs))
+            del params
+            torch.cuda.empty_cache()
+            total.update(check_mesh_moe_step(mesh))
         finally:
             dist.destroy_process_group()
-    del params
     torch.cuda.empty_cache()
     emit(dict(check="phase", phase=11, seconds=time.perf_counter() - t0))
     return {k: total[k] for k in kernels.KERNELS}

@@ -7,7 +7,8 @@ is copied from the JAX package (``_tokens_for``), so the port's batches
 are bit-equal to JAX's ``global_batch_np``.  The token stream stitches
 together 16-token motifs drawn from a fixed per-seed bank, so the next
 token is learnable.  :func:`batch` puts the whole batch on one device;
-:func:`sharded_batch` puts a rank's rows of it on that rank's device.
+:func:`sharded_batch` puts a rank's rows on that rank's device, drawn per
+row range as the JAX package's are.
 """
 from __future__ import annotations
 
@@ -68,17 +69,17 @@ def shard_rows(global_batch: int, mesh, batch_axes) -> tuple[int, int]:
 def sharded_batch(cfg: DataConfig, step: int, mesh, batch_axes,
                   device: str | torch.device = DEFAULT) -> dict[str, torch.Tensor]:
     """This rank's rows of the step's batch on ``device`` (``mesh`` a bound
-    mesh; ranks along axes outside ``batch_axes`` get the same rows): the
-    union over the ranks is ``global_batch_np`` bit for bit, so a sharded
-    step sees the one-device step's data.
-
-    The rows are cut from ``_tokens_for(cfg, step, 0, global_batch)`` on
-    the host (int32 tokens: a few MB at any configuration).  The JAX
-    package's ``sharded_batch`` instead draws each shard from its own
-    ``(start_row, n_rows)`` seed, so its batches on more than one device
-    are other tokens than its one-device batch."""
+    mesh), drawn as the JAX package's ``sharded_batch`` draws each shard:
+    ``_tokens_for(cfg, step, start, n)`` for the rank's block ``(start,
+    n)`` of ``P(batch_axes, None)`` (ranks along axes outside
+    ``batch_axes`` get the same rows; with the batch over no axis of more
+    than one rank that is ``global_batch_np``).  The generator is seeded by
+    the row range, so on a batch split over several ranks the rows are
+    other tokens than the one-device batch's, as in the JAX package; a
+    caller that wants the one-device batch cut over ranks slices
+    ``global_batch_np`` by :func:`shard_rows` itself."""
     start, n = shard_rows(cfg.global_batch, mesh, batch_axes)
-    t = _tokens_for(cfg, step, 0, cfg.global_batch)[start:start + n]
+    t = _tokens_for(cfg, step, start, n)
     dev = resolve(device)
     return {"tokens": torch.from_numpy(np.ascontiguousarray(t[:, :-1])).to(dev),
             "labels": torch.from_numpy(np.ascontiguousarray(t[:, 1:])).to(dev)}

@@ -74,39 +74,47 @@ class Collective:
                 work.wait()
         self.rounds += 1
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, **kw) -> torch.Tensor:
         self.rounds = 0
-        return self._body(self, x.contiguous())
+        return self._body(self, x.contiguous(), **kw)
 
 
-def _from_source(c: Collective, x: torch.Tensor) -> torch.Tensor:
-    """Deliver index 0's ``x`` to every rank along the axis."""
-    i, n = c.index, c.n
+def _from_source(c: Collective, x: torch.Tensor, source: int = 0) -> torch.Tensor:
+    """Deliver index ``source``'s ``x`` to every rank along the axis: each
+    mode runs on the indices rotated so that the source is 0, so every
+    source takes the same rounds."""
+    n = c.n
+    if not 0 <= source < n:
+        raise ValueError(f"source index {source} outside an axis of {n} ranks")
+    i = (c.index - source) % n  # this rank's index, counted from the source
+
+    def real(v: int) -> int:
+        return (v + source) % n
+
     y = x.clone()
-    if n == 1:
-        return y
-    if c.mode == "hw":
+    if c.mode == "hw":  # one collective, called on a one-rank axis too
         import torch.distributed as dist
 
-        dist.broadcast(y, src=c.ranks[0], group=c.group)
+        dist.broadcast(y, src=c.ranks[source], group=c.group)
         return y
     if c.mode == "unicast":
         for t in range(1, n):  # N-1 separate sends from the source
-            c.exchange([(y, t)] if i == 0 else [], [(y, 0)] if i == t else [])
+            c.exchange([(y, real(t))] if i == 0 else [], [(y, real(0))] if i == t else [])
         return y
     k = 1
     while k < n:  # doubling rounds: holders forward to +k
-        c.exchange([(y, i + k)] if i < k and i + k < n else [],
-                   [(y, i - k)] if k <= i < 2 * k else [])
+        c.exchange([(y, real(i + k))] if i < k and i + k < n else [],
+                   [(y, real(i - k))] if k <= i < 2 * k else [])
         k *= 2
     return y
 
 
-def make_broadcast_fn(mesh, shape, dtype, mode: str) -> Collective:
-    """f(x): deliver index 0's copy of ``x`` (``shape``, ``dtype``) along
-    the data axis of the bound ``mesh`` to every rank via ``mode``."""
+def make_broadcast_fn(mesh, shape, dtype, mode: str, *, axis: str | None = None) -> Collective:
+    """f(x, source=0): deliver index ``source``'s copy of ``x`` (``shape``,
+    ``dtype``) along ``axis`` of the bound ``mesh`` (default: its data
+    axis) to every rank via ``mode``."""
     del shape, dtype  # taken from the payload; kept for JAX's signature
-    return Collective(_from_source, mesh, _axis(mesh), mode)
+    return Collective(_from_source, mesh, axis or _axis(mesh), mode)
 
 
 def make_weight_gather_fn(mesh, shape, dtype, mode: str) -> Collective:

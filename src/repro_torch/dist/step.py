@@ -30,7 +30,11 @@ before the update, as in the JAX package.
   per sharded dimension: the ``hw`` mode's collective, the FSDP fetch);
 * computes the loss on its rows of the batch
   (:func:`repro_torch.data.pipeline.sharded_batch` over
-  ``bundle.batch_axes``);
+  ``bundle.batch_axes``); in a MoE arch each layer's routing fractions
+  ``ce`` are all-reduced to their mean over the batch ranks before the
+  aux loss takes them (``bundle.ce_reduce``), so the mean of the ranks'
+  losses is the whole batch's loss, as JAX's one global program computes
+  it for equal row counts;
 * all-reduces the gradients (summed in fp32, divided by the rank count,
   rounded once to each leaf's dtype) and the loss to their means over
   the batch ranks, so every rank holds the full mean gradient;
@@ -43,11 +47,9 @@ ranks along ``model`` compute the same rows unless ``batch_axes``
 spreads the batch over that axis (small recurrent models).  Computing
 over the model axis (column/row-parallel projections, a vocab-parallel
 cross entropy), as GSPMD partitions the JAX package's compiled step, is
-a later item (ROADMAP Queue 1 item 7, second half).  MoE archs refuse a
-batch split over more than one rank: the aux loss averages router
-statistics over the whole batch, which per-rank losses do not
-(``MOE_ITEM``).  With ``mesh=None``, or a mesh of one rank, the step is
-the one-device step, bit for bit.
+a later item (ROADMAP Queue 1 item 7, second half).  With ``mesh=None``,
+or a mesh of one rank, the step is the one-device step, bit for bit (on
+one rank the ``ce`` all-reduce is still made, and sums one term).
 """
 from __future__ import annotations
 
@@ -64,8 +66,6 @@ from repro_torch.launch.mesh import MESH_ITEM
 from repro_torch.nn.spec import abstract_params
 from repro_torch.optim import adamw
 
-#: why a MoE arch refuses a batch split over ranks
-MOE_ITEM = f"{MESH_ITEM}: MoE's aux loss over the batch ranks"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +76,7 @@ class StepBundle:
     loss_of: Callable | None = None  # a train step's (params, batch) -> loss
     placements: object = None  # a train step's Placement tree over its mesh
     batch_axes: tuple = ()  # the mesh axes a train step's batch rows split over
+    ce_reduce: object = None  # a MoE train step's BatchMean over its mesh
 
     @property
     def abstract_inputs(self) -> tuple:
@@ -136,6 +137,38 @@ def _mean_over(leaves: list[torch.Tensor], group, n: int) -> list[torch.Tensor]:
     return out
 
 
+class BatchMean:
+    """A MoE layer's routing fractions ``ce`` -> their mean over the ``n``
+    ranks of ``group`` (None: the default group, which then holds this
+    rank alone): one fp32 all-reduce a call, made on one rank too.
+    ``calls`` counts the all-reduces."""
+
+    def __init__(self, group, n: int):
+        self.group, self.n, self.calls = group, n, 0
+
+    def __call__(self, ce: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        out = ce.detach().clone()
+        dist.all_reduce(out, group=self.group)
+        self.calls += 1
+        return out / self.n
+
+
+def _ce_reduce(cfg, group, n_batch: int) -> BatchMean | None:
+    """The routing-fraction mean a MoE step over ``mesh`` passes to the
+    loss: over the batch ranks' group; on a one-rank world, over that one
+    rank; None for a dense arch, and where the batch axes hold one rank of
+    a larger world (every rank then holds the whole batch's fractions)."""
+    import torch.distributed as dist
+
+    if cfg.moe is None:
+        return None
+    if n_batch > 1:
+        return BatchMean(group, n_batch)
+    return BatchMean(None, 1) if dist.get_world_size() == 1 else None
+
+
 def build_train_step(cfg, shape_name: str | ShapeCfg, *, mesh=None, fsdp: bool = False,
                      compress_pod_grads: bool = False,
                      opt_cfg: adamw.AdamWConfig | None = None,
@@ -144,26 +177,25 @@ def build_train_step(cfg, shape_name: str | ShapeCfg, *, mesh=None, fsdp: bool =
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     shape = shape_of(shape_name)
 
-    def loss_of(params, batch):
-        if "frames" in batch:
-            return mod.loss_fn(params, cfg, batch["tokens"], batch["labels"], batch["frames"])
-        kw = {}
-        if "frontend_embeds" in batch:
-            kw["frontend_embeds"] = batch["frontend_embeds"]
-        return mod.loss_fn(params, cfg, batch["tokens"], batch["labels"],
-                           loss_chunk=loss_chunk, **kw)
-
-    placements, ba, group, n_batch = None, (), None, 1
+    placements, ba, group, n_batch, ce_reduce = None, (), None, 1, None
     if mesh is not None:
         if not hasattr(mesh, "group"):
             raise TypeError("mesh= takes a bound mesh (repro_torch.launch.mesh.bind)")
         placements = sharding.param_shardings(cfg, mod.model_spec(cfg), mesh, fsdp=fsdp)
         ba = sharding.batch_axes(mesh, shape.global_batch, cfg)
         group, n_batch = (mesh.group(ba), mesh.size(ba)) if ba else (None, 1)
-        if cfg.moe is not None and n_batch > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the batch splits over {n_batch} ranks, and the MoE aux loss "
-                f"averages router statistics over the whole batch: {MOE_ITEM}")
+        ce_reduce = _ce_reduce(cfg, group, n_batch)
+
+    def loss_of(params, batch):
+        if "frames" in batch:
+            return mod.loss_fn(params, cfg, batch["tokens"], batch["labels"], batch["frames"])
+        kw = {}
+        if "frontend_embeds" in batch:
+            kw["frontend_embeds"] = batch["frontend_embeds"]
+        if ce_reduce is not None:
+            kw["ce_reduce"] = ce_reduce
+        return mod.loss_fn(params, cfg, batch["tokens"], batch["labels"],
+                           loss_chunk=loss_chunk, **kw)
 
     def grads_step(params, batch, err_state):
         full = params if placements is None else sharding.gather_tree(params, placements, mesh)
@@ -208,7 +240,8 @@ def build_train_step(cfg, shape_name: str | ShapeCfg, *, mesh=None, fsdp: bool =
                 torch.empty((), dtype=torch.int32, device="meta"))
 
     return StepBundle(name=f"train:{cfg.name}:{shape.name}", fn=fn, inputs=inputs,
-                      loss_of=loss_of, placements=placements, batch_axes=ba)
+                      loss_of=loss_of, placements=placements, batch_axes=ba,
+                      ce_reduce=ce_reduce)
 
 
 def build_prefill_step(cfg, shape_name: str | ShapeCfg, *, fsdp: bool = False) -> StepBundle:

@@ -22,9 +22,11 @@ from __future__ import annotations
 import dataclasses
 import math
 
-#: why the options that wait for the second half of distribution (a
-#: mesh of devices in one program) raise
+#: why the options that wait for the rest of distribution (compute over
+#: the model axis, the dry run) raise
 MESH_ITEM = "ROADMAP Queue 1 item 7 (distribution), second half"
+#: why the paged engine's options that do not run over a mesh yet raise
+MESH_SERVE_ITEM = "ROADMAP Queue 1 item 13 (the paged engine's options over a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,5 +154,5 @@ def bind(mesh: Mesh) -> BoundMesh:
     return BoundMesh(mesh=mesh, device_mesh=dm, rank=dist.get_rank(), device_type=device_type)
 
 
-__all__ = ["MESH_ITEM", "BoundMesh", "Mesh", "bind", "make_debug_mesh", "make_mesh",
+__all__ = ["MESH_ITEM", "MESH_SERVE_ITEM", "BoundMesh", "Mesh", "bind", "make_debug_mesh", "make_mesh",
            "make_production_mesh", "make_serve_mesh"]

@@ -59,9 +59,16 @@ token-stream surface.
 ``--num-shards S --mcast-mode {unicast,sw_tree,hw} [--pages-per-shard
 N] [--mesh-axis A]`` turn on the sharded page pool with page-chain
 broadcast (``--kv paged``), on one device as in the JAX launcher without
-``--mesh``.  ``--mesh`` (the page arrays split over a device mesh)
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 7's second
-half.
+``--mesh``.  ``--mesh`` splits the pool over a 1-D mesh of ``S`` ranks on
+``--mesh-axis`` (``PagedEngine(mesh=)``), which the launcher starts
+(``dist/spawn.py``): gloo ranks on ``--device cpu``, one NCCL rank per
+card on ``cuda`` — more ranks than cards raise, naming the count, with no
+fallback from NCCL to gloo.  Rank 0 returns the streams and the stats,
+which this process prints as the one-device run does (its stdout equals
+the JAX launcher's with ``--mesh`` on as many devices); ``--trace``
+records rank 0.  ``--mesh`` needs ``--kv paged``; with ``--server`` (the
+``ServeLoop``), ``--spec-k``, ``--kv-guard``, ``--kernel-fallback`` or
+``--chaos`` it raises ``NotImplementedError`` (``MESH_SERVE_ITEM``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
@@ -76,6 +83,9 @@ half.
         [--server-driver sync] [--kv-guard --kernel-fallback --chaos pool.alloc]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --kv paged --shared-prefix 32 --trace /tmp/serve.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --reduced --device cpu --kv paged --shared-prefix 32 --num-shards 4 \\
+        --mcast-mode sw_tree --mesh
 """
 from __future__ import annotations
 
@@ -87,11 +97,11 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, tree
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.registry import draft_for
 from repro_torch.device import DEFAULT, resolve
-from repro_torch.launch.mesh import MESH_ITEM
+from repro_torch.launch.mesh import MESH_SERVE_ITEM
 from repro_torch.models import lm
 from repro_torch.serve import (
     Lifecycle,
@@ -248,18 +258,15 @@ def parser() -> argparse.ArgumentParser:
                     help="torch device: cuda (the kernels) or cpu (their plain "
                          "versions)")
     ap.add_argument("--mesh", action="store_true",
-                    help="paged: shard the device page arrays over a --num-shards 1-D mesh "
-                         "(not ported yet: raises)")
+                    help="paged: split the page pool over a --num-shards 1-D mesh of ranks "
+                         "this launcher starts (gloo on --device cpu, NCCL on cuda)")
     # every ServeConfig knob becomes a flag, one definition (serve/config.py)
     add_serve_args(ap)
     return ap
 
 
-def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> list[Request]:
-    """Run the launcher; ``params`` (on the chosen device) replaces the
-    seeded random init, e.g. weights converted by ``repro_torch.weights``,
-    and ``draft_params`` likewise the model draft's.  Returns the served
-    (under ``--server``: the drained) requests."""
+def _parse(argv: list[str] | None):
+    """The parsed flags, their defaults resolved and their pairings checked."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.kv is None:
@@ -277,12 +284,38 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None) -> li
     if args.spec_k and args.kv != "paged":
         ap.error("--spec-k requires --kv paged (speculative verify-accept "
                  "runs on the paged engine's COW page machinery)")
-    if args.mesh:
+    if args.mesh and args.kv != "paged":
+        ap.error("--mesh requires --kv paged (it splits the page pool over ranks)")
+    if args.mesh and args.server:
         raise NotImplementedError(
-            f"--mesh shards the page arrays over a device mesh: not ported yet, "
-            f"{MESH_ITEM}")
+            f"--server over --mesh: the ServeLoop does not run over a mesh yet: "
+            f"{MESH_SERVE_ITEM}")
     serve_cfg = serve_config.from_args(
         args, max_slots=(args.max_slots or args.max_batch) if args.server else args.max_batch)
+    if args.mesh:
+        for flag, on in (("--spec-k", serve_cfg.spec_k), ("--kv-guard", serve_cfg.kv_guard),
+                         ("--kernel-fallback", serve_cfg.kernel_fallback),
+                         ("--chaos", serve_cfg.fault_plan() is not None)):
+            if on:
+                raise NotImplementedError(
+                    f"{flag} over --mesh: the paged engine's option does not run over a mesh "
+                    f"yet: {MESH_SERVE_ITEM}")
+    return args, serve_cfg
+
+
+def main(argv: list[str] | None = None, *, params=None, draft_params=None,
+         timeout: float | None = None, join_timeout: float | None = None) -> list[Request]:
+    """Run the launcher; ``params`` (on the chosen device; on the CPU
+    under ``--mesh``, each rank taking a copy) replaces the seeded random
+    init, e.g. weights converted by ``repro_torch.weights``, and
+    ``draft_params`` likewise the model draft's.  Returns the served
+    (under ``--server``: the drained) requests.  ``timeout`` and
+    ``join_timeout`` bound the ranks of ``--mesh`` as ``spawn.run``'s
+    do; by default torch's process-group timeout and no join deadline."""
+    args, serve_cfg = _parse(argv)
+    if args.mesh:
+        return _serve_mesh(list(argv if argv is not None else sys.argv[1:]), args, serve_cfg,
+                           params, timeout, join_timeout)
     cfg = get_config(args.arch, reduced=args.reduced)
     device = resolve(args.device)
     rec = _arm_trace(serve_cfg)
@@ -327,6 +360,58 @@ def _drive(args, cfg, serve_cfg, device, params, draft_params) -> list[Request]:
     if args.kv == "paged":
         print(f"# paged kv stats: {server.stats()}", file=sys.stderr)
     return done
+
+
+def _serve_mesh(argv, args, serve_cfg, params, timeout, join_timeout) -> list[Request]:
+    """``--mesh``: ``--num-shards`` ranks serve the requests together (rank
+    0's streams and stats come back); printed as the one-device run
+    prints them."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import spawn
+    from repro_torch.launch.serve import _mesh_rank  # by name, also under -m
+
+    backend = "nccl" if resolve(args.device).type == "cuda" else "gloo"
+    if timeout is None:
+        timeout = dist.default_pg_timeout.total_seconds()
+    done, stats = spawn.run(_mesh_rank, serve_cfg.num_shards, argv, params, backend=backend,
+                            timeout=timeout, join_timeout=join_timeout)[0]
+    print_request_lines(done)
+    print(f"# paged kv stats: {stats}", file=sys.stderr)
+    return done
+
+
+def _mesh_rank(argv: list[str], params=None):
+    """One rank of ``--mesh``: the paged engine over the 1-D mesh of every
+    rank, serving the seeded requests; rank 0 returns (the finished
+    requests, ``stats()``) and records the trace, the others None."""
+    from repro_torch.launch.mesh import bind, make_serve_mesh
+
+    args, serve_cfg = _parse(argv)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    mesh = bind(make_serve_mesh(serve_cfg.num_shards, axis=serve_cfg.mesh_axis))
+    device = resolve(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if params is None:
+        params = lm.init(cfg, seed=serve_cfg.seed, device=device)
+    else:
+        params = tree.map_structure(lambda t: t.to(device), params)
+    rec = _arm_trace(serve_cfg) if mesh.rank == 0 else None
+    try:
+        policy = (kernels.use_policy(args.kernel_policy) if args.kernel_policy
+                  else contextlib.nullcontext())
+        with policy:
+            engine = PagedEngine(cfg, params, config=serve_cfg,
+                                 sampler=get_sampler(serve_cfg.sampler), device=device, mesh=mesh)
+            with serve_cfg.fault_plan() or contextlib.nullcontext():
+                done = engine.run(make_requests(cfg, n=args.requests, max_new=args.max_new,
+                                                shared_prefix=args.shared_prefix,
+                                                seed=serve_cfg.seed))
+    finally:
+        if rec is not None:
+            _finish_trace(rec, serve_cfg.trace)
+    return (done, engine.stats()) if mesh.rank == 0 else None
 
 
 def run_server(args, cfg, serve_cfg, engine: PagedEngine) -> list[Request]:

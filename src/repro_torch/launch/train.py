@@ -198,12 +198,19 @@ def train_loop(args, *, params=None) -> dict:
             "start": start, "step_seconds": step_s, "params": params}
 
 
-def _rank_main(argv: list[str]) -> dict | None:
-    """One spawned rank of :func:`main`: the loop of ``argv``; rank 0
-    returns its result without the parameters."""
+def _rank_main(argv: list[str], params=None) -> dict | None:
+    """One spawned rank of :func:`main`: the loop of ``argv`` from
+    ``params`` (full, on the CPU; None: the seeded init); rank 0 returns its
+    result without the parameters."""
     import torch.distributed as dist
 
-    out = train_loop(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    if params is not None:
+        device = resolve(args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        params = tree.map_structure(lambda t: t.to(device), params)
+    out = train_loop(args, params=params)
     if dist.get_rank() != 0:
         return None
     return {k: v for k, v in out.items() if k != "params"}
@@ -241,26 +248,28 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None, *, params=None, timeout: float | None = None,
          join_timeout: float | None = None) -> dict:
-    """Run the launcher; ``params`` (on the chosen device) replaces the
-    seeded initial parameters (the tests pass JAX's, converted).  A mesh
-    above one rank, with no process group in the environment, runs on
-    ranks this call starts: rank 0's result comes back without its
-    parameters.  ``timeout`` and ``join_timeout`` bound those ranks as
+    """Run the launcher; ``params`` (on the chosen device; on the CPU for a
+    mesh, whose ranks each take a copy) replaces the seeded initial
+    parameters (the tests pass JAX's, converted).  A mesh above one rank,
+    with no process group in the environment, runs on ranks this call
+    starts: rank 0's result comes back without its parameters.  ``timeout`` and ``join_timeout`` bound those ranks as
     ``spawn.run``'s do; by default :func:`collective_timeout` and no join
     deadline (tests pass short ones)."""
     args = parser().parse_args(argv)
     world = args.mesh_data * args.mesh_model
     if world > 1 and not _in_process_group():
-        if args.trace or params is not None:
-            raise ValueError("--trace and params= take one process; a mesh of "
+        if args.trace:
+            raise ValueError("--trace and its recorder take one process; a mesh of "
                              f"{world} starts {world}")
         from repro_torch.launch.train import _rank_main  # by name, also under -m
 
         backend = "nccl" if resolve(args.device).type == "cuda" else "gloo"
         if timeout is None:
             timeout = collective_timeout(get_config(args.arch, reduced=args.reduced))
-        out = spawn.run(_rank_main, world, list(argv if argv is not None else sys.argv[1:]),
-                        backend=backend, timeout=timeout, join_timeout=join_timeout)[0]
+        rank_args = (list(argv if argv is not None else sys.argv[1:]),) \
+            + (() if params is None else (params,))
+        out = spawn.run(_rank_main, world, *rank_args, backend=backend, timeout=timeout,
+                        join_timeout=join_timeout)[0]
         print(f"done; final loss {out['final_loss']:.4f}")
         return out
     if args.trace:

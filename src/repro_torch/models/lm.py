@@ -298,14 +298,15 @@ def _logits(params, cfg: ModelConfig, x):
     return softcap(out, cfg.final_softcap)
 
 
-def _ff_half(p, cfg, x):
+def _ff_half(p, cfg, x, ce_reduce=None):
     """x + the layer's feed-forward (dense MLP, MoE or none) -> (x, aux
-    loss or None)."""
+    loss or None); ``ce_reduce`` as :func:`repro_torch.nn.moe.moe` takes it."""
     if "norm2" not in p:  # ff="none"
         return x, None
     h = _norm(cfg, p["norm2"], x)
     if "moe" in p:
-        f, aux = moe_mod.moe(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu)
+        f, aux = moe_mod.moe(p["moe"], h, cfg.moe, act=cfg.act, glu=cfg.glu,
+                             ce_reduce=ce_reduce)
         return x + _post(cfg, p, "norm2_post", f), aux
     return x + _post(cfg, p, "norm2_post", mlp(p["mlp"], h, cfg)), None
 
@@ -357,30 +358,31 @@ def _stage_ends(cfg: ModelConfig) -> set[int]:
     return ends
 
 
-def _layer(p, bd: BlockDef, cfg: ModelConfig, x):
+def _layer(p, bd: BlockDef, cfg: ModelConfig, x, ce_reduce=None):
     """One layer over a full sequence -> (x, its fp32 aux loss: 0 without
     MoE)."""
     m, _ = _mixer(p, bd, cfg, _norm(cfg, p["norm1"], x))
-    x, aux = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m))
+    x, aux = _ff_half(p, cfg, x + _post(cfg, p, "norm1_post", m), ce_reduce)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
-def _trunk(params, cfg: ModelConfig, x, *, remat: bool = False):
+def _trunk(params, cfg: ModelConfig, x, *, remat: bool = False, ce_reduce=None):
     """The layer stack over a full sequence, then the final norm -> (x,
     fp32 aux loss): the MoE layers' aux losses summed within each stage,
     then the stages' sums, in JAX's order (0 without MoE).  ``remat``
     recomputes each layer in the backward instead of keeping its
     activations (``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps
-    JAX's stage body)."""
+    JAX's stage body).  ``ce_reduce`` reaches every MoE layer
+    (:func:`repro_torch.nn.moe.moe`)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_total, aux_stage = zero, zero
     ends = _stage_ends(cfg)
     for i, (p, bd) in enumerate(zip(params["layers"], cfg.layer_defs)):
         if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(_layer, p, bd, cfg, x,
+            x, aux = torch.utils.checkpoint.checkpoint(_layer, p, bd, cfg, x, ce_reduce,
                                                        use_reentrant=False)
         else:
-            x, aux = _layer(p, bd, cfg, x)
+            x, aux = _layer(p, bd, cfg, x, ce_reduce)
         aux_stage = aux_stage + aux
         if i in ends:
             aux_total, aux_stage = aux_total + aux_stage, zero
@@ -388,19 +390,25 @@ def _trunk(params, cfg: ModelConfig, x, *, remat: bool = False):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            frontend_embeds: torch.Tensor | None = None):
+            frontend_embeds: torch.Tensor | None = None, ce_reduce=None):
     """(batch, seq) tokens -> ((batch, [n +] seq, vocab) fp32 logits, fp32
     aux loss, see :func:`_trunk`).  ``frontend_embeds`` (batch, n,
-    frontend dim) are projected and prepended."""
-    x, aux_total = _trunk(params, cfg, _embed_inputs(params, cfg, tokens, frontend_embeds))
+    frontend dim) are projected and prepended; ``ce_reduce`` as
+    :func:`loss_fn` takes it."""
+    x, aux_total = _trunk(params, cfg, _embed_inputs(params, cfg, tokens, frontend_embeds),
+                          ce_reduce=ce_reduce)
     return _logits(params, cfg, x), aux_total
 
 
 def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
             frontend_embeds: torch.Tensor | None = None, remat: bool = False,
-            loss_chunk: int | None = 512, aux_weight: float = 0.01) -> torch.Tensor:
+            loss_chunk: int | None = 512, aux_weight: float = 0.01,
+            ce_reduce=None) -> torch.Tensor:
     """Mean next-token cross entropy on the fp32 logits, plus
-    ``aux_weight`` x the MoE aux loss.
+    ``aux_weight`` x the MoE aux loss.  ``ce_reduce``: over a mesh whose
+    batch splits over ranks, the mean over the batch ranks of each MoE
+    layer's routing fractions (:func:`repro_torch.nn.moe.moe`), which the
+    mesh step supplies; None on one device.
 
     Above ``loss_chunk`` positions the cross entropy runs over sequence
     chunks of that length (the sequence must divide into them, as JAX's
@@ -409,7 +417,7 @@ def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor
     as JAX's ``jax.checkpoint`` of its scan body): the full fp32 logits
     never exist at once."""
     x, aux_total = _trunk(params, cfg, _embed_inputs(params, cfg, tokens, frontend_embeds),
-                          remat=remat)
+                          remat=remat, ce_reduce=ce_reduce)
     b, s, d = x.shape
     if loss_chunk is None or s <= loss_chunk:
         ce = _ce(params, cfg, x, labels)

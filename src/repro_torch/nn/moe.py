@@ -22,8 +22,9 @@ JAX package: a decode step reads every expert's weights.  The dispatch
 and combine einsums each take one token per output element, so bf16
 rounds them exactly as JAX does; the k-slot sum accumulates in fp32 and
 rounds once, as XLA's CPU reduce does.  JAX's ``_ep_constrain`` is a
-sharding hint under a device mesh and has no counterpart here: the port
-runs on one card.
+sharding hint under a device mesh and has no counterpart here; over a
+mesh whose batch splits over ranks, the train step passes ``ce_reduce``
+(the aux loss's routing fractions averaged over the batch ranks).
 """
 from __future__ import annotations
 
@@ -67,8 +68,16 @@ def capacity(k: int, s: int, e: int, capacity_factor: float) -> int:
     return k * s if k * s <= 64 else cap
 
 
-def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool = True):
-    """x: (batch, seq, d) -> ((batch, seq, d), fp32 aux loss)."""
+def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool = True,
+        ce_reduce=None):
+    """x: (batch, seq, d) -> ((batch, seq, d), fp32 aux loss).
+
+    ``ce_reduce``: where the batch is split over ranks, a function taking
+    ``ce`` (the fraction of this rank's routed slots that went to each
+    expert, fp32 (E,), no gradient) to its mean over the batch ranks, so
+    the aux loss ``E * sum(me * ce)`` weighs this rank's ``me`` by the
+    whole batch's routing, as JAX's one global program does; ``me`` stays
+    local (the mean of the ranks' losses then averages it)."""
     b_orig, s_orig, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
 
@@ -87,6 +96,8 @@ def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(expert_ids, e).float().mean(dim=(0, 1, 2))
+    if ce_reduce is not None:
+        ce = ce_reduce(ce)
     aux_loss = e * torch.sum(me * ce)
 
     # --- grouped dispatch (groups = sequences) ------------------------------

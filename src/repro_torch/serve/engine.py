@@ -92,9 +92,42 @@ account the payload and the per-device fabric bytes under
 unicast / sw_tree / hw hierarchy of ``dist/mcast.py``'s collectives),
 and each broadcast leaves an ``mcast.broadcast`` trace instant.  As in
 the JAX engine without a mesh, the sharded bookkeeping runs on one
-device; ``num_shards=1`` is the unsharded engine.  Not ported yet:
-``mesh=`` (the page arrays split over a device mesh), which raises
-``NotImplementedError`` naming ROADMAP Queue 1 item 7's second half.
+device; ``num_shards=1`` is the unsharded engine.
+
+**Over a mesh** (``mesh=``, a mesh bound by
+:func:`repro_torch.launch.mesh.bind` whose only axis of more than one rank
+is ``config.mesh_axis``, of ``n`` ranks dividing ``num_shards``): rank
+``r`` holds the pages of shards ``[r·S/n, (r+1)·S/n)`` and a null page of
+its own, so its pool tensors have ``1 + (S/n)·pages_per_shard`` pages.
+The JAX engine instead splits the padded page axis evenly, a cut that
+falls inside a shard; aligning to shards keeps a request's fresh pages,
+COW copies and broadcast copies on one rank.  Every rank runs the same
+host bookkeeping (pool, prefix tree, scheduler, slots; page ids global),
+so every decision and the logical ``stats()`` are the same on every rank
+and equal the JAX engine's; ids become local only where they reach a
+device tensor.  A slot belongs to the rank of its shard:
+
+* a prefill (cold, suffix, chunked) runs on the slot's rank only;
+* the decode step runs the whole batch on every rank that holds a slot
+  (the one-device engine's M, so each row rounds as there), the other
+  ranks' slots pointed at the local null page;
+* each step's sampled tokens reach every rank in one all-reduce of
+  ``max_slots`` int32s (a prefill's, of one);
+* a chain broadcast packs the chain's pages (K, V and, in int8 pools,
+  the scales) on the source's rank into one buffer, delivers it with
+  ``dist.mcast``'s collective for ``mcast_mode`` from the source's index
+  along the axis (3 / 2 / 0 point-to-point rounds at n = 4 for unicast /
+  sw_tree / hw; ``broadcast_rounds`` keeps the last chain's), and unpacks
+  it into the consumer's pages — also when source and consumer share a
+  rank;
+* a cross-rank COW copy, a swap-in on another rank than the swap-out,
+  and the pages a forked slot reads from another rank (its parent's,
+  kept as *mirrors* past the rank's own pages, refreshed before each
+  decode step; a mirror a slot writes is sent home after the step) move
+  by point-to-point sends.
+
+Speculation, ``kv_guard``, the kernel fallback, fault plans and the
+``ServeLoop`` raise ``NotImplementedError`` on a mesh (``MESH_SERVE_ITEM``).
 """
 from __future__ import annotations
 
@@ -108,7 +141,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.dist import mcast
-from repro_torch.launch.mesh import MESH_ITEM
+from repro_torch.launch.mesh import MESH_SERVE_ITEM
 from repro_torch.models import lm
 from repro_torch.obs import trace
 from repro_torch.serve import faults, guard, sampling, spec
@@ -126,6 +159,15 @@ MAX_DEGRADE_REQUEUES = 8
 # sentinel: _swap_in found the swap blob missing/corrupt (distinct from
 # an admission Rejected — the caller degrades to a replay re-prefill)
 _SWAP_LOST = object()
+
+
+@dataclasses.dataclass
+class _MeshBlob:
+    """A swap blob over a mesh: the packed pages (host bytes) on the rank
+    that swapped the slot out, ``None`` on every other rank."""
+
+    holder: int  # the rank index along the mesh axis that holds ``buf``
+    buf: torch.Tensor | None
 
 
 @dataclasses.dataclass
@@ -173,10 +215,6 @@ class PagedEngine:
                 f"not both: {sorted(legacy)}")
         if config is None:
             config = config_from_legacy(legacy)
-        if mesh is not None:
-            raise NotImplementedError(
-                f"PagedEngine: not ported yet: mesh (the page arrays split over a device "
-                f"mesh): {MESH_ITEM}")
         self.device = resolve(device)
         if params["embed"]["table"].device != self.device:
             raise ValueError(f"params live on {params['embed']['table'].device}, "
@@ -204,9 +242,17 @@ class PagedEngine:
         self.pool = PagePool(num_pages, page_size, num_shards=self.num_shards)
         self.prefix = PrefixCache(self.pool, page_size)
         self.sched = Scheduler(self.pool, self.prefix, watermark=config.watermark)
-        self.num_device_pages = num_pages
-        self.caches = lm.init_paged_cache(cfg, num_pages, page_size, config.kv_dtype,
-                                          device=self.device)
+        # this rank's page axis: the whole pool on one device; over a mesh
+        # its shards' pages and a null page of its own
+        self.mesh = mesh
+        self.mesh_axis = config.mesh_axis
+        self.n_ranks, self.rank = 1, 0
+        if mesh is not None:
+            self._bind_mesh(mesh, config)
+        self._shards_per_rank = self.num_shards // self.n_ranks
+        self.num_device_pages = 1 + (num_pages - 1) // self.n_ranks
+        self.caches = lm.init_paged_cache(cfg, self.num_device_pages, page_size,
+                                          config.kv_dtype, device=self.device)
         self.slots: dict[int, _Slot] = {}
         self._admit_seq = 0
         self._requeue: list[Request] = []  # preempted, waiting to swap in
@@ -245,6 +291,13 @@ class PagedEngine:
         per_device = mcast.bytes_model(1, self.num_shards, per_device=True)
         self._fabric_mult = per_device[self.mcast_mode]
         self._fabric_mult_unicast = per_device["unicast"]
+        self.broadcast_rounds = 0  # point-to-point rounds of the last chain broadcast
+        # a mesh rank's mirrors of pages homed on other ranks: global id ->
+        # local page (past its own), and every rank's mirrored ids (the
+        # host bookkeeping every rank keeps alike)
+        self._mirror: dict[int, int] = {}
+        self._mirror_free: list[int] = []
+        self._mirrored: list[set[int]] = [set() for _ in range(self.n_ranks)]
 
         # degradation: detectors are opt-in flags; the counters below show
         # in stats(), so a degraded-but-alive server is visible
@@ -260,6 +313,157 @@ class PagedEngine:
                        "cold_prefill": self._cold_prefill,
                        "suffix_prefill": self._suffix_prefill}
 
+    # -- the mesh ------------------------------------------------------------
+    def _bind_mesh(self, mesh, config: ServeConfig) -> None:
+        """Check ``mesh`` and this engine's options against each other and
+        take this rank's place: its index along the axis, its shards."""
+        if not hasattr(mesh, "group"):
+            raise TypeError("mesh= takes a bound mesh (repro_torch.launch.mesh.bind)")
+        axis = config.mesh_axis
+        if axis not in mesh.axis_names:
+            raise ValueError(f"mesh axis {axis!r} not in the mesh's axes {mesh.axis_names}")
+        n = mesh.shape[axis]
+        if mesh.mesh.size != n:
+            raise ValueError(f"PagedEngine(mesh=) splits the pool over one axis: {axis!r} has "
+                             f"{n} of the mesh's {mesh.mesh.size} ranks ({mesh.shape})")
+        if self.num_shards % n:
+            raise ValueError(f"{n} ranks along {axis!r} do not divide num_shards="
+                             f"{self.num_shards}: each rank holds whole shards")
+        if (mesh.device_type == "cuda") != (self.device.type == "cuda"):
+            raise ValueError(f"a mesh on {mesh.device_type} cannot hold an engine on "
+                             f"{self.device}")
+        for name, on in (("speculation (spec_k)", config.spec_k), ("kv_guard", config.kv_guard),
+                         ("kernel_fallback", config.kernel_fallback)):
+            if on:
+                raise NotImplementedError(
+                    f"PagedEngine(mesh=): {name} does not run over a mesh yet: "
+                    f"{MESH_SERVE_ITEM}")
+        self.n_ranks, self.rank = n, mesh.coords[axis]
+        self._group = mesh.group(axis)  # None on one rank: the one-rank world
+        if self._group is None:
+            self._ranks = [mesh.rank]
+        else:
+            import torch.distributed as dist
+
+            self._ranks = dist.get_process_group_ranks(self._group)
+        self._bcast = mcast.make_broadcast_fn(mesh, None, None, self.mcast_mode, axis=axis)
+
+    def _refuse_faults(self) -> None:
+        if self.mesh is not None and faults.active() is not None:
+            raise NotImplementedError(
+                f"PagedEngine(mesh=): fault plans do not run over a mesh yet: {MESH_SERVE_ITEM}")
+
+    def _rank_of_shard(self, shard: int) -> int:
+        """The rank index holding ``shard`` (0 on one device); a slot
+        belongs to its shard's rank."""
+        return shard // self._shards_per_rank
+
+    def _rank_of(self, pid: int) -> int:
+        """The rank index holding global page ``pid`` (not the null page)."""
+        return self._rank_of_shard(self.pool.shard_of(pid))
+
+    def _home_id(self, pid: int) -> int:
+        """Global page ``pid``'s index in its own rank's pool tensors."""
+        if pid == 0:
+            return 0
+        return pid - self._rank_of(pid) * self._shards_per_rank * self.pool.pages_per_shard
+
+    def _local(self, pid: int) -> int:
+        """Global page ``pid``'s index in this rank's pool tensors: its own
+        page, or its mirror."""
+        if pid == 0 or self._rank_of(pid) == self.rank:
+            return self._home_id(pid)
+        return self._mirror[pid]
+
+    def _pack(self, ids: list[int]) -> torch.Tensor:
+        """Pages ``ids`` (local) of every pool tensor, laid end to end as
+        bytes: (len(ids) · page_nbytes,) uint8."""
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        return torch.cat([t.index_select(1, idx).contiguous().view(torch.uint8).reshape(-1)
+                          for c in self.caches for t in c])
+
+    def _unpack(self, buf: torch.Tensor, ids: list[int]) -> None:
+        """:meth:`_pack`'s bytes into pages ``ids`` (local) of every pool
+        tensor."""
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        off = 0
+        for c in self.caches:
+            for t in c:
+                shape = (t.shape[0], len(ids), *t.shape[2:])
+                nb = t.element_size() * shape[0] * len(ids) * t[0, 0].numel()
+                t.index_copy_(1, idx, buf[off:off + nb].view(t.dtype).view(shape))
+                off += nb
+
+    def _move(self, items) -> None:
+        """Point-to-point page moves: each item ``(a, src_ids, b, dst_ids)``
+        sends pages ``src_ids`` of rank index ``a`` (its local ids) into
+        pages ``dst_ids`` of rank ``b`` (``b``'s local ids; read on ``b``
+        only).  Same-rank items copy in place; the others go as one buffer
+        each, every send and receive of the call posted together."""
+        import torch.distributed as dist
+
+        ops, recvs = [], []
+        for tag, (a, src, b, dst) in enumerate(items):
+            if a == b:
+                if a == self.rank:
+                    self._unpack(self._pack(src), dst)
+            elif self.rank == a:
+                ops.append(dist.P2POp(dist.isend, self._pack(src), self._ranks[b],
+                                      self._group, tag))
+            elif self.rank == b:
+                buf = torch.empty(len(dst) * self.page_nbytes, dtype=torch.uint8,
+                                  device=self.device)
+                ops.append(dist.P2POp(dist.irecv, buf, self._ranks[a], self._group, tag))
+                recvs.append((buf, dst))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for buf, dst in recvs:
+            self._unpack(buf, dst)
+
+    def _share(self, tokens: np.ndarray) -> np.ndarray:
+        """Every rank's int32 ``tokens`` summed over the axis (each entry
+        is nonzero on the one rank that sampled it): one all-reduce."""
+        import torch.distributed as dist
+
+        t = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, group=self._group)
+        return t.cpu().numpy()
+
+    def _mirror_page(self) -> int:
+        """A free local page past this rank's own pages for a mirror; the
+        pool tensors grow by one page when none is free."""
+        if not self._mirror_free:
+            for i, c in enumerate(self.caches):
+                self.caches[i] = type(c)(*[torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+                                           for t in c])
+            self._mirror_free.append(self.caches[0][0].shape[1] - 1)
+        return self._mirror_free.pop()
+
+    def _refresh_mirrors(self) -> None:
+        """Make every page a slot reads present on the slot's rank: mirror
+        the pages of other ranks that a rank's slots read (a cross-rank
+        fork's parent pages) and drop the mirrors no slot reads any more.
+        A page is written only while one slot holds it (shared pages are
+        copied first), so a mirror stays current while it is read."""
+        if self.mesh is None:
+            return
+        need = [set() for _ in range(self.n_ranks)]
+        for st in self.slots.values():
+            o = self._rank_of_shard(st.shard)
+            need[o].update(p for p in st.pages if self._rank_of(p) != o)
+        for pid in [p for p in self._mirror if p not in need[self.rank]]:
+            self._mirror_free.append(self._mirror.pop(pid))
+        items = []
+        for o in range(self.n_ranks):
+            for pid in sorted(need[o] - self._mirrored[o]):
+                dst = None
+                if o == self.rank:
+                    dst = self._mirror[pid] = self._mirror_page()
+                items.append((self._rank_of(pid), [self._home_id(pid)], o, [dst]))
+        self._mirrored = need
+        self._move(items)
+
     # -- host bookkeeping ---------------------------------------------------
     def _free_slot(self) -> int | None:
         for s in range(self.max_batch):
@@ -268,8 +472,10 @@ class PagedEngine:
         return None
 
     def _table_row(self, pages: list[int]) -> np.ndarray:
+        """A block-table row of this rank's page ids (global ones on one
+        device)."""
         row = np.zeros(self.table_width, np.int32)
-        row[: len(pages)] = pages
+        row[: len(pages)] = pages if self.mesh is None else [self._local(p) for p in pages]
         return row
 
     def _tensor(self, a) -> torch.Tensor:
@@ -288,12 +494,40 @@ class PagedEngine:
             return req.shard
         return max(range(self.num_shards), key=lambda s: (self.pool.free_pages_on(s), -s))
 
+    def _deliver(self, src: list[int], dst: list[int]) -> None:
+        """Cached pages ``src`` (copies on other shards) into freshly
+        allocated pages ``dst``: on one device one indexed copy per pool
+        tensor (K, V and, in int8 pools, their scales); over a mesh, per
+        source rank (one for a chain prefilled in one place), the pages
+        packed into one buffer there, delivered along the axis by the
+        ``mcast_mode`` collective from that rank's index, and unpacked on
+        the consumer's rank."""
+        if self.mesh is None:
+            self._copy_pages(src, dst)
+            return
+        consumer, rounds, i = self._rank_of(dst[0]), 0, 0
+        while i < len(src):
+            home, j = self._rank_of(src[i]), i
+            while j < len(src) and self._rank_of(src[j]) == home:
+                j += 1
+            if self.rank == home:
+                buf = self._pack([self._home_id(p) for p in src[i:j]])
+            else:
+                buf = torch.empty((j - i) * self.page_nbytes, dtype=torch.uint8,
+                                  device=self.device)
+            out = self._bcast(buf, source=home)
+            rounds += self._bcast.rounds
+            if self.rank == consumer:
+                self._unpack(out, [self._home_id(p) for p in dst[i:j]])
+            i = j
+        self.broadcast_rounds = rounds
+
     def _broadcast_chain(self, src: list[int], dst: list[int]) -> None:
         """Deliver the bytes of cached pages ``src`` (copies on other
-        shards) into freshly allocated local pages ``dst`` — one indexed
-        copy per pool tensor (K, V and, in int8 pools, their scales) — and
-        account the traffic under the configured ``mcast_mode``."""
-        self._copy_pages(src, dst)
+        shards) into freshly allocated local pages ``dst``
+        (:meth:`_deliver`) and account the traffic under the configured
+        ``mcast_mode``."""
+        self._deliver(src, dst)
         self.n_broadcast_chains += 1
         self.n_broadcast_pages += len(dst)
         payload = len(dst) * self.page_nbytes
@@ -319,6 +553,11 @@ class PagedEngine:
                 return fn(*args)
 
         return ref
+
+    def _skip(self, name: str) -> None:
+        """A model step this mesh rank has no part in: counted (the count
+        is the logical one, the same on every rank), not run."""
+        self.kernel_calls[name] += 1
 
     def _dispatch(self, name: str, *args):
         """Run one model step (``decode`` / ``verify`` / ``cold_prefill`` /
@@ -372,6 +611,7 @@ class PagedEngine:
     def _admit(self, req: Request) -> bool | Rejected:
         """Admit a queued request: ``True`` on success, a falsy typed
         :class:`Rejected` otherwise."""
+        self._refuse_faults()
         rec = trace.active()
         if rec is None:
             return self._admit_impl(req)
@@ -449,6 +689,7 @@ class PagedEngine:
             # (the tree keeps the copies): re-baseline the refcount net
             ref0 = list(self.pool._ref) if self.kv_guard else None
 
+        here = self._rank_of_shard(shard) == self.rank  # this rank prefills
         if n_matched == 0:
             # cold prompt: the dense prefill, scattered into pages
             pages = self.pool.alloc(fresh_needed, shard)
@@ -457,8 +698,9 @@ class PagedEngine:
                 return self._reject(Rejected("pool-dry", fresh_needed))
             toks = pad_to_bucket(tokens, self.prompt_bucket)
             logits = self._dispatch(
-                "cold_prefill", self._tensor(toks).long(),
-                len(tokens) - 1, self._tensor(self._table_row(pages)), len(tokens))
+                "cold_prefill", self._tensor(toks).long(), len(tokens) - 1,
+                self._tensor(self._table_row(pages)), len(tokens)) \
+                if here else self._skip("cold_prefill")
         else:
             # prefix hit: only the divergent suffix runs, attending to the
             # shared pages, in chunks of ``prefill_chunk`` tokens
@@ -483,10 +725,11 @@ class PagedEngine:
                     pages.extend(got)
                 toks = pad_to_bucket(ctoks, self.prompt_bucket)
                 logits = self._dispatch(
-                    "suffix_prefill", self._tensor(toks).long(),
-                    len(ctoks) - 1, self._tensor(self._table_row(pages))[None],
+                    "suffix_prefill", self._tensor(toks).long(), len(ctoks) - 1,
+                    self._tensor(self._table_row(pages))[None],
                     self._tensor([n_matched + c0]),
-                    self._tensor(np.asarray([n_matched + c0 + len(ctoks)], np.int32)))
+                    self._tensor(np.asarray([n_matched + c0 + len(ctoks)], np.int32))) \
+                    if here else self._skip("suffix_prefill")
         self.prefix.insert(tokens, pages, shard)
         n_tree = len(tokens) // self.page_size
         if self.kv_guard and n_tree:
@@ -496,10 +739,14 @@ class PagedEngine:
             # flip bytes in one page of the chain this admission cached:
             # the corruption a later prefix hit must detect
             self._corrupt_page(pages[min(f.page_index, n_tree - 1)])
+        if replay:
+            last_tok = req.out[-1]
+        else:
+            last_tok = int(self.sampler.select(logits)[0, -1]) if here else 0
+            if self.mesh is not None:  # the owner's token to every rank
+                last_tok = int(self._share(np.asarray([last_tok], np.int32))[0])
         self.slots[slot] = _Slot(
-            req=req, pages=pages, length=len(tokens),
-            last_tok=(req.out[-1] if replay
-                      else int(self.sampler.select(logits)[0, -1])),
+            req=req, pages=pages, length=len(tokens), last_tok=last_tok,
             admit_seq=self._admit_seq, shard=shard,
         )
         self._admit_seq += 1
@@ -559,9 +806,16 @@ class PagedEngine:
 
     # -- preemption (swap to host) and resume -------------------------------
     def _preempt(self, slot: int) -> None:
-        st = self.slots.pop(slot)
-        ids = self._tensor(np.asarray(st.pages, np.int64))
-        data = [tuple(t[:, ids].cpu() for t in c) for c in self.caches]
+        if self.mesh is not None:
+            self._refresh_mirrors()  # a fork not yet decoded reads other ranks' pages
+            st = self.slots.pop(slot)
+            holder = self._rank_of_shard(st.shard)
+            data = _MeshBlob(holder, self._pack([self._local(p) for p in st.pages]).cpu()
+                             if holder == self.rank else None)
+        else:
+            st = self.slots.pop(slot)
+            ids = self._tensor(np.asarray(st.pages, np.int64))
+            data = [tuple(t[:, ids].cpu() for t in c) for c in self.caches]
         if faults.fires("swap.drop") is not None:
             data = None  # injected loss of the host swap blob
         checksum = guard.blob_checksum(data) if self.kv_guard and data is not None else None
@@ -590,10 +844,19 @@ class PagedEngine:
         pages = self.pool.alloc(n_pages, shard)
         if pages is None:  # injected exhaustion after a green check
             return self._reject(Rejected("pool-dry", n_pages))
-        ids = self._tensor(np.asarray(pages, np.int64))
-        for c, saved in zip(self.caches, data):
-            for t, host in zip(c, saved):
-                t[:, ids] = host.to(self.device)
+        if self.mesh is not None:
+            owner = self._rank_of_shard(shard)
+            dst = [self._home_id(p) for p in pages]
+            if data.holder == owner:
+                if owner == self.rank:
+                    self._unpack(data.buf.to(self.device), dst)
+            else:  # swapped out on another rank: its bytes cross over
+                self._send_blob(data, owner, dst)
+        else:
+            ids = self._tensor(np.asarray(pages, np.int64))
+            for c, saved in zip(self.caches, data):
+                for t, host in zip(c, saved):
+                    t[:, ids] = host.to(self.device)
         req._swap = None
         rec = trace.active()
         if rec is not None:
@@ -603,6 +866,19 @@ class PagedEngine:
                                  last_tok=last_tok, admit_seq=self._admit_seq, shard=shard)
         self._admit_seq += 1
         return True
+
+    def _send_blob(self, blob: _MeshBlob, owner: int, dst: list[int]) -> None:
+        """A swap blob from the rank holding it into pages ``dst`` of rank
+        ``owner``: one point-to-point send."""
+        import torch.distributed as dist
+
+        if self.rank == blob.holder:
+            dist.send(blob.buf.to(self.device), self._ranks[owner], group=self._group)
+        elif self.rank == owner:
+            buf = torch.empty(len(dst) * self.page_nbytes, dtype=torch.uint8,
+                              device=self.device)
+            dist.recv(buf, self._ranks[blob.holder], group=self._group)
+            self._unpack(buf, dst)
 
     def _pick_victim(self, exclude: set[int] = frozenset(),
                      shard: int | None = None) -> int | None:
@@ -641,7 +917,13 @@ class PagedEngine:
 
     def _copy_pages(self, src: list[int], dst: list[int]) -> None:
         """Pages ``src`` -> pages ``dst`` in every layer's pools: one indexed
-        copy per pool tensor (K, V and, in int8 pools, their scales)."""
+        copy per pool tensor (K, V and, in int8 pools, their scales); over
+        a mesh, from each page's rank to the other's (a point-to-point send
+        where they differ)."""
+        if self.mesh is not None:
+            self._move([(self._rank_of(a), [self._home_id(a)], self._rank_of(b),
+                         [self._home_id(b)]) for a, b in zip(src, dst)])
+            return
         s, d = self._tensor(np.asarray(src, np.int64)), self._tensor(np.asarray(dst, np.int64))
         for c in self.caches:
             for t in c:
@@ -703,6 +985,7 @@ class PagedEngine:
     # -- main loop ----------------------------------------------------------
     def step(self) -> list[Request]:
         """One decode step over the active batch; returns finished requests."""
+        self._refuse_faults()
         rec = trace.active()
         if rec is None:
             return self._step_impl()
@@ -728,19 +1011,29 @@ class PagedEngine:
                 self._ensure_writable(slot)
         if not self.slots:
             return []
+        self._refresh_mirrors()
         toks = np.zeros((self.max_batch, 1), np.int64)
         index = np.zeros(self.max_batch, np.int64)
         lengths = np.zeros(self.max_batch, np.int32)
         table = np.zeros((self.max_batch, self.table_width), np.int32)
+        mine = [slot for slot, st in self.slots.items() if self._rank_of_shard(st.shard) == self.rank]
         for slot, st in self.slots.items():
             toks[slot, 0] = st.last_tok
             index[slot] = st.length
             lengths[slot] = st.length + 1
-            table[slot] = self._table_row(st.pages)
+            if slot in mine:  # another rank's slot writes and reads the null page
+                table[slot] = self._table_row(st.pages)
         logits = self._dispatch(
-            "decode", self._tensor(toks), self._tensor(index),
-            self._tensor(table), self._tensor(lengths))
-        nxt = self.sampler.select(logits)[:, -1]
+            "decode", self._tensor(toks), self._tensor(index), self._tensor(table),
+            self._tensor(lengths)) if mine else self._skip("decode")
+        if self.mesh is None:
+            nxt = self.sampler.select(logits)[:, -1]
+        else:
+            own = np.zeros(self.max_batch, np.int32)
+            if mine:
+                own[mine] = np.asarray(self.sampler.select(logits)[:, -1])[mine]
+            nxt = self._share(own)
+            self._write_back()
         finished = []
         for slot, st in list(self.slots.items()):
             st.length += 1
@@ -751,6 +1044,19 @@ class PagedEngine:
                 self.pool.release(st.pages)
                 del self.slots[slot]
         return finished
+
+    def _write_back(self) -> None:
+        """After a decode step over a mesh: the page each slot just wrote,
+        where it is a mirror (a forked slot's own copy of its parent's last
+        page, exclusively held), back to its home rank."""
+        items = []
+        for st in self.slots.values():
+            pid = st.pages[st.length // self.page_size]
+            a, home = self._rank_of_shard(st.shard), self._rank_of(pid)
+            if a != home:
+                src = self._mirror[pid] if a == self.rank else None
+                items.append((a, [src], home, [self._home_id(pid)]))
+        self._move(items)
 
     def _step_spec(self, k: int) -> list[Request]:
         """One speculative verify-accept round: the draft proposes ``k``
@@ -837,6 +1143,7 @@ class PagedEngine:
 
     def run(self, requests: list[Request]) -> list[Request]:
         """Serve ``requests`` to completion; returns them as they finish."""
+        self._refuse_faults()
         queue = list(requests)
         done: list[Request] = []
         stall = 0  # consecutive empty-batch rounds with a rejected head

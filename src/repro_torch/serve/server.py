@@ -146,6 +146,11 @@ class ServeLoop:
                  max_slots: int | None = None, queue_cap: int | None = None,
                  detokenize=None, clock=time.monotonic,
                  admission_retry_s: float = 0.005):
+        if engine.mesh is not None:
+            from repro_torch.launch.mesh import MESH_SERVE_ITEM
+
+            raise NotImplementedError(
+                f"ServeLoop over PagedEngine(mesh=): not ported yet: {MESH_SERVE_ITEM}")
         if config is not None:
             # the typed config fills loop knobs not given explicitly
             max_slots = config.max_slots if max_slots is None else max_slots

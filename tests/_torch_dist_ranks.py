@@ -25,6 +25,8 @@ ARCH = "qwen1.5-0.5b"
 TRAIN = dict(batch=8, seq=32, steps=4, lr=3e-3, seed=0)
 #: the (fsdp, compress) runs of every mesh
 TRAIN_RUNS = ((False, False), (True, False), (True, True))
+#: the MoE train runs: the reduced moonshot, its batch split over ranks
+MOE_TRAIN = dict(arch="moonshot-v1-16b-a3b", batch=8, seq=16, steps=4, lr=3e-3, seed=0)
 
 
 def payload(seed: int, shape=(6, 10)) -> torch.Tensor:
@@ -42,6 +44,11 @@ def collectives(data: int) -> dict:
     mesh = bind(make_debug_mesh(data, 1))
     r = mesh.rank
     out = {"coords": mesh.coords}
+    for mode in mcast.MODES:  # from every source index: the same rounds
+        bcast = mcast.make_broadcast_fn(mesh, (6, 10), torch.float32, mode)
+        for s in range(data):
+            got = bcast(payload(50 + s) if r == s else payload(200 + r), source=s)
+            out[f"{mode}/from{s}"] = (bool(torch.equal(got, payload(50 + s))), bcast.rounds)
     src = payload(0)
     mine = src if r == 0 else payload(100 + r)
     full = payload(1, (4 * data, 5))
@@ -71,7 +78,8 @@ BATCH_DATA = pipeline.DataConfig(vocab=512, seq_len=16, global_batch=8, seed=5)
 
 def batches(mesh_shape: tuple[int, int]) -> dict:
     """This rank's ``sharded_batch`` rows (step 3) on a ``mesh_shape`` mesh,
-    for the batch split over the data axis, over both axes and over none."""
+    for the batch split over the data axis, over both axes and over none:
+    its ``shard_rows`` block and the tokens and labels."""
     mesh = bind(make_debug_mesh(*mesh_shape))
     out = {"coords": mesh.coords}
     for ba in (("data",), ("data", "model"), ()):
@@ -88,9 +96,23 @@ def four_ranks() -> dict:
             "device_mesh 2x2": tuple(bind(make_debug_mesh(2, 2)).device_mesh.get_coordinate())}
 
 
-def two_ranks(params: dict) -> dict:
-    """The 2-rank cases: the 2 x 1 train runs and the MoE refusal."""
-    return {"train": train_on((2, 1), params), "moe": moe_refusal()}
+def one_rank(params: dict, moe_params: dict) -> dict:
+    """The 1 x 1 runs, dense and MoE."""
+    return {"train": train_on((1, 1), params), "moe": moe_on((1, 1), moe_params)}
+
+
+def two_ranks(params: dict, moe_params: dict) -> dict:
+    """The 2-rank cases: the 2 x 1 train runs, dense and MoE."""
+    return {"train": train_on((2, 1), params), "moe": moe_on((2, 1), moe_params)}
+
+
+def global_rows(data: pipeline.DataConfig, step: int, mesh, batch_axes) -> dict:
+    """This rank's rows of ``global_batch_np`` (its ``shard_rows`` block),
+    as ``tests/_multidev_main.py`` feeds JAX's mesh step the one-device
+    batch: a mesh step held to the one-device step must see its rows."""
+    start, n = pipeline.shard_rows(data.global_batch, mesh, batch_axes)
+    return {k: torch.from_numpy(np.ascontiguousarray(v[start:start + n]))
+            for k, v in pipeline.global_batch_np(data, step).items()}
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -121,7 +143,7 @@ def train_on(mesh_shape: tuple[int, int], params: dict, ckpt_dir: str | None = N
         err = compression.init_error_state(p) if compress else None
         losses, norms = [], []
         for step in range(TRAIN["steps"]):
-            batch = pipeline.sharded_batch(data, step, mesh, b.batch_axes, "cpu")
+            batch = global_rows(data, step, mesh, b.batch_axes)
             if compress:
                 p, opt, err, loss, metrics = b.fn(p, opt, err, batch, step)
             else:
@@ -198,23 +220,149 @@ def _nothing():
     return contextlib.nullcontext()
 
 
-def train_then_restore(params: dict, ckpt_dir: str) -> list[dict]:
+def train_then_restore(params: dict, ckpt_dir: str, moe_params: dict) -> list[dict]:
     """On 4 ranks: the 2 x 2 runs (saving the fsdp one), then the 4 x 1
-    runs on the same ranks, restoring the 2 x 2 checkpoint onto 4 x 1."""
+    runs on the same ranks, restoring the 2 x 2 checkpoint onto 4 x 1;
+    then the MoE runs on 2 x 2 and 4 x 1."""
     first = train_on((2, 2), params, ckpt_dir=ckpt_dir)
     second = train_on((4, 1), params, restore_from=(ckpt_dir, TRAIN["steps"]))
-    return [first, second]
+    return [first, second, {"2x2": moe_on((2, 2), moe_params),
+                            "4x1": moe_on((4, 1), moe_params)}]
 
 
-def moe_refusal() -> str:
-    """The MoE refusal on a 2 x 1 mesh: the message."""
-    cfg = get_config("moonshot-v1-16b-a3b", reduced=True)
-    mesh = bind(make_debug_mesh(2, 1))
-    try:
-        build_train_step(cfg, ShapeCfg("custom", "train", 8, 4), mesh=mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return ""
+def _moe_setup():
+    cfg = get_config(MOE_TRAIN["arch"], reduced=True)
+    opt_cfg = adamw.AdamWConfig(lr=MOE_TRAIN["lr"], warmup_steps=5,
+                                total_steps=MOE_TRAIN["steps"])
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=MOE_TRAIN["seq"],
+                               global_batch=MOE_TRAIN["batch"], seed=MOE_TRAIN["seed"])
+    return cfg, opt_cfg, data, ShapeCfg("custom", "train", MOE_TRAIN["seq"], MOE_TRAIN["batch"])
+
+
+def moe_on(mesh_shape: tuple[int, int], params: dict) -> dict:
+    """The reduced moonshot's train step on a ``mesh_shape`` mesh, each
+    rank fed its rows of ``global_batch_np``: the losses of
+    ``MOE_TRAIN``'s steps, step 0's aux loss (this rank's, the routing
+    fractions averaged over the batch ranks, then averaged over them as the
+    step averages the loss), the batch axes and the ``ce`` all-reduces."""
+    import torch.distributed as dist
+
+    cfg, opt_cfg, data, shape = _moe_setup()
+    mesh = bind(make_debug_mesh(*mesh_shape))
+    b = build_train_step(cfg, shape, mesh=mesh, opt_cfg=opt_cfg, loss_chunk=None)
+    p = sharding.shard_tree(tree.map_structure(torch.clone, params), b.placements, mesh)
+    batch = global_rows(data, 0, mesh, b.batch_axes)
+    with torch.no_grad():
+        full = sharding.gather_tree(p, b.placements, mesh)
+        aux = lm.forward(full, cfg, batch["tokens"], ce_reduce=b.ce_reduce)[1].clone()
+    n = mesh.size(b.batch_axes)
+    dist.all_reduce(aux, group=mesh.group(b.batch_axes))
+    calls = b.ce_reduce.calls
+    opt = adamw.init(p, opt_cfg)
+    losses = []
+    for step in range(MOE_TRAIN["steps"]):
+        p, opt, loss, _ = b.fn(p, opt, global_rows(data, step, mesh, b.batch_axes), step)
+        losses.append(float(loss))
+    return {"losses": losses, "aux0": float(aux / n), "batch_axes": b.batch_axes,
+            "ce_reduce_calls": calls, "n_batch": n}
+
+
+def moe_alone(params: dict, flip: bool = False) -> dict:
+    """The same MoE steps on one device (``mesh=None``); ``flip``: the
+    flipped-ulp witness, as :func:`train_alone`'s.  Step 0's aux loss too."""
+    from unittest import mock
+
+    cfg, opt_cfg, data, shape = _moe_setup()
+    b = build_train_step(cfg, shape, opt_cfg=opt_cfg, loss_chunk=None)
+    real = lm._embed_inputs
+
+    def flipped(*a, **k):
+        return (real(*a, **k).view(torch.int16) ^ 1).view(torch.bfloat16)
+
+    p = tree.map_structure(torch.clone, params)
+    with torch.no_grad():
+        aux = float(lm.forward(p, cfg, pipeline.batch(data, 0, "cpu")["tokens"])[1])
+    opt = adamw.init(p, opt_cfg)
+    losses = []
+    with mock.patch.object(lm, "_embed_inputs", flipped) if flip else _nothing():
+        for step in range(MOE_TRAIN["steps"]):
+            p, opt, loss, _ = b.fn(p, opt, pipeline.batch(data, step, "cpu"), step)
+            losses.append(float(loss))
+    return {"losses": losses, "aux0": aux}
+
+
+def port_serve_api(cfg, params, mesh=None, built: list | None = None):
+    """The port's serving names as ``_torch_dist_ref``'s cases take them,
+    engines on the CPU over ``mesh``; ``built`` collects every engine."""
+    from types import SimpleNamespace
+
+    from repro_torch.serve import Fault, FaultPlan, PagedEngine, Request, ServeConfig
+
+    def make(**kw):
+        eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+        if built is not None:
+            built.append(eng)
+        return eng
+
+    return SimpleNamespace(PagedEngine=make, Request=Request, ServeConfig=ServeConfig,
+                           Fault=Fault, FaultPlan=FaultPlan)
+
+
+def home_pages(eng) -> dict[int, np.ndarray]:
+    """Every page an engine's rank holds as its own (not its null page, not
+    a mirror), by global id: its bytes in every pool tensor."""
+    lo = 1 + eng.rank * (eng.num_device_pages - 1)
+    return {pid: eng._pack([eng._home_id(pid)]).numpy()
+            for pid in range(lo, lo + eng.num_device_pages - 1)}
+
+
+def _refusals(cfg, params, mesh) -> dict[str, str]:
+    """What the engine refuses over ``mesh`` (2 ranks): each message."""
+    from repro_torch.serve import Fault, FaultPlan, PagedEngine, ServeConfig, ServeLoop
+
+    base = dict(max_slots=2, cache_len=64, page_size=8, num_shards=2, pages_per_shard=8)
+    out = {}
+
+    def catch(name, fn):
+        try:
+            fn()
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+
+    for name, extra in (("spec", dict(spec_k=2, draft_model="ngram")),
+                        ("kv_guard", dict(kv_guard=True)),
+                        ("kernel_fallback", dict(kernel_fallback=True)),
+                        ("shards", dict(num_shards=3, pages_per_shard=8))):
+        catch(name, lambda extra=extra: PagedEngine(cfg, params, device="cpu", mesh=mesh,
+                                                    config=ServeConfig(**{**base, **extra})))
+    eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, config=ServeConfig(**base))
+
+    def faulted():
+        with FaultPlan([Fault("pool.alloc", at=1)]):
+            eng.run([])
+
+    catch("fault_plan", faulted)
+    catch("server", lambda: ServeLoop(eng))
+    return out
+
+
+def serve_mesh(n: int, params: dict) -> dict:
+    """``_torch_dist_ref.mesh_cases`` on the port's engine over ``n`` gloo
+    ranks (the reduced qwen, ``params`` JAX's converted), each engine's
+    home pages at its end, and (on 2 ranks) the refusals."""
+    from _torch_dist_ref import mesh_cases
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    cfg = get_config(ARCH, reduced=True)
+    mesh = bind(make_serve_mesh(n))
+    built = []
+    out = {"cases": mesh_cases(port_serve_api(cfg, params, mesh, built), n)}
+    out["pages"] = [home_pages(e) for e in built]
+    out["pool_bytes"] = [sum(t.numel() * t.element_size() for c in e.caches for t in c)
+                         for e in built]
+    if n == 2:
+        out["refusals"] = _refusals(cfg, params, mesh)
+    return out
 
 
 def fail_on_rank_one() -> None:

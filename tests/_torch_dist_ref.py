@@ -5,7 +5,7 @@ Run as a script in its own process (``dist_reference`` in
 ``tests/test_torch_dist_serve.py`` and ``tests/test_torch_dist.py``), with
 XLA's excess precision off, as ``_torch_jax_ref.py`` is:
 
-    python tests/_torch_dist_ref.py {train|serve} OUT.npz
+    python tests/_torch_dist_ref.py {train|serve|meshserve|meshtrain} OUT.npz
 
 * ``train``: ``lm.loss_fn`` of the reduced qwen1.5-0.5b (``lm.init`` from
   ``SEED``) on step 0's batch of the multi-rank train runs
@@ -13,7 +13,14 @@ XLA's excess precision off, as ``_torch_jax_ref.py`` is:
 * ``serve``: :func:`engine_cases` on JAX's ``PagedEngine`` under
   ``backend=pallas`` (the engines share their jitted steps), and the JAX
   launcher's traced sharded run (``TRACE_ARGS``): its stdout and its
-  ``--trace`` report.
+  ``--trace`` report;
+* ``meshserve`` (4 forced host devices): :func:`mesh_cases` on JAX's
+  ``PagedEngine(mesh=)`` over 4 and 2 devices, the one-device 4-shard
+  engine of that workload, and the launcher's ``--mesh`` stdout
+  (``MESH_ARGS``);
+* ``meshtrain`` (4 forced host devices): the reduced moonshot's loss and
+  aux loss on step 0's batch (``MOE_TRAIN``), and the JAX launcher's
+  losses over a 2-device mesh (``MESH_TRAIN_ARGS``).
 
 :func:`engine_cases` takes a package's serving names (``api``), so the
 port's test runs the very same cases on the port.
@@ -71,44 +78,8 @@ def engine_cases(api) -> dict:
             out[f"{name}/{mode}"] = {"out": _streams(done), "stats": _stats(eng),
                                      "page_nbytes": int(eng.page_nbytes)}
 
-    # cross-shard fork: the child's COW copy lands on its own shard
-    eng = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
-                                                 num_shards=2, pages_per_shard=8))
-    parent = api.Request(rid=0, prompt=list(range(10, 22)), max_new=6, shard=0)
-    assert eng._admit(parent)
-    (pslot,) = eng.slots
-    cslot = eng.fork(pslot, api.Request(rid=1, prompt=list(parent.prompt), max_new=6), shard=1)
-    cst = eng.slots[cslot]
-    need = cst.length // eng.page_size
-    shared_pid = cst.pages[need]
-    fork = {"child_shard": cst.shard, "zero_copy": cst.pages == eng.slots[pslot].pages,
-            "shared_refs": eng.pool.refcount(shared_pid), "writable": eng._ensure_writable(cslot)}
-    fork["new_page_shard"] = eng.pool.shard_of(cst.pages[need])
-    fork["moved"] = cst.pages[need] != shared_pid
-    done = eng.run([])
-    eng.check()
-    out["fork"] = {**fork, "out": _streams(done), "stats": _stats(eng)}
-
-    # per-shard preemption: shard 0 runs dry, only its youngest slot yields
-    def pinned():
-        return [api.Request(rid=0, prompt=list(range(30, 39)), max_new=10, shard=0),
-                api.Request(rid=1, prompt=list(range(40, 49)), max_new=10, shard=0),
-                api.Request(rid=2, prompt=list(range(50, 59)), max_new=10, shard=1)]
-
-    eng = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
-                                                 num_shards=2, pages_per_shard=4, watermark=0))
-    a, b, c = pinned()
-    admitted = [bool(eng._admit(a)), bool(eng._admit(b)), bool(eng._admit(c))]
-    by_rid = {st.req.rid: s for s, st in eng.slots.items()}
-    victims = [eng._pick_victim(shard=0) == by_rid[1], eng._pick_victim(shard=1) == by_rid[2]]
-    done = eng.run([])
-    eng.check()
-    roomy = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
-                                                   num_shards=2, pages_per_shard=16,
-                                                   watermark=0))
-    out["preempt"] = {"admitted": admitted, "victims": victims, "out": _streams(done),
-                      "stats": _stats(eng), "roomy": _streams(roomy.run(pinned())),
-                      "roomy_preempted": roomy.stats()["preempted"]}
+    out["fork"] = fork_case(api)
+    out["preempt"] = preempt_case(api)
 
     # one shard's alloc fault degrades without touching the other's streams
     guarded = dict(max_slots=3, cache_len=64, page_size=8, num_shards=2, pages_per_shard=12,
@@ -136,13 +107,131 @@ def engine_cases(api) -> dict:
     return out
 
 
-def _jax_api(cfg, params):
+def fork_case(api) -> dict:
+    """A cross-shard fork over 2 shards: the child's COW copy lands on its
+    own shard."""
+    eng = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
+                                                 num_shards=2, pages_per_shard=8))
+    parent = api.Request(rid=0, prompt=list(range(10, 22)), max_new=6, shard=0)
+    assert eng._admit(parent)
+    (pslot,) = eng.slots
+    cslot = eng.fork(pslot, api.Request(rid=1, prompt=list(parent.prompt), max_new=6), shard=1)
+    cst = eng.slots[cslot]
+    need = cst.length // eng.page_size
+    shared_pid = cst.pages[need]
+    fork = {"child_shard": cst.shard, "zero_copy": cst.pages == eng.slots[pslot].pages,
+            "shared_refs": eng.pool.refcount(shared_pid), "writable": eng._ensure_writable(cslot)}
+    fork["new_page_shard"] = eng.pool.shard_of(cst.pages[need])
+    fork["moved"] = cst.pages[need] != shared_pid
+    done = eng.run([])
+    eng.check()
+    return {**fork, "out": _streams(done), "stats": _stats(eng)}
+
+
+def preempt_case(api) -> dict:
+    """Per-shard preemption over 2 shards: shard 0 runs dry, only its
+    youngest slot yields."""
+    def pinned():
+        return [api.Request(rid=0, prompt=list(range(30, 39)), max_new=10, shard=0),
+                api.Request(rid=1, prompt=list(range(40, 49)), max_new=10, shard=0),
+                api.Request(rid=2, prompt=list(range(50, 59)), max_new=10, shard=1)]
+
+    eng = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
+                                                 num_shards=2, pages_per_shard=4, watermark=0))
+    a, b, c = pinned()
+    admitted = [bool(eng._admit(a)), bool(eng._admit(b)), bool(eng._admit(c))]
+    by_rid = {st.req.rid: s for s, st in eng.slots.items()}
+    victims = [eng._pick_victim(shard=0) == by_rid[1], eng._pick_victim(shard=1) == by_rid[2]]
+    done = eng.run([])
+    eng.check()
+    roomy = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
+                                                   num_shards=2, pages_per_shard=16,
+                                                   watermark=0))
+    return {"admitted": admitted, "victims": victims, "out": _streams(done),
+            "stats": _stats(eng), "roomy": _streams(roomy.run(pinned())),
+            "roomy_preempted": roomy.stats()["preempted"]}
+
+
+#: the mesh engine of every mode's run over 4 ranks: ``_distserve_main.py``'s
+#: engine and workload (4 requests after a 32-token prefix, 6 new tokens)
+MESH = dict(max_slots=2, cache_len=64, page_size=8, num_shards=4, pages_per_shard=8)
+MESH_REQUESTS = dict(n=4, shared_prefix=32, max_new=6)
+
+
+def _mesh_run(eng, done) -> dict:
+    """What a mesh engine's run is held to, and what only the port has
+    (None on JAX's side): each chain's rounds, this rank's pool page axis."""
+    eng.check()
+    pages = sorted({int(t.shape[1]) for c in eng.caches for t in c}) \
+        if hasattr(eng, "broadcast_rounds") else None
+    return {"out": _streams(done), "stats": _stats(eng), "page_nbytes": int(eng.page_nbytes),
+            "rounds": getattr(eng, "broadcast_rounds", None), "pool_pages": pages}
+
+
+def mesh_cases(api, n: int) -> dict:
+    """The mesh engine's runs over ``n`` ranks (``api.PagedEngine`` builds
+    on the mesh): over 4, ``_distserve_main.py``'s scenario per mode; over
+    2, the same workload on 4 shards (2 a rank), the cross-shard fork and
+    the pressured-shard preemption, each shard on its own rank."""
+    out = {}
+    if n == 4:
+        for mode in MODES:
+            eng = api.PagedEngine(config=api.ServeConfig(**MESH, mcast_mode=mode))
+            out[mode] = _mesh_run(eng, eng.run(_requests(api, **MESH_REQUESTS)))
+        return out
+    eng = api.PagedEngine(config=api.ServeConfig(**MESH, mcast_mode="sw_tree"))
+    out["4shards"] = _mesh_run(eng, eng.run(_requests(api, **MESH_REQUESTS)))
+    out["fork"] = fork_case(api)
+    out["fork_late"] = fork_late_case(api)
+    out["preempt"] = preempt_case(api)
+    out["reroute"] = reroute_case(api)
+    return out
+
+
+def fork_late_case(api) -> dict:
+    """A cross-shard fork whose parent copies the shared last page first
+    (the older slot's step comes first): the child then writes the
+    parent's original page, on the parent's shard, in place."""
+    eng = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
+                                                 num_shards=2, pages_per_shard=8))
+    parent = api.Request(rid=0, prompt=list(range(10, 22)), max_new=6, shard=0)
+    assert eng._admit(parent)
+    (pslot,) = eng.slots
+    eng.fork(pslot, api.Request(rid=1, prompt=list(parent.prompt), max_new=6), shard=1)
+    done = eng.run([])
+    eng.check()
+    return {"out": _streams(done), "stats": _stats(eng)}
+
+
+def reroute_case(api) -> dict:
+    """Unpinned requests over 2 shards of 4 pages: requests 0 and 2 share
+    shard 0, request 1 (short) shard 1; request 0's page fault preempts
+    request 2, which swaps back in on shard 1, by then the freer.  The
+    prompts are a draw whose greedy choices have no near-tie: at prompts
+    ``range(20 + 9 i, ...)`` request 1's first decode step has its top two
+    logits 0.0013 apart, where the port's and JAX's one-device engines
+    pick differently (each mesh engine still serves its own package's
+    one-device streams)."""
+    eng = api.PagedEngine(config=api.ServeConfig(max_slots=3, cache_len=64, page_size=8,
+                                                 num_shards=2, pages_per_shard=4, watermark=0))
+    done = eng.run([api.Request(rid=i, prompt=list(range(100 + 9 * i, 109 + 9 * i)),
+                                max_new=m) for i, m in enumerate((12, 4, 12))])
+    eng.check()
+    return {"out": _streams(done), "stats": _stats(eng)}
+
+
+#: the launcher's ``--mesh`` run: ``TRACE_ARGS`` with the pool over 4 ranks
+#: (the port adds ``--device cpu``)
+MESH_ARGS = [*TRACE_ARGS, "--mesh"]
+
+
+def _jax_api(cfg, params, mesh=None):
     from types import SimpleNamespace
 
     from repro.serve import Fault, FaultPlan, PagedEngine, Request, ServeConfig
 
     return SimpleNamespace(
-        PagedEngine=lambda **kw: PagedEngine(cfg, params, **kw), Request=Request,
+        PagedEngine=lambda **kw: PagedEngine(cfg, params, mesh=mesh, **kw), Request=Request,
         ServeConfig=ServeConfig, Fault=Fault, FaultPlan=FaultPlan)
 
 
@@ -162,6 +251,75 @@ def _serve(out: dict) -> None:
             report = json.load(f)
     out["serve_json"] = np.asarray(json.dumps(
         {"cases": cases, "trace": {"stdout": stdout, "report": report}}))
+
+
+def _meshserve(out: dict) -> None:
+    """``mesh_cases`` on JAX's engine over a 4- and a 2-device mesh (the
+    first devices of 4 forced host devices), the one-device 4-shard
+    engine of the same workload, and the launcher's ``--mesh`` stdout."""
+    import jax
+
+    from repro import kernels
+    from repro.launch.mesh import make_serve_mesh
+
+    assert jax.device_count() == 4, jax.devices()
+    cfg, params = _setup()
+    api = _jax_api(cfg, params)
+    cases = {}
+    with kernels.use_policy("backend=pallas"):
+        for n in (4, 2):
+            mesh = make_serve_mesh(n)
+            mesh_api = _jax_api(cfg, params, mesh=mesh)
+            cases[f"mesh{n}"] = mesh_cases(mesh_api, n)
+            if n == 4:  # the page axis of every leaf split over the 4 devices
+                eng = mesh_api.PagedEngine(config=mesh_api.ServeConfig(**MESH))
+                cases["leaf_devices"] = sorted({len(x.sharding.device_set)
+                                                for x in jax.tree.leaves(eng.caches)})
+        eng = api.PagedEngine(config=api.ServeConfig(**MESH, mcast_mode="sw_tree"))
+        cases["one/4shards"] = _mesh_run(eng, eng.run(_requests(api, **MESH_REQUESTS)))
+    out["serve_json"] = np.asarray(json.dumps(
+        {"cases": cases, "launch": _launch(MESH_ARGS)}))
+
+
+#: the launcher's 2-rank mesh run (the port adds ``--device cpu``, its
+#: ``--ckpt-dir`` and ``--kernel-policy reference``, JAX's CPU default)
+MESH_TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--batch", "4", "--seq", "16",
+                   "--steps", "2", "--log-every", "1", "--seed", str(SEED), "--mesh-data", "2"]
+
+
+def _meshtrain(out: dict) -> None:
+    """The reduced moonshot's ``lm.loss_fn`` and aux loss on step 0's
+    global batch under ``backend=pallas``; and the JAX launcher's
+    ``train_loop`` over a 2-device mesh (``MESH_TRAIN_ARGS``), whose batch
+    ``sharded_batch`` draws per shard."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from _torch_dist_ranks import MOE_TRAIN
+    from _torch_jax_ref import _train_launch
+    from repro import kernels
+    from repro.configs import get_config
+    from repro.data.pipeline import DataConfig, global_batch_np
+    from repro.models import lm
+
+    assert jax.device_count() == 4, jax.devices()
+    cfg = get_config(MOE_TRAIN["arch"], reduced=True)
+    params = lm.init(cfg, jax.random.PRNGKey(SEED))
+    batch = global_batch_np(DataConfig(vocab=cfg.vocab, seq_len=MOE_TRAIN["seq"],
+                                       global_batch=MOE_TRAIN["batch"],
+                                       seed=MOE_TRAIN["seed"]), 0)
+    toks, labels = jnp.asarray(batch["tokens"]), jnp.asarray(batch["labels"])
+    with kernels.use_policy("backend=pallas"):
+        loss = jax.jit(lambda p: lm.loss_fn(p, cfg, toks, labels, loss_chunk=None))(params)
+        aux = jax.jit(lambda p: lm.forward(p, cfg, toks)[1])(params)
+    out["moe_loss0"], out["moe_aux0"] = np.asarray(loss), np.asarray(aux)
+    out["moe_params_checksum"] = np.asarray(params_checksum(params))
+    with tempfile.TemporaryDirectory() as d:
+        res, _, err = _train_launch([*MESH_TRAIN_ARGS, "--ckpt-dir", d])
+    assert err == "", err
+    out["launch_losses"] = np.asarray(res["losses"], np.float64)
 
 
 def _train(out: dict) -> None:
@@ -193,7 +351,9 @@ def reference(mode: str, tmp_dir) -> dict:
     tests = Path(__file__).resolve().parent
     out = Path(tmp_dir) / f"jax_dist_{mode}.npz"
     env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false").strip()
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false"
+                        + (" --xla_force_host_platform_device_count=4" if mode in MESH_MODES
+                           else "")).strip()
     env["JAX_PLATFORMS"] = "cpu"
     env["REPRO_AUTOTUNE_CACHE"] = str(Path(tmp_dir) / f"autotune_dist_{mode}.json")
     env["PYTHONPATH"] = os.pathsep.join(
@@ -206,11 +366,16 @@ def reference(mode: str, tmp_dir) -> dict:
         return {k: f[k] for k in f.files}
 
 
+#: the modes that run on 4 forced host devices
+MESH_MODES = ("meshserve", "meshtrain")
+
+
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    if mode == "serve":
+    if mode in ("serve", "meshserve"):
         _share_jits()
-    {"serve": _serve, "train": _train}[mode](out)
+    {"serve": _serve, "train": _train, "meshserve": _meshserve,
+     "meshtrain": _meshtrain}[mode](out)
     _, params = _setup()
     out["params_checksum"] = np.asarray(params_checksum(params))
     np.savez(path, **out)

@@ -18,9 +18,13 @@ the many small tests below:
   own figures (``tests/test_mcast.py``);
 * ``DeviceMesh`` places rank r at the row-major coordinates
   ``Mesh.coords`` gives;
-* ``sharded_batch``: the union over the ranks of their rows is
-  ``global_batch_np`` bit for bit, on 4 x 1 and 2 x 2 meshes, the batch
-  split over the data axis, over both axes and over none;
+* the broadcast from every source index of the 4 ranks, in its mode's
+  rounds;
+* ``sharded_batch``: each rank's rows are JAX's draw for its row range,
+  ``_tokens_for(cfg, step, start, n)``, bit for bit, and the ranks' blocks
+  tile the batch, on 4 x 1 and 2 x 2 meshes, the batch split over the data
+  axis, over both axes and over none (the mesh-step tests feed each rank
+  its rows of ``global_batch_np`` instead, ``_torch_dist_ranks.global_rows``);
 * the reduced qwen1.5-0.5b train step (from JAX's parameters) on meshes
   1 x 1, 2 x 1, 2 x 2 and 4 x 1, with FSDP off and on, and with FSDP and
   ``compress_pod_grads``: step 0's loss within 1e-5 relative of the
@@ -31,7 +35,15 @@ the many small tests below:
   witness gap, and every quarter of it moved as the one-device run's;
 * elastic restore: the 2 x 2 FSDP run's checkpoint restored onto 4 x 1
   and onto one device, every leaf bit-equal to what the 2 x 2 run held;
-* a MoE arch refuses a batch split over ranks, naming the ROADMAP item;
+* the reduced moonshot-v1-16b-a3b's step (from JAX's parameters) with its
+  batch split over 2 x 1, 2 x 2 and 4 x 1 meshes, each MoE layer's
+  routing fractions all-reduced over the batch ranks: step 0's loss and
+  aux loss within 1e-5 relative of the one-device step's and of JAX's
+  (child mode ``meshtrain``), four steps within the flipped-ulp witness;
+  on 1 x 1 the one-device step bit for bit, the all-reduce still made;
+* the training launcher on a 2-rank gloo mesh (JAX's parameters, the
+  ``reference`` policy): step 0's loss within 1e-5 of JAX's launcher on a
+  2-device mesh, both drawing each shard's rows by its row range;
 * a failing rank ends its group at once, with a join deadline or none
   (the training launcher's), and with none a rank runs to its end.
 
@@ -61,7 +73,7 @@ import pytest
 import torch
 
 import _torch_dist_ranks as ranks
-from _torch_dist_ref import reference
+from _torch_dist_ref import MESH_TRAIN_ARGS, reference
 from _torch_jax_ref import SEED, params_checksum
 from repro.configs import get_config as jax_config
 from repro.data.pipeline import DataConfig as JaxDataConfig
@@ -70,7 +82,6 @@ from repro.models import lm as jax_lm
 from repro_torch import tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.data import pipeline
 from repro_torch.dist import spawn
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import lm
@@ -92,6 +103,30 @@ def params(jparams):
 
 
 @pytest.fixture(scope="module")
+def moe_jparams():
+    return jax_lm.init(jax_config(ranks.MOE_TRAIN["arch"], reduced=True),
+                       jax.random.PRNGKey(SEED))
+
+
+@pytest.fixture(scope="module")
+def moe_params(moe_jparams):
+    return from_jax_params(jax.device_get(moe_jparams), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def moe_alone(moe_params):
+    torch.set_num_threads(1)
+    return {"plain": ranks.moe_alone(moe_params), "flip": ranks.moe_alone(moe_params, flip=True)}
+
+
+@pytest.fixture(scope="module")
+def jax_mesh(tmp_path_factory, moe_jparams):
+    out = reference("meshtrain", tmp_path_factory.mktemp("jax_dist_meshtrain"))
+    assert float(out["moe_params_checksum"]) == params_checksum(moe_jparams)
+    return out
+
+
+@pytest.fixture(scope="module")
 def four():
     return spawn.run(ranks.four_ranks, 4)
 
@@ -102,15 +137,19 @@ def eight():
 
 
 @pytest.fixture(scope="module")
-def trained(params, tmp_path_factory):
-    """Every mesh's runs, rank by rank, and the 2 x 2 checkpoint's dir."""
+def trained(params, moe_params, tmp_path_factory):
+    """Every mesh's runs, rank by rank, and the 2 x 2 checkpoint's dir;
+    ``("moe", mesh)``: the MoE runs."""
     ckpt = str(tmp_path_factory.mktemp("ckpt_2x2"))
-    out = {(1, 1): spawn.run(ranks.train_on, 1, (1, 1), params)}
-    two = spawn.run(ranks.two_ranks, 2, params)
+    one = spawn.run(ranks.one_rank, 1, params, moe_params)
+    out = {(1, 1): [r["train"] for r in one], ("moe", (1, 1)): [r["moe"] for r in one]}
+    two = spawn.run(ranks.two_ranks, 2, params, moe_params)
     out[(2, 1)] = [r["train"] for r in two]
-    out["moe"] = [r["moe"] for r in two]
-    four = spawn.run(ranks.train_then_restore, 4, params, ckpt)
+    out[("moe", (2, 1))] = [r["moe"] for r in two]
+    four = spawn.run(ranks.train_then_restore, 4, params, ckpt, moe_params)
     out[(2, 2)], out[(4, 1)] = [r[0] for r in four], [r[1] for r in four]
+    for m in ("2x2", "4x1"):
+        out[("moe", (int(m[0]), int(m[2])))] = [r[2][m] for r in four]
     out["ckpt"] = ckpt
     return out
 
@@ -166,25 +205,40 @@ def test_device_mesh_places_ranks_row_major(four):
         assert r["collectives"]["coords"] == {"data": rank, "model": 0}
 
 
+@pytest.mark.parametrize("mode,rounds", [("unicast", 3), ("sw_tree", 2), ("hw", 0)])
+def test_broadcast_from_every_source_index(four, mode, rounds):
+    """The sourced delivery the mesh engine's chain broadcast uses: each
+    of the 4 ranks as the source, its payload everywhere, in its mode's
+    rounds."""
+    for r in four:
+        for s in range(4):
+            assert r["collectives"][f"{mode}/from{s}"] == (True, rounds), (s, mode)
+
+
 @pytest.mark.parametrize("mesh", ["batches 4x1", "batches 2x2"])
 @pytest.mark.parametrize("ba", [("data",), ("data", "model"), ()])
 def test_sharded_batch_union_is_the_global_batch(four, mesh, ba):
+    """Each rank's rows are JAX's ``sharded_batch`` rows: ``_tokens_for``
+    drawn for the rank's row range, bit for bit; the ranks' blocks tile
+    the batch (ranks off the batch axes repeat theirs), and with the batch
+    over no axis every rank holds ``global_batch_np``."""
+    from repro.data.pipeline import _tokens_for as jax_tokens_for
+
     cfg = ranks.BATCH_DATA
-    want = jax_global_batch_np(JaxDataConfig(vocab=cfg.vocab, seq_len=cfg.seq_len,
-                                             global_batch=cfg.global_batch, seed=cfg.seed), 3)
-    assert np.array_equal(pipeline.global_batch_np(cfg, 3)["tokens"], want["tokens"])
-    got = {"tokens": np.zeros_like(want["tokens"]), "labels": np.zeros_like(want["labels"])}
+    jcfg = JaxDataConfig(vocab=cfg.vocab, seq_len=cfg.seq_len, global_batch=cfg.global_batch,
+                         seed=cfg.seed)
     covered = np.zeros(cfg.global_batch, int)
     for r in four:
         (start, n), toks, labels = r[mesh][ba]
-        got["tokens"][start:start + n], got["labels"][start:start + n] = toks, labels
+        want = jax_tokens_for(jcfg, 3, start, n)
+        np.testing.assert_array_equal(toks, want[:, :-1])
+        np.testing.assert_array_equal(labels, want[:, 1:])
         covered[start:start + n] += 1
-        np.testing.assert_array_equal(toks, want["tokens"][start:start + n])
+        if not ba:
+            np.testing.assert_array_equal(toks, jax_global_batch_np(jcfg, 3)["tokens"])
     sizes = {"batches 4x1": {"data": 4, "model": 1}, "batches 2x2": {"data": 2, "model": 2}}
     split = int(np.prod([sizes[mesh][a] for a in ba]))
     assert (covered == 4 // split).all()  # ranks off the batch axes repeat rows
-    for k in got:
-        np.testing.assert_array_equal(got[k], want[k])
 
 
 # -- the train step ----------------------------------------------------------
@@ -274,9 +328,71 @@ def test_elastic_restore_2x2_onto_4x1_and_one_device(trained, params):
     assert any(shapes[0][k] != tuple(one[k].shape) for k in one)
 
 
-def test_moe_refuses_a_batch_split_over_ranks(trained):
-    for msg in trained["moe"]:
-        assert "ROADMAP Queue 1 item 7" in msg and "aux loss" in msg
+MOE_MESHES = [(2, 1), (2, 2), (4, 1)]
+
+
+@pytest.mark.parametrize("mesh", MOE_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_moe_step0_loss_matches_one_device_and_jax(trained, moe_alone, jax_mesh, mesh):
+    want, jax_loss = moe_alone["plain"]["losses"][0], float(jax_mesh["moe_loss0"])
+    assert want == pytest.approx(jax_loss, rel=1e-5)
+    for r in trained[("moe", mesh)]:
+        assert r["n_batch"] > 1  # the batch splits over ranks
+        assert r["losses"][0] == pytest.approx(want, rel=1e-5)
+        assert r["losses"][0] == pytest.approx(jax_loss, rel=1e-5)
+
+
+@pytest.mark.parametrize("mesh", MOE_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_moe_aux_loss_over_the_batch_ranks(trained, moe_alone, jax_mesh, mesh):
+    """The aux term on its own: the ranks' aux losses, each taking the
+    routing fractions averaged over the batch ranks, average to the whole
+    batch's (one device and JAX's); one ``ce`` all-reduce per MoE layer."""
+    want, jax_aux = moe_alone["plain"]["aux0"], float(jax_mesh["moe_aux0"])
+    assert want == pytest.approx(jax_aux, rel=1e-5) and want > 0
+    n_moe = sum(bd.ff == "moe" for bd in get_config(ranks.MOE_TRAIN["arch"],
+                                                      reduced=True).layer_defs)
+    for r in trained[("moe", mesh)]:
+        assert r["aux0"] == pytest.approx(want, rel=1e-5)
+        assert r["aux0"] == pytest.approx(jax_aux, rel=1e-5)
+        assert r["ce_reduce_calls"] == n_moe
+
+
+@pytest.mark.parametrize("mesh", MOE_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_moe_four_steps_within_the_flipped_ulp_witness(trained, moe_alone, mesh):
+    ref = np.asarray(moe_alone["plain"]["losses"])
+    witness = float(np.abs(np.asarray(moe_alone["flip"]["losses"]) - ref).max())
+    assert witness > 0
+    losses = [np.asarray(r["losses"]) for r in trained[("moe", mesh)]]
+    for got in losses:
+        np.testing.assert_array_equal(got, losses[0])  # every rank reports the same loss
+        assert float(np.abs(got - ref).max()) <= witness, (got, ref, witness)
+
+
+def test_moe_one_rank_mesh_is_the_one_device_step(trained, moe_alone):
+    """On a 1 x 1 mesh the MoE step makes its ``ce`` all-reduces over the
+    one rank and is the one-device step, bit for bit."""
+    (r,) = trained[("moe", (1, 1))]
+    assert r["n_batch"] == 1 and r["ce_reduce_calls"] > 0
+    np.testing.assert_array_equal(r["losses"], moe_alone["plain"]["losses"])
+    assert r["aux0"] == moe_alone["plain"]["aux0"]
+
+
+def test_launcher_mesh_step0_matches_the_jax_launcher(jparams, jax_mesh, tmp_path):
+    """``--mesh-data 2`` on two gloo ranks from JAX's parameters: each rank
+    draws its rows as JAX's launcher's ``sharded_batch`` does, so step 0's
+    loss (the learning rate is 0 there) is JAX's 2-device launcher's."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = train.main([*MESH_TRAIN_ARGS, "--device", "cpu", "--kernel-policy", "reference",
+                          "--ckpt-dir", str(tmp_path)],
+                         params=from_jax_params(jax.device_get(jparams), device="cpu"),
+                         timeout=spawn.DEFAULT_TIMEOUT, join_timeout=600.0)["losses"]
+    want = jax_mesh["launch_losses"]
+    assert len(got) == len(want) == 2
+    assert got[0] == pytest.approx(float(want[0]), rel=1e-5)
 
 
 def test_a_failing_rank_ends_the_group_without_waiting_for_the_timeout():

@@ -19,9 +19,10 @@ precision off, the port's here on its plain versions:
   prefix tree alone, both packages in this process;
 * the engine's defaults and the metrics snapshot's broadcast surface;
 * the launcher's traced sharded run: the same stdout as JAX's launcher,
-  and ``obs.analyze``'s ``broadcast_*`` keys equal to JAX's report;
-* ``PagedEngine(mesh=...)`` and the launcher's ``--mesh`` still raise,
-  naming the ROADMAP item.
+  and ``obs.analyze``'s ``broadcast_*`` keys equal to JAX's report.
+
+``PagedEngine(mesh=...)`` and the launcher's ``--mesh``:
+``tests/test_torch_mesh_serve.py``.
 
 Stated tolerance: none — streams, counters and gauges are held equal.
 The two sides agree to fp32 summation order, which greedy streams need
@@ -46,7 +47,6 @@ from repro.serve import PrefixCache as JaxPrefixCache
 from repro_torch.configs import get_config
 from repro_torch.dist import mcast
 from repro_torch.launch import serve as launcher
-from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.obs import analyze
 from repro_torch.serve import (
     Fault,
@@ -249,13 +249,3 @@ def test_traced_launcher_and_broadcast_report_equal_jax(model, ref, tmp_path):
     assert report["broadcast_pages"] > 0
     assert analyze.validate_report(report) is not None
     assert os.path.getsize(path) > 0
-
-
-def test_mesh_still_raises_naming_the_item(model):
-    cfg, _, params = model
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        PagedEngine(cfg, params, device="cpu", config=ServeConfig(num_shards=4),
-                    mesh=make_serve_mesh(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        launcher.main(["--reduced", "--device", "cpu", "--kv", "paged", "--num-shards", "4",
-                       "--mesh"], params=params)

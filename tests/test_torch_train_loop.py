@@ -30,10 +30,12 @@ Stated tolerances:
   most, against the witness's 0.050);
 * the resumed run's first loss equals the whole run's at that step bit
   for bit on each side: the checkpoint restores the parameters exactly;
-* a mesh run against the port's one-device run: step 0 at rtol 1e-5 (a
-  mean of per-rank means), later steps within the one-device run's own
-  flipped-ulp witness; a mesh whose ranks compute the same rows, and FSDP
-  on one device, bit for bit.
+* a mesh run against the port's one-device run on the rows the mesh
+  draws (each rank's block seeded by its row range, as JAX's
+  ``sharded_batch`` seeds it): step 0 at rtol 1e-5 (a mean of per-rank
+  means), later steps within that one-device run's own flipped-ulp
+  witness; a mesh whose ranks compute the same rows, and FSDP on one
+  device, bit for bit.
 """
 import contextlib
 import io
@@ -129,9 +131,29 @@ MESH_ARGS = ["--reduced", "--device", "cpu", "--steps", "4", "--batch", "4", "--
 LIMITS = dict(timeout=spawn.DEFAULT_TIMEOUT, join_timeout=600.0)
 
 
-def _losses(args: list[str], tmp_path, flip: bool = False) -> list[float]:
+def _split_batches(k: int):
+    """``pipeline.batch`` replaced by the batch a mesh whose batch splits
+    over ``k`` ranks trains on: the ranks' row blocks, each drawn by
+    ``_tokens_for(cfg, step, start, n)`` as ``sharded_batch`` draws it,
+    stacked in rank order (``k = 1``: the one-device batch)."""
+    from unittest import mock
+
+    from repro_torch.data import pipeline
+
+    def batch(cfg, step, device="cpu"):
+        n = cfg.global_batch // k
+        t = np.concatenate([pipeline._tokens_for(cfg, step, r * n, n) for r in range(k)])
+        return {"tokens": torch.from_numpy(np.ascontiguousarray(t[:, :-1])),
+                "labels": torch.from_numpy(np.ascontiguousarray(t[:, 1:]))}
+
+    return mock.patch.object(pipeline, "batch", batch)
+
+
+def _losses(args: list[str], tmp_path, flip: bool = False, split: int = 1) -> list[float]:
     """The launcher's losses (a mesh's ranks started by ``main``); ``flip``:
-    the one-device witness, one bf16 ulp flipped in every layer-0 input."""
+    the one-device witness, one bf16 ulp flipped in every layer-0 input;
+    ``split``: a one-device run on the batch of a mesh whose batch splits
+    over that many ranks (``_split_batches``)."""
     from unittest import mock
 
     from repro_torch.models import lm
@@ -145,44 +167,54 @@ def _losses(args: list[str], tmp_path, flip: bool = False) -> list[float]:
         stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
         if flip:
             stack.enter_context(mock.patch.object(lm, "_embed_inputs", flipped))
+        if split > 1:
+            stack.enter_context(_split_batches(split))
         return train.main([*MESH_ARGS, "--ckpt-dir", str(tmp_path), *args], **LIMITS)["losses"]
 
 
 @pytest.fixture(scope="module")
 def one_device(tmp_path_factory):
+    """One-device runs: on the one-device batch, and (``@2``) on the batch
+    of a mesh whose batch splits over two ranks."""
     d = tmp_path_factory.mktemp("one_device")
-    return {name: _losses(flags, d / name, flip=name.endswith("flip"))
+    return {f"{name}{'@2' if split > 1 else ''}":
+            _losses(flags, d / f"{name}{split}", flip=name.endswith("flip"), split=split)
+            for split in (1, 2)
             for name, flags in (("plain", []), ("plain flip", []), ("compress", ["--compress"]),
                                 ("compress flip", ["--compress"]))}
 
 
 @pytest.mark.parametrize("flags,ref_name,exact", [
-    (["--mesh-data", "2"], "plain", False),
+    (["--mesh-data", "2"], "plain@2", False),
     (["--mesh-model", "4"], "plain", True),
     (["--fsdp"], "plain", True),
-    (["--mesh-data", "2", "--mesh-model", "2", "--fsdp", "--compress"], "compress", False)])
+    (["--mesh-data", "2", "--mesh-model", "2", "--fsdp", "--compress"], "compress@2", False)])
 def test_mesh_fsdp_and_compress_train(tmp_path, one_device, flags, ref_name, exact):
     """The flags that raised before the distribution slice now train:
-    ``--mesh-data 2`` splits the batch over two gloo ranks (step 0 within
-    1e-5 relative, then within the flipped-ulp witness of the one-device
-    run); ``--mesh-model 4`` shards storage over four ranks that compute
-    the same rows, and ``--fsdp`` on one device cuts nothing, both the
-    one-device run bit for bit; ``--compress`` on a 2 x 2 FSDP mesh holds
-    to the one-device compressed run as ``--mesh-data 2`` does."""
+    ``--mesh-data 2`` splits the batch over two gloo ranks, each drawing
+    its rows as JAX's ``sharded_batch`` does, so it is held to the
+    one-device run on those rows (step 0 within 1e-5 relative, then within
+    that run's flipped-ulp witness); ``--mesh-model 4`` shards storage over
+    four ranks that compute the same rows, and ``--fsdp`` on one device
+    cuts nothing, both the one-device run bit for bit; ``--compress`` on a
+    2 x 2 FSDP mesh (the batch over the data axis) holds to the one-device
+    compressed run on its rows as ``--mesh-data 2`` does."""
     got, want = np.asarray(_losses(flags, tmp_path)), np.asarray(one_device[ref_name])
     assert len(got) == 4
     if exact:
         np.testing.assert_array_equal(got, want)
         return
     assert got[0] == pytest.approx(want[0], rel=1e-5)
-    witness = float(np.abs(np.asarray(one_device[f"{ref_name} flip"]) - want).max())
+    base, _, split = ref_name.partition("@")
+    witness = float(np.abs(np.asarray(one_device[f"{base} flip@{split}"]) - want).max())
     assert float(np.abs(got - want).max()) <= witness
 
 
 def test_mesh_resume_restores_another_meshes_checkpoint(tmp_path):
     """A 2 x 2 FSDP run crashes after its step-2 checkpoint; a 4 x 1 run and
-    a one-device run resume from copies of it (elastic restore): the same
-    first loss, within step 0's 1e-5, and every later step run."""
+    a one-device run on the 4 x 1 mesh's rows resume from copies of it
+    (elastic restore): the same first loss, within step 0's 1e-5, and every
+    later step run."""
     import shutil
 
     args = [*MESH_ARGS, "--steps", "6", "--ckpt-every", "2"]
@@ -193,7 +225,8 @@ def test_mesh_resume_restores_another_meshes_checkpoint(tmp_path):
     with contextlib.redirect_stdout(io.StringIO()):
         four = train.main([*args, "--ckpt-dir", str(tmp_path / "a"), "--mesh-data", "4",
                            "--fsdp", "--resume"], **LIMITS)
-        one = train.main([*args, "--ckpt-dir", str(tmp_path / "b"), "--resume"])
+        with _split_batches(4):  # the 4 x 1 mesh's rows, drawn per rank
+            one = train.main([*args, "--ckpt-dir", str(tmp_path / "b"), "--resume"])
     assert four["start"] == one["start"] == 2 and len(four["losses"]) == len(one["losses"]) == 4
     assert four["losses"][0] == pytest.approx(one["losses"][0], rel=1e-5)
 
