@@ -275,12 +275,30 @@ each fatal on failure (nothing is caught):
    within what two plain runs differ by; the same launches).  A mesh of
    several cards is untried: one card is on hand.  It prints the phase's
    seconds.
+12. compute over the model axis (``check_model_axis``): (a) on a
+   one-rank NCCL group, qwen1.5-0.5b's prefill and decode bundles built
+   with ``mesh=`` and ``fsdp=True`` against the plain bundles, bit for
+   bit; (b) every forward / dA / dB product of rank 0's ``train_4k`` step
+   of qwen1.5-0.5b and gemma2-9b on the (16, 16) mesh, taken from a dry
+   run's record of its forward (``launch/hlo.py``), through the kernel
+   the default policy picks, held to that kernel's plain version, timed
+   beside ``torch.matmul`` and its bound; (c) qwen1.5-0.5b at full width
+   and depth on a 1 x 2 mesh of two gloo ranks sharing the card (NCCL
+   refuses two ranks on one device; gloo carries the CUDA tensors):
+   step 0's loss and gradients over the model axis and 2 train steps,
+   held by phase 9's gate to the plain step and its witnesses, with no
+   model-axis gather of a leaf, its launches counted; (d) the dry run,
+   ``python -m repro_torch.launch.dryrun --all --mesh both``, run after
+   (c) on the host (no card), its cells spread over the host's cores
+   with nothing else running: 0 errors, its counts and seconds.  It
+   prints each part's seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
 line, the kernel summary (launches: the serving runs of phases 4 to 8,
-the training runs of phase 9, the traced runs of phase 10 and phase 11's sharded and
-mesh serving runs and mesh train steps for K1–K5, phase 2b's autograd paths
+the training runs of phase 9, the traced runs of phase 10, phase 11's sharded and
+mesh serving runs and mesh train steps and phase 12's mesh builders and model-axis
+ranks for K1–K5, phase 2b's autograd paths
 for K6–K8, phase 2c's for K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -2335,10 +2353,13 @@ REFERENCE_CALLS: collections.Counter = collections.Counter()
 def count_reference_calls() -> None:
     """Re-register every family with its reference schedule counted in
     ``REFERENCE_CALLS``: the evidence that a phase resolved no serving
-    call to the oracle, or ran it where it should."""
+    call to the oracle, or ran it where it should.  Calls on ``meta``
+    tensors are not counted: they are a dry run's record of a step
+    (phase 12b), which computes no values."""
     def counted(family, fn):
         def call(*args, **kw):
-            REFERENCE_CALLS[family] += 1
+            if not any(isinstance(a, torch.Tensor) and a.is_meta for a in args):
+                REFERENCE_CALLS[family] += 1
             return fn(*args, **kw)
         return call
 
@@ -4792,15 +4813,15 @@ def check_mesh_training(cfg, params, mesh) -> dict[str, int]:
 def check_one_rank_nccl(params, grads) -> None:
     """Phase 11c: the NCCL calls of the mesh code, made on the one-rank
     group itself (the mesh step and the modes skip them where an axis
-    holds one rank): an fp32 ``broadcast``, ``sharding.all_gather_into``
+    holds one rank): an fp32 ``broadcast``, ``tp.all_gather_into``
     (``all_gather_into_tensor``) of the full-width bf16 embedding table,
     and the train step's fp32 gradient all-reduce (``_mean_over``) over
     the whole gradient tree of phase 11b's plain step.  Each result is
     exact, its device ms recorded."""
     import torch.distributed as dist
 
-    from repro_torch.dist.sharding import all_gather_into
     from repro_torch.dist.step import _mean_over
+    from repro_torch.dist.tp import all_gather_into
 
     x = torch.randn(4096, 1024, device="cuda", generator=torch.Generator(device="cuda")
                     .manual_seed(12))
@@ -4808,7 +4829,7 @@ def check_one_rank_nccl(params, grads) -> None:
     dist.broadcast(y, src=0)
     table = params["embed"]["table"]
     gathered = torch.empty_like(table)
-    all_gather_into(gathered, table, None)
+    all_gather_into(gathered, table, None, "data")
     leaves = list(_leaves(grads))
     mean = _mean_over(leaves, None, 1)
     exact = {"broadcast": torch.equal(y, x), "all_gather_into_tensor": torch.equal(gathered, table),
@@ -4819,7 +4840,8 @@ def check_one_rank_nccl(params, grads) -> None:
                exact=exact, gather_leaf=[list(table.shape), str(table.dtype)],
                grad_elements=sum(g.numel() for g in leaves))
     for name, fn in (("broadcast", lambda: dist.broadcast(y, src=0)),
-                     ("all_gather_into_tensor", lambda: all_gather_into(gathered, table, None)),
+                     ("all_gather_into_tensor",
+                      lambda: all_gather_into(gathered, table, None, "data")),
                      ("grad_all_reduce", lambda: _mean_over(leaves, None, 1))):
         rec[f"{name}_ms"], rec[f"{name}_host_ms"] = time_ms(fn, runs=5)
     emit(rec)
@@ -4874,6 +4896,299 @@ def check_distribution() -> dict[str, int]:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     emit(dict(check="phase", phase=11, seconds=time.perf_counter() - t0))
+    return {k: total[k] for k in kernels.KERNELS}
+
+
+
+# -- phase 12: compute over the model axis ------------------------------------
+
+#: the archs whose rank-0 train-step products on the (16, 16) mesh 12b runs
+TP_ARCHS = ("qwen1.5-0.5b", "gemma2-9b")
+#: 12d's time limit for the dry run
+DRY_TIMEOUT_S = 600
+
+
+def check_dryrun() -> None:
+    """Phase 12d: ``python -m repro_torch.launch.dryrun --all --mesh both``
+    in processes of its own on the host (no card: ``CUDA_VISIBLE_DEVICES``
+    is empty), its cells spread over the host's cores (``--jobs``) with
+    nothing else running; its ok / skipped / error counts and seconds.  It
+    must end with 0 errors and exit 0."""
+    import os
+    import re
+    import signal
+
+    jobs = len(os.sched_getaffinity(0))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+           "--jobs", str(jobs)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=str(ROOT), start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DRY_TIMEOUT_S)
+    finally:  # the run and its workers, whatever happened
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    m = re.search(r"dry-run: (\d+) ok, (\d+) skipped \(documented\), (\d+) errors", text)
+    secs = re.search(r"dry-run seconds: ([0-9.]+)", text)
+    rec = dict(check="dryrun", command=" ".join(["python", *cmd[1:]]), rc=proc.returncode,
+               torch=text.splitlines()[0] if text else "",
+               ok=int(m.group(1)) if m else None, skipped=int(m.group(2)) if m else None,
+               errors=int(m.group(3)) if m else None,
+               seconds=float(secs.group(1)) if secs else None,
+               wall_s=time.perf_counter() - t0)
+    emit(rec)
+    if proc.returncode != 0 or not m or rec["errors"]:
+        raise AssertionError(f"dry run: rc {proc.returncode}, {rec}; its output's end:\n"
+                             f"{text[-3000:]}")
+
+
+def check_mesh_builders(cfg, params, mesh) -> dict[str, int]:
+    """Phase 12a: the prefill and decode bundles built with ``mesh=`` (and
+    ``fsdp=True``) on the one-rank NCCL mesh against the plain bundles on
+    the same inputs, bit for bit (on one rank they take the one-device
+    path; the train step's ``mesh=`` is 11b's).  Returns the mesh runs'
+    launches."""
+    from repro_torch.dist.step import build_decode_step, build_prefill_step
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab, (2, 65), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    pshape, dshape = ShapeCfg("chip12", "prefill", 64, 2), ShapeCfg("chip12", "decode", 64, 2)
+    meshed_p = build_prefill_step(cfg, pshape, mesh=mesh, fsdp=True)
+    meshed_d = build_decode_step(cfg, dshape, mesh=mesh, fsdp=True)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        logits, caches = meshed_p.fn(shard_tree(params, meshed_p.placements, mesh),
+                                     {"tokens": tokens[:, :64]})
+        step, _ = meshed_d.fn(params, caches, tokens[:, 64:], 64)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        p_logits, p_caches = build_prefill_step(cfg, pshape).fn(params, {"tokens": tokens[:, :64]})
+        p_step, _ = build_decode_step(cfg, dshape).fn(params, p_caches, tokens[:, 64:], 64)
+    exact = {"prefill_logits": torch.equal(logits, p_logits),
+             "prefill_caches": all(torch.equal(a, b) for a, b in zip(_leaves(caches),
+                                                                    _leaves(p_caches))),
+             "decode_logits": torch.equal(step, p_step)}
+    emit(dict(check="mesh_builders", arch=cfg.name, mesh=mesh.shape, fsdp=True, exact=exact,
+              prefill_model_axis=meshed_p.model_axis is not None,
+              launches={k: v for k, v in launches.items() if v}))
+    if not all(exact.values()):
+        raise AssertionError(f"mesh builders on one rank: {exact}")
+    return {k: launches[k] for k in kernels.KERNELS}
+
+
+def forward_problems(arch: str) -> dict:
+    """Rank 0's forward matmul problems of ``arch``'s ``train_4k`` step on
+    the (16, 16) mesh, from a dry-run record of its forward ((M, K, N,
+    dtype) -> calls), each with the backward products it implies:
+    dA = dz B^T (M, N, K) and dB = A^T dz (K, M, N)."""
+    from repro_torch.dist import sharding, tp
+    from repro_torch.launch import hlo
+    from repro_torch.launch.mesh import make_production_mesh, seat
+
+    mesh = seat(make_production_mesh())
+    b = build_train_step(get_config(arch), "train_4k", mesh=mesh)
+    params, _, batch, _ = b.local_inputs()
+
+    def forward(p, rows):
+        with torch.no_grad(), tp.model_axis(b.model_axis):
+            return b.loss_of(sharding.gather_tree(p, b.placements, mesh, keep=("model",)), rows)
+
+    rec = hlo.record_step(forward, (params, batch))
+    out = {}
+    for (m, k, n, dtype), calls in rec.matmuls.items():
+        a32 = dtype == "float32"
+        out[("forward", m, k, n, dtype)] = dict(calls=calls, a=dtype, b="bfloat16")
+        out[("dA", m, n, k, dtype)] = dict(calls=calls, a=dtype, b="bfloat16")
+        out[("dB", k, m, n, dtype)] = dict(calls=calls, a=dtype, b="float32" if a32 else "bfloat16")
+    return out
+
+
+def check_shard_product(gen, arch: str, role: str, m: int, k: int, n: int, a_dtype: str,
+                        b_dtype: str, calls: int) -> dict:
+    """Phase 12b: one product of a rank's train step on the (16, 16) mesh
+    through the kernel the default policy picks, against that kernel's
+    plain version on the same operands (a dB reads A^T, a dA B^T, as the
+    matmul VJP's strided views), with its ms, ``torch.matmul``'s, the
+    plain version's and its bound."""
+    ad, bd = getattr(torch, a_dtype), getattr(torch, b_dtype)
+    if role == "dB":  # A^T of an (M_tokens, K) activation
+        a = torch.randn(k, m, device="cuda", generator=gen).to(ad).t()
+    else:
+        a = torch.randn(m, k, device="cuda", generator=gen).to(ad)
+    if role == "dA":  # B^T of an (N, K) weight
+        b = (torch.randn(n, k, device="cuda", generator=gen) / math.sqrt(k)).to(bd).t()
+    else:
+        b = (torch.randn(k, n, device="cuda", generator=gen) / math.sqrt(k)).to(bd)
+    before = kernels.launch_counts()
+    got = kernels.linear(a, b)
+    torch.cuda.synchronize()
+    ran = [x for x, v in kernels.launch_counts().items() if v != before[x]]
+    if len(ran) != 1 or ran[0] not in MATMULS:
+        raise AssertionError(f"shard product {arch} {role} {m}x{k}x{n}: launched {ran}")
+    kname = ran[0]
+    want = _PLAIN[kname](a, b)
+    tol = TOL_FP32 if got.dtype == torch.float32 else TOL_BF16
+    extra = tc_sum_allowance(want, k) if got.dtype == torch.float32 else None
+    err = check_close(f"shard product {arch} {role} {m}x{k}x{n}", got, want, tol, extra)
+    b_ms, b_by = matmul_bound(a, b, None, got.dtype)
+    k_ms, k_host = time_ms(lambda: kernels.linear(a, b), runs=10)
+    lib_ms = time_ms(lambda: torch.matmul(a, b), runs=10)[0] if a.dtype == b.dtype else None
+    plain_ms = time_ms(lambda: _PLAIN[kname](a, b), runs=2, warmup=1)[0]
+    rec = dict(check="shard_product", arch=arch, mesh={"data": 16, "model": 16}, role=role,
+               shape=[m, k, n], a_dtype=a_dtype, b_dtype=b_dtype, calls=calls, kernel=kname,
+               design=kernels.KERNELS[kname].design, kernel_ms=k_ms, host_ms=k_host,
+               library="torch.matmul" if lib_ms is not None else None, library_ms=lib_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_err=err, tol=tol,
+               over_library=None if lib_ms is None else k_ms / lib_ms)
+    emit(rec)
+    del a, b, got, want
+    return rec
+
+
+def check_shard_products(gen) -> list[dict]:
+    out = []
+    for arch in TP_ARCHS:
+        problems = forward_problems(arch)
+        emit(dict(check="shard_problems", arch=arch, problems=len(problems)))
+        for (role, m, k, n, _), p in sorted(problems.items()):
+            out.append(check_shard_product(gen, arch, role, m, k, n, p["a"], p["b"], p["calls"]))
+            torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_rank() -> dict:
+    """12c's rank (of 2 gloo ranks on the one card): qwen1.5-0.5b at full
+    width and depth on a 1 x 2 mesh, ``TRAIN_BATCH`` x ``TRAIN_SEQ``.  Step
+    0's loss and gradients over the model axis (gathered), then 2 train
+    steps; rank 0 also runs phase 9's gate (the plain step and its
+    flipped-ulp witnesses) on the gradients and the losses of the plain
+    steps.  Returns the losses, the gate's rows and this rank's launches."""
+    from repro_torch.dist import sharding, tp
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    params = lm.init(cfg, seed=0, device="cuda")
+    mesh = bind(make_debug_mesh(1, 2))
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=DIST_STEP, total_steps=LAUNCH_STEPS)
+    shape = ShapeCfg("chip", "train", TRAIN_SEQ, TRAIN_BATCH)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    b = build_train_step(cfg, shape, mesh=mesh, opt_cfg=opt_cfg, loss_chunk=None)
+    p = shard_tree(map_structure(lambda t: t.detach().clone(), params), b.placements, mesh)
+    batch = sharded_batch(data_cfg, DIST_STEP, mesh, b.batch_axes, "cuda")
+    kernels.reset_launch_counts()
+    calls = []
+    with tp.recording() as rec, noting_matmuls(calls):
+        with tp.model_axis(b.model_axis):
+            loss0, grads = value_and_grad(b.loss_of, p, batch)
+        opt = adamw.init(p, opt_cfg)
+        losses = []
+        for step in (DIST_STEP, DIST_STEP + 1):
+            rows = sharded_batch(data_cfg, step, mesh, b.batch_axes, "cuda")
+            p, opt, loss, _ = b.fn(p, opt, rows, step)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    shapes = collections.Counter(f"{c[0]}:{list(c[1][0].shape)}x{list(c[1][1].shape)}:{c[4]}"
+                                 for c in calls)
+    full = sharding.gather_tree(grads, b.placements, mesh, cut=("model",))
+    out = dict(rank=mesh.rank, loss0=float(loss0), losses=losses,
+               launches={k: v for k, v in launches.items() if v},
+               model_all_gathers=rec.counts(op="all-gather", axis="model",
+                                            site="sharding.gather"),
+               model_all_reduces=rec.counts(op="all-reduce", axis="model"),
+               matmul_shapes=dict(shapes.most_common(12)))
+    if mesh.rank == 0:
+        plain = build_train_step(cfg, shape, opt_cfg=opt_cfg, loss_chunk=None)
+        (p_loss, p_grads), witnesses = plain_and_witnesses(plain, params, batch)
+        rows_ = leaf_gaps(params, full, p_grads, [w[1] for w in witnesses])
+        out["leaves"] = len(rows_)
+        out["failing"] = [(path, rel, wit) for rel, path, wit in rows_
+                          if not leaf_passes(rel, wit)]
+        out["worst"] = sorted(((rel, path, wit) for rel, path, wit in rows_), reverse=True)[:4]
+        out["plain_loss0"] = float(p_loss)
+        out["loss0_spread"] = spread(p_loss, [w[0] for w in witnesses]) * abs(float(p_loss))
+        pp = map_structure(lambda t: t.detach().clone(), params)
+        popt = adamw.init(pp, opt_cfg)
+        plain_losses = []
+        for step in (DIST_STEP, DIST_STEP + 1):
+            pp, popt, ploss, _ = plain.fn(pp, popt, data_batch(data_cfg, step, "cuda"), step)
+            plain_losses.append(float(ploss))
+        out["plain_losses"] = plain_losses
+    return out
+
+
+def check_model_axis() -> dict[str, int]:
+    """Phase 12 (12a-12d); returns each kernel's launches over its
+    main-path runs (12a's mesh builders, 12c's two ranks)."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    params = lm.init(cfg, seed=0, device="cuda")
+    total = collections.Counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=60))
+        try:
+            total.update(check_mesh_builders(cfg, params, bind(make_debug_mesh(1, 1))))
+        finally:
+            dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    emit(dict(check="phase", phase="12a", seconds=time.perf_counter() - t0))
+    check_shard_products(torch.Generator(device="cuda").manual_seed(12))
+    emit(dict(check="phase", phase="12b", seconds=time.perf_counter() - t0))
+    total.update(check_model_axis_ranks())
+    emit(dict(check="phase", phase="12c", seconds=time.perf_counter() - t0))
+    check_dryrun()
+    emit(dict(check="phase", phase="12d", seconds=time.perf_counter() - t0))
+    emit(dict(check="phase", phase=12, seconds=time.perf_counter() - t0))
+    return {k: total[k] for k in kernels.KERNELS}
+
+
+def check_model_axis_ranks() -> dict[str, int]:
+    """Phase 12c: :func:`model_axis_rank` on 2 gloo ranks sharing the card
+    (NCCL refuses two ranks on one device), gloo carrying the CUDA
+    tensors.  Held by phase 9's gate: every step-0 gradient leaf within
+    ``GRAD_REL`` or the witnesses' spread, the losses within ``LOSS_REL``
+    of the plain step's or the spread; no leaf the model axis cuts is
+    gathered over it.  Returns the two ranks' launches."""
+    from repro_torch.dist import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn.run(model_axis_rank, 2, backend="gloo", timeout=300.0, join_timeout=600.0)
+    r0 = ranks[0]
+    gaps = [abs(a - b) for a, b in zip([r0["loss0"], *r0["losses"]],
+                                       [r0["plain_loss0"], *r0["plain_losses"]])]
+    loss_ok = all(g <= LOSS_REL * abs(r0["plain_loss0"]) or g <= r0["loss0_spread"]
+                  for g in gaps)
+    emit(dict(check="model_axis_train", arch=TRAIN_ARCH, mesh={"data": 1, "model": 2},
+              ranks="2 gloo ranks on one card", batch=[TRAIN_BATCH, TRAIN_SEQ],
+              loss0=r0["loss0"], plain_loss0=r0["plain_loss0"], losses=r0["losses"],
+              plain_losses=r0["plain_losses"], loss_gaps=gaps, loss0_spread=r0["loss0_spread"],
+              leaves=r0["leaves"], failing_leaves=r0["failing"][:8],
+              worst_leaves=[dict(leaf=p_, rel_l2=r, spread=w) for r, p_, w in r0["worst"]],
+              grad_rel=GRAD_REL, launches=[r["launches"] for r in ranks],
+              model_all_gathers=[r["model_all_gathers"] for r in ranks],
+              model_all_reduces=[r["model_all_reduces"] for r in ranks],
+              matmul_shapes=r0["matmul_shapes"], seconds=time.perf_counter() - t0))
+    if r0["failing"] or not loss_ok or any(r["model_all_gathers"] for r in ranks) \
+            or ranks[1]["losses"] != r0["losses"]:
+        raise AssertionError(f"model-axis train step: failing leaves {r0['failing'][:4]}, "
+                             f"loss gaps {gaps}, model gathers "
+                             f"{[r['model_all_gathers'] for r in ranks]}")
+    total = collections.Counter()
+    for r in ranks:
+        total.update(r["launches"])
     return {k: total[k] for k in kernels.KERNELS}
 
 
@@ -4980,8 +5295,13 @@ def main() -> None:
     # phase 11: distribution on one card
     dist_launches = check_distribution()
     check_clean("phase 11")
+
+    # phase 12: compute over the model axis, the serving builders over a
+    # mesh, the dry run
+    tp_launches = check_model_axis()
+    check_clean("phase 12")
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k] + train_launches[k]
-                + trace_launches[k] + dist_launches[k] for k in kernels.KERNELS}
+                + trace_launches[k] + dist_launches[k] + tp_launches[k] for k in kernels.KERNELS}
 
     kernels_line = []
     for kname in kernels.KERNELS:

@@ -21,7 +21,10 @@ the port's counterpart of one ``collective-permute`` op, which the JAX
 package counts in its compiled HLO.  The ``make_*`` functions return a
 :class:`Collective`, whose ``rounds`` is what its last call issued — the
 same on every rank, as the compiled program is (a rank with nothing to
-send in a round still counts it).  Counting rounds, not messages, is what
+send in a round still counts it).  Each round passes the seam of
+:mod:`repro_torch.dist.tp` as one ``collective-permute``; ``hw``'s
+broadcast as an ``all-reduce`` (JAX's ``psum``) and its gather as an
+``all-gather``.  Counting rounds, not messages, is what
 separates the modes: at N = 4, ``sw_tree`` sends 3 messages in 2 rounds,
 and by messages it ties with ``unicast`` (:func:`bytes_model`).
 """
@@ -30,6 +33,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.dist import tp
 
 MODES = ("unicast", "sw_tree", "hw")
 
@@ -62,11 +67,14 @@ class Collective:
         self.rounds = 0
 
     def exchange(self, sends: list[tuple[torch.Tensor, int]],
-                 recvs: list[tuple[torch.Tensor, int]]) -> None:
+                 recvs: list[tuple[torch.Tensor, int]], nbytes: int) -> None:
         """One round: this rank's sends and receives (by index along the
-        axis), issued together and awaited."""
+        axis), posted together and awaited.  The seam logs it as one
+        ``collective-permute`` of ``nbytes``, the round's payload (HLO's
+        result shape, the same on every rank, whether or not it sends)."""
         import torch.distributed as dist
 
+        tp.record("collective-permute", self.axis, nbytes, site="mcast")
         ops = [dist.P2POp(dist.isend, t, self.ranks[j], self.group) for t, j in sends]
         ops += [dist.P2POp(dist.irecv, t, self.ranks[j], self.group) for t, j in recvs]
         if ops:
@@ -92,19 +100,22 @@ def _from_source(c: Collective, x: torch.Tensor, source: int = 0) -> torch.Tenso
         return (v + source) % n
 
     y = x.clone()
+    nbytes = y.numel() * y.element_size()
     if c.mode == "hw":  # one collective, called on a one-rank axis too
         import torch.distributed as dist
 
+        tp.record("all-reduce", c.axis, nbytes, site="mcast")  # JAX's psum
         dist.broadcast(y, src=c.ranks[source], group=c.group)
         return y
     if c.mode == "unicast":
         for t in range(1, n):  # N-1 separate sends from the source
-            c.exchange([(y, real(t))] if i == 0 else [], [(y, real(0))] if i == t else [])
+            c.exchange([(y, real(t))] if i == 0 else [], [(y, real(0))] if i == t else [],
+                       nbytes)
         return y
     k = 1
     while k < n:  # doubling rounds: holders forward to +k
         c.exchange([(y, real(i + k))] if i < k and i + k < n else [],
-                   [(y, real(i - k))] if k <= i < 2 * k else [])
+                   [(y, real(i - k))] if k <= i < 2 * k else [], nbytes)
         k *= 2
     return y
 
@@ -141,23 +152,24 @@ def make_weight_gather_fn(mesh, shape, dtype, mode: str) -> Collective:
         if n == 1:
             buf.copy_(w)
         elif c.mode == "hw":
-            from repro_torch.dist.sharding import all_gather_into
-
-            all_gather_into(buf, w, c.group)
+            tp.all_gather_into(buf, w, c.group, c.axis, site="mcast")
         elif c.mode == "sw_tree":
             blocks[i].copy_(w)
             k = 1
             while k < n:  # exchange the aligned k-block group with partner i ^ k
                 j = i ^ k
                 mine, theirs = (i // k) * k, (j // k) * k
-                c.exchange([(blocks[mine:mine + k], j)], [(blocks[theirs:theirs + k], j)])
+                block = blocks[theirs:theirs + k]
+                c.exchange([(blocks[mine:mine + k], j)], [(block, j)],
+                           block.numel() * block.element_size())
                 k *= 2
         else:
             blocks[i].copy_(w)
             cur = w.clone()
             for r in range(n - 1):  # ring rotation, one hop a round
                 nxt = torch.empty_like(cur)
-                c.exchange([(cur, (i + 1) % n)], [(nxt, (i - 1) % n)])
+                c.exchange([(cur, (i + 1) % n)], [(nxt, (i - 1) % n)],
+                           nxt.numel() * nxt.element_size())
                 blocks[(i - 1 - r) % n].copy_(nxt)
                 cur = nxt
         return buf

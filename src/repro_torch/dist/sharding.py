@@ -42,6 +42,7 @@ import math
 import torch
 
 from repro_torch import tree
+from repro_torch.dist import tp
 from repro_torch.nn.spec import ParamSpec
 
 # Tensor-parallel rnn sharding only pays off above this width; smaller
@@ -183,17 +184,12 @@ class Placement:
     shape: tuple[int, ...]
 
     def local_dims(self, mesh_sizes: dict) -> tuple[int, ...]:
-        return tuple(n // mesh_sizes[a] if a is not None else n
-                     for n, a in zip(self.dims, self.spec))
+        """The logical dims of one rank's piece."""
+        return _dims(self, mesh_sizes, set(self.spec))
 
     def local_shape(self, mesh_sizes: dict) -> tuple[int, ...]:
         """The stored shape of one rank's piece."""
-        local = self.local_dims(mesh_sizes)
-        out, i = [], 0
-        for group in _groups(self.dims, self.shape):
-            out.append(math.prod(local[i:i + group]))
-            i += group
-        return tuple(out)
+        return _stored(self, self.local_dims(mesh_sizes))
 
 
 def _groups(dims: tuple, shape: tuple) -> list[int]:
@@ -224,53 +220,79 @@ def param_shardings(cfg, spec_tree, mesh, *, fsdp: bool = False):
         lambda s: Placement(_spec(s, rules, sizes, fsdp), s.logical_shape, s.shape), spec_tree)
 
 
-def shard(full: torch.Tensor, pl: Placement, mesh) -> torch.Tensor:
-    """The piece of ``full`` that the rank at ``mesh.coords`` holds (a
-    contiguous copy; ``full`` itself where nothing is cut)."""
-    sizes, coords = dict(mesh.shape), mesh.coords
-    if not any(a is not None and sizes[a] > 1 for a in pl.spec):
-        return full
-    x = full.reshape(pl.dims)
-    for d, a in enumerate(pl.spec):
-        if a is not None and sizes[a] > 1:
-            n = pl.dims[d] // sizes[a]
-            x = x.narrow(d, coords[a] * n, n)
-    return x.contiguous().reshape(pl.local_shape(sizes))
+def _wide(pl: Placement, sizes: dict, axes=None) -> list[tuple[int, str]]:
+    """(logical dim, mesh axis) of every dim cut over an axis of more than
+    one rank (and in ``axes``, where given)."""
+    return [(d, a) for d, a in enumerate(pl.spec)
+            if a is not None and sizes[a] > 1 and (axes is None or a in axes)]
 
 
-def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
-    """``out`` (n * x.shape[0], ...) <- every rank's ``x`` in group order:
-    one collective."""
-    import torch.distributed as dist
-
-    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    fn(out, x, group=group)
+def _dims(pl: Placement, sizes: dict, cut) -> tuple[int, ...]:
+    """The logical dims of a piece cut over the axes in ``cut``."""
+    return tuple(n // sizes[a] if a is not None and a in cut else n
+                 for n, a in zip(pl.dims, pl.spec))
 
 
-def gather(local: torch.Tensor, pl: Placement, mesh) -> torch.Tensor:
-    """The full leaf from every rank's piece: one ``all_gather`` over each
-    sharded dimension's axis (``mesh`` is a bound mesh)."""
+def _stored(pl: Placement, dims: tuple[int, ...]) -> tuple[int, ...]:
+    out, i = [], 0
+    for group in _groups(pl.dims, pl.shape):
+        out.append(math.prod(dims[i:i + group]))
+        i += group
+    return tuple(out)
+
+
+def local_tree(abstract_tree, placements, mesh):
+    """``meta`` tensors of one rank's pieces of an abstract tree (the
+    parameters, or a state shaped like them; each leaf keeps its dtype):
+    what the step and the dry run hand a rank.  Every rank's piece has
+    the same shape, since a spec cuts only dimensions its axis divides."""
     sizes = dict(mesh.shape)
-    wide = [(d, a) for d, a in enumerate(pl.spec) if a is not None and sizes[a] > 1]
-    if not wide:
-        return local
-    x = local.reshape(pl.local_dims(sizes))
-    for d, a in wide:
-        xm = x.movedim(d, 0).contiguous()
-        out = torch.empty((sizes[a] * xm.shape[0], *xm.shape[1:]), dtype=xm.dtype,
-                          device=xm.device)
-        all_gather_into(out, xm, mesh.group(a))
-        x = out.movedim(0, d)
-    return x.contiguous().reshape(pl.shape)
+    return tree.map_structure(
+        lambda x, pl: torch.empty(pl.local_shape(sizes), dtype=x.dtype, device="meta"),
+        abstract_tree, placements)
 
 
-def shard_tree(full_tree, placements, mesh):
-    return tree.map_structure(lambda x, pl: shard(x, pl, mesh), full_tree, placements)
+def shard(x: torch.Tensor, pl: Placement, mesh, *, cut=()) -> torch.Tensor:
+    """The piece the rank at ``mesh.coords`` holds, from ``x``: the leaf
+    already cut over the axes in ``cut`` (none: the full leaf).  A
+    contiguous copy; ``x`` itself where nothing more is cut."""
+    sizes, coords = dict(mesh.shape), mesh.coords
+    todo = [(d, a) for d, a in _wide(pl, sizes) if a not in cut]
+    if not todo:
+        return x
+    y = x.reshape(_dims(pl, sizes, set(cut)))
+    for d, a in todo:
+        n = pl.dims[d] // sizes[a]
+        y = y.narrow(d, coords[a] * n, n)
+    return y.contiguous().reshape(pl.local_shape(sizes))
 
 
-def gather_tree(local_tree, placements, mesh):
-    return tree.map_structure(lambda x, pl: gather(x, pl, mesh), local_tree, placements)
+def gather(x: torch.Tensor, pl: Placement, mesh, *, cut=None, keep=()) -> torch.Tensor:
+    """The leaf from every rank's piece: ``x`` cut over the axes in ``cut``
+    (None: every axis of its spec, a rank's stored piece) is gathered over
+    each of them but those in ``keep``, one ``all_gather`` over each cut
+    dimension's axis (``mesh`` a bound mesh; on ``meta`` pieces, the
+    seam's shapes alone).  The mesh step keeps the model axis: its ranks
+    compute on their pieces."""
+    sizes = dict(mesh.shape)
+    have = set(pl.spec) if cut is None else set(cut)
+    todo = [(d, a) for d, a in _wide(pl, sizes, have) if a not in keep]
+    if not todo:
+        return x
+    y = x.reshape(_dims(pl, sizes, have))
+    for d, a in todo:
+        y = tp.all_gather(y, a, mesh.group(a), sizes[a], d, site="sharding.gather")
+    return y.contiguous().reshape(_stored(pl, _dims(pl, sizes, set(keep) & have)))
 
 
-__all__ = ["Placement", "batch_axes", "gather", "gather_tree", "logical_rules",
+def shard_tree(full_tree, placements, mesh, *, cut=()):
+    return tree.map_structure(lambda x, pl: shard(x, pl, mesh, cut=cut), full_tree, placements)
+
+
+def gather_tree(local_tree_, placements, mesh, *, cut=None, keep=()):
+    return tree.map_structure(lambda x, pl: gather(x, pl, mesh, cut=cut, keep=keep),
+                              local_tree_, placements)
+
+
+__all__ = ["Placement", "batch_axes", "gather", "gather_tree", "local_tree", "logical_rules",
            "param_pspecs", "param_shardings", "shard", "shard_tree"]

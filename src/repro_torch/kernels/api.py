@@ -683,24 +683,38 @@ class _LinearFunction(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         a, b, bias = ctx.saved_tensors
-        product, pol, g32 = ctx.product, ctx.bwd_policy, g.float()
-        if ctx.activation != "none":
-            # recompute the pre-activation (one more dispatched matmul)
-            # rather than keep an (M, N) fp32 residual from the forward;
-            # the bias joins the product's epilogue: K1 adds it to its fp32
-            # sum, K4 / K5 add it in fp32 after, so z is JAX's z + bias
-            # (one fp32 rounding either way) in one pass fewer
-            z = product(a, b, bias=bias, out_dtype=torch.float32, policy=pol)
-            with torch.enable_grad():
-                z = z.requires_grad_()
-                dz, = torch.autograd.grad(ACTIVATIONS[ctx.activation](z), z, g32)
-        else:
-            dz = g32
-        dz_a = dz.to(a.dtype)
-        da = product(dz_a, b.mT, policy=pol).to(a.dtype)  # g . B^T
-        db = product(a.mT, dz_a, policy=pol).to(b.dtype)  # A^T . g
-        dbias = None if bias is None else dz.sum(dim=0).to(bias.dtype)
+        da, db, dbias = matmul_vjp(ctx.product, ctx.bwd_policy, ctx.activation, a, b, bias, g)
         return None, None, None, None, da, db, dbias
+
+
+def matmul_vjp(product, pol, activation: str, a, b, bias, g, *, da_fp32: bool = False):
+    """(dA, dB, dbias) of ``act(a @ b + bias)`` for the output gradient
+    ``g``, each product through ``product`` (:func:`linear` or
+    :func:`_grouped`) under the backward policy token ``pol``.  ``dA``
+    rounds once to ``a.dtype``, or stays fp32 with ``da_fp32``: a
+    column-parallel projection sums its partial products over ranks
+    before that rounding (``dist/tp.py``)."""
+    g32 = g.float()
+    if activation != "none":
+        # recompute the pre-activation (one more dispatched matmul)
+        # rather than keep an (M, N) fp32 residual from the forward;
+        # the bias joins the product's epilogue: K1 adds it to its fp32
+        # sum, K4 / K5 add it in fp32 after, so z is JAX's z + bias
+        # (one fp32 rounding either way) in one pass fewer
+        z = product(a, b, bias=bias, out_dtype=torch.float32, policy=pol)
+        with torch.enable_grad():
+            z = z.requires_grad_()
+            dz, = torch.autograd.grad(ACTIVATIONS[activation](z), z, g32)
+    else:
+        dz = g32
+    dz_a = dz.to(a.dtype)
+    if da_fp32:
+        da = product(dz_a, b.mT, out_dtype=torch.float32, policy=pol)  # g . B^T
+    else:
+        da = product(dz_a, b.mT, policy=pol).to(a.dtype)
+    db = product(a.mT, dz_a, policy=pol).to(b.dtype)  # A^T . g
+    dbias = None if bias is None else dz.sum(dim=0).to(bias.dtype)
+    return da, db, dbias
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,6 @@ from __future__ import annotations
 import dataclasses
 import math
 
-#: why the options that wait for the rest of distribution (compute over
-#: the model axis, the dry run) raise
-MESH_ITEM = "ROADMAP Queue 1 item 7 (distribution), second half"
 #: why the paged engine's options that do not run over a mesh yet raise
 MESH_SERVE_ITEM = "ROADMAP Queue 1 item 13 (the paged engine's options over a mesh)"
 
@@ -85,15 +82,11 @@ def make_serve_mesh(num_shards: int = 4, *, axis: str = "data") -> Mesh:
     return make_mesh((num_shards,), (axis,))
 
 
-@dataclasses.dataclass
-class BoundMesh:
-    """A :class:`Mesh` laid onto the process group: this rank's place in
-    it and the group of every axis (``device_mesh``)."""
+class _Seat:
+    """A :class:`Mesh` seen from one rank: its coordinates and sizes."""
 
     mesh: Mesh
-    device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
     rank: int
-    device_type: str
 
     @property
     def shape(self) -> dict[str, int]:
@@ -120,12 +113,46 @@ class BoundMesh:
             i = i * self.shape[a] + self.coords[a]
         return i
 
+
+@dataclasses.dataclass
+class DryMesh(_Seat):
+    """One rank's seat on a :class:`Mesh` with no process group: the dry
+    run's (``launch/dryrun.py``).  Its groups are None; the collectives of
+    :mod:`repro_torch.dist.tp` then run only on ``meta`` tensors."""
+
+    mesh: Mesh
+    rank: int = 0
+
+    def group(self, axes):
+        return None
+
+
+def seat(mesh: Mesh, rank: int = 0) -> DryMesh:
+    """Rank ``rank``'s seat on ``mesh``, without a process group."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+    return DryMesh(mesh, rank)
+
+
+@dataclasses.dataclass
+class BoundMesh(_Seat):
+    """A :class:`Mesh` laid onto the process group: this rank's place in
+    it and the group of every axis (``device_mesh``)."""
+
+    mesh: Mesh
+    device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    rank: int
+    device_type: str
+    subgroups: dict = dataclasses.field(default_factory=dict)  # axes -> group
+
     def group(self, axes):
         """The process group spanning ``axes`` through this rank; None when
-        they hold one rank.  Several axes are one group only where they
-        cover every axis of more than one rank (the whole world)."""
+        they hold one rank.  A group over one axis is ``device_mesh``'s;
+        over several (but not every wide axis: the world), it is one of
+        the groups :func:`bind` made for that set of axes, one for each
+        coordinate of the other axes."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        wide = [a for a in axes if self.shape[a] > 1]
+        wide = tuple(a for a in self.axis_names if a in axes and self.shape[a] > 1)
         if not wide:
             return None
         if len(wide) == 1:
@@ -134,7 +161,32 @@ class BoundMesh:
 
         if set(wide) == {a for a in self.axis_names if self.shape[a] > 1}:
             return dist.group.WORLD
-        raise NotImplementedError(f"a process group over {wide} of a {self.shape} mesh")
+        return self.subgroups[wide]
+
+
+def _subgroups(mesh: Mesh, rank: int) -> dict[tuple[str, ...], object]:
+    """This rank's process group over every set of two or more wide axes
+    short of all of them: ``dist.new_group`` once for each coordinate of the
+    other axes, every rank creating every group in the same order (a
+    collective call), and keeping the one that holds it."""
+    import itertools
+
+    import torch.distributed as dist
+
+    wide = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    coords = [mesh.coords(r) for r in range(mesh.size)]
+    out = {}
+    for k in range(2, len(wide)):
+        for axes in itertools.combinations(wide, k):
+            others = [a for a in mesh.axis_names if a not in axes]
+            keys = sorted({tuple(c[a] for a in others) for c in coords})
+            for key in keys:
+                members = [r for r, c in enumerate(coords)
+                           if tuple(c[a] for a in others) == key]
+                g = dist.new_group(ranks=members)
+                if rank in members:
+                    out[axes] = g
+    return out
 
 
 def bind(mesh: Mesh) -> BoundMesh:
@@ -151,8 +203,10 @@ def bind(mesh: Mesh) -> BoundMesh:
         raise ValueError(f"a {mesh.shape} mesh needs {mesh.size} ranks, the group has {world}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dm = init_device_mesh(device_type, mesh.axis_sizes, mesh_dim_names=mesh.axis_names)
-    return BoundMesh(mesh=mesh, device_mesh=dm, rank=dist.get_rank(), device_type=device_type)
+    rank = dist.get_rank()
+    return BoundMesh(mesh=mesh, device_mesh=dm, rank=rank, device_type=device_type,
+                     subgroups=_subgroups(mesh, rank))
 
 
-__all__ = ["MESH_ITEM", "MESH_SERVE_ITEM", "BoundMesh", "Mesh", "bind", "make_debug_mesh", "make_mesh",
-           "make_production_mesh", "make_serve_mesh"]
+__all__ = ["MESH_SERVE_ITEM", "BoundMesh", "DryMesh", "Mesh", "bind", "make_debug_mesh", "make_mesh",
+           "make_production_mesh", "make_serve_mesh", "seat"]

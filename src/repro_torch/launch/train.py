@@ -30,7 +30,9 @@ trace holds one per compiled program), then ``wrote trace …``.
 (``launch/mesh.py``), one rank per mesh position, through the mesh step
 of ``dist/step.py`` (parameters placed by ``dist/sharding.py``,
 ``--fsdp`` adding the data axis; the batch rows split over the batch
-axes).  With no process group in the environment (none initialised,
+axes; with ``M`` > 1 each rank computes over the model axis, on its
+heads, feed-forward columns, experts, vocabulary rows and RG-LRU
+channels: ``dist/tp.py``).  With no process group in the environment (none initialised,
 no ``WORLD_SIZE`` from ``torchrun``) the launcher starts the D x M ranks
 itself (``dist/spawn.py``): gloo ranks on ``--device cpu``, one NCCL
 rank per card on ``cuda`` — a mesh larger than the visible cards raises,

@@ -19,6 +19,10 @@ attention's keys and values (:class:`CrossKv`), computed once from the
 encoder's output at prefill.  The prefill's cross attention runs the
 blockwise ``memeff_attention``, a decode step's the dense ``_attend``
 over every frame, as in the JAX package: the two round differently.
+Inside a model axis (:mod:`repro_torch.dist.tp`) the encoder and the
+decoder compute over it as ``models/lm.py`` does: the rank's heads and
+ff columns, a vocab-parallel embedding, head and cross entropy where the
+vocabulary divides the axis.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.device import DEFAULT, resolve
 from repro_torch.models import lm as lm_mod
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn.attention import KvCache
-from repro_torch.nn.module import embed_spec, positional_embed_spec, softcap, unembed
+from repro_torch.nn.module import embed, embed_spec, positional_embed_spec, softcap, unembed
 from repro_torch.nn.spec import ParamSpec, init_params, stacked
 
 
@@ -103,14 +107,14 @@ def _dec_embed(params, cfg: ModelConfig, tokens: torch.Tensor, index=0) -> torch
     """Token embeddings plus the position rows ``index .. index + s - 1``
     (``index`` scalar, or (batch,) for ragged batches)."""
     p = params["decoder"]
-    x = p["embed"]["table"][tokens]
+    x = embed(p["embed"], tokens, vocab=cfg.vocab)
     idx = torch.as_tensor(index, device=x.device).reshape(-1).long()
     pos_ids = idx[:, None] + torch.arange(x.shape[1], device=x.device)[None, :]  # (1|b, s)
     return x + p["pos"]["table"][pos_ids].to(x.dtype)
 
 
 def _dec_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return softcap(unembed(params["decoder"]["embed"], x), cfg.final_softcap)
+    return softcap(unembed(params["decoder"]["embed"], x, vocab=cfg.vocab), cfg.final_softcap)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, frames: torch.Tensor):
@@ -133,7 +137,8 @@ def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor
             frames: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy on the fp32 logits (no chunking, as
     in the JAX package; its ``remat`` is not ported: no caller sets it)."""
-    return lm_mod.cross_entropy(forward(params, cfg, tokens, frames)[0], labels)
+    return lm_mod.cross_entropy(forward(params, cfg, tokens, frames)[0], labels,
+                                vocab=cfg.vocab)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> dict[str, Any]:

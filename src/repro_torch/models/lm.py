@@ -61,6 +61,7 @@ import torch.utils.checkpoint
 from repro_torch import kernels
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import DEFAULT, resolve
+from repro_torch.dist import tp
 from repro_torch.nn import attention as attn_mod
 from repro_torch.nn import kvquant
 from repro_torch.nn import moe as moe_mod
@@ -72,6 +73,7 @@ from repro_torch.nn.module import (
     dense_spec,
     embed,
     embed_spec,
+    head,
     layernorm,
     layernorm_spec,
     positional_embed_spec,
@@ -126,13 +128,18 @@ def mlp_spec(cfg: ModelConfig):
 
 
 def mlp(params, x, cfg: ModelConfig):
-    """The activation rides K1's epilogue."""
-    if cfg.glu:
-        h = kernels.linear(x, params["w_gate"], activation=cfg.act) \
-            * kernels.linear(x, params["w_in"])
-    else:
-        h = kernels.linear(x, params["w_in"], activation=cfg.act)
-    return kernels.linear(h, params["w_out"])
+    """The activation rides K1's epilogue.  Where the model axis holds
+    this rank's ff columns (:mod:`repro_torch.dist.tp`), ``w_gate`` /
+    ``w_in`` are column-parallel (one all-reduce of their input's fp32
+    gradient) and ``w_out`` row-parallel: one all-reduce of the fp32
+    partial sums, one rounding."""
+    tp_ff = tp.split(params["w_in"], 1, cfg.d_ff)
+    projs = [(params["w_gate"], None, cfg.act), (params["w_in"], None, None)] if cfg.glu \
+        else [(params["w_in"], None, cfg.act)]
+    hs = tp.col_linears(x, projs) if tp_ff else \
+        [kernels.linear(x, w, activation=act) for w, _, act in projs]
+    h = hs[0] * hs[1] if cfg.glu else hs[0]
+    return (tp.row_linear if tp_ff else kernels.linear)(h, params["w_out"])
 
 
 def block_spec(cfg: ModelConfig, bd: BlockDef):
@@ -274,7 +281,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     """Token embeddings (scaled by sqrt(d) where ``cfg.embed_scale``), the
     projected front-end embeddings prepended, then rows ``0 .. s-1`` of the
     position table added, whatever positions the call's tokens hold."""
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, vocab=cfg.vocab)
     if cfg.embed_scale:
         x = (x.float() * float(cfg.d_model) ** 0.5).to(x.dtype)
     if frontend_embeds is not None:
@@ -290,11 +297,12 @@ def _logits(params, cfg: ModelConfig, x):
     package widens it to fp32 first, and K1 widens each element in
     registers instead — the same products, exact either way, without an
     fp32 copy of the head.  Dispatch keys on the fp32 activations, as
-    the JAX package's does."""
+    the JAX package's does.  Inside a model axis that cuts the
+    vocabulary, the logits of this rank's vocabulary rows."""
     if cfg.tie_embeddings:
-        out = unembed(params["embed"], x)
+        out = unembed(params["embed"], x, vocab=cfg.vocab)
     else:
-        out = kernels.linear(x.float(), params["unembed"]["w"])
+        out = head(x, params["unembed"]["w"], vocab=cfg.vocab)
     return softcap(out, cfg.final_softcap)
 
 
@@ -425,6 +433,8 @@ def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor
         n = s // loss_chunk
         xc = x.reshape(b, n, loss_chunk, d)
         lc = labels.reshape(b, n, loss_chunk)
+        if x.is_meta:  # the dry run: one chunk, counted n times
+            return _meta_chunks(params, cfg, xc, lc) + aux_weight * aux_total
         ce = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(n):
             ce = ce + torch.utils.checkpoint.checkpoint(
@@ -432,15 +442,41 @@ def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor
     return ce + aux_weight * aux_total
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean of logsumexp(logits) - the labels' logits, over every position."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+def _meta_chunks(params, cfg: ModelConfig, xc, lc) -> torch.Tensor:
+    """The chunked cross entropy on ``meta`` tensors (the dry run): the
+    first chunk's, recomputed in its backward as each chunk is, counted
+    as every chunk's (``tp.repeated``)."""
+    head_key = ("embed", "table") if cfg.tie_embeddings else ("unembed", "w")
+
+    def one(xi, li, w):
+        p = {head_key[0]: {head_key[1]: w}}
+        return torch.utils.checkpoint.checkpoint(_ce, p, cfg, xi, li, use_reentrant=False)
+
+    return tp.repeated(xc.shape[1], one, xc[:, 0], lc[:, 0], params[head_key[0]][head_key[1]])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  vocab: int | None = None) -> torch.Tensor:
+    """Mean of logsumexp(logits) - the labels' logits, over every position.
+    Where the model axis holds this rank's columns of ``vocab`` logits,
+    vocab-parallel, in fp32: the maximum, the sum of exponentials and the
+    gold logit each all-reduced over the axis."""
+    if vocab is None or not tp.split(logits, -1, vocab):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    start, n = tp.active().piece(vocab)
+    m = tp.all_max(logits.amax(dim=-1))
+    sumexp = tp.reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1))
+    local = labels.long() - start
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(mine, local, torch.zeros_like(local))[..., None])
+    gold = tp.reduce_out(torch.where(mine, gold[..., 0], torch.zeros_like(gold[..., 0])))
+    return torch.mean(torch.log(sumexp) + m - gold)
 
 
 def _ce(params, cfg: ModelConfig, x, labels):
-    return cross_entropy(_logits(params, cfg, x), labels)  # fp32 logits
+    return cross_entropy(_logits(params, cfg, x), labels, vocab=cfg.vocab)  # fp32 logits
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,

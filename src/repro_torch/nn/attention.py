@@ -14,6 +14,12 @@ arch, as in the JAX package).  Projection weights are 2-D: ``wq``
 
 Caches and page pools are updated **in place** (the JAX package
 returns new arrays and relies on buffer donation to avoid the copy).
+
+Inside a model axis (:mod:`repro_torch.dist.tp`) that holds this rank's
+query heads, the full-sequence and cross attention compute those heads:
+q / k / v column-parallel, ``wo`` row-parallel with ``bo`` added after
+the all-reduce.  Where the kv heads replicate (fewer than the ranks), a
+rank projects only the kv heads its query heads read.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import AttnConfig
+from repro_torch.dist import tp
 from repro_torch.nn.memeff import memeff_attention
 from repro_torch.nn.module import rope, softcap
 from repro_torch.nn.spec import ParamSpec
@@ -122,11 +129,78 @@ def proj_heads(x, params, name: str, heads: int, head_dim: int):
     return kernels.linear(x, w, bias=bias).reshape(b, s, heads, head_dim)
 
 
-def _qkv(params, x, cfg: AttnConfig, positions):
+class _Heads(NamedTuple):
+    """The heads a rank of the model axis computes: ``hl`` query heads
+    from ``q0``; kv heads ``k0 .. k1``, held (``kv_cut``) or, where the
+    kv heads replicate, cut from the whole weight; ``expand``: each query
+    head's kv head among those, where they do not group evenly."""
+
+    hl: int
+    q0: int
+    k0: int
+    k1: int
+    kv_cut: bool
+    expand: tuple | None
+
+
+def _heads(params, cfg: AttnConfig) -> _Heads | None:
+    """Where the model axis holds this rank's query heads
+    (:mod:`repro_torch.dist.tp`), which heads it computes; None where
+    the heads replicate (every rank computes the whole attention, as
+    GSPMD leaves it) or off the axis."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = proj_heads(x, params, "q", h, hd)
-    k = proj_heads(x, params, "k", kv, hd)
-    v = proj_heads(x, params, "v", kv, hd)
+    if not tp.split(params["wq"], 1, h * hd):
+        return None
+    q0, hl = tp.active().piece(h)
+    g = h // kv
+    k0, k1 = q0 // g, (q0 + hl - 1) // g + 1
+    own = [(q0 + j) // g - k0 for j in range(hl)]
+    n = k1 - k0
+    even = hl % n == 0 and own == [j // (hl // n) for j in range(hl)]
+    return _Heads(hl, q0, k0, k1, tp.split(params["wk"], 1, kv * hd),
+                  None if even else tuple(own))
+
+
+def _kv_proj(params, name: str, t: _Heads, hd: int):
+    """``(w, bias, None)`` of a rank's kv heads ``t.k0 .. t.k1`` of
+    projection ``w{name}``: its own piece, or those columns of the whole
+    weight, whose gradient the ranks sharing it then sum (``tp.copy_in``)."""
+    w, bias = params["w" + name], params.get("b" + name)
+    if not t.kv_cut:
+        w = tp.copy_in(w)[:, t.k0 * hd:t.k1 * hd]
+        bias = None if bias is None else tp.copy_in(bias)[t.k0 * hd:t.k1 * hd]
+    return w, bias, None
+
+
+def _kv_heads(y, t: _Heads, hd: int):
+    b, s, _ = y.shape
+    y = y.reshape(b, s, t.k1 - t.k0, hd)
+    return y if t.expand is None else y[:, :, list(t.expand)]
+
+
+def _qkv(params, x, cfg: AttnConfig, positions, kv_input=None):
+    """Queries from ``x``, keys and values from ``kv_input`` (default
+    ``x``): over the model axis, the rank's heads (:func:`_heads`), the
+    projections of one input column-parallel together (``tp.col_linears``)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t = _heads(params, cfg)
+    src = x if kv_input is None else kv_input
+    if t is None:
+        q = proj_heads(x, params, "q", h, hd)
+        k = proj_heads(src, params, "k", kv, hd)
+        v = proj_heads(src, params, "v", kv, hd)
+    else:
+        b, s, _ = x.shape
+        q_proj = (params["wq"], params.get("bq"), None)
+        kv_projs = [_kv_proj(params, "k", t, hd), _kv_proj(params, "v", t, hd)]
+        if kv_input is None:
+            q, k, v = tp.col_linears(x, [q_proj, *kv_projs])
+        else:
+            (q,), (k, v) = tp.col_linears(x, [q_proj]), tp.col_linears(src, kv_projs)
+        q = q.reshape(b, s, t.hl, hd)
+        k, v = _kv_heads(k, t, hd), _kv_heads(v, t, hd)
+    if positions is None:
+        return q, k, v
     if cfg.rope:
         q = rope(q, positions, theta=cfg.rope_theta)
         k = rope(k, positions, theta=cfg.rope_theta)
@@ -156,9 +230,13 @@ def _attend(q, k, v, mask, cfg: AttnConfig):
 
 
 def _proj_out(params, o, cfg: AttnConfig):
-    b, s = o.shape[0], o.shape[1]
-    return kernels.linear(o.reshape(b, s, cfg.n_heads * cfg.head_dim), params["wo"],
-                          bias=params.get("bo"))
+    """``wo`` over the heads of ``o``; row-parallel where the model axis
+    holds this rank's heads (``bo`` added after the all-reduce)."""
+    b, s, hl = o.shape[0], o.shape[1], o.shape[2]
+    o = o.reshape(b, s, hl * cfg.head_dim)
+    if hl != cfg.n_heads:
+        return tp.row_linear(o, params["wo"], bias=params.get("bo"))
+    return kernels.linear(o, params["wo"], bias=params.get("bo"))
 
 
 def attention(params, x, cfg: AttnConfig, *, positions=None, window: int | None = None,
@@ -182,10 +260,7 @@ def cross_attention(params, x, kv_input, cfg: AttnConfig):
     visible): queries from ``x`` (b, s, d), keys and values from
     ``kv_input`` (b, t, d).  Returns ``(out, (k, v))`` — the keys and
     values, for the decode cache."""
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = proj_heads(x, params, "q", h, hd)
-    k = proj_heads(kv_input, params, "k", kv, hd)
-    v = proj_heads(kv_input, params, "v", kv, hd)
+    q, k, v = _qkv(params, x, cfg, None, kv_input=kv_input)
     b, s, t = x.shape[0], x.shape[1], kv_input.shape[1]
     qp = torch.arange(s, device=x.device, dtype=torch.int32).expand(b, s)
     kp = torch.arange(t, device=x.device, dtype=torch.int32).expand(b, t)

@@ -83,11 +83,37 @@ def memeff_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         k_pos = torch.nn.functional.pad(k_pos, (0, pad_k), value=-1)
 
     kw = dict(qc=qc, window=window, causal=causal, softcap=softcap, scale=scale, g=g)
-    if window is not None and window + qc < k.shape[1]:
+    banded = window is not None and window + qc < k.shape[1]
+    if q.is_meta:
+        out = _meta(q, k, v, q_pos, k_pos, kc=kc, banded=banded,
+                    band=_round_up(window + qc, 128) if banded else 0, **kw)
+    elif banded:
         out = _banded(q, k, v, q_pos, k_pos, band=_round_up(window + qc, 128), **kw)
     else:
         out = _full(q, k, v, q_pos, k_pos, kc=kc, **kw)
     return out[:, :sq]
+
+
+def _meta(q, k, v, q_pos, k_pos, *, qc, kc, banded, band, **kw):
+    """The chunk loops on ``meta`` tensors (the dry run): the first query
+    chunk against the first key chunk (or its band), each loop counted as
+    its trip count (``tp.repeated``); the output is that chunk's, tiled."""
+    from repro_torch.dist import tp
+
+    nq = q.shape[1] // qc
+    if banded:
+        def chunk(qi, k_, v_):
+            return _banded(qi, k_, v_, q_pos[:, :qc], k_pos[:, :band], qc=qc, band=band, **kw)
+        out = tp.repeated(nq, chunk, q[:, :qc], k[:, :band], v[:, :band])
+    else:
+        nk = k.shape[1] // kc
+
+        def chunk(qi, k_, v_):
+            def pair(qi_, kj, vj):
+                return _full(qi_, kj, vj, q_pos[:, :qc], k_pos[:, :kc], qc=qc, kc=kc, **kw)
+            return tp.repeated(nk, pair, qi, k_, v_)
+        out = tp.repeated(nq, chunk, q[:, :qc], k[:, :kc], v[:, :kc])
+    return out.repeat(1, nq, 1, 1)
 
 
 def _full(q, k, v, q_pos, k_pos, *, qc, kc, window, causal, softcap, scale, g):

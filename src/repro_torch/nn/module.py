@@ -3,13 +3,16 @@
 Plain functions over parameter dicts, mirroring the JAX package's
 ``nn/module.py``.  Compute dtype is bf16; norms and rope run in fp32.
 Every projection-shaped matmul routes through ``kernels.linear`` (K1,
-with the bias and activation fused into its epilogue).
+with the bias and activation fused into its epilogue).  The embedding
+and the head are vocab-parallel inside a model axis
+(:mod:`repro_torch.dist.tp`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.dist import tp
 from repro_torch.kernels import api
 from repro_torch.nn.spec import ParamSpec
 
@@ -53,16 +56,38 @@ def embed_spec(vocab: int, d: int):
     return {"table": ParamSpec((vocab, d), init="normal", scale=0.02, axes=("vocab", "embed"))}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params, tokens: torch.Tensor, *, vocab: int | None = None) -> torch.Tensor:
+    """The table's rows of ``tokens``.  Where the model axis holds this
+    rank's rows of a ``vocab``-row table (:mod:`repro_torch.dist.tp`), a
+    vocab-parallel lookup: the rank's rows, zeros for tokens it does not
+    hold, then one all-reduce (one nonzero term each: exact)."""
+    table = params["table"]
+    if vocab is None or not tp.split(table, 0, vocab):
+        return table[tokens]
+    start, n = tp.active().piece(vocab)
+    local = tokens.long() - start
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    return tp.reduce_out(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, *, vocab: int | None = None) -> torch.Tensor:
     """Tied softmax head: fp32 logits.  K1 reads the bf16 table as a
     transposed view and widens it in registers — the same function as
     ``x.float() @ table.T.float()`` without materialising the fp32
-    transposed table."""
-    return kernels.linear(x.float(), params["table"].t())
+    transposed table.  Where the model axis cuts a ``vocab``-row table,
+    the logits of the rank's rows (:func:`head`)."""
+    return head(x, params["table"].t(), vocab=vocab)
+
+
+def head(x: torch.Tensor, w: torch.Tensor, *, vocab: int | None = None) -> torch.Tensor:
+    """fp32 logits ``x @ w`` of a (d, vocab) head ``w``; where the model
+    axis holds this rank's vocabulary columns of it, column-parallel: the
+    rank's logits, the fp32 input's gradient summed over the axis."""
+    xf = x.float()
+    if vocab is not None and tp.split(w, 1, vocab):
+        xf = tp.copy_in(xf)
+    return kernels.linear(xf, w)
 
 
 def positional_embed_spec(max_len: int, d: int):

@@ -25,6 +25,14 @@ rounds once, as XLA's CPU reduce does.  JAX's ``_ep_constrain`` is a
 sharding hint under a device mesh and has no counterpart here; over a
 mesh whose batch splits over ranks, the train step passes ``ce_reduce``
 (the aux loss's routing fractions averaged over the batch ranks).
+
+Inside a model axis that holds this rank's experts
+(:mod:`repro_torch.dist.tp`), the router's logits of those experts are
+gathered before the softcap, the softmax and the top-k, so every rank
+routes as one device does; the dispatch takes the rank's experts'
+columns, ``grouped_linear`` runs over them, and the combine's fp32
+partial sum is all-reduced with the shared expert's (column/row-parallel
+over ``ff``), each then rounded once.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.configs.base import MoeConfig
+from repro_torch.dist import tp
 from repro_torch.nn.module import act_fn, softcap
 from repro_torch.nn.spec import ParamSpec
 
@@ -80,6 +89,11 @@ def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool
     local (the mean of the ranks' losses then averages it)."""
     b_orig, s_orig, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    if tp.active() is not None:
+        tp.whole(params, moe_spec(d, cfg, glu=glu), "moe",
+                 cut={"router": 1, "w_in": 0, "w_gate": 0, "w_out": 0, "shared_in": 1,
+                      "shared_gate": 1, "shared_out": 0})
+    ep = tp.split(params["w_in"], 0, e)  # this rank's experts (dist/tp.py)
 
     # route within windows of group_size tokens (batch-major reshape)
     gs = max(1, min(cfg.group_size, s_orig))
@@ -87,8 +101,13 @@ def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool
         x = x.reshape(b_orig * (s_orig // gs), gs, d)
     b, s, _ = x.shape
 
+    xin = tp.copy_in(x) if ep else x  # what the dispatch reads (exact sums)
     # --- routing (fp32) ---------------------------------------------------
-    logits = softcap(kernels.linear(x.float(), params["router"]), cfg.router_softcap)
+    if tp.split(params["router"], 1, e):  # the rank's experts' logits, gathered
+        logits = tp.gather_out(kernels.linear(tp.copy_in(x.float()), params["router"]))
+    else:
+        logits = kernels.linear(x.float(), params["router"])
+    logits = softcap(logits, cfg.router_softcap)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = top_k(probs, k)  # (b, s, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -113,7 +132,11 @@ def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool
     dispatch = (oh_flat[..., None] * slot[..., None, :]).to(x.dtype) \
         * keep[..., None, None].to(x.dtype)  # (b, k*s, e, cap)
 
-    x_slots = torch.cat([x] * k, dim=1)  # slot-major (b, k*s, d)
+    if ep:  # the rank's experts' columns; each rank's gates reach its own
+        e0, el = tp.active().piece(e)
+        dispatch = dispatch[:, :, e0:e0 + el]
+        gates_flat = tp.copy_in(gates_flat)
+    x_slots = torch.cat([xin] * k, dim=1)  # slot-major (b, k*s, d)
     hidden = torch.einsum("bjec,bjd->becd", dispatch, x_slots)
 
     # --- expert computation (one grouped kernel launch per projection) -----
@@ -127,16 +150,34 @@ def moe(params, x: torch.Tensor, cfg: MoeConfig, *, act: str = "silu", glu: bool
     # --- combine --------------------------------------------------------------
     combine = dispatch * gates_flat[..., None, None]
     y = torch.einsum("bjec,becd->bjd", combine, out)  # (b, k*s, d)
-    y = y.reshape(b, k, s, d).sum(dim=1)
+    if ep:  # the rank's slots' fp32 sum, all-reduced below
+        y = y.reshape(b, k, s, d).float().sum(dim=1)
+    else:
+        y = y.reshape(b, k, s, d).sum(dim=1)
 
     # --- shared experts (always-on path) --------------------------------------
-    if "shared_in" in params:
-        xf = x.reshape(b * s, d)
-        s_in = kernels.linear(xf, params["shared_in"])
-        if glu:
-            s_in = kernels.linear(xf, params["shared_gate"], activation=act) * s_in
-        else:
-            s_in = act_fn(act)(s_in)
-        y = y + kernels.linear(s_in, params["shared_out"]).reshape(b, s, d)
-
-    return y.reshape(b_orig, s_orig, d), aux_loss
+    if "shared_in" not in params:
+        return (tp.reduce_out(y).to(x.dtype) if ep else y).reshape(b_orig, s_orig, d), aux_loss
+    tp_ff = tp.split(params["shared_in"], 1, cfg.n_shared_experts * cfg.d_ff_expert)
+    xf = x.reshape(b * s, d)
+    projs = [(params["shared_in"], None, None)]
+    if glu:
+        projs.append((params["shared_gate"], None, act))
+    s_in, *gate = tp.col_linears(xf, projs) if tp_ff else \
+        [kernels.linear(xf, w, activation=a) for w, _, a in projs]
+    s_in = gate[0] * s_in if glu else act_fn(act)(s_in)
+    if not ep and not tp_ff:
+        return (y + kernels.linear(s_in, params["shared_out"]).reshape(b, s, d)).reshape(
+            b_orig, s_orig, d), aux_loss
+    # the routed and the shared partial sums in one all-reduce, each then
+    # rounded to the activation dtype before their sum, as on one device
+    shared = kernels.linear(s_in, params["shared_out"],
+                            out_dtype=torch.float32 if tp_ff else None).reshape(b, s, d)
+    if ep and tp_ff:
+        both = tp.reduce_out(torch.stack([y, shared]))
+        y, shared = both[0].to(x.dtype), both[1].to(x.dtype)
+    elif ep:
+        y = tp.reduce_out(y).to(x.dtype)
+    else:
+        shared = tp.reduce_out(shared).to(x.dtype)
+    return (y + shared).reshape(b_orig, s_orig, d), aux_loss

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import RglruConfig
+from repro_torch.dist import tp
 from repro_torch.nn.spec import ParamSpec
 from repro_torch.nn.ssd import softplus
 
@@ -111,12 +112,22 @@ def _causal_depthwise_conv(x, w, b, prefix=None):
     return y + b, xp[:, -(width - 1):, :].clone()
 
 
-def _gates(params, xb, cfg: RglruConfig):
-    # the gate projections fuse bias + sigmoid into the kernel epilogue
-    r = kernels.linear(xb, params["w_a"], bias=params["b_a"], activation="sigmoid",
-                       out_dtype=torch.float32)
-    i = kernels.linear(xb, params["w_i"], bias=params["b_i"], activation="sigmoid",
-                       out_dtype=torch.float32)
+def _gate(xb, w, bias, cut: bool):
+    """``sigmoid(xb @ w + bias)`` in fp32; over the model axis (``cut``),
+    ``xb`` and ``w``'s rows are this rank's channels: the fp32 partial
+    products of every channel all-reduced, the rank's channels kept, then
+    the bias and the sigmoid, as K1's epilogue adds them."""
+    if not cut:  # the kernel's epilogue fuses bias + sigmoid
+        return kernels.linear(xb, w, bias=bias, activation="sigmoid", out_dtype=torch.float32)
+    from repro_torch.kernels.api import ACTIVATIONS
+
+    y = tp.reduce_keep(kernels.linear(xb, w, out_dtype=torch.float32))
+    return ACTIVATIONS["sigmoid"](y + bias.float())
+
+
+def _gates(params, xb, cfg: RglruConfig, cut: bool = False):
+    r = _gate(xb, params["w_a"], params["b_a"], cut)
+    i = _gate(xb, params["w_i"], params["b_i"], cut)
     log_a = -cfg.c * softplus(params["lam"]) * r  # (b, s, d_rnn) fp32
     a = torch.exp(log_a)
     # 1 - a * a as XLA simplifies it: exp(x) * exp(x) -> exp(x + x)
@@ -126,13 +137,20 @@ def _gates(params, xb, cfg: RglruConfig):
 
 
 def rglru(params, x, cfg: RglruConfig, *, state: RglruState | None = None):
-    """Full-sequence Griffin block; x (b, s, d_model) -> (out, RglruState)."""
-    gate_branch = kernels.linear(x, params["w_gate_branch"], activation="gelu")
-    xb = kernels.linear(x, params["w_x_branch"])
+    """Full-sequence Griffin block; x (b, s, d_model) -> (out, RglruState).
+    Where the model axis holds this rank's RG-LRU channels
+    (:mod:`repro_torch.dist.tp`): the branches column-parallel, the conv
+    and the recurrence per channel, the gates over input-sharded
+    ``w_a`` / ``w_i`` (:func:`_gate`), ``w_out`` row-parallel; the state
+    holds the rank's channels."""
+    cut = tp.split(params["w_x_branch"], 1, cfg.d_rnn or x.shape[-1])
+    projs = [(params["w_gate_branch"], None, "gelu"), (params["w_x_branch"], None, None)]
+    gate_branch, xb = tp.col_linears(x, projs) if cut else \
+        [kernels.linear(x, w, activation=act) for w, _, act in projs]
     prefix = state.conv if state is not None else None
     xb, conv_tail = _causal_depthwise_conv(xb, params["conv_w"], params["conv_b"], prefix)
 
-    a, gated_in = _gates(params, xb, cfg)
+    a, gated_in = _gates(params, xb, cfg, cut)
     if state is not None:
         # seed the scan with the carried state through a virtual step
         gated_in = gated_in.clone()
@@ -140,8 +158,10 @@ def rglru(params, x, cfg: RglruConfig, *, state: RglruState | None = None):
 
     _, h = associative_scan(_combine, (a, gated_in), dim=1)
     new_state = RglruState(h=h[:, -1, :].clone(), conv=conv_tail)
-    y = kernels.linear(gate_branch * h.to(x.dtype), params["w_out"])
-    return y, new_state
+    merged = gate_branch * h.to(x.dtype)
+    if cut:
+        return tp.row_linear(merged, params["w_out"]), new_state
+    return kernels.linear(merged, params["w_out"]), new_state
 
 
 def rglru_step(params, x, state: RglruState, cfg: RglruConfig):

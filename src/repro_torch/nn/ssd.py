@@ -29,6 +29,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import SsmConfig
+from repro_torch.dist import tp
 from repro_torch.nn.module import act_fn, rmsnorm_spec
 from repro_torch.nn.spec import ParamSpec
 
@@ -111,6 +112,8 @@ def ssd(params, u, cfg: SsmConfig, *, state: SsdState | None = None):
     those of the unpadded sequence, and the conv tail is the last
     ``conv_width - 1`` *real* inputs."""
     bsz, s_real, d_model = u.shape
+    if tp.active() is not None:  # no model-axis path
+        tp.whole(params, ssd_spec(d_model, cfg), "ssd")
     d_inner, n_heads, _ = _dims(d_model, cfg)
     P, N, Q = cfg.head_dim, cfg.d_state, cfg.chunk
     pad = (-s_real) % Q

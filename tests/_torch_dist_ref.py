@@ -5,7 +5,7 @@ Run as a script in its own process (``dist_reference`` in
 ``tests/test_torch_dist_serve.py`` and ``tests/test_torch_dist.py``), with
 XLA's excess precision off, as ``_torch_jax_ref.py`` is:
 
-    python tests/_torch_dist_ref.py {train|serve|meshserve|meshtrain} OUT.npz
+    python tests/_torch_dist_ref.py {train|serve|meshserve|meshtrain|tp|dryrun} OUT.npz
 
 * ``train``: ``lm.loss_fn`` of the reduced qwen1.5-0.5b (``lm.init`` from
   ``SEED``) on step 0's batch of the multi-rank train runs
@@ -20,7 +20,14 @@ XLA's excess precision off, as ``_torch_jax_ref.py`` is:
   (``MESH_ARGS``);
 * ``meshtrain`` (4 forced host devices): the reduced moonshot's loss and
   aux loss on step 0's batch (``MOE_TRAIN``), and the JAX launcher's
-  losses over a 2-device mesh (``MESH_TRAIN_ARGS``).
+  losses over a 2-device mesh (``MESH_TRAIN_ARGS``);
+* ``tp`` (8 forced host devices): the model-axis tests' references
+  (``_torch_dist_tp.py``) — each arch's ``loss_fn`` on step 0's batch
+  under ``backend=pallas``, the reduced mamba2's train step on a (2, 2, 2)
+  mesh (``build_train_step`` jitted with its shardings, as
+  ``_multidev_main.py``'s scenarios run it) and the reduced qwen's
+  ``build_prefill_step`` on a 2 x 2 mesh under ``backend=pallas`` (the
+  port's kernels' numerics; the interpreted kernels partition as XLA ops).
 
 :func:`engine_cases` takes a package's serving names (``api``), so the
 port's test runs the very same cases on the port.
@@ -322,6 +329,117 @@ def _meshtrain(out: dict) -> None:
     out["launch_losses"] = np.asarray(res["losses"], np.float64)
 
 
+def _tp(out: dict) -> None:
+    """The ``tp`` mode (module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    import _torch_dist_tp as tpr
+    import repro.configs.shapes as shapes_mod
+    from repro import kernels
+    from repro.configs import get_config
+    from repro.configs.shapes import ShapeCfg
+    from repro.dist.step import build_prefill_step, build_train_step
+    from repro.launch.mesh import make_debug_mesh
+    from repro.models import encdec, lm
+    from repro.optim import adamw
+
+    assert jax.device_count() == 8, jax.devices()
+    for arch in (*tpr.ARCHS, tpr.MAMBA):
+        cfg = get_config(arch, reduced=True)
+        mod = encdec if cfg.family == "audio" else lm
+        params = mod.init(cfg, jax.random.PRNGKey(SEED))
+        b = tpr.batch_np(cfg, 0)
+        toks, labels = jnp.asarray(b["tokens"]), jnp.asarray(b["labels"])
+        if "frames" in b:
+            frames = jnp.asarray(b["frames"], jnp.bfloat16)
+            fn = lambda p: encdec.loss_fn(p, cfg, toks, labels, frames)  # noqa: E731
+        else:
+            fn = lambda p: lm.loss_fn(p, cfg, toks, labels, loss_chunk=None)  # noqa: E731
+        with kernels.use_policy("backend=pallas"):
+            out[f"loss0/{arch}"] = np.asarray(jax.jit(fn)(params))
+        out[f"checksum/{arch}"] = np.asarray(params_checksum(params))
+
+    # mamba2's step on (pod, data, model) = (2, 2, 2): its batch over (data, model)
+    cfg = get_config(tpr.MAMBA, reduced=True)
+    shapes_mod.SHAPES["tptrain"] = ShapeCfg("tptrain", "train", tpr.TRAIN["seq"],
+                                            tpr.TRAIN["batch"])
+    mesh = make_debug_mesh(2, 2, pod=2)
+    bundle = build_train_step(cfg, mesh, "tptrain",
+                              opt_cfg=adamw.AdamWConfig(lr=tpr.TRAIN["lr"], warmup_steps=5,
+                                                        total_steps=tpr.TRAIN["steps"]),
+                              loss_chunk=None)
+    params = lm.init(cfg, jax.random.PRNGKey(SEED))
+    b = tpr.batch_np(cfg, 0)
+    with jax.set_mesh(mesh):
+        step = jax.jit(bundle.fn, in_shardings=bundle.in_shardings,
+                       out_shardings=bundle.out_shardings)
+        opt = adamw.init(params, adamw.AdamWConfig())
+        batch = {"tokens": jnp.asarray(b["tokens"]), "labels": jnp.asarray(b["labels"])}
+        args = jax.device_put((params, opt, batch, jnp.int32(0)), bundle.in_shardings)
+        _, _, loss, _ = step(*args)
+    out["mesh_loss0/mamba"] = np.asarray(loss)
+
+    # qwen's prefill on 2 x 2
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    shapes_mod.SHAPES["tpprefill"] = ShapeCfg("tpprefill", "prefill", tpr.PREFILL["seq"],
+                                              tpr.PREFILL["batch"])
+    mesh = make_debug_mesh(2, 2)
+    bundle = build_prefill_step(cfg, mesh, "tpprefill")
+    params = lm.init(cfg, jax.random.PRNGKey(SEED))
+    with jax.set_mesh(mesh), kernels.use_policy("backend=pallas"):
+        fn = jax.jit(bundle.fn, in_shardings=bundle.in_shardings)
+        args = jax.device_put(
+            (params, {"tokens": jnp.asarray(tpr.prefill_tokens(cfg).numpy())}),
+            bundle.in_shardings)
+        logits, _ = fn(*args)
+    out["prefill_logits"] = np.asarray(logits, np.float32)
+
+
+def _dryrun(out: dict) -> None:
+    """The ``dryrun`` mode: for the reduced qwen's cells of
+    ``_torch_dist_tp.DRY_CELLS`` on each debug mesh, the compiled step's
+    ``memory_summary``, collective counts and bytes (``launch/hlo.py``,
+    unchanged); and the one-device prefill's dot FLOPs of each
+    ``FLOP_ARCHS`` arch."""
+    import jax
+
+    import _torch_dist_tp as tpr
+    import repro.configs.shapes as shapes_mod
+    from repro.configs import get_config
+    from repro.configs.shapes import ShapeCfg
+    from repro.dist.step import build_step
+    from repro.launch.hlo import analyze_compiled, memory_summary
+    from repro.launch.mesh import make_debug_mesh
+
+    assert jax.device_count() == 8, jax.devices()
+    for name, (kind, seq, batch) in tpr.DRY_SHAPES.items():
+        shapes_mod.SHAPES[name] = ShapeCfg(name, kind, seq, batch)
+
+    def compile_(cfg, mesh, shape, kw):
+        bundle = build_step(cfg, mesh, shape, **kw)
+        with jax.set_mesh(mesh):
+            return jax.jit(bundle.fn, in_shardings=bundle.in_shardings,
+                           out_shardings=bundle.out_shardings
+                           ).lower(*bundle.abstract_inputs).compile()
+
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    cells = {}
+    for mname, (data, model, pod) in tpr.DRY_MESHES.items():
+        mesh = make_debug_mesh(data, model, pod=pod)
+        for cname, (shape, kw) in tpr.DRY_CELLS.items():
+            compiled = compile_(cfg, mesh, shape, kw)
+            an = analyze_compiled(compiled, mesh.size)
+            cells[f"{mname}/{cname}"] = {
+                "memory": memory_summary(compiled), "counts": an["collective_counts"],
+                "bytes": an["collective_bytes_by_op"]}
+    flops = {}
+    for arch in tpr.FLOP_ARCHS:
+        compiled = compile_(get_config(arch, reduced=True), make_debug_mesh(1, 1), "dprefill", {})
+        flops[arch] = analyze_compiled(compiled, 1)["dot_flops"]
+    out["dryrun_json"] = np.asarray(json.dumps({"cells": cells, "flops": flops}))
+
+
 def _train(out: dict) -> None:
     import jax
     import jax.numpy as jnp
@@ -352,8 +470,8 @@ def reference(mode: str, tmp_dir) -> dict:
     out = Path(tmp_dir) / f"jax_dist_{mode}.npz"
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false"
-                        + (" --xla_force_host_platform_device_count=4" if mode in MESH_MODES
-                           else "")).strip()
+                        + (f" --xla_force_host_platform_device_count={MESH_MODES[mode]}"
+                           if mode in MESH_MODES else "")).strip()
     env["JAX_PLATFORMS"] = "cpu"
     env["REPRO_AUTOTUNE_CACHE"] = str(Path(tmp_dir) / f"autotune_dist_{mode}.json")
     env["PYTHONPATH"] = os.pathsep.join(
@@ -366,8 +484,8 @@ def reference(mode: str, tmp_dir) -> dict:
         return {k: f[k] for k in f.files}
 
 
-#: the modes that run on 4 forced host devices
-MESH_MODES = ("meshserve", "meshtrain")
+#: the modes that run on forced host devices, and how many
+MESH_MODES = {"meshserve": 4, "meshtrain": 4, "tp": 8, "dryrun": 8}
 
 
 def main(mode: str, path: str) -> None:
@@ -375,7 +493,7 @@ def main(mode: str, path: str) -> None:
     if mode in ("serve", "meshserve"):
         _share_jits()
     {"serve": _serve, "train": _train, "meshserve": _meshserve,
-     "meshtrain": _meshtrain}[mode](out)
+     "meshtrain": _meshtrain, "tp": _tp, "dryrun": _dryrun}[mode](out)
     _, params = _setup()
     out["params_checksum"] = np.asarray(params_checksum(params))
     np.savez(path, **out)
