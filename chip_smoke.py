@@ -224,7 +224,7 @@ each fatal on failure (nothing is caught):
    registered draft, (c) the ``--server`` loop over a seeded Poisson
    trace, (d) ``launch.train`` for 2 steps.  Weights and requests come from
    the launchers' seeds (nothing from the shared generator); each runs
-   untraced and traced twice over, alternating.  Each fails unless every
+   untraced, then traced (``TRACE_ORDER``).  Each fails unless every
    run's streams (losses) are equal, the
    trace and its ``obs.analyze`` report validate with nothing dropped, the
    report's kernel calls, pool and prefix keys equal the engine's live
@@ -288,17 +288,35 @@ each fatal on failure (nothing is caught):
    step 0's loss and gradients over the model axis and 2 train steps,
    held by phase 9's gate to the plain step and its witnesses, with no
    model-axis gather of a leaf, its launches counted; (d) the dry run,
-   ``python -m repro_torch.launch.dryrun --all --mesh both``, run after
-   (c) on the host (no card), its cells spread over the host's cores
-   with nothing else running: 0 errors, its counts and seconds.  It
+   ``python -m repro_torch.launch.dryrun --all --mesh both``, on the host
+   (no card), its cells spread over the host's cores, started beside the
+   build of phase 1 (whose nvcc runs leave most cores idle after their
+   first seconds) and read here: 0 errors, its counts and seconds.  It
    prints each part's seconds.
+13. the paged engine's options over a mesh (``check_mesh_options``): (a)
+   qwen1.5-1.8b at full width and depth speculating with its registered
+   0.5b draft (k = 4), ``kv_guard`` and ``kernel_fallback`` on, under one
+   fault plan (``kernel.nan`` on a model step, retried on the reference
+   backend; ``page.corrupt`` on rank 0's first cached chain, which rank
+   1's shard then hits and quarantines), on ``PagedEngine(mesh=)`` over 4
+   shards on 2 gloo ranks sharing the card (gloo carries the CUDA
+   tensors), ``mcast_mode="hw"``, bf16 and int8 pools: on every rank the
+   streams, the fired log, the failed requests and the flat stats equal
+   the one-device 4-shard run's with the same options and plan, every
+   page the ranks hold equals that run's (sha-256 of its bytes), K1 and
+   K3 launched on every rank and K2 on the bf16 run; the launches per
+   rank, tokens/s and the verify / decode steps' wall ms beside the
+   one-device run's; (b) on the same ranks, two steps of the training
+   launcher with ``--mesh-data 2``, untraced then with ``--trace``: one
+   trace file, rank 0's two ``train.step`` spans, the same losses.  It
+   prints the phase's seconds.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
 line, the kernel summary (launches: the serving runs of phases 4 to 8,
 the training runs of phase 9, the traced runs of phase 10, phase 11's sharded and
-mesh serving runs and mesh train steps and phase 12's mesh builders and model-axis
-ranks for K1–K5, phase 2b's autograd paths
+mesh serving runs and mesh train steps, phase 12's mesh builders and model-axis
+ranks and phase 13's mesh ranks for K1–K5, phase 2b's autograd paths
 for K6–K8, phase 2c's for K9–K12; K1, K4 and K5 also carry their grouped form's numbers, phase
 6's first row, under ``grouped``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -4233,10 +4251,10 @@ def hold_equal(label: str, pairs: dict) -> None:
         raise AssertionError(f"trace {label}: report != live counters: {bad}")
 
 
-#: each launcher runs untraced and traced twice over, alternating, so that
-#: the step's wall ms with and without tracing are read through the host's
-#: drift (one pair alone moved it by a third)
-TRACE_ORDER = (False, True, False, True)
+#: each launcher runs untraced, then traced: one pair, to keep the script
+#: inside its time limit (one pair alone has moved the step's wall ms by
+#: a third with the host's drift; two alternated pairs read through it)
+TRACE_ORDER = (False, True)
 
 
 def check_traced_serving(label: str, args: list[str], d: str) -> dict[str, int]:
@@ -4908,33 +4926,59 @@ TP_ARCHS = ("qwen1.5-0.5b", "gemma2-9b")
 DRY_TIMEOUT_S = 600
 
 
-def check_dryrun() -> None:
-    """Phase 12d: ``python -m repro_torch.launch.dryrun --all --mesh both``
-    in processes of its own on the host (no card: ``CUDA_VISIBLE_DEVICES``
-    is empty), its cells spread over the host's cores (``--jobs``) with
-    nothing else running; its ok / skipped / error counts and seconds.  It
-    must end with 0 errors and exit 0."""
+def start_dryrun():
+    """Start 12d's run: ``python -m repro_torch.launch.dryrun --all --mesh
+    both`` in processes of its own on the host (no card:
+    ``CUDA_VISIBLE_DEVICES`` is empty), its cells spread over the host's
+    cores (``--jobs``).  ``main`` starts it beside the build, whose nvcc
+    runs leave most cores idle after their first seconds, so that its
+    minute on the host overlaps work that reads no host time; the process
+    group is killed at exit if phase 12 never reads it.  Returns (the
+    process, its command, its start)."""
+    import atexit
     import os
-    import re
     import signal
+    import tempfile
 
     jobs = len(os.sched_getaffinity(0))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
            "--jobs", str(jobs)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            env=env, cwd=str(ROOT), start_new_session=True)
+    log = tempfile.TemporaryFile(mode="w+")  # read in phase 12: a pipe could fill first
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+                            start_new_session=True)
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, cmd, log, time.perf_counter()
+
+
+def check_dryrun(started) -> None:
+    """Phase 12d: the dry run :func:`start_dryrun` started, read to its
+    end; its ok / skipped / error counts and seconds.  It must end with 0
+    errors and exit 0."""
+    import os
+    import re
+    import signal
+
+    proc, cmd, log, t0 = started
     try:
-        text, _ = proc.communicate(timeout=DRY_TIMEOUT_S)
+        proc.wait(timeout=max(DRY_TIMEOUT_S - (time.perf_counter() - t0), 1))
     finally:  # the run and its workers, whatever happened
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
     m = re.search(r"dry-run: (\d+) ok, (\d+) skipped \(documented\), (\d+) errors", text)
     secs = re.search(r"dry-run seconds: ([0-9.]+)", text)
     rec = dict(check="dryrun", command=" ".join(["python", *cmd[1:]]), rc=proc.returncode,
-               torch=text.splitlines()[0] if text else "",
+               torch=text.splitlines()[0] if text else "", beside="the build (phase 1)",
                ok=int(m.group(1)) if m else None, skipped=int(m.group(2)) if m else None,
                errors=int(m.group(3)) if m else None,
                seconds=float(secs.group(1)) if secs else None,
@@ -5122,9 +5166,10 @@ def model_axis_rank() -> dict:
     return out
 
 
-def check_model_axis() -> dict[str, int]:
-    """Phase 12 (12a-12d); returns each kernel's launches over its
-    main-path runs (12a's mesh builders, 12c's two ranks)."""
+def check_model_axis(dry) -> dict[str, int]:
+    """Phase 12 (12a-12d; ``dry``: the dry run :func:`start_dryrun`
+    started); returns each kernel's launches over its main-path runs (12a's
+    mesh builders, 12c's two ranks)."""
     import datetime
     import tempfile
 
@@ -5149,7 +5194,7 @@ def check_model_axis() -> dict[str, int]:
     emit(dict(check="phase", phase="12b", seconds=time.perf_counter() - t0))
     total.update(check_model_axis_ranks())
     emit(dict(check="phase", phase="12c", seconds=time.perf_counter() - t0))
-    check_dryrun()
+    check_dryrun(dry)
     emit(dict(check="phase", phase="12d", seconds=time.perf_counter() - t0))
     emit(dict(check="phase", phase=12, seconds=time.perf_counter() - t0))
     return {k: total[k] for k in kernels.KERNELS}
@@ -5192,6 +5237,223 @@ def check_model_axis_ranks() -> dict[str, int]:
     return {k: total[k] for k in kernels.KERNELS}
 
 
+# -- phase 13: the paged engine's options over a mesh of ranks ---------------
+
+#: phase 13's engine: qwen1.5-1.8b at full width and depth speculating with
+#: its registered draft (k = 4), both guards on, the pool over 4 shards,
+#: 2 a rank, chains delivered by the hw collective
+MESH_OPTS = dict(num_shards=4, mcast_mode="hw", spec_k=4, draft_model=draft_for("qwen1.5-1.8b"),
+                 kv_guard=True, kernel_fallback=True)
+#: its requests' pinned shards: each request after the first on the other
+#: rank's shard from the one before, so the first cached chain is hit from
+#: rank 1
+MESH_OPTS_SHARDS = (0, 2, 1, 3)
+MESH_OPTS_KV = ("bf16", "int8")
+#: the kernels of phase 13's engine: K1 (target and draft), K2 (bf16
+#: decode rows), K3 (verify steps, suffix prefills, int8 gathers)
+MESH_OPTS_PATH = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+
+
+def mesh_opts_plan() -> FaultPlan:
+    """``kernel.nan`` on the seventh model step (past the four admissions:
+    a verify or decode step, retried on the reference backend on every
+    rank that runs it) and ``page.corrupt`` on page 1 of the first cached
+    chain (rank 0's shard 0), which the second admission, on rank 1's
+    shard 2, then hits and quarantines."""
+    return FaultPlan([Fault("kernel.nan", at=6), Fault("page.corrupt", at=0, page_index=1)],
+                     seed=0)
+
+
+def mesh_opts_requests(cfg) -> list[Request]:
+    """Phase 4's first prompts, 16 new tokens each, pinned to
+    ``MESH_OPTS_SHARDS``."""
+    reqs = serving_requests(cfg)[:len(MESH_OPTS_SHARDS)]
+    for r, shard in zip(reqs, MESH_OPTS_SHARDS):
+        r.shard, r.max_new = shard, 16
+    return reqs
+
+
+def mesh_opts_run(cfg, params, dcfg, dparams, kv_dtype: str, mesh=None) -> dict:
+    """One phase-13 run on the card, on one device or this rank of
+    ``mesh``: the streams, the plan's fired log, the failed requests, the
+    flat stats, this process's launches, tokens/s, each step's wall ms by
+    kind (verify / decode), and a digest of every page this process holds
+    as its own."""
+    import hashlib
+
+    eng = PagedEngine(cfg, params, config=ServeConfig(kv_dtype=kv_dtype, **MESH_OPTS),
+                      draft=(dcfg, dparams), device="cuda", mesh=mesh)
+    steps = collections.defaultdict(list)
+    step = eng.step
+
+    def timed():
+        before = eng.kernel_calls["verify"]
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        kind = "verify" if eng.kernel_calls["verify"] > before else "decode"
+        steps[kind].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.step = timed
+    reqs = mesh_opts_requests(cfg)
+    plan = mesh_opts_plan()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plan:
+        done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    eng.check()
+    held = [pid for pid in range(1, eng.pool.num_pages) if eng._held(pid) is not None]
+    pages = {pid: hashlib.sha256(eng._pack([eng._held(pid)]).cpu().numpy().tobytes()).hexdigest()
+             for pid in held}
+    return dict(out={r.rid: list(r.out) for r in done}, fired=[list(f) for f in plan.fired],
+                failed=[[r.rid, r.error] for r in eng.failed], stats=eng.flat_stats(),
+                launches={k: launches.get(k, 0) for k in kernels.KERNELS},
+                tokens_per_s=sum(len(r.out) for r in done) / wall, wall_s=wall,
+                step_ms={k: statistics.median(v) for k, v in steps.items()},
+                steps={k: len(v) for k, v in steps.items()}, pages=pages)
+
+
+def _spec_models():
+    cfg = get_config("qwen1.5-1.8b")
+    dcfg = get_config(draft_for("qwen1.5-1.8b"))
+    return (cfg, lm.init(cfg, seed=0, device="cuda"), dcfg,
+            lm.init(dcfg, seed=0, device="cuda"))
+
+
+def mesh_opts_rank(d: str) -> dict:
+    """Phase 13's rank (of 2 gloo ranks on the one card): (a)
+    :func:`mesh_opts_run` over the 2-rank mesh for each pool dtype, then
+    (b) :func:`mesh_train_rank`."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, dcfg, dparams = _spec_models()
+    mesh = bind(make_serve_mesh(2))
+    out = {kv: mesh_opts_run(cfg, params, dcfg, dparams, kv, mesh=mesh) for kv in MESH_OPTS_KV}
+    del params, dparams
+    torch.cuda.empty_cache()
+    out["train"] = mesh_train_rank(d)
+    return out
+
+
+def mesh_train_rank(d: str) -> dict:
+    """13b on a rank: two steps of the training launcher on a 2 x 1 mesh
+    untraced, then the same steps with ``--trace`` (rank 0 records); the
+    losses, step seconds and launches."""
+    from repro_torch.launch import train as train_launcher
+
+    argv = ["--arch", TRAIN_ARCH, "--device", "cuda", "--steps", "2", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1", "--mesh-data", "2",
+            "--ckpt-dir", f"{d}/ckpt"]
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = train_launcher.main(argv)
+        traced = train_launcher.main([*argv, "--trace", f"{d}/train.json"])
+    launches = kernels.launch_counts()
+    return dict(traced=traced["losses"], plain=plain["losses"],
+                traced_s=traced["step_seconds"], plain_s=plain["step_seconds"],
+                launches={k: launches.get(k, 0) for k in kernels.KERNELS})
+
+
+def check_mesh_options() -> dict[str, int]:
+    """Phase 13: (a) qwen1.5-1.8b at full width and depth with its 0.5b
+    draft on ``PagedEngine(mesh=)`` over 4 shards on 2 gloo ranks sharing
+    the card, bf16 and int8 pools, ``MESH_OPTS`` under
+    :func:`mesh_opts_plan`: on every rank the streams, the fired log, the
+    failed requests and the flat stats equal the one-device 4-shard run
+    with the same options and plan, every page the ranks hold equals that
+    run's page (sha-256 of its bytes), K1-K3 launched on every rank;
+    (b) two steps of the training launcher with ``--mesh-data 2 --trace``
+    on 2 gloo ranks: one trace, rank 0's two ``train.step`` spans, losses
+    equal the untraced run's.  Returns the ranks' launches."""
+    import tempfile
+
+    from repro_torch.dist import spawn
+    from repro_torch.obs import export as obs_export
+
+    t0 = time.perf_counter()
+    cfg, params, dcfg, dparams = _spec_models()
+    one = {kv: mesh_opts_run(cfg, params, dcfg, dparams, kv) for kv in MESH_OPTS_KV}
+    del params, dparams
+    torch.cuda.empty_cache()
+    kernels.reset_fallback_stats()  # the plan's retries ran the reference
+    REFERENCE_CALLS.clear()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = spawn.run(mesh_opts_rank, 2, d, backend="gloo", timeout=300.0,
+                          join_timeout=600.0)
+        files = sorted(p.name for p in Path(d).iterdir() if p.suffix == ".json")
+        trace = obs_export.validate_trace(obs_export.load(f"{d}/train.json"))
+    total = collections.Counter()
+    bad = []
+    for kv in MESH_OPTS_KV:
+        want = one[kv]
+        pages = {}
+        for r in ranks:
+            got = r[kv]
+            total.update(got["launches"])
+            pages.update(got["pages"])
+            for key in ("out", "fired", "failed", "stats"):
+                if got[key] != want[key]:
+                    bad.append(f"{kv} rank {ranks.index(r)} {key}: {got[key]} != {want[key]}")
+            missing = [k for k in ("matmul_tiled", "paged_attention_prefill")
+                       if not got["launches"][k]]
+            if missing:
+                bad.append(f"{kv} rank {ranks.index(r)} launched no {missing}")
+        # bf16 decode rows run K2 where a rank holds a slot at a plain
+        # decode step; int8 pools run every attention call on K3
+        path = MESH_OPTS_PATH if kv == "bf16" else ("matmul_tiled", "paged_attention_prefill")
+        unused = [k for k in path if not sum(r[kv]["launches"][k] for r in ranks)]
+        if unused:
+            bad.append(f"{kv}: no rank launched {unused}")
+        if pages != want["pages"]:
+            bad.append(f"{kv}: {sum(pages.get(p) != h for p, h in want['pages'].items())} "
+                       f"pages differ from the one-device run's")
+        st = want["stats"]
+        if not (st["kernel_fallbacks"] >= 1 and st["quarantined_pages"] >= 1
+                and st["spec_rounds"] >= 1 and st["broadcast_chains"] >= 1):
+            bad.append(f"{kv}: the plan did not degrade the run: {st}")
+        emit(dict(check="mesh_options", kv_dtype=kv, arch=cfg.name, draft=dcfg.name,
+                  ranks="2 gloo ranks on one card", options=MESH_OPTS,
+                  fired=want["fired"], failed=want["failed"],
+                  equal_to_one_device=not bad, pages=len(want["pages"]),
+                  kernel_fallbacks=st["kernel_fallbacks"],
+                  quarantined_pages=st["quarantined_pages"],
+                  accept_rate=st["accept_rate"], spec_rounds=st["spec_rounds"],
+                  broadcast_chains=st["broadcast_chains"],
+                  launches_per_rank=[{k: v for k, v in r[kv]["launches"].items() if v}
+                                     for r in ranks],
+                  launches_one_device={k: v for k, v in want["launches"].items() if v},
+                  tokens_per_s=[r[kv]["tokens_per_s"] for r in ranks],
+                  tokens_per_s_one_device=want["tokens_per_s"],
+                  step_ms=[r[kv]["step_ms"] for r in ranks],
+                  step_ms_one_device=want["step_ms"],
+                  steps=want["steps"], card=card_line()))
+    if bad:
+        raise AssertionError("mesh options: " + "; ".join(bad)[:4000])
+
+    tr = [r["train"] for r in ranks]
+    spans = [(e["args"]["step"], e["args"]["rank"]) for e in trace["traceEvents"]
+             if e["name"] == "train.step"]
+    for r in tr:
+        total.update(r["launches"])
+    emit(dict(check="mesh_train_trace", arch=TRAIN_ARCH, mesh={"data": 2, "model": 1},
+              ranks="2 gloo ranks on one card", batch=[TRAIN_BATCH, TRAIN_SEQ],
+              losses_traced=tr[0]["traced"], losses_plain=tr[0]["plain"],
+              step_ms_traced=[s * 1e3 for s in tr[0]["traced_s"]],
+              step_ms_plain=[s * 1e3 for s in tr[0]["plain_s"]], trace_files=files,
+              step_spans=spans, events=len(trace["traceEvents"]), card=card_line()))
+    if files != ["train.json"] or spans != [(0, 0), (1, 0)] \
+            or any(r["traced"] != r["plain"] for r in tr) or tr[0]["plain"] != tr[1]["plain"]:
+        raise AssertionError(f"mesh training trace: files {files}, spans {spans}, losses "
+                             f"{[(r['traced'], r['plain']) for r in tr]}")
+    emit(dict(check="phase", phase=13, seconds=time.perf_counter() - t0))
+    return {k: total[k] for k in kernels.KERNELS}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False — this check needs a "
@@ -5204,6 +5466,7 @@ def main() -> None:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
 
+    dry = start_dryrun()  # phase 12d's host-only run, beside the build
     build_s = _build.build_all()
     emit(dict(check="build", seconds=build_s, flags=" ".join(_build.NVCC_FLAGS)))
     for kname in _build.KERNELS:
@@ -5298,10 +5561,16 @@ def main() -> None:
 
     # phase 12: compute over the model axis, the serving builders over a
     # mesh, the dry run
-    tp_launches = check_model_axis()
+    tp_launches = check_model_axis(dry)
     check_clean("phase 12")
+
+    # phase 13: the paged engine's options and the training launcher's
+    # --trace over a mesh of ranks
+    opts_launches = check_mesh_options()
+    check_clean("phase 13")
     launches = {k: serve_launches[k] + grad_launches[k] + scan_launches[k] + train_launches[k]
-                + trace_launches[k] + dist_launches[k] + tp_launches[k] for k in kernels.KERNELS}
+                + trace_launches[k] + dist_launches[k] + tp_launches[k] + opts_launches[k]
+                for k in kernels.KERNELS}
 
     kernels_line = []
     for kname in kernels.KERNELS:

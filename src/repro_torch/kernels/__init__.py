@@ -3,10 +3,14 @@ PyTorch version beside it, behind a schedule registry (see ``api.py``)."""
 from repro_torch.kernels.api import (  # noqa: F401
     ACTIVATIONS,
     KERNELS,
+    NON_FINITE,
     DispatchPolicy,
     FallbackStats,
+    KernelUnavailable,
     all_finite,
     call_with_fallback,
+    count_guarded_call,
+    device_lost,
     fallback_stats,
     get_policy,
     grouped_linear,

@@ -92,6 +92,7 @@ import dataclasses
 import functools
 import math
 import os
+import warnings
 from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
@@ -979,7 +980,7 @@ def all_finite(*tensors) -> bool:
     return all(not t.is_floating_point() or bool(torch.isfinite(t).all()) for t in tensors)
 
 
-def _device_lost() -> bool:
+def device_lost() -> bool:
     """True when the CUDA context can run no more work: a sticky error
     (an illegal address, a trap) fails every later call, the retry too."""
     if not torch.cuda.is_initialized():
@@ -1004,24 +1005,59 @@ def call_with_fallback(primary, reference, *args, check=None):
     the CUDA context unusable (a retry could not run).  A primary that
     writes its inputs in place must write only what the retry rewrites
     before reading it."""
-    _FALLBACK_STATS.calls += 1
     try:
         out = primary(*args)
     except KernelUnavailable:
+        count_guarded_call()
         raise
     except Exception as e:  # noqa: BLE001 — any other kernel failure degrades
-        if _device_lost():
+        if device_lost():
+            count_guarded_call()
             raise
-        _FALLBACK_STATS.raised += 1
-        _FALLBACK_STATS.last_error = f"{type(e).__name__}: {e}"
+        count_guarded_call(f"{type(e).__name__}: {e}")
     else:
         if check is None or check(out):
+            count_guarded_call()
             return out, False
+        count_guarded_call(NON_FINITE)
+    return reference(*args), True
+
+
+#: the reason :func:`count_guarded_call` records for a non-finite output
+NON_FINITE = "non-finite kernel output"
+
+
+def count_guarded_call(retry_reason: str | None = None) -> None:
+    """Count one guarded call in :func:`fallback_stats`; ``retry_reason``
+    (an error's text, or :data:`NON_FINITE`) when it completes on the
+    reference retry, which also leaves a ``kernel.fallback`` trace instant.
+    Also for callers that decide the retry themselves, as the paged
+    engine's mesh ranks do once they agree on it."""
+    _FALLBACK_STATS.calls += 1
+    if retry_reason is None:
+        return
+    if retry_reason == NON_FINITE:
         _FALLBACK_STATS.numeric_trips += 1
-        _FALLBACK_STATS.last_error = "non-finite kernel output"
+    else:
+        _FALLBACK_STATS.raised += 1
+    _FALLBACK_STATS.last_error = retry_reason
     _FALLBACK_STATS.fallbacks += 1
     rec = trace.active()
     if rec is not None:
-        rec.instant("kernel.fallback", cat="kernel",
-                    args={"error": _FALLBACK_STATS.last_error})
-    return reference(*args), True
+        rec.instant("kernel.fallback", cat="kernel", args={"error": retry_reason})
+
+
+# ---------------------------------------------------------------------------
+# deprecation shim support (the old per-kernel ops.py entry points)
+# ---------------------------------------------------------------------------
+
+_DEPRECATED_SEEN: set[str] = set()
+
+
+def warn_deprecated(name: str, replacement: str) -> None:
+    """One DeprecationWarning per entry point per process."""
+    if name in _DEPRECATED_SEEN:
+        return
+    _DEPRECATED_SEEN.add(name)
+    warnings.warn(f"repro_torch.kernels: {name} is deprecated; use {replacement}",
+                  DeprecationWarning, stacklevel=3)

@@ -22,8 +22,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
-#: why the paged engine's options that do not run over a mesh yet raise
-MESH_SERVE_ITEM = "ROADMAP Queue 1 item 13 (the paged engine's options over a mesh)"
+#: why the ServeLoop (``--server``) over a mesh raises
+MESH_SERVE_ITEM = "ROADMAP Queue 1 item 13 (the ServeLoop over a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)

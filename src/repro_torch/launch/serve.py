@@ -66,9 +66,11 @@ card on ``cuda`` — more ranks than cards raise, naming the count, with no
 fallback from NCCL to gloo.  Rank 0 returns the streams and the stats,
 which this process prints as the one-device run does (its stdout equals
 the JAX launcher's with ``--mesh`` on as many devices); ``--trace``
-records rank 0.  ``--mesh`` needs ``--kv paged``; with ``--server`` (the
-``ServeLoop``), ``--spec-k``, ``--kv-guard``, ``--kernel-fallback`` or
-``--chaos`` it raises ``NotImplementedError`` (``MESH_SERVE_ITEM``).
+records rank 0.  ``--mesh`` needs ``--kv paged``.  It takes ``--spec-k``
+with ``--draft-model`` (each rank builds the model draft's copy from the
+run's seed), ``--kv-guard``, ``--kernel-fallback`` and ``--chaos`` (the
+plan armed alike on every rank); with ``--server`` (the ``ServeLoop``) it
+raises ``NotImplementedError`` (``MESH_SERVE_ITEM``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
@@ -85,7 +87,8 @@ records rank 0.  ``--mesh`` needs ``--kv paged``; with ``--server`` (the
         --kv paged --shared-prefix 32 --trace /tmp/serve.json
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --reduced --device cpu --kv paged --shared-prefix 32 --num-shards 4 \\
-        --mcast-mode sw_tree --mesh
+        --mcast-mode sw_tree --mesh [--spec-k 2 --draft-model ngram] [--kv-guard] \\
+        [--kernel-fallback] [--chaos kernel.nan:0.2]
 """
 from __future__ import annotations
 
@@ -93,6 +96,7 @@ import argparse
 import contextlib
 import json
 import sys
+import traceback
 
 import numpy as np
 import torch
@@ -292,14 +296,6 @@ def _parse(argv: list[str] | None):
             f"{MESH_SERVE_ITEM}")
     serve_cfg = serve_config.from_args(
         args, max_slots=(args.max_slots or args.max_batch) if args.server else args.max_batch)
-    if args.mesh:
-        for flag, on in (("--spec-k", serve_cfg.spec_k), ("--kv-guard", serve_cfg.kv_guard),
-                         ("--kernel-fallback", serve_cfg.kernel_fallback),
-                         ("--chaos", serve_cfg.fault_plan() is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} over --mesh: the paged engine's option does not run over a mesh "
-                    f"yet: {MESH_SERVE_ITEM}")
     return args, serve_cfg
 
 
@@ -315,7 +311,7 @@ def main(argv: list[str] | None = None, *, params=None, draft_params=None,
     args, serve_cfg = _parse(argv)
     if args.mesh:
         return _serve_mesh(list(argv if argv is not None else sys.argv[1:]), args, serve_cfg,
-                           params, timeout, join_timeout)
+                           params, draft_params, timeout, join_timeout)
     cfg = get_config(args.arch, reduced=args.reduced)
     device = resolve(args.device)
     rec = _arm_trace(serve_cfg)
@@ -337,16 +333,9 @@ def _drive(args, cfg, serve_cfg, device, params, draft_params) -> list[Request]:
               else contextlib.nullcontext())
     with policy:
         if args.kv == "paged":
-            draft = None
-            if serve_cfg.spec_k and serve_cfg.draft_model != "ngram":
-                # the model draft: a second parameter set from the run's
-                # seed, so the whole configuration replays from the flags
-                dcfg = get_config(serve_cfg.draft_model, reduced=args.reduced)
-                if draft_params is None:
-                    draft_params = lm.init(dcfg, seed=serve_cfg.seed, device=device)
-                draft = (dcfg, draft_params)
             server = PagedEngine(cfg, params, config=serve_cfg, sampler=sampler,
-                                 draft=draft, device=device)
+                                 draft=_draft(args, serve_cfg, draft_params, device),
+                                 device=device)
         else:
             server = Server(cfg, params, max_batch=serve_cfg.max_slots, sampler=sampler,
                             device=device)
@@ -362,7 +351,20 @@ def _drive(args, cfg, serve_cfg, device, params, draft_params) -> list[Request]:
     return done
 
 
-def _serve_mesh(argv, args, serve_cfg, params, timeout, join_timeout) -> list[Request]:
+def _draft(args, serve_cfg, draft_params, device):
+    """The model draft's ``(cfg, params)`` when the flags ask for one:
+    ``draft_params`` (on ``device``), else a second parameter set from the
+    run's seed, so the whole configuration replays from the flags."""
+    if not serve_cfg.spec_k or serve_cfg.draft_model == "ngram":
+        return None
+    dcfg = get_config(serve_cfg.draft_model, reduced=args.reduced)
+    if draft_params is None:
+        draft_params = lm.init(dcfg, seed=serve_cfg.seed, device=device)
+    return dcfg, draft_params
+
+
+def _serve_mesh(argv, args, serve_cfg, params, draft_params, timeout,
+                join_timeout) -> list[Request]:
     """``--mesh``: ``--num-shards`` ranks serve the requests together (rank
     0's streams and stats come back); printed as the one-device run
     prints them."""
@@ -374,17 +376,23 @@ def _serve_mesh(argv, args, serve_cfg, params, timeout, join_timeout) -> list[Re
     backend = "nccl" if resolve(args.device).type == "cuda" else "gloo"
     if timeout is None:
         timeout = dist.default_pg_timeout.total_seconds()
-    done, stats = spawn.run(_mesh_rank, serve_cfg.num_shards, argv, params, backend=backend,
-                            timeout=timeout, join_timeout=join_timeout)[0]
+    got = spawn.run(_mesh_rank, serve_cfg.num_shards, argv, params, draft_params,
+                    backend=backend, timeout=timeout, join_timeout=join_timeout)[0]
+    if isinstance(got, Exception):
+        raise got
+    done, stats = got
     print_request_lines(done)
     print(f"# paged kv stats: {stats}", file=sys.stderr)
     return done
 
 
-def _mesh_rank(argv: list[str], params=None):
+def _mesh_rank(argv: list[str], params=None, draft_params=None):
     """One rank of ``--mesh``: the paged engine over the 1-D mesh of every
-    rank, serving the seeded requests; rank 0 returns (the finished
-    requests, ``stats()``) and records the trace, the others None."""
+    rank, serving the seeded requests under the run's fault plan (armed
+    alike on every rank); rank 0 returns (the finished requests,
+    ``stats()``) and records the trace, the others None.  Every rank takes
+    the same host decisions, so an error the run raises is raised on every
+    rank alike: rank 0 returns it, for the launcher to raise."""
     from repro_torch.launch.mesh import bind, make_serve_mesh
 
     args, serve_cfg = _parse(argv)
@@ -397,17 +405,26 @@ def _mesh_rank(argv: list[str], params=None):
         params = lm.init(cfg, seed=serve_cfg.seed, device=device)
     else:
         params = tree.map_structure(lambda t: t.to(device), params)
+    if draft_params is not None:
+        draft_params = tree.map_structure(lambda t: t.to(device), draft_params)
     rec = _arm_trace(serve_cfg) if mesh.rank == 0 else None
     try:
         policy = (kernels.use_policy(args.kernel_policy) if args.kernel_policy
                   else contextlib.nullcontext())
         with policy:
             engine = PagedEngine(cfg, params, config=serve_cfg,
-                                 sampler=get_sampler(serve_cfg.sampler), device=device, mesh=mesh)
+                                 sampler=get_sampler(serve_cfg.sampler),
+                                 draft=_draft(args, serve_cfg, draft_params, device),
+                                 device=device, mesh=mesh)
             with serve_cfg.fault_plan() or contextlib.nullcontext():
                 done = engine.run(make_requests(cfg, n=args.requests, max_new=args.max_new,
                                                 shared_prefix=args.shared_prefix,
                                                 seed=serve_cfg.seed))
+    except Exception as e:  # noqa: BLE001 — raised by the launcher, as on one device
+        if mesh.rank != 0:
+            return None
+        traceback.print_exc()  # the rank's traceback; the exception crosses alone
+        return e
     finally:
         if rec is not None:
             _finish_trace(rec, serve_cfg.trace)

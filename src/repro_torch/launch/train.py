@@ -24,7 +24,9 @@ checkpoint step N`` and ``done; final loss …``.  As in the JAX launcher:
 run and writes its Chrome/Perfetto trace at ``PATH`` (``.jsonl``: one
 event per line) when the loop ends or raises: one ``dispatch.<op>`` span
 per kernel call (the port dispatches eagerly, where the JAX launcher's
-trace holds one per compiled program), then ``wrote trace …``.
+trace holds one per compiled program), then ``wrote trace …``.  On a
+mesh rank 0 records and writes the one file, as the serving launcher's
+``--mesh --trace`` does.
 
 ``--mesh-data D --mesh-model M`` trains on a D x M mesh
 (``launch/mesh.py``), one rank per mesh position, through the mesh step
@@ -80,6 +82,7 @@ from repro_torch.dist.step import build_train_step
 from repro_torch.launch.mesh import bind, make_debug_mesh
 from repro_torch.models import lm
 from repro_torch.nn.spec import abstract_params
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 
 
@@ -177,6 +180,8 @@ def train_loop(args, *, params=None) -> dict:
             if args.simulate_failure_at is not None and step == args.simulate_failure_at:
                 raise RuntimeError(f"simulated node failure at step {step}")
             t_step = time.perf_counter()
+            rec = obs_trace.active()
+            t_rec = rec.now() if rec is not None else 0.0
             if mesh is None:
                 batch = pipeline.batch(data_cfg, step, device)
             else:
@@ -188,6 +193,9 @@ def train_loop(args, *, params=None) -> dict:
                 params, opt_state, loss, metrics = bundle.fn(params, opt_state, batch, step)
             losses.append(float(loss))
             step_s.append(time.perf_counter() - t_step)
+            if rec is not None:
+                rec.complete("train.step", t_rec, cat="train",
+                             args={"step": step, "rank": 0 if mesh is None else mesh.rank})
             if step % args.log_every == 0:
                 log(f"step {step:5d} loss {float(loss):.4f} "
                     f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -212,7 +220,7 @@ def _rank_main(argv: list[str], params=None) -> dict | None:
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
         params = tree.map_structure(lambda t: t.to(device), params)
-    out = train_loop(args, params=params)
+    out = _traced_loop(args, params)
     if dist.get_rank() != 0:
         return None
     return {k: v for k, v in out.items() if k != "params"}
@@ -260,9 +268,6 @@ def main(argv: list[str] | None = None, *, params=None, timeout: float | None = 
     args = parser().parse_args(argv)
     world = args.mesh_data * args.mesh_model
     if world > 1 and not _in_process_group():
-        if args.trace:
-            raise ValueError("--trace and its recorder take one process; a mesh of "
-                             f"{world} starts {world}")
         from repro_torch.launch.train import _rank_main  # by name, also under -m
 
         backend = "nccl" if resolve(args.device).type == "cuda" else "gloo"
@@ -274,21 +279,33 @@ def main(argv: list[str] | None = None, *, params=None, timeout: float | None = 
                         join_timeout=join_timeout)[0]
         print(f"done; final loss {out['final_loss']:.4f}")
         return out
-    if args.trace:
-        from repro_torch.obs import export as obs_export
-        from repro_torch.obs import trace as obs_trace
-
-        rec = obs_trace.start(meta={"tool": "launch.train", "seed": args.seed})
-        try:
-            out = train_loop(args, params=params)
-        finally:
-            obs_trace.stop()
-            obs_export.write(rec, args.trace)
-            print(f"wrote trace {args.trace} ({len(rec)} events)")
-    else:
-        out = train_loop(args, params=params)
+    out = _traced_loop(args, params)
     print(f"done; final loss {out['final_loss']:.4f}")
     return out
+
+
+def _traced_loop(args, params) -> dict:
+    """:func:`train_loop`, recorded to ``--trace`` where given: on one
+    device, or on rank 0 of a mesh (the other ranks record nothing)."""
+    if not args.trace or (_in_process_group() and _rank() != 0):
+        return train_loop(args, params=params)
+    from repro_torch.obs import export as obs_export
+
+    rec = obs_trace.start(meta={"tool": "launch.train", "seed": args.seed,
+                                "mesh": {"data": args.mesh_data, "model": args.mesh_model}})
+    try:
+        return train_loop(args, params=params)
+    finally:
+        obs_trace.stop()
+        obs_export.write(rec, args.trace)
+        print(f"wrote trace {args.trace} ({len(rec)} events)")
+
+
+def _rank() -> int:
+    """This process's rank in the group it is in or will join."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else int(os.environ.get("RANK", "0"))
 
 
 if __name__ == "__main__":

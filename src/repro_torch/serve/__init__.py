@@ -32,6 +32,7 @@ from repro_torch.serve.config import (  # noqa: F401
 )
 from repro_torch.serve.engine import (  # noqa: F401
     MAX_DEGRADE_REQUEUES,
+    MeshStepFailed,
     PagedEngine,
     Request,
 )
@@ -41,6 +42,7 @@ from repro_torch.serve.guard import (  # noqa: F401
     PageFingerprints,
     blob_checksum,
     check_pool,
+    page_checksums,
 )
 from repro_torch.serve.loadgen import Arrival, LoadGen  # noqa: F401
 from repro_torch.serve.metrics import (  # noqa: F401

@@ -126,12 +126,45 @@ device tensor.  A slot belongs to the rank of its shard:
   decode step; a mirror a slot writes is sent home after the step) move
   by point-to-point sends.
 
-Speculation, ``kv_guard``, the kernel fallback, fault plans and the
-``ServeLoop`` raise ``NotImplementedError`` on a mesh (``MESH_SERVE_ITEM``).
+Every option runs over a mesh by one rule: every rank calls the same
+collectives in the same order on every path, the failing ones included,
+and a verdict that depends on device bytes is computed on the rank that
+holds them and shared in one small all-reduce, so every rank takes the
+same host decision from it:
+
+* **speculation**: the verify step runs as the decode step does (mirrors
+  refreshed first, the owner's slots carrying a block table, run where the
+  rank holds a slot); the owners' ``target`` rows and accept counts reach
+  every rank in one all-reduce, every page the ``k + 1`` rows wrote that is
+  a mirror goes home, and a rollback drops the mirrors of the pages it
+  releases.  An n-gram draft reads only the token history, alike on every
+  rank; a model draft runs on every rank and each slot's drafts come from
+  its owner's run, shared in one all-reduce before the verify step;
+* **the page guard**: a page's fingerprint is recorded and verified on
+  the rank that holds the page, and the set of bad pages is shared, so
+  every rank quarantines the same chain; an injected corruption flips the
+  page on its home rank and in every mirror of it; a swap blob's checksum
+  is taken and checked on the rank holding the blob, and its "lost"
+  verdict at swap-in is shared;
+* **the kernel fallback and fault plans**: every rank consults
+  ``kernel.raise`` and ``kernel.nan`` once per model step, also where it
+  has no part in the step, so a plan armed alike on every rank fires
+  alike; after the step one all-reduce shares whether it raised or gave
+  non-finite logits anywhere, and if so every rank that runs the step
+  retries it on the reference backend (``n_fallback`` agrees).  A failure
+  that is not retried (a kernel that cannot be built or launched, any
+  error without ``kernel_fallback``) ends every rank with the same
+  :class:`MeshStepFailed` rather than leaving the others waiting in their
+  next collective; an injected raise without the fallback fires on every
+  rank and raises JAX's ``InjectedFault`` there.
+
+``ServeLoop`` over a mesh raises ``NotImplementedError``
+(``MESH_SERVE_ITEM``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from collections import Counter
 
@@ -141,7 +174,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.device import DEFAULT, resolve
 from repro_torch.dist import mcast
-from repro_torch.launch.mesh import MESH_SERVE_ITEM
+from repro_torch.kernels import KernelUnavailable
 from repro_torch.models import lm
 from repro_torch.obs import trace
 from repro_torch.serve import faults, guard, sampling, spec
@@ -159,6 +192,12 @@ MAX_DEGRADE_REQUEUES = 8
 # sentinel: _swap_in found the swap blob missing/corrupt (distinct from
 # an admission Rejected — the caller degrades to a replay re-prefill)
 _SWAP_LOST = object()
+
+
+class MeshStepFailed(RuntimeError):
+    """A model step of a mesh engine failed on some rank and is not
+    retried: raised on every rank of the mesh, naming the step and the
+    ranks it failed on (chained to the error on those ranks)."""
 
 
 @dataclasses.dataclass
@@ -329,15 +368,11 @@ class PagedEngine:
         if self.num_shards % n:
             raise ValueError(f"{n} ranks along {axis!r} do not divide num_shards="
                              f"{self.num_shards}: each rank holds whole shards")
-        if (mesh.device_type == "cuda") != (self.device.type == "cuda"):
+        if mesh.device_type == "cuda" and self.device.type != "cuda":
+            # NCCL carries CUDA tensors only; gloo carries both (its ranks
+            # may share one card)
             raise ValueError(f"a mesh on {mesh.device_type} cannot hold an engine on "
                              f"{self.device}")
-        for name, on in (("speculation (spec_k)", config.spec_k), ("kv_guard", config.kv_guard),
-                         ("kernel_fallback", config.kernel_fallback)):
-            if on:
-                raise NotImplementedError(
-                    f"PagedEngine(mesh=): {name} does not run over a mesh yet: "
-                    f"{MESH_SERVE_ITEM}")
         self.n_ranks, self.rank = n, mesh.coords[axis]
         self._group = mesh.group(axis)  # None on one rank: the one-rank world
         if self._group is None:
@@ -347,11 +382,6 @@ class PagedEngine:
 
             self._ranks = dist.get_process_group_ranks(self._group)
         self._bcast = mcast.make_broadcast_fn(mesh, None, None, self.mcast_mode, axis=axis)
-
-    def _refuse_faults(self) -> None:
-        if self.mesh is not None and faults.active() is not None:
-            raise NotImplementedError(
-                f"PagedEngine(mesh=): fault plans do not run over a mesh yet: {MESH_SERVE_ITEM}")
 
     def _rank_of_shard(self, shard: int) -> int:
         """The rank index holding ``shard`` (0 on one device); a slot
@@ -429,6 +459,13 @@ class PagedEngine:
         t = torch.as_tensor(tokens, dtype=torch.int32, device=self.device)
         dist.all_reduce(t, group=self._group)
         return t.cpu().numpy()
+
+    def _share_rows(self, rows: np.ndarray, mine: list[int]) -> np.ndarray:
+        """``rows`` (one row per slot) with each slot's row taken from the
+        rank that owns the slot: one all-reduce."""
+        own = np.zeros_like(rows, dtype=np.int32)
+        own[mine] = rows[mine]
+        return self._share(own)
 
     def _mirror_page(self) -> int:
         """A free local page past this rank's own pages for a mirror; the
@@ -556,37 +593,112 @@ class PagedEngine:
 
     def _skip(self, name: str) -> None:
         """A model step this mesh rank has no part in: counted (the count
-        is the logical one, the same on every rank), not run."""
-        self.kernel_calls[name] += 1
+        is the logical one, the same on every rank) and taken through the
+        step's fault sites and shared verdict, not run."""
+        self._dispatch(name)
 
     def _dispatch(self, name: str, *args):
         """Run one model step (``decode`` / ``verify`` / ``cold_prefill`` /
         ``suffix_prefill``) through the fault-injection sites and — when
         ``kernel_fallback`` is armed — the retry-once-on-reference path
-        with the non-finite-logits check; counted and traced."""
-        fn = self._steps[name]
-
-        def primary(*a):
-            if faults.fires("kernel.raise") is not None:
-                raise faults.InjectedFault(f"injected kernel fault in {name}")
-            out = fn(*a)
-            if faults.fires("kernel.nan") is not None:
-                out = torch.full_like(out, float("nan"))
-            return out
-
+        with the non-finite-logits check; counted and traced.  Over a mesh
+        no ``args`` means this rank has no part in the step
+        (:meth:`_dispatch_mesh`)."""
         self.kernel_calls[name] += 1
         rec = trace.active()
         t0 = rec.now() if rec is not None else 0.0
-        if not self.kernel_fallback:
-            out, fell_back = primary(*args), False
+        if self.mesh is not None:
+            out, fell_back = self._dispatch_mesh(name, args)
+        elif not self.kernel_fallback:
+            out, fell_back = self._primary(name, *args), False
         else:
             out, fell_back = kernels.call_with_fallback(
-                primary, self._ref_variant(name), *args, check=kernels.all_finite)
-            if fell_back:
-                self.n_fallback += 1
-        if rec is not None:
+                functools.partial(self._primary, name), self._ref_variant(name), *args,
+                check=kernels.all_finite)
+        if fell_back:
+            self.n_fallback += 1
+        if rec is not None and args:
             rec.complete(f"engine.{name}", t0, cat="kernel", args={"fallback": fell_back})
         return out
+
+    def _primary(self, name: str, *args):
+        """The model step on its kernels, through the ``kernel.raise`` and
+        ``kernel.nan`` sites."""
+        if faults.fires("kernel.raise") is not None:
+            raise faults.InjectedFault(f"injected kernel fault in {name}")
+        out = self._steps[name](*args)
+        if faults.fires("kernel.nan") is not None:
+            out = torch.full_like(out, float("nan"))
+        return out
+
+    def _dispatch_mesh(self, name: str, args: tuple):
+        """:meth:`_dispatch` over a mesh: ``(out, fell_back)``, ``out`` None
+        on a rank with no part in the step (empty ``args``).
+
+        Every rank takes the sites in :meth:`_primary`'s order, so one plan
+        armed on every rank fires alike on each.  After the step one
+        all-reduce shares, per rank, whether the step failed beyond a retry
+        (then every rank raises :class:`MeshStepFailed`), and whether it
+        raised or, under ``kernel_fallback``, gave non-finite logits; then
+        every rank that runs the step retries it on the reference backend
+        if any rank needs it, as the one-device engine retries the whole
+        batch."""
+        if faults.fires("kernel.raise") is not None:  # the same hit on every rank
+            if not self.kernel_fallback:
+                raise faults.InjectedFault(f"injected kernel fault in {name}")
+            return self._retry(name, args, f"InjectedFault: injected kernel fault in {name}")
+        out, err = None, None
+        if args:
+            try:
+                out = self._steps[name](*args)
+            except Exception as e:  # noqa: BLE001 — shared below, raised or retried
+                err = e
+        fatal = err is not None and (not self.kernel_fallback
+                                     or isinstance(err, KernelUnavailable)
+                                     or kernels.device_lost())
+        raised = err is not None and not fatal
+        bad = out is not None and self.kernel_fallback and not kernels.all_finite(out)
+        raised, bad = self._agree(name, err if fatal else None, raised, bad)
+        if raised:
+            return self._retry(name, args, f"{type(err).__name__}: {err}" if err is not None
+                               else "raised on another rank")
+        if faults.fires("kernel.nan") is not None:
+            if out is not None:
+                out = torch.full_like(out, float("nan"))
+            bad = self.kernel_fallback
+        if bad:
+            return self._retry(name, args, kernels.NON_FINITE)
+        if self.kernel_fallback:
+            kernels.count_guarded_call()
+        return out, False
+
+    def _agree(self, name: str, fatal: BaseException | None, *flags: bool) -> list[bool]:
+        """One all-reduce over the mesh axis: raise :class:`MeshStepFailed`
+        on every rank if step ``name`` failed beyond a retry on any rank
+        (``fatal`` there); else each of ``flags`` or-ed over the ranks."""
+        v = np.zeros(self.n_ranks + len(flags), np.int32)
+        v[self.rank] = fatal is not None
+        v[self.n_ranks:] = flags
+        v = self._share(v)
+        failed = [r for r in range(self.n_ranks) if v[r]]
+        if failed:
+            raise MeshStepFailed(f"model step {name!r} failed on mesh rank(s) {failed} and is "
+                                 f"not retried; every rank stops") from fatal
+        return [bool(x) for x in v[self.n_ranks:]]
+
+    def _retry(self, name: str, args: tuple, why: str):
+        """The step on the reference backend, where this rank runs it; the
+        ranks agree that it ran (the one-device engine's unguarded retry
+        raises its error: here every rank raises :class:`MeshStepFailed`)."""
+        kernels.count_guarded_call(why)
+        out, err = None, None
+        if args:
+            try:
+                out = self._ref_variant(name)(*args)
+            except Exception as e:  # noqa: BLE001 — shared below
+                err = e
+        self._agree(f"{name} (reference retry)", err)
+        return out, True
 
     def _cold_prefill(self, toks, li, table_row, length):
         logits, dense = lm.prefill(self.params, self.cfg, toks, logit_index=li)
@@ -611,7 +723,6 @@ class PagedEngine:
     def _admit(self, req: Request) -> bool | Rejected:
         """Admit a queued request: ``True`` on success, a falsy typed
         :class:`Rejected` otherwise."""
-        self._refuse_faults()
         rec = trace.active()
         if rec is None:
             return self._admit_impl(req)
@@ -653,7 +764,7 @@ class PagedEngine:
         shared, n_matched = self.prefix.match(tokens, shard)
         remote = self.prefix.remote_continuation(tokens, shard, len(shared))
         if self.kv_guard and (shared or remote):
-            bad = self.fp.verify(self.caches, shared + [pid for _, pid in remote])
+            bad = self._verify_pages(shared + [pid for _, pid in remote])
             if bad:
                 # corruption caught at the sharing point: quarantine the
                 # chain (and its poisoned readers) instead of letting it
@@ -682,7 +793,7 @@ class PagedEngine:
             self._broadcast_chain([pid for _, pid in remote], got)
             self.prefix.commit_broadcast([n for n, _ in remote], shard, got)
             if self.kv_guard:
-                self.fp.record(self.caches, got)
+                self.fp.record(self.caches, got, self._held)
             shared = shared + got
             n_matched += len(got) * self.page_size
             # the commit is durable even if the admission later unwinds
@@ -733,7 +844,7 @@ class PagedEngine:
         self.prefix.insert(tokens, pages, shard)
         n_tree = len(tokens) // self.page_size
         if self.kv_guard and n_tree:
-            self.fp.record(self.caches, pages[:n_tree])
+            self.fp.record(self.caches, pages[:n_tree], self._held)
         f = faults.fires("page.corrupt")
         if f is not None and n_tree:
             # flip bytes in one page of the chain this admission cached:
@@ -763,13 +874,35 @@ class PagedEngine:
             raise guard.GuardViolation(
                 f"{what} changed page refcounts: {delta} (page: (before, after))")
 
+    def _held(self, pid: int) -> int | None:
+        """Global page ``pid``'s index in this rank's pool tensors where
+        this rank holds it as its own, else None (the whole pool on one
+        device)."""
+        if self.mesh is None:
+            return pid
+        return self._home_id(pid) if self._rank_of(pid) == self.rank else None
+
+    def _verify_pages(self, ids: list[int]) -> list[int]:
+        """The pages of ``ids`` whose fingerprint no longer matches: over a
+        mesh each rank verifies the pages it holds and one all-reduce
+        shares the verdict, so every rank quarantines alike."""
+        bad = self.fp.verify(self.caches, ids, self._held)
+        if self.mesh is None:
+            return bad
+        mask = self._share(np.asarray([pid in bad for pid in ids], np.int32))
+        return [pid for pid, m in zip(ids, mask) if m]
+
     def _corrupt_page(self, pid: int) -> None:
         """Injected corruption (``page.corrupt``): add 1 to the first
         element of page ``pid`` of every pool tensor, every layer and kv
-        head — the bit-flip stand-in the fingerprint verify must catch."""
+        head — the bit-flip stand-in the fingerprint verify must catch.
+        Over a mesh, on the page's home rank and in every mirror of it,
+        so it reads corrupt wherever a slot reads it."""
+        ids = [i for i in (self._held(pid), self._mirror.get(pid)) if i is not None]
         for c in self.caches:
             for t in c:
-                t[:, pid, 0, 0] += 1
+                for i in ids:
+                    t[:, i, 0, 0] += 1
 
     def _quarantine(self, bad_pages: list[int]) -> None:
         """Drop the corrupted chain from the prefix tree and requeue any
@@ -794,7 +927,7 @@ class PagedEngine:
         ``MAX_DEGRADE_REQUEUES`` the request fails with a typed error
         instead of cycling forever."""
         st = self.slots.pop(slot)
-        self.pool.release(st.pages)
+        self._release(st.pages)
         st.req._swap = None
         st.req._requeues += 1
         if st.req._requeues > MAX_DEGRADE_REQUEUES:
@@ -818,13 +951,13 @@ class PagedEngine:
             data = [tuple(t[:, ids].cpu() for t in c) for c in self.caches]
         if faults.fires("swap.drop") is not None:
             data = None  # injected loss of the host swap blob
-        checksum = guard.blob_checksum(data) if self.kv_guard and data is not None else None
+        checksum = self._blob_checksum(data) if self.kv_guard and data is not None else None
         st.req._swap = (data, len(st.pages), st.length, st.last_tok, checksum)
         rec = trace.active()
         if rec is not None:
             rec.instant("engine.preempt", cat="engine",
                         args={"rid": st.req.rid, "pages": len(st.pages), "shard": st.shard})
-        self.pool.release(st.pages)
+        self._release(st.pages)
         self._requeue.append(st.req)
         self.n_preempted += 1
 
@@ -835,7 +968,7 @@ class PagedEngine:
         data, n_pages, length, last_tok, checksum = req._swap
         if data is None:
             return _SWAP_LOST
-        if checksum is not None and guard.blob_checksum(data) != checksum:
+        if checksum is not None and self._blob_lost(data, checksum):
             return _SWAP_LOST
         shard = self._pick_shard(req)  # swap-in re-routes like any admission
         rej = self.sched.check_admission(n_pages, shard)
@@ -866,6 +999,22 @@ class PagedEngine:
                                  last_tok=last_tok, admit_seq=self._admit_seq, shard=shard)
         self._admit_seq += 1
         return True
+
+    def _blob_checksum(self, data) -> int:
+        """A swap blob's checksum, over a mesh taken on the rank holding
+        the blob (0 elsewhere, never read)."""
+        if self.mesh is None:
+            return guard.blob_checksum(data)
+        return guard.blob_checksum(data.buf) if data.buf is not None else 0
+
+    def _blob_lost(self, data, checksum: int) -> bool:
+        """True when a swap blob no longer matches its checksum: over a
+        mesh, checked where the blob is held and shared in one
+        all-reduce."""
+        if self.mesh is None:
+            return guard.blob_checksum(data) != checksum
+        lost = data.buf is not None and guard.blob_checksum(data.buf) != checksum
+        return bool(self._share(np.asarray([lost], np.int32))[0])
 
     def _send_blob(self, blob: _MeshBlob, owner: int, dst: list[int]) -> None:
         """A swap blob from the rank holding it into pages ``dst`` of rank
@@ -985,7 +1134,6 @@ class PagedEngine:
     # -- main loop ----------------------------------------------------------
     def step(self) -> list[Request]:
         """One decode step over the active batch; returns finished requests."""
-        self._refuse_faults()
         rec = trace.active()
         if rec is None:
             return self._step_impl()
@@ -1041,22 +1189,40 @@ class PagedEngine:
             st.req.out.append(st.last_tok)
             if len(st.req.out) >= st.req.max_new:
                 finished.append(st.req)
-                self.pool.release(st.pages)
+                self._release(st.pages)
                 del self.slots[slot]
         return finished
 
-    def _write_back(self) -> None:
-        """After a decode step over a mesh: the page each slot just wrote,
-        where it is a mirror (a forked slot's own copy of its parent's last
-        page, exclusively held), back to its home rank."""
+    def _write_back(self, n: int = 1) -> None:
+        """After a decode (``n = 1``) or verify (``n = k + 1``) step over a
+        mesh: every page a slot's ``n`` rows just wrote, where it is a
+        mirror (a forked slot's own copy of its parent's pages, exclusively
+        held), back to its home rank."""
         items = []
         for st in self.slots.values():
-            pid = st.pages[st.length // self.page_size]
-            a, home = self._rank_of_shard(st.shard), self._rank_of(pid)
-            if a != home:
-                src = self._mirror[pid] if a == self.rank else None
-                items.append((a, [src], home, [self._home_id(pid)]))
+            a = self._rank_of_shard(st.shard)
+            for i in range(st.length // self.page_size,
+                           (st.length + n - 1) // self.page_size + 1):
+                pid = st.pages[i]
+                home = self._rank_of(pid)
+                if a != home:
+                    src = self._mirror[pid] if a == self.rank else None
+                    items.append((a, [src], home, [self._home_id(pid)]))
         self._move(items)
+
+    def _release(self, pages: list[int]) -> None:
+        """Release a slot's references to ``pages``; over a mesh, drop
+        every rank's mirror of a page this frees, so a later reader of the
+        page, once reallocated, is sent its new bytes."""
+        self.pool.release(pages)
+        if self.mesh is None:
+            return
+        for pid in pages:
+            if self.pool.refcount(pid) == 0:
+                for mirrored in self._mirrored:
+                    mirrored.discard(pid)
+                if pid in self._mirror:
+                    self._mirror_free.append(self._mirror.pop(pid))
 
     def _step_spec(self, k: int) -> list[Request]:
         """One speculative verify-accept round: the draft proposes ``k``
@@ -1082,11 +1248,16 @@ class PagedEngine:
                 self._ensure_writable(slot, k + 1)
         if not self.slots:
             return []
+        self._refresh_mirrors()
         views = {slot: spec.SlotView(rid=st.req.rid,
                                      tokens=tuple(st.req.prompt) + tuple(st.req.out),
                                      length=st.length)
                  for slot, st in self.slots.items()}
+        mine = [slot for slot, st in self.slots.items()
+                if self._rank_of_shard(st.shard) == self.rank]
         drafts = np.asarray(self.spec.propose(views, k), np.int32)
+        if self.mesh is not None and not isinstance(self.spec, spec.NgramDraft):
+            drafts = self._share_rows(drafts, mine)  # each slot's drafts from its owner
         toks = np.zeros((self.max_batch, k + 1), np.int64)
         index = np.zeros(self.max_batch, np.int64)
         lengths = np.zeros(self.max_batch, np.int32)
@@ -1096,12 +1267,22 @@ class PagedEngine:
             toks[slot, 1:] = drafts[slot]
             index[slot] = st.length
             lengths[slot] = st.length + k + 1
-            table[slot] = self._table_row(st.pages)
+            if slot in mine:  # another rank's slot writes and reads the null page
+                table[slot] = self._table_row(st.pages)
         logits = self._dispatch(
             "verify", self._tensor(toks), self._tensor(index),
-            self._tensor(table), self._tensor(lengths))
-        target = self.sampler.select(logits)  # (max_batch, k + 1)
-        accepted = self.sampler.verify(drafts, target)
+            self._tensor(table), self._tensor(lengths)) if mine else self._skip("verify")
+        if self.mesh is None:
+            target = self.sampler.select(logits)  # (max_batch, k + 1)
+            accepted = self.sampler.verify(drafts, target)
+        else:  # the owners' rows and accept counts to every rank
+            both = np.zeros((self.max_batch, k + 2), np.int32)
+            if mine:
+                both[:, :k + 1] = self.sampler.select(logits)
+                both[:, k + 1] = self.sampler.verify(drafts, both[:, :k + 1])
+            both = self._share_rows(both, mine)
+            target, accepted = both[:, :k + 1], both[:, k + 1]
+            self._write_back(k + 1)
         finished = []
         new_lengths: dict[int, int] = {}
         n_accepted = n_committed = n_rollback_pages = 0
@@ -1118,7 +1299,7 @@ class PagedEngine:
             # release the pages only the rejected tail reached
             keep = (st.length - 1) // self.page_size + 1
             if keep < len(st.pages):
-                self.pool.release(st.pages[keep:])
+                self._release(st.pages[keep:])
                 n_rollback_pages += len(st.pages) - keep
                 self.n_spec_rollback_pages += len(st.pages) - keep
                 del st.pages[keep:]
@@ -1126,7 +1307,7 @@ class PagedEngine:
                 self.n_spec_rollbacks += 1
             if len(st.req.out) >= st.req.max_new:
                 finished.append(st.req)
-                self.pool.release(st.pages)
+                self._release(st.pages)
                 del self.slots[slot]
                 self.spec.forget(slot)
             else:
@@ -1143,7 +1324,6 @@ class PagedEngine:
 
     def run(self, requests: list[Request]) -> list[Request]:
         """Serve ``requests`` to completion; returns them as they finish."""
-        self._refuse_faults()
         queue = list(requests)
         done: list[Request] = []
         stall = 0  # consecutive empty-batch rounds with a rejected head

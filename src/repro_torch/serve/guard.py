@@ -13,18 +13,28 @@ This module is the detection layer:
   exact cross-count of every page's refcount against who actually holds
   it.  A rejected admission, a preemption, a quarantine must all leave
   this audit green.
-* :class:`PageFingerprints` — optional (``kv_guard``) content checksums:
-  one fp32 reduction over the whole pool per record/verify call, indexed
-  by page id.  Recorded when a chain enters the prefix tree and verified
-  **at the sharing point** (a prefix hit), so corruption of a shared
-  chain is caught before it fans out to a new consumer — the engine
-  quarantines that chain instead of letting it poison every request
-  that shares the prefix.
+* :class:`PageFingerprints` — optional (``kv_guard``) content checksums
+  of the named pages, keyed by page id.  Recorded when a chain enters the
+  prefix tree and verified **at the sharing point** (a prefix hit), so
+  corruption of a shared chain is caught before it fans out to a new
+  consumer — the engine quarantines that chain instead of letting it
+  poison every request that shares the prefix.
 * :func:`blob_checksum` — the same tripwire over a preemption swap blob
   on the host, recorded at swap-out and verified before swap-in.
 
-A checksum is a deterministic reduction (same bytes and shapes, same
-sum), not a cryptographic hash: a tripwire for bit flips and mis-writes.
+A checksum is the sum of the elements' bit patterns read as integers:
+exact, so it is the same on any device, in any reduction order and at
+any pool size, but not a cryptographic hash — a tripwire for bit flips
+and mis-writes.
+
+**Over a mesh of ranks** (``PagedEngine(mesh=)``) each rank holds only
+its shards' pages.  The engine passes ``local=``, which maps a page id to
+the page's index on this rank, or to None where another rank holds it:
+a rank records and verifies only the pages it holds, so a page's
+fingerprint lives on its home rank.  The engine then sums every rank's
+bad pages in one all-reduce, and every rank quarantines the same chain.
+A swap blob's checksum is taken and checked on the rank holding the
+blob, and the engine shares its "lost" verdict the same way.
 """
 from __future__ import annotations
 
@@ -114,15 +124,27 @@ def check_pool(pool, holders: Iterable[Sequence[int]] | None = None) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _page_sums(caches) -> np.ndarray:
-    """Per-page |sum| over every pool tensor of every layer (K, V and, in
-    int8 pools, their scales), fp32: each tensor is (kv_heads, pages,
-    page_size, ·), so every axis but 1 is reduced.  One host copy."""
-    total = None
+def _bits(t):
+    """``t``'s elements' bit patterns as int64 (any dtype)."""
+    import torch
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(ints[t.element_size()]).to(torch.int64)
+
+
+def page_checksums(caches, ids: Sequence[int]) -> np.ndarray:
+    """The checksum of each page ``ids`` (indices into the pool tensors)
+    over every pool tensor of every layer (K, V and, in int8 pools, their
+    scales): each tensor is (kv_heads, pages, page_size, ·), so every axis
+    but 1 is summed.  One host copy."""
+    import torch
+
+    first = caches[0][0]
+    idx = torch.as_tensor(list(ids), dtype=torch.long, device=first.device)
+    total = torch.zeros(len(idx), dtype=torch.int64, device=first.device)
     for layer in caches:
         for t in layer:
-            s = t.float().abs().sum(dim=(0, 2, 3))
-            total = s if total is None else total + s
+            total += _bits(t.index_select(1, idx)).sum(dim=(0, 2, 3))
     return total.cpu().numpy()
 
 
@@ -131,34 +153,42 @@ class PageFingerprints:
 
     ``record(caches, page_ids)`` snapshots the named pages' checksums;
     ``verify(caches, page_ids)`` returns the ids whose bytes no longer
-    match.  One whole-pool reduction per call — page chains are recorded
-    and verified at admission, never inside the decode loop."""
+    match.  Both read only the named pages — page chains are recorded and
+    verified at admission, never inside the decode loop.  ``local`` maps a
+    page id to its index in ``caches``, None for a page this process does
+    not hold (skipped); by default the id is the index."""
 
     def __init__(self):
-        self._fp: dict[int, float] = {}
+        self._fp: dict[int, int] = {}
 
     @staticmethod
-    def _checksums(caches, page_ids: Sequence[int]) -> dict[int, float]:
-        sums = _page_sums(caches)
-        return {int(pid): float(sums[pid]) for pid in page_ids}
+    def _checksums(caches, page_ids: Sequence[int], local) -> dict[int, int]:
+        held = [(int(pid), i) for pid in page_ids
+                if (i := (pid if local is None else local(pid))) is not None]
+        if not held:
+            return {}
+        sums = page_checksums(caches, [i for _, i in held])
+        return {pid: int(s) for (pid, _), s in zip(held, sums)}
 
-    def record(self, caches, page_ids: Sequence[int]) -> None:
-        self._fp.update(self._checksums(caches, page_ids))
+    def record(self, caches, page_ids: Sequence[int], local=None) -> None:
+        self._fp.update(self._checksums(caches, page_ids, local))
 
     def forget(self, page_ids: Sequence[int]) -> None:
         for pid in page_ids:
             self._fp.pop(int(pid), None)
 
-    def verify(self, caches, page_ids: Sequence[int]) -> list[int]:
+    def verify(self, caches, page_ids: Sequence[int], local=None) -> list[int]:
         """Ids in ``page_ids`` with a recorded fingerprint that no longer
         matches the live bytes (unrecorded pages are skipped — only a
         chain that was fingerprinted can be audited)."""
-        got = self._checksums(caches, page_ids)
+        got = self._checksums(caches, page_ids, local)
         return [pid for pid, s in got.items() if pid in self._fp and self._fp[pid] != s]
 
 
-def blob_checksum(data) -> float:
+def blob_checksum(data) -> int:
     """Host-side checksum of a preemption swap blob (per layer, a tuple of
-    CPU tensors): recorded at swap-out, verified before swap-in scatters
-    the blob back into the pool."""
-    return float(sum(np.abs(t.float().numpy()).sum() for layer in data for t in layer))
+    CPU tensors; over a mesh, the packed bytes): recorded at swap-out,
+    verified before swap-in scatters the blob back into the pool."""
+    if not isinstance(data, (list, tuple)):
+        return int(_bits(data).sum())
+    return sum(int(_bits(t).sum()) for layer in data for t in layer)

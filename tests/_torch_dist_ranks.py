@@ -291,15 +291,18 @@ def moe_alone(params: dict, flip: bool = False) -> dict:
     return {"losses": losses, "aux0": aux}
 
 
-def port_serve_api(cfg, params, mesh=None, built: list | None = None):
+def port_serve_api(cfg, params, mesh=None, built: list | None = None, drafts=None):
     """The port's serving names as ``_torch_dist_ref``'s cases take them,
-    engines on the CPU over ``mesh``; ``built`` collects every engine."""
+    engines on the CPU over ``mesh``; ``built`` collects every engine;
+    ``drafts``: each model draft's ``(cfg, params)`` by arch, passed where
+    a config names it."""
     from types import SimpleNamespace
 
     from repro_torch.serve import Fault, FaultPlan, PagedEngine, Request, ServeConfig
 
-    def make(**kw):
-        eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+    def make(config=None, **kw):
+        use = (drafts or {}).get(config.draft_model) if config is not None else None
+        eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, config=config, draft=use, **kw)
         if built is not None:
             built.append(eng)
         return eng
@@ -318,7 +321,7 @@ def home_pages(eng) -> dict[int, np.ndarray]:
 
 def _refusals(cfg, params, mesh) -> dict[str, str]:
     """What the engine refuses over ``mesh`` (2 ranks): each message."""
-    from repro_torch.serve import Fault, FaultPlan, PagedEngine, ServeConfig, ServeLoop
+    from repro_torch.serve import PagedEngine, ServeConfig, ServeLoop
 
     base = dict(max_slots=2, cache_len=64, page_size=8, num_shards=2, pages_per_shard=8)
     out = {}
@@ -329,19 +332,9 @@ def _refusals(cfg, params, mesh) -> dict[str, str]:
         except (NotImplementedError, ValueError) as e:
             out[name] = f"{type(e).__name__}: {e}"
 
-    for name, extra in (("spec", dict(spec_k=2, draft_model="ngram")),
-                        ("kv_guard", dict(kv_guard=True)),
-                        ("kernel_fallback", dict(kernel_fallback=True)),
-                        ("shards", dict(num_shards=3, pages_per_shard=8))):
-        catch(name, lambda extra=extra: PagedEngine(cfg, params, device="cpu", mesh=mesh,
-                                                    config=ServeConfig(**{**base, **extra})))
+    catch("shards", lambda: PagedEngine(cfg, params, device="cpu", mesh=mesh,
+                                        config=ServeConfig(**{**base, "num_shards": 3})))
     eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, config=ServeConfig(**base))
-
-    def faulted():
-        with FaultPlan([Fault("pool.alloc", at=1)]):
-            eng.run([])
-
-    catch("fault_plan", faulted)
     catch("server", lambda: ServeLoop(eng))
     return out
 
@@ -363,6 +356,86 @@ def serve_mesh(n: int, params: dict) -> dict:
     if n == 2:
         out["refusals"] = _refusals(cfg, params, mesh)
     return out
+
+
+def _unretried_failure(cfg, params, mesh, fallback: bool) -> dict:
+    """A model step that fails on rank 1 only and is not retried: every
+    suffix prefill raises there (a kernel that cannot be launched under
+    ``kernel_fallback``, any error without it).  Each rank's error, and
+    the seconds it took to reach it."""
+    import time
+
+    from repro_torch.kernels import KernelUnavailable
+    from repro_torch.serve import PagedEngine, Request, ServeConfig
+
+    eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, config=ServeConfig(
+        max_slots=2, cache_len=64, page_size=8, num_shards=2, pages_per_shard=8,
+        kernel_fallback=fallback))
+    if mesh.rank == 1:
+        def broken(*args):
+            raise (KernelUnavailable if fallback else ValueError)("planted failure on rank 1")
+
+        eng._steps["cold_prefill"] = broken
+    t0 = time.monotonic()
+    try:
+        eng.run([Request(rid=0, prompt=list(range(10, 22)), max_new=4, shard=0),
+                 Request(rid=1, prompt=list(range(30, 42)), max_new=4, shard=1)])
+    except Exception as e:  # noqa: BLE001 — the error is the result
+        err = e
+    else:
+        err = None
+    return {"error": None if err is None else f"{type(err).__name__}: {err}",
+            "cause": None if err is None or err.__cause__ is None
+            else type(err.__cause__).__name__, "seconds": time.monotonic() - t0}
+
+
+def serve_mesh_opts(n: int, params: dict, draft_params: dict, small_params: dict,
+                    opts_args: dict | None) -> dict:
+    """``_torch_dist_ref.meshopt_cases`` on the port's engine over ``n``
+    gloo ranks (the reduced qwen1.5-1.8b target and its 0.5b draft, each
+    JAX's converted), each engine's home pages at its end; over 4 ranks
+    the launcher's ranks (``_mesh_rank``) for each ``opts_args`` entry on
+    the reduced qwen1.5-0.5b (``small_params``); over 2, the unretried
+    failures on rank 1 and the untraced 2-rank training run."""
+    import contextlib
+    import io
+
+    from _torch_dist_ref import OPTS_DRAFT, OPTS_TARGET, meshopt_cases
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    cfg = get_config(OPTS_TARGET, reduced=True)
+    dcfg = get_config(OPTS_DRAFT, reduced=True)
+    built = []
+    mesh = bind(make_serve_mesh(n))
+    drafts = {OPTS_DRAFT: (dcfg, draft_params), OPTS_TARGET: (cfg, params)}
+    out = {"cases": meshopt_cases(port_serve_api(cfg, params, mesh, built, drafts=drafts), n)}
+    out["pages"] = [home_pages(e) for e in built]
+    if n == 4:
+        out["launch"] = {}
+        for name, argv in (opts_args or {}).items():
+            got = launcher._mesh_rank(argv, small_params)
+            if isinstance(got, Exception):
+                out["launch"][name] = f"{type(got).__name__}: {got}"
+            elif mesh.rank == 0:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    launcher.print_request_lines(got[0])
+                out["launch"][name] = buf.getvalue()
+        return out
+    small = get_config(ARCH, reduced=True)
+    out["unretried"] = {f"fallback={fb}": _unretried_failure(small, small_params, mesh, fb)
+                        for fb in (False, True)}
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train.main(TRACE_TRAIN_ARGS)
+    out["train_losses"] = None if res is None else res["losses"]
+    return out
+
+
+#: the 2-rank training run whose ``--trace`` is held to its untraced run
+TRACE_TRAIN_ARGS = ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "4", "--seq",
+                    "16", "--steps", "2", "--log-every", "1", "--seed", "0", "--mesh-data", "2"]
 
 
 def fail_on_rank_one() -> None:

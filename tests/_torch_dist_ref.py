@@ -231,15 +231,131 @@ def reroute_case(api) -> dict:
 #: (the port adds ``--device cpu``)
 MESH_ARGS = [*TRACE_ARGS, "--mesh"]
 
+#: the paged engine's options over a mesh (mode ``meshopts``): the engine of
+#: the speculative pair (the reduced qwen1.5-1.8b target, the 0.5b draft)
+OPTS_TARGET, OPTS_DRAFT = "qwen1.5-1.8b", "qwen1.5-0.5b"
+#: each option the launcher's ``--mesh`` takes, alone, and all together
+OPTS_FLAGS = {"spec": ["--spec-k", "2", "--draft-model", "ngram"], "kv_guard": ["--kv-guard"],
+              "kernel_fallback": ["--kernel-fallback"], "chaos": ["--chaos", "pool.alloc:0.2"]}
+OPTS_FLAGS["all"] = [a for flags in OPTS_FLAGS.values() for a in flags]
+#: the launcher runs of ``meshopts``: ``MESH_ARGS`` without the trace, with
+#: each of ``OPTS_FLAGS`` (the port adds ``--device cpu``)
+OPTS_LAUNCH_ARGS = [a for a in MESH_ARGS if a != "--trace"]
 
-def _jax_api(cfg, params, mesh=None):
+
+def opts_launch_args(name: str) -> list[str]:
+    return [*OPTS_LAUNCH_ARGS, *OPTS_FLAGS[name]]
+
+
+def launch_or_error(launch, args: list[str]) -> str:
+    """A launcher run's stdout, or the error it raises (type and message)."""
+    try:
+        return launch(args)
+    except Exception as e:  # noqa: BLE001 — the error is the result
+        return f"{type(e).__name__}: {e}"
+
+
+def _opts_run(api, conf: dict, reqs: list, plan: list | None = None, pinned=None) -> dict:
+    """One engine of the options' cases serving ``reqs`` (``(rid, prompt,
+    max_new)``; ``pinned``: each request's shard) under ``plan`` (a list
+    of ``(site, Fault kwargs)``): the streams, the plan's fired log, the
+    failed requests, the flat stats; or, where the run raises, the
+    error's type and message."""
+    eng = api.PagedEngine(config=api.ServeConfig(**conf))
+    reqs = [api.Request(rid=r, prompt=list(p), max_new=m,
+                        shard=None if pinned is None else pinned[r]) for r, p, m in reqs]
+    fp = api.FaultPlan([api.Fault(site, **kw) for site, kw in plan or []], seed=SEED)
+    try:
+        with fp:
+            done = eng.run(reqs)
+    except Exception as e:  # noqa: BLE001 — the error is the case's result
+        return {"error": f"{type(e).__name__}: {e}", "fired": [list(f) for f in fp.fired]}
+    eng.check()
+    return {"out": _streams(done), "fired": [list(f) for f in fp.fired],
+            "failed": [[r.rid, r.error] for r in eng.failed], "stats": _stats(eng)}
+
+
+#: the options' engines: four shards of 8 pages (``MESH``) on the target
+OPTS_MESH = dict(MESH, max_slots=2)
+OPTS_REQUESTS = dict(n=4, shared_prefix=32, max_new=10)
+
+
+def _spec_fork(api) -> dict:
+    """A cross-rank fork under speculation (2 shards, 2 ranks), the target
+    its own draft, so most proposals are accepted: the child reads its
+    parent's pages on the other rank and writes ``k + 1`` rows a round
+    into them once it holds them alone, each page sent home."""
+    eng = api.PagedEngine(config=api.ServeConfig(
+        max_slots=3, cache_len=64, page_size=8, num_shards=2, pages_per_shard=8, spec_k=3,
+        draft_model=OPTS_TARGET))
+    parent = api.Request(rid=0, prompt=list(range(10, 22)), max_new=4, shard=0)
+    assert eng._admit(parent)
+    (pslot,) = eng.slots
+    eng.fork(pslot, api.Request(rid=1, prompt=list(parent.prompt), max_new=12), shard=1)
+    done = eng.run([])
+    eng.check()
+    return {"out": _streams(done), "stats": _stats(eng)}
+
+
+def meshopt_cases(api, n: int) -> dict:
+    """The paged engine's options over ``n`` ranks (``api.PagedEngine``
+    builds the target, with its model draft where the config names one):
+
+    * speculation, an n-gram draft at k = 2 and the model draft at k = 4,
+      on ``OPTS_MESH`` (over 4 and 2 ranks); over 2 ranks also the target
+      as its own draft (k = 4), whose proposals are mostly accepted (the
+      random-weight draft's and the n-gram draft's are not);
+    * over 4 ranks, int8 pools under ``kv_guard`` with a corrupted chain
+      that later admissions on other shards hit;
+    * over 2 ranks: the cross-rank fork under speculation; ``kv_guard``
+      with ``page.corrupt`` on rank 0's chain that rank 1's shard then
+      hits; ``kernel_fallback`` with ``kernel.raise`` on the prefill of the
+      request on rank 1 and ``kernel.nan`` on a decode step; ``pool.alloc``
+      exhaustion, and ``swap.drop``, under ``kv_guard`` where the preempted
+      request comes back on the other rank; an injected raise that is not
+      retried (the run raises)."""
+    reqs = serve_requests(**OPTS_REQUESTS)
+    out = {"spec_ngram": _opts_run(api, dict(OPTS_MESH, spec_k=2, draft_model="ngram"), reqs),
+           "spec_model": _opts_run(api, dict(OPTS_MESH, spec_k=4, draft_model=OPTS_DRAFT),
+                                   reqs)}
+    if n == 4:
+        out["int8_guard"] = _opts_run(
+            api, dict(OPTS_MESH, kv_dtype="int8", kv_guard=True), reqs,
+            [("page.corrupt", dict(at=0, page_index=2))])
+        return out
+    out["spec_self"] = _opts_run(api, dict(OPTS_MESH, spec_k=4, draft_model=OPTS_TARGET), reqs)
+    out["spec_fork"] = _spec_fork(api)
+    two = serve_requests(n=2, shared_prefix=32, max_new=6)
+    out["guard_corrupt"] = _opts_run(api, dict(OPTS_MESH, kv_guard=True), two,
+                                     [("page.corrupt", dict(at=0, page_index=1))],
+                                     pinned=[0, 2])
+    out["fallback"] = _opts_run(api, dict(OPTS_MESH, kernel_fallback=True), two,
+                                [("kernel.raise", dict(at=1)), ("kernel.nan", dict(at=4))],
+                                pinned=[0, 2])
+    pressed = dict(max_slots=3, cache_len=64, page_size=8, num_shards=2, pages_per_shard=4,
+                   watermark=0, kv_guard=True)
+    rerouted = [(i, list(range(100 + 9 * i, 109 + 9 * i)), m) for i, m in enumerate((12, 4, 12))]
+    out["alloc"] = _opts_run(api, pressed, rerouted, [("pool.alloc", dict(at=3))])
+    out["swap_drop"] = _opts_run(api, pressed, rerouted, [("swap.drop", dict(at=0))])
+    out["guarded_swap"] = _opts_run(api, pressed, rerouted)
+    out["raise_unretried"] = _opts_run(api, OPTS_MESH, two, [("kernel.raise", dict(at=2))],
+                                       pinned=[0, 2])
+    return out
+
+
+def _jax_api(cfg, params, mesh=None, drafts=None):
+    """JAX's serving names as the cases take them; ``drafts``: each model
+    draft's ``(cfg, params)`` by arch, passed where a config names it."""
     from types import SimpleNamespace
 
     from repro.serve import Fault, FaultPlan, PagedEngine, Request, ServeConfig
 
-    return SimpleNamespace(
-        PagedEngine=lambda **kw: PagedEngine(cfg, params, mesh=mesh, **kw), Request=Request,
-        ServeConfig=ServeConfig, Fault=Fault, FaultPlan=FaultPlan)
+    def make(config=None, **kw):
+        use = (drafts or {}).get(config.draft_model) if config is not None else None
+        return PagedEngine(cfg, params, mesh=mesh, config=config, draft=use, **kw)
+
+    return SimpleNamespace(PagedEngine=make, Request=Request, ServeConfig=ServeConfig,
+                           Fault=Fault, FaultPlan=FaultPlan)
 
 
 def _serve(out: dict) -> None:
@@ -286,6 +402,30 @@ def _meshserve(out: dict) -> None:
         cases["one/4shards"] = _mesh_run(eng, eng.run(_requests(api, **MESH_REQUESTS)))
     out["serve_json"] = np.asarray(json.dumps(
         {"cases": cases, "launch": _launch(MESH_ARGS)}))
+
+
+def _meshopts(out: dict) -> None:
+    """``meshopt_cases`` on JAX's ``PagedEngine(mesh=)`` over a 4- and a
+    2-device mesh, and the launcher's ``--mesh`` stdout with each of
+    ``OPTS_FLAGS``."""
+    import jax
+
+    from repro import kernels
+    from repro.launch.mesh import make_serve_mesh
+
+    assert jax.device_count() == 4, jax.devices()
+    cfg, params = _setup(OPTS_TARGET)
+    draft = _setup(OPTS_DRAFT)
+    cases = {}
+    with kernels.use_policy("backend=pallas"):
+        for n in (4, 2):
+            cases[f"mesh{n}"] = meshopt_cases(_jax_api(
+                cfg, params, mesh=make_serve_mesh(n),
+                drafts={OPTS_DRAFT: draft, OPTS_TARGET: (cfg, params)}), n)
+    launch = {name: launch_or_error(_launch, opts_launch_args(name)) for name in OPTS_FLAGS}
+    out["serve_json"] = np.asarray(json.dumps({"cases": cases, "launch": launch}))
+    out["draft_checksum"] = np.asarray(params_checksum(draft[1]))
+    out["target_checksum"] = np.asarray(params_checksum(params))
 
 
 #: the launcher's 2-rank mesh run (the port adds ``--device cpu``, its
@@ -485,14 +625,14 @@ def reference(mode: str, tmp_dir) -> dict:
 
 
 #: the modes that run on forced host devices, and how many
-MESH_MODES = {"meshserve": 4, "meshtrain": 4, "tp": 8, "dryrun": 8}
+MESH_MODES = {"meshserve": 4, "meshopts": 4, "meshtrain": 4, "tp": 8, "dryrun": 8}
 
 
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    if mode in ("serve", "meshserve"):
+    if mode in ("serve", "meshserve", "meshopts"):
         _share_jits()
-    {"serve": _serve, "train": _train, "meshserve": _meshserve,
+    {"serve": _serve, "train": _train, "meshserve": _meshserve, "meshopts": _meshopts,
      "meshtrain": _meshtrain, "tp": _tp, "dryrun": _dryrun}[mode](out)
     _, params = _setup()
     out["params_checksum"] = np.asarray(params_checksum(params))

@@ -8,10 +8,9 @@ tokens follow those roundings.  The port rounds at exactly the places
 the code says, so with the flag the two agree to float32 round-off.
 Every kernel runs under ``backend=pallas`` (interpret mode on the CPU),
 the numerics the port's kernels implement — except mode ``refserve``,
-which serves on JAX's CPU default, the ``reference`` backend.  Modes
-``serve``, ``refserve``, ``chaos``, ``loop`` and ``recurrent`` build many
-engines or servers, and let them share their jitted steps
-(:func:`_share_jits`).
+which serves on JAX's CPU default, the ``reference`` backend.  The modes
+that build many engines or servers (``SHARED_JIT_MODES``) let them share
+their jitted steps (:func:`_share_jits`).
 
     python tests/_torch_jax_ref.py \
         {model|serve|dense|quant|untied|int8serve|spec|refserve|chaos|loop|moe|moeserve|
@@ -994,9 +993,14 @@ MODE_ARCH = {"model": "qwen1.5-0.5b", "serve": "qwen1.5-0.5b", "dense": "qwen1.5
              "trace": "qwen1.5-0.5b"}
 
 
+#: the modes whose engines and servers share their jitted steps
+SHARED_JIT_MODES = ("serve", "refserve", "chaos", "loop", "recurrent", "families", "famserve",
+                    "spec", "int8serve", "moeserve", "dense", "trainloop")
+
+
 def main(mode: str, path: str) -> None:
     out: dict = {}
-    if mode in ("serve", "refserve", "chaos", "loop", "recurrent", "families", "famserve"):
+    if mode in SHARED_JIT_MODES:
         _share_jits()
     {"model": _model, "serve": _serve, "dense": _dense, "quant": _quant,
      "untied": _untied, "int8serve": _int8serve, "spec": _spec, "refserve": _refserve,

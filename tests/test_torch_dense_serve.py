@@ -47,6 +47,17 @@ from repro_torch.nn import attention
 from repro_torch.weights import from_jax_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     cfg = get_config("qwen1.5-0.5b", reduced=True)

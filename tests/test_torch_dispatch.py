@@ -34,6 +34,17 @@ from repro_torch.serve import PagedEngine, Request, ServeConfig
 from repro_torch.weights import from_jax_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _autotune_cache(tmp_path, monkeypatch):
     """JAX's ``resolve`` consults its autotune cache: keep it per test."""

@@ -36,6 +36,18 @@ from repro.kernels.flash_attention.flash_attention import flash_attention as jax
 from repro.kernels.flash_attention.flash_attention import flash_attention_bwd_dq as jax_dq
 from repro_torch.kernels.flash_attention.flash_attention import _bwd_scores, _kv_heads, _mask
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 2e-2  # chip_smoke.TOL_BF16, in the row-RMS form of check_flash_close
 BLOCK = 32
 

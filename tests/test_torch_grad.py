@@ -33,6 +33,18 @@ from repro.kernels import autotune as jax_autotune
 from repro_torch import kernels
 from repro_torch.kernels import api
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 

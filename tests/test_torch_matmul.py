@@ -28,6 +28,18 @@ from repro_torch.kernels.matmul import (
     matmul_unicast,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 

@@ -35,6 +35,18 @@ from repro_torch.kernels.matmul import (
 from repro_torch.kernels.matmul import matmul as mm
 from test_torch_matmul_unicast import three_pieces
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_BF16, TOL_FP32 = 2e-2, 1e-4  # chip_smoke.TOL_BF16, chip_smoke.TOL_FP32
 CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

@@ -22,6 +22,18 @@ from _torch_util import t
 from repro.kernels.matmul.matmul import matmul_unicast as jax_unicast
 from repro_torch.kernels.matmul import kernel_blocks, matmul_unicast
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_FP32 = 1e-4  # chip_smoke.TOL_FP32: rtol and atol of the fp32 logits
 SOURCE = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/matmul_unicast.cu"
 

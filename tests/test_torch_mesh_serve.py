@@ -27,7 +27,8 @@ port's in two groups of ranks started by ``repro_torch.dist.spawn.run``
 * the launcher's ``--mesh --device cpu`` (4 ranks): stdout equal to JAX's
   launcher with ``--mesh``, and its ``--trace`` report's ``broadcast_*``
   keys equal to the one-device run's;
-* what the mesh refuses names ROADMAP Queue 1 item 13.
+* what the mesh refuses (the ``ServeLoop``) names ROADMAP Queue 1 item 13;
+  the engine's options over a mesh are ``tests/test_torch_mesh_opts.py``'s.
 
 Stated tolerance: none — streams, counters and pages are held equal. The
 two packages agree to fp32 summation order, which greedy streams need
@@ -223,7 +224,7 @@ def test_launcher_mesh_stdout_equals_jax(model, ref, tmp_path):
     assert {k: reports[0][k] for k in keys} == {k: reports[1][k] for k in keys}
 
 
-@pytest.mark.parametrize("name", ["spec", "kv_guard", "kernel_fallback", "fault_plan", "server"])
+@pytest.mark.parametrize("name", ["server"])
 def test_engine_refusals_name_the_item(ranks2, name):
     for r in ranks2:
         assert r["refusals"][name].startswith("NotImplementedError") and ITEM in \
@@ -236,9 +237,7 @@ def test_ranks_must_divide_the_shards(ranks2):
         assert msg.startswith("ValueError") and "2 ranks" in msg and "num_shards=3" in msg
 
 
-@pytest.mark.parametrize("flags", [["--server"], ["--spec-k", "2", "--draft-model", "ngram"],
-                                   ["--kv-guard"], ["--kernel-fallback"],
-                                   ["--chaos", "pool.alloc"]])
+@pytest.mark.parametrize("flags", [["--server"]])
 def test_launcher_refusals_name_the_item(flags):
     with pytest.raises(NotImplementedError, match=ITEM):
         launcher.main(["--reduced", "--device", "cpu", "--kv", "paged", "--num-shards", "2",

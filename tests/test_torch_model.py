@@ -32,6 +32,18 @@ from repro_torch.nn.module import rmsnorm, rope
 from repro_torch.nn.spec import tree_params
 from repro_torch.weights import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 LOGITS = torch.bfloat16  # tolerance class of the whole-model logits (see above)
 

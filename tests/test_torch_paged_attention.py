@@ -20,6 +20,18 @@ from repro_torch.kernels.paged_attention import (
     paged_attention_ref,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 # distinct pages per sequence, the null page 0 in the unused tail
 TABLE = np.array([[1, 2, 3, 4], [5, 6, 7, 0], [8, 9, 0, 0]], np.int32)

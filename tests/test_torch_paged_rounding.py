@@ -36,6 +36,18 @@ from repro.kernels.paged_attention import paged_attention_decode as jax_decode
 from repro.kernels.paged_attention import paged_attention_prefill as jax_prefill
 from repro.nn.kvquant import quantize_kv
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 2e-2  # chip_smoke.TOL_BF16: rtol = atol
 NEG_INF = -(2.0**30)
 PS, D, ROWS, TILE_KEYS = 16, 64, 64, 64

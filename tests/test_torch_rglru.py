@@ -24,6 +24,18 @@ from repro_torch.kernels.rglru import (
     rglru_scan_ref,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 # the JAX package's kernel-test shapes, then (192, 192): no 128-multiple
 # block divides it, so the JAX kernel runs one 192 x 192 block

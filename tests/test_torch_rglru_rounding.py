@@ -40,6 +40,18 @@ from repro.kernels.rglru.rglru import rglru_scan_bwd as jax_rglru_scan_bwd
 from repro_torch.kernels.rglru import RGLRU_CHUNK, rglru_scan_bwd_plain, rglru_scan_plain
 from test_torch_rglru import SHAPES, _blocks, _inputs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_SCAN = 1e-4  # chip_smoke.TOL_SCAN
 T = RGLRU_CHUNK
 ORDERS = ("walked", "prefixes", "aggregates")

@@ -30,6 +30,18 @@ from repro_torch.kernels.ssd import (
     ssd_scan_ref,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=5e-4, atol=5e-4)
 
 # (b, h, s, P, N, the JAX kernel's chunk, the port's chunk): the shapes of

@@ -42,6 +42,18 @@ from repro.kernels.ssd.ssd import ssd_scan_bwd as jax_ssd_scan_bwd
 from repro_torch.kernels.ssd import SSD_CHUNK, ssd_lcum
 from test_torch_ssd import CASES, _inputs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Beside the suite's other workers, torch's default of one thread per
+    core oversubscribes the CPU: each parallel region waits for threads
+    that have no core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_SCAN = 1e-4  # chip_smoke.TOL_SCAN
 Q = SSD_CHUNK
 

@@ -10,9 +10,9 @@ child process with excess precision off (``_torch_jax_ref.py`` mode
 slice: ``--mesh-data``, ``--mesh-model``, ``--fsdp`` and ``--compress``
 train (a mesh on gloo ranks the launcher starts), held to the port's
 one-device run, and a 2 x 2 run's checkpoint resumes on 4 x 1 and on one
-device; a mesh refuses ``--trace``, which takes one process
-(``--trace`` is ported: ``tests/test_torch_trace.py``); encoder-decoder
-archs exit as the JAX launcher's do.
+device (``--trace`` on one device is ``tests/test_torch_trace.py``'s, over
+a mesh ``tests/test_torch_mesh_opts.py``'s); encoder-decoder archs exit as
+the JAX launcher's do.
 
 Stated tolerances:
 
@@ -231,13 +231,6 @@ def test_mesh_resume_restores_another_meshes_checkpoint(tmp_path):
             one = train.main([*args, "--ckpt-dir", str(tmp_path / "b"), "--resume"])
     assert four["start"] == one["start"] == 2 and len(four["losses"]) == len(one["losses"]) == 4
     assert four["losses"][0] == pytest.approx(one["losses"][0], rel=1e-5)
-
-
-@pytest.mark.parametrize("flags", [["--mesh-data", "2", "--trace", "t.json"]])
-def test_mesh_refusals_name_what_they_need(tmp_path, flags):
-    with pytest.raises(ValueError, match="take one process"):
-        train.main([*MESH_ARGS, "--ckpt-dir", str(tmp_path), *flags], **LIMITS)
-    assert list(tmp_path.iterdir()) == []
 
 
 def test_launcher_mesh_runs_have_no_join_deadline(tmp_path, monkeypatch):
