@@ -122,8 +122,9 @@ each fatal on failure (nothing is caught):
    snapshot schema-valid, streams equal the sync replay's but at
    near-ties;
 6. mixture-of-experts serving, moonshot-v1-16b-a3b (64 experts top-6 of
-   d_ff 1408, 2 shared experts, d 2048, vocab 163,840) at full width and
-   full depth (48 layers: no cut), built on the card from a seed once
+   d_ff 1408, 2 shared experts, d 2048, vocab 163,840) at full width, its
+   depth cut to ``MOE_DEPTH`` = 12 of 48 layers (the dense first layer and
+   11 MoE layers; every layer kind and shape stays), built on the card from a seed once
    every earlier model is freed: K1, K4 and K5 in their grouped form —
    one launch over all 64 experts — at the experts' decode shapes (64 x
    (24 x 2048 -> 1408), silu and bare, and 64 x (24 x 1408 -> 2048)) and
@@ -134,18 +135,18 @@ each fatal on failure (nothing is caught):
    decode step for a batch of 4 under the default policy, ``mcast`` and
    ``unicast``, every layer's attention, MLP or MoE and the logits held
    to the plain versions on the kernel run's own inputs (``LayerCheck``,
-   ``TOL_MODEL``; at full depth the random-weight stack turns a last-bit
+   ``TOL_MODEL``; deep enough, the random-weight stack turns a last-bit
    difference into unrelated logits, so a whole plain run is only
    reported, ``model_unpinned``), each decode step timed, profiled (its
    top device ops by name) and its launches counted by kernel, beside the
    bound of reading every weight once (the reference dispatch computes
    every expert at every step); then the dense ``Server`` over 4 prompts
-   of 16-64 tokens (8-16 new tokens) under each policy at full depth
+   of 16-64 tokens (8-16 new tokens) under each policy at that depth
    (every request drained, its policy's matmul kernel and no other
    launched, tokens/s and TTFT), and on the first ``MOE_STREAM_DEPTH`` =
    4 layers through the kernels and through the plain versions with the
    kernel run's experts replayed: every kernel stream equal to its plain
-   run's but at near-ties.  Depth is cut only there;
+   run's but at near-ties;
 7. recurrent serving, mamba2-780m (48 SSD layers) and recurrentgemma-2b
    (RG-LRU and window-2048 local attention, 26 layers) at full width and
    full depth, built on the card from a seed once moonshot is freed: K1,
@@ -168,8 +169,11 @@ each fatal on failure (nothing is caught):
    dense ``Server`` over the phase-6 prompts per policy at full depth
    (every request drained, only its policy's matmul kernel launched,
    streams equal to a plain run's but at near-ties);
-8. the last model families at full width and full depth, one model at a
-   time, each built on the card from a seed and freed before the next:
+8. the last model families at full width, the decoder-only ones at half
+   their depth (``FAMILY_DEPTH``: pixtral-12b 20 of 40 layers, gemma2-9b
+   22 of 42, deepseek-7b 15 of 30, command-r-35b 20 of 40; whisper-medium
+   whole), one model at a time, each built on the card from a seed and
+   freed before the next:
    K1, K4 and K5 through ``kernels.linear`` at their new projections
    (``FAMILY_ROWS`` at M 4 and 45; ``FAMILY_WIDE_ROWS``: whisper's
    encoder input over two 1,500-frame clips, bf16 out, and pixtral's
@@ -186,7 +190,7 @@ each fatal on failure (nothing is caught):
    layers) as phase 7 runs its models, prefill and decode step per
    policy under ``LayerCheck`` and the dense ``Server`` per policy
    against a plain run; deepseek-7b's prefill and decode step under the
-   default policy; command-r-35b (60.6 GB of bf16, no depth cut) on the
+   default policy; command-r-35b (30.3 of its 60.6 GB of bf16) on the
    paged path — a prefill and decode step, and a 28-token suffix prefill
    over a 32-token prefix's pages (K3 at group 8) — under ``LayerCheck``
    and then the paged engine over the phase-4 requests (prefix hits: K3
@@ -264,9 +268,10 @@ each fatal on failure (nothing is caught):
    the plain step's, ``compress_grads``' device ms over the full gradient
    tree beside its byte bound, and the step's wall / device ms beside the
    plain step's without compression, in turns; (d) ``PagedEngine(mesh=)``
-   on a one-rank NCCL mesh holding the 4 shards, phase 4's requests per
-   ``mcast_mode``: its streams and K1 / K2 / K3 launches equal (a)'s run of
-   the mode, its counters the host's prediction, every chain broadcast
+   on a one-rank NCCL mesh holding the 4 shards, phase 4's requests under
+   ``mcast_mode="hw"`` (on one rank the only mode that makes a collective;
+   ``MESH_SERVE_MODES``): its streams and K1 / K2 / K3 launches equal (a)'s
+   run of the mode, its counters the host's prediction, every chain broadcast
    packed, delivered by the mode's collective in 0 rounds and unpacked,
    the pool bytes the rank holds, one chain's pack + collective + unpack
    device ms beside its byte bound; and (e) phase 9's moonshot step, cut
@@ -306,10 +311,22 @@ each fatal on failure (nothing is caught):
    page the ranks hold equals that run's (sha-256 of its bytes), K1 and
    K3 launched on every rank and K2 on the bf16 run; the launches per
    rank, tokens/s and the verify / decode steps' wall ms beside the
-   one-device run's; (b) on the same ranks, two steps of the training
-   launcher with ``--mesh-data 2``, untraced then with ``--trace``: one
-   trace file, rank 0's two ``train.step`` spans, the same losses.  It
-   prints the phase's seconds.
+   one-device run's; (c) on the same ranks, the draft's weights
+   (qwen1.5-0.5b at full width and depth, seed 0) serving phase 5c's trace
+   in real time through the ``ServeLoop`` on rank 0 over
+   ``PagedEngine(mesh=)`` (4 shards, ``mcast_mode="hw"``, 4 slots, a pool
+   that needs no preemption), warmed first, the other rank following rank
+   0's engine calls: every request drains, the snapshot validates with a
+   mean occupancy above 1, a prefill mid-decode and a chain broadcast, K1-K3
+   and only they launch on every rank, no library loads during the trace,
+   the ranks' flat stats are equal, rank 0's command log replayed on a
+   one-device 4-shard engine gives the same stats, tokens and page digests,
+   and the streams equal that engine's ``run`` but at near-ties; it prints
+   TTFT / ITL p50 and p99, tokens/s and decode ticks beside 5c's; (b) on
+   the same ranks, two steps of the training launcher with ``--mesh-data
+   2``, untraced then with ``--trace``: one trace file, rank 0's two
+   ``train.step`` spans, the same losses.  It prints the seconds of (c) and
+   of the phase.
 
 After the build it prints ptxas's registers, stack and spills for every
 kernel instantiation.  It prints one JSON line per check, then the card
@@ -429,6 +446,7 @@ from repro_torch.serve import (  # noqa: E402
     Request,
     ServeConfig,
     ServeLoop,
+    replay,
     validate_snapshot,
 )
 
@@ -583,6 +601,14 @@ def ptxas_entries(log: str) -> list[tuple[str, str]]:
     if len(names) != len(out):
         names = [e for e, _ in out]
     return [(name, props) for name, (_, props) in zip(names, out)]
+
+
+def phase_mark(phase, t0: float) -> float:
+    """Print the phase's seconds since ``t0``; returns the time now, the
+    next phase's start."""
+    now = time.perf_counter()
+    emit(dict(check="phase", phase=phase, seconds=now - t0))
+    return now
 
 
 def card_line() -> str:
@@ -2506,6 +2532,24 @@ def check_degraded_serving(cfg, params) -> list[dict[str, int]]:
     return runs
 
 
+#: phase 5c's snapshot, read by phase 13c beside its own
+SERVE_LOOP_ONE_DEVICE: dict = {}
+#: the numbers phases 5c and 13c print of their snapshots
+SERVE_LOOP_KEYS = ("requests_total", "tokens_out", "duration_s", "sustained_tok_s", "ttft_p50_ms",
+                   "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms", "queue_wait_p50_ms",
+                   "queue_wait_p99_ms", "decode_ticks", "occupancy_mean", "occupancy_max",
+                   "prefills", "prefills_mid_decode", "bucket_compiles", "kernel_fallbacks",
+                   "engine_prefix_hit_tokens", "engine_preempted")
+
+
+def serve_loop_trace(cfg):
+    """Phases 5c's and 13c's trace: seeded Poisson arrivals, 1.5 requests/s
+    over 6 s, prompts of 8-28 tokens, 24-32 new tokens each, half opening
+    with a 32-token shared prefix."""
+    return LoadGen(seed=0, qps=1.5, duration=6.0, vocab=cfg.vocab, prompt_len=(8, 28),
+                   max_new=(24, 32), shared_prefix_len=32, shared_frac=0.5).trace()
+
+
 def check_serve_loop(cfg, params) -> dict[str, int]:
     """Phase 5c: qwen1.5-0.5b at full width behind the async ``ServeLoop``
     (``max_slots`` 4): a seeded Poisson trace of 1.5 requests/s over 6 s,
@@ -2517,8 +2561,7 @@ def check_serve_loop(cfg, params) -> dict[str, int]:
     schema, no kernel library was built or loaded during the trace, and
     the streams equal the synchronous ``PagedEngine.run`` replay of the
     same trace but where the replay's top-two margin is a near-tie."""
-    trace = LoadGen(seed=0, qps=1.5, duration=6.0, vocab=cfg.vocab, prompt_len=(8, 28),
-                    max_new=(24, 32), shared_prefix_len=32, shared_frac=0.5).trace()
+    trace = serve_loop_trace(cfg)
     loop = ServeLoop(PagedEngine(cfg, params, config=ServeConfig(max_slots=4), device="cuda"))
     t0 = time.perf_counter()
     warm = loop.warmup_for_trace(trace)
@@ -2539,16 +2582,12 @@ def check_serve_loop(cfg, params) -> dict[str, int]:
     cmp = compare_streams([r.engine_req for r in results.values()], "sync replay",
                           {r.rid: list(r.out) for r in done}, sampler.margins)
     states = collections.Counter(r.state.name for r in results.values())
-    keys = ("requests_total", "tokens_out", "duration_s", "sustained_tok_s", "ttft_p50_ms",
-            "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms", "queue_wait_p50_ms", "queue_wait_p99_ms",
-            "decode_ticks", "occupancy_mean", "occupancy_max", "prefills",
-            "prefills_mid_decode", "bucket_compiles", "kernel_fallbacks",
-            "engine_prefix_hit_tokens", "engine_preempted")
+    SERVE_LOOP_ONE_DEVICE.update({k: snap[k] for k in SERVE_LOOP_KEYS})
     emit(dict(check="serve_loop", card=card_line(), qps=1.5, duration_s_trace=6.0,
               warmup_steps=warm, warmup_s=warm_s, states=dict(states),
               launches={k: v for k, v in launches.items() if v},
               libraries_loaded_during_trace=sorted(set(_build._LOADED) - set(loaded)),
-              **{k: snap[k] for k in keys}, **cmp))
+              **SERVE_LOOP_ONE_DEVICE, **cmp))
     path = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
     if set(states) != {"DRAINED"} or snap["occupancy_mean"] <= 1 \
             or snap["prefills_mid_decode"] < 1 or sorted(_build._LOADED) != loaded:
@@ -2857,7 +2896,7 @@ def dense_server_model_run(cfg, params, prompt, step_tokens):
 
 
 def check_moe_model(cfg, params) -> None:
-    """moonshot-v1-16b-a3b at full width and depth: one 45-token prefill and
+    """moonshot-v1-16b-a3b at full width, ``MOE_DEPTH`` layers: one 45-token prefill and
     one decode step for a batch of 4 under the default policy, ``mcast``
     and ``unicast``, every layer and the logits held to the plain versions
     on the kernel run's own inputs (:class:`LayerCheck`, ``TOL_MODEL``;
@@ -2918,11 +2957,14 @@ def _leaves(tree):
 #: stream (:class:`LayerCheck`), so kernel and plain streams are compared
 #: here, where a difference can only come from a near-tie.
 MOE_STREAM_DEPTH = 4
+#: phase 6's depth: 12 of moonshot-v1-16b-a3b's 48 layers at full width
+#: (the dense first layer and 11 MoE layers; about a quarter of its 56 GB)
+MOE_DEPTH = 12
 
 
 def check_moe_serving(cfg, params) -> dict[str, int]:
     """The dense ``Server`` over :func:`moe_requests` under the default
-    policy, ``mcast`` and ``unicast``.  At full depth each run is the main
+    policy, ``mcast`` and ``unicast``.  At ``MOE_DEPTH`` each run is the main
     path: every request drained, its policy's matmul kernel and no other
     launched, tokens/s and TTFT.  Then, on the model's first
     ``MOE_STREAM_DEPTH`` layers at full width, the same requests through
@@ -3326,14 +3368,28 @@ def free_model() -> None:
     torch.cuda.empty_cache()
 
 
+#: phase 8's decoder-only families at half their depth (width full): every
+#: layer kind, projection shape and kernel row stays; whisper-medium keeps
+#: its 24 + 24 layers
+FAMILY_DEPTH = {"pixtral-12b": 20, "gemma2-9b": 22, "deepseek-7b": 15, "command-r-35b": 20}
+
+
+def family_config(arch: str):
+    """``arch``'s config at full width, cut to ``FAMILY_DEPTH`` layers."""
+    cfg = get_config(arch)
+    return cut_depth(cfg, {"layers": []}, FAMILY_DEPTH[arch])[0]
+
+
 def build_model(module, cfg, label: str):
-    """``module.init`` at full width on the card from seed 0, with its size
-    and build time recorded."""
+    """``module.init`` at full width on the card from seed 0, with its size,
+    depth (of the registry's) and build time recorded."""
     t0 = time.perf_counter()
     params = module.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    emit(dict(check=label, arch=cfg.name, layers=cfg.n_layers, depth_cut="none",
+    full = get_config(cfg.name).n_layers
+    emit(dict(check=label, arch=cfg.name, layers=cfg.n_layers,
+              depth_cut="none" if cfg.n_layers == full else f"{cfg.n_layers} of {full} layers",
               params=sum(t.numel() for t in _leaves(params)), bytes=weight_bytes(params),
               init_s=time.perf_counter() - t0,
               memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
@@ -3494,13 +3550,13 @@ def lm_greedy_run(cfg, params, tokens, frontend_embeds, steps: int, forced=None)
 
 
 def check_pixtral(gen) -> dict[str, int]:
-    """pixtral-12b at full width and depth: ``lm.prefill`` over 256 seeded
+    """pixtral-12b at full width (``FAMILY_DEPTH``): ``lm.prefill`` over 256 seeded
     patch embeddings of 1,024 (through ``frontend_proj``) and a 32-token
     text prompt, batch 2, then 8 greedy decode steps on the dense caches —
     timed and counted unchecked, then every layer held to the plain
     versions (:class:`LayerCheck`), the logits of each step against a plain
     run fed the same tokens (reported)."""
-    cfg = get_config("pixtral-12b")
+    cfg = family_config("pixtral-12b")
     params = build_model(lm, cfg, "family_model")
     patches = torch.randn(2, 256, cfg.frontend_dim, device="cuda", generator=gen).to(
         torch.bfloat16)
@@ -3535,13 +3591,13 @@ def check_pixtral(gen) -> dict[str, int]:
 
 
 def check_dense_family(arch: str, policies, serve: bool) -> dict[str, int]:
-    """An arch at full width and depth on the dense path: the 45-token
+    """An arch at full width (``FAMILY_DEPTH``) on the dense path: the 45-token
     prefill and batch-4 decode step per policy under :class:`LayerCheck`
     with the whole-run comparison (:func:`check_dense_model`), the
     depth-gap witness where a whole run leaves ``TOL_MODEL``, and with
     ``serve`` the dense ``Server`` per policy against a plain run
     (:func:`check_dense_serving`)."""
-    cfg = get_config(arch)
+    cfg = family_config(arch)
     params = build_model(lm, cfg, "family_model")
     if check_dense_model(cfg, params, policies) > 1:
         check_depth_gap(cfg, params)
@@ -3552,7 +3608,7 @@ def check_dense_family(arch: str, policies, serve: bool) -> dict[str, int]:
 
 
 def check_command_r(gen) -> dict[str, int]:
-    """command-r-35b at full width and depth (60.6 GB of bf16) on the paged
+    """command-r-35b at full width (``FAMILY_DEPTH``: 30.3 of 60.6 GB) on the paged
     path, its 64 query heads over 8 KV heads (group 8, d 128): a bucketed
     45-token prefill into pages and a batch-4 decode step on them (K1, K2),
     and a prefix hit — a 28-token suffix prefilled over the pages of the
@@ -3561,7 +3617,7 @@ def check_command_r(gen) -> dict[str, int]:
     whole runs against plain ones (reported); then the paged engine over
     :func:`serving_requests` (8 prompts after a 32-token shared prefix:
     prefix hits, suffix prefills on K3 at group 8, decode on K2)."""
-    cfg = get_config("command-r-35b")
+    cfg = family_config("command-r-35b")
     params = build_model(lm, cfg, "family_model")
     prompt = torch.randint(0, cfg.vocab, (45,), device="cuda", generator=gen)
     step_tokens = torch.randint(0, cfg.vocab, (4, 1), device="cuda", generator=gen)
@@ -3606,16 +3662,22 @@ def check_families(gen) -> dict[str, int]:
     gemma2-9b (dense ``Server`` under default / mcast / unicast),
     deepseek-7b (model check), command-r-35b (paged).  Returns each
     kernel's launches summed over the phase's main-path runs."""
-    t0 = time.perf_counter()
+    t0 = t = time.perf_counter()
     for label, k, n, kw in FAMILY_ROWS:
         for m in FAMILY_M:
             check_projection_row(gen, label, m, k, n, kw, check="family_matmul", tc_sum=True)
     for label, m, k, n, kw in FAMILY_WIDE_ROWS:
         check_projection_row(gen, label, m, k, n, kw, check="family_matmul", tc_sum=True)
-    runs = [check_whisper(gen), check_pixtral(gen),
-            check_dense_family("gemma2-9b", (None, "mcast", "unicast"), serve=True),
-            check_dense_family("deepseek-7b", (None,), serve=False),
-            check_command_r(gen)]
+    t = phase_mark("8 rows", t)
+    runs = []
+    for name, run in (("whisper", lambda: check_whisper(gen)),
+                      ("pixtral", lambda: check_pixtral(gen)),
+                      ("gemma2", lambda: check_dense_family("gemma2-9b", (None, "mcast", "unicast"),
+                                                            serve=True)),
+                      ("deepseek", lambda: check_dense_family("deepseek-7b", (None,), serve=False)),
+                      ("command-r", lambda: check_command_r(gen))):
+        runs.append(run())
+        t = phase_mark(f"8 {name}", t)
     emit(dict(check="phase", phase=8, seconds=time.perf_counter() - t0))
     return {k: sum(r.get(k, 0) for r in runs) for k in kernels.KERNELS}
 
@@ -4600,20 +4662,25 @@ class _CountedCollective:
         return out
 
 
+#: phase 11d's modes: on one rank only ``hw`` makes a collective (one
+#: ``broadcast`` a chain); ``unicast`` and ``sw_tree`` run the same pack and
+#: unpack with none, and phases 13a / 13c run the mesh over 2 ranks
+MESH_SERVE_MODES = ("hw",)
+
+
 def check_mesh_serving(cfg, params, runs: dict) -> dict[str, int]:
     """Phase 11d: ``PagedEngine(mesh=)`` on a one-rank NCCL mesh holding all
-    ``DIST_SHARDS`` shards, phase 4's workload, once per ``mcast_mode``:
+    ``DIST_SHARDS`` shards, phase 4's workload, per ``MESH_SERVE_MODES``:
     its streams and its K1 / K2 / K3 launches equal phase 11a's 4-shard
     run of that mode (``runs``), its counters the host's prediction, and
     every chain goes pack -> the mode's collective -> unpack in 0
-    point-to-point rounds (one rank: hw makes one ``broadcast``, the
-    others none); the pool bytes the rank holds; one chain's pack +
-    collective + unpack device ms beside its byte bound (the chain read
-    once and written once)."""
+    point-to-point rounds (one rank: hw makes one ``broadcast``); the pool
+    bytes the rank holds; one chain's pack + collective + unpack device ms
+    beside its byte bound (the chain read once and written once)."""
     paged = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
     mesh = bind(make_serve_mesh(1))
     launches = collections.Counter()
-    for mode in mcast.MODES:
+    for mode in MESH_SERVE_MODES:
         conf = ServeConfig(num_shards=DIST_SHARDS, mcast_mode=mode)
         eng = PagedEngine(cfg, params, config=conf, device="cuda", mesh=mesh)
         bcast = eng._bcast = _CountedCollective(eng._bcast)
@@ -5279,8 +5346,6 @@ def mesh_opts_run(cfg, params, dcfg, dparams, kv_dtype: str, mesh=None) -> dict:
     flat stats, this process's launches, tokens/s, each step's wall ms by
     kind (verify / decode), and a digest of every page this process holds
     as its own."""
-    import hashlib
-
     eng = PagedEngine(cfg, params, config=ServeConfig(kv_dtype=kv_dtype, **MESH_OPTS),
                       draft=(dcfg, dparams), device="cuda", mesh=mesh)
     steps = collections.defaultdict(list)
@@ -5307,15 +5372,22 @@ def mesh_opts_run(cfg, params, dcfg, dparams, kv_dtype: str, mesh=None) -> dict:
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
     eng.check()
-    held = [pid for pid in range(1, eng.pool.num_pages) if eng._held(pid) is not None]
-    pages = {pid: hashlib.sha256(eng._pack([eng._held(pid)]).cpu().numpy().tobytes()).hexdigest()
-             for pid in held}
     return dict(out={r.rid: list(r.out) for r in done}, fired=[list(f) for f in plan.fired],
                 failed=[[r.rid, r.error] for r in eng.failed], stats=eng.flat_stats(),
                 launches={k: launches.get(k, 0) for k in kernels.KERNELS},
                 tokens_per_s=sum(len(r.out) for r in done) / wall, wall_s=wall,
                 step_ms={k: statistics.median(v) for k, v in steps.items()},
-                steps={k: len(v) for k, v in steps.items()}, pages=pages)
+                steps={k: len(v) for k, v in steps.items()}, pages=page_digests(eng))
+
+
+def page_digests(eng) -> dict[int, str]:
+    """The sha-256 of every page an engine's process holds as its own (all
+    of them on one device), by global id."""
+    import hashlib
+
+    held = [pid for pid in range(1, eng.pool.num_pages) if eng._held(pid) is not None]
+    return {pid: hashlib.sha256(eng._pack([eng._held(pid)]).cpu().numpy().tobytes()).hexdigest()
+            for pid in held}
 
 
 def _spec_models():
@@ -5325,15 +5397,144 @@ def _spec_models():
             lm.init(dcfg, seed=0, device="cuda"))
 
 
+#: phase 13c's engine: 5c's slots with the pool over 4 shards, 2 a rank,
+#: chains delivered by the hw collective, 32 pages a shard (no preemption)
+MESH_LOOP = dict(max_slots=4, num_shards=4, mcast_mode="hw", pages_per_shard=32)
+MESH_LOOP_PATH = ("matmul_tiled", "paged_attention_decode", "paged_attention_prefill")
+
+
+def mesh_loop_rank(cfg, params, mesh) -> dict:
+    """13c on a rank: 5c's trace in real time through the ``ServeLoop`` over
+    ``PagedEngine(mesh=)`` (``MESH_LOOP``) on rank 0, warmed first, the
+    other rank following rank 0's engine calls.  The rank's launches during
+    the trace, the libraries loaded there, its flat stats and the digest of
+    every page it holds; rank 0 also the states, the tokens, the validated
+    snapshot and the command log."""
+    from repro_torch.serve import EngineDriver
+
+    t_start = time.perf_counter()
+    eng = PagedEngine(cfg, params, config=ServeConfig(**MESH_LOOP), device="cuda", mesh=mesh)
+    out, loaded = {}, []
+    if mesh.rank == 0:
+        trace = serve_loop_trace(cfg)
+        loop = ServeLoop(eng)
+        t0 = time.perf_counter()
+        out["warmup_steps"] = loop.warmup_for_trace(trace)
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        loaded = sorted(_build._LOADED)
+        kernels.reset_launch_counts()
+        results = loop.run_trace(trace, warmup=False)
+        torch.cuda.synchronize()
+        out.update(states={rid: r.state.name for rid, r in results.items()},
+                   out={rid: r.tokens for rid, r in results.items()},
+                   snapshot=validate_snapshot(loop.snapshot()), log=loop.driver.log)
+    else:
+        driver = EngineDriver(eng)
+        warm = driver._warmup
+
+        def warmed(*args):  # the trace's launches and loads start after the warmup
+            n = warm(*args)
+            torch.cuda.synchronize()
+            loaded.extend(sorted(_build._LOADED))
+            kernels.reset_launch_counts()
+            return n
+
+        driver._warmup = warmed
+        driver.follow()
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    eng.check()
+    out.update(launches={k: launches.get(k, 0) for k in kernels.KERNELS},
+               loaded_during_trace=sorted(set(_build._LOADED) - set(loaded)),
+               stats=eng.flat_stats(), pages=page_digests(eng),
+               seconds=time.perf_counter() - t_start)
+    return out
+
+
+def check_mesh_loop(ranks: list[dict]) -> dict[str, int]:
+    """Phase 13c's checks in the main process: every request drained, the
+    snapshot validated (on rank 0) with a mean occupancy above 1, a prefill
+    landed mid-decode and a chain broadcast; K1-K3, and only they, launched
+    on every rank during the trace, no library loaded there; every rank's
+    flat stats equal; rank 0's command log replayed on a one-device
+    4-shard engine gives the same stats, tokens and page digests; the
+    streams equal that engine's ``run`` of the trace but where its top-two
+    margin is a near-tie (5c's rule).  Returns the ranks' launches."""
+    cfg = get_config(draft_for("qwen1.5-1.8b"))
+    params = lm.init(cfg, seed=0, device="cuda")
+    got = [r["loop"] for r in ranks]
+    first, snap = got[0], got[0]["snapshot"]
+    one = PagedEngine(cfg, params, config=ServeConfig(**MESH_LOOP), device="cuda")
+    again = replay(one, first["log"])
+    torch.cuda.synchronize()
+    one.check()
+    sampler = MarginSampler()
+    sync = sampler.attach(PagedEngine(cfg, params, config=ServeConfig(**MESH_LOOP),
+                                      sampler=sampler, device="cuda"))
+    done = sync.run([Request(rid=a.rid, prompt=list(a.prompt), max_new=a.max_new)
+                     for a in serve_loop_trace(cfg)])
+    cmp = compare_streams(list(again.requests.values()), "one-device run",
+                          {r.rid: list(r.out) for r in done}, sampler.margins)
+    one_stats, one_pages = one.flat_stats(), page_digests(one)
+    del params, one, sync
+    torch.cuda.empty_cache()
+    pages = {}
+    for r in got:
+        pages.update(r["pages"])
+    bad = []
+    if set(first["states"].values()) != {"DRAINED"}:
+        bad.append(f"states {first['states']}")
+    if snap["occupancy_mean"] <= 1 or snap["prefills_mid_decode"] < 1 \
+            or snap["broadcast_chains"] < 1:
+        bad.append(f"occupancy {snap['occupancy_mean']}, prefills mid-decode "
+                   f"{snap['prefills_mid_decode']}, chains {snap['broadcast_chains']}")
+    for i, r in enumerate(got):
+        if [k for k in MESH_LOOP_PATH if not r["launches"][k]] \
+                or [k for k, v in r["launches"].items() if v and k not in MESH_LOOP_PATH]:
+            bad.append(f"rank {i} launches {r['launches']}")
+        if r["loaded_during_trace"]:
+            bad.append(f"rank {i} loaded {r['loaded_during_trace']} during the trace")
+        if r["stats"] != first["stats"]:
+            bad.append(f"rank {i} stats differ from rank 0's")
+    if one_stats != first["stats"]:
+        bad.append(f"replay stats {one_stats} != {first['stats']}")
+    if {rid: list(r.out) for rid, r in again.requests.items()} != \
+            {rid: first["out"][rid] for rid in again.requests}:
+        bad.append("replay tokens differ from rank 0's")
+    if pages != one_pages:
+        bad.append(f"{sum(pages.get(p) != h for p, h in one_pages.items())} pages "
+                   f"differ from the replay's")
+    if cmp["differing"] and cmp["worst_margin_over_tol"] > 1:
+        bad.append(f"streams differ from the one-device run past a near-tie: {cmp['differing']}")
+    emit(dict(check="mesh_serve_loop", arch=cfg.name, ranks="2 gloo ranks on one card",
+              options=MESH_LOOP, qps=1.5, duration_s_trace=6.0, states=dict(collections.Counter(
+                  first["states"].values())), warmup_steps=first["warmup_steps"],
+              warmup_s=first["warmup_s"], commands=len(first["log"]),
+              broadcast_chains=snap["broadcast_chains"],
+              **{k: snap[k] for k in SERVE_LOOP_KEYS},
+              one_device_5c={k: SERVE_LOOP_ONE_DEVICE.get(k) for k in SERVE_LOOP_KEYS},
+              launches_per_rank=[{k: v for k, v in r["launches"].items() if v} for r in got],
+              equal_to_replay=not bad, card=card_line(), **cmp))
+    if bad:
+        raise AssertionError("mesh serve loop: " + "; ".join(bad)[:4000])
+    total = collections.Counter()
+    for r in got:
+        total.update(r["launches"])
+    return total
+
+
 def mesh_opts_rank(d: str) -> dict:
     """Phase 13's rank (of 2 gloo ranks on the one card): (a)
-    :func:`mesh_opts_run` over the 2-rank mesh for each pool dtype, then
-    (b) :func:`mesh_train_rank`."""
+    :func:`mesh_opts_run` over the 2-rank mesh for each pool dtype, (c)
+    :func:`mesh_loop_rank` on the draft's weights (qwen1.5-0.5b, seed 0),
+    then (b) :func:`mesh_train_rank`."""
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, params, dcfg, dparams = _spec_models()
     mesh = bind(make_serve_mesh(2))
     out = {kv: mesh_opts_run(cfg, params, dcfg, dparams, kv, mesh=mesh) for kv in MESH_OPTS_KV}
+    out["loop"] = mesh_loop_rank(dcfg, dparams, mesh)
     del params, dparams
     torch.cuda.empty_cache()
     out["train"] = mesh_train_rank(d)
@@ -5435,6 +5636,11 @@ def check_mesh_options() -> dict[str, int]:
     if bad:
         raise AssertionError("mesh options: " + "; ".join(bad)[:4000])
 
+    t13c = time.perf_counter()
+    total.update(check_mesh_loop(ranks))
+    emit(dict(check="phase", phase="13c", seconds=max(r["loop"]["seconds"] for r in ranks)
+              + time.perf_counter() - t13c))
+
     tr = [r["train"] for r in ranks]
     spans = [(e["args"]["step"], e["args"]["rank"]) for e in trace["traceEvents"]
              if e["name"] == "train.step"]
@@ -5460,6 +5666,7 @@ def main() -> None:
                  "CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain fp32 path stays fp32
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(card, flush=True)
@@ -5476,6 +5683,7 @@ def main() -> None:
     count_reference_calls()
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
+    t2 = t = time.perf_counter()
     mm = [check_matmul(gen, 4, 1024, 1024),                      # decode q/k/v (+bias)
           check_matmul(gen, 4, 1024, 2816, bias=False, activation="silu"),  # decode gate
           check_matmul(gen, 4, 2816, 1024, bias=False),          # decode down projection
@@ -5495,8 +5703,12 @@ def main() -> None:
     for label, kw in PREFILL_ROWS:
         g = family_gen if label in FAMILY_PAGED else gen
         summary.setdefault("paged_attention_prefill", check_prefill(g, label=label, **kw))
+    t = phase_mark("2a", t)
     grad_launches = check_gradients(gen, summary)
+    t = phase_mark("2b", t)
     scan_launches = check_scans(gen, summary)
+    t = phase_mark("2c", t)
+    phase_mark(2, t2)
 
     cfg = get_config("qwen1.5-0.5b")
     params = lm.init(cfg, seed=0, device="cuda")
@@ -5506,26 +5718,30 @@ def main() -> None:
     cfg18 = get_config("qwen1.5-1.8b")
     params18 = lm.init(cfg18, seed=0, device="cuda")
     check_spec_model(cfg18, params18)
+    t = phase_mark(3, t)
     serve_launches = check_serving(cfg, params)
     for run in check_spec_serving(cfg18, params18, draft_for("qwen1.5-1.8b"), cfg, params):
         serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     check_clean("phases 2-4")
+    t = phase_mark(4, t)
     del params18
     check_reference(cfg, params)
     for run in check_degraded_serving(cfg, params) + [check_serve_loop(cfg, params)]:
         serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
+    t = phase_mark(5, t)
 
-    # phase 6: moonshot-v1-16b-a3b at full width and depth (about 56 GB of
-    # bf16 weights), built on the card once every earlier model is freed
+    # phase 6: moonshot-v1-16b-a3b at full width, MOE_DEPTH of its 48
+    # layers, built on the card once every earlier model is freed
     grouped = [check_grouped(gen, *row) for row in GROUPED_ROWS]
     del params
     torch.cuda.empty_cache()
-    cfg_moe = get_config(MOE_ARCH)
+    cfg_moe = cut_depth(get_config(MOE_ARCH), {"layers": []}, MOE_DEPTH)[0]
     t0 = time.perf_counter()
     params_moe = lm.init(cfg_moe, seed=0, device="cuda")
     torch.cuda.synchronize()
     emit(dict(check="moe_model", arch=cfg_moe.name, layers=cfg_moe.n_layers,
-              depth_cut="none", params=sum(t.numel() for t in _leaves(params_moe)),
+              depth_cut=f"{MOE_DEPTH} of {get_config(MOE_ARCH).n_layers} layers",
+              params=sum(t.numel() for t in _leaves(params_moe)),
               bytes=sum(t.numel() * t.element_size() for t in _leaves(params_moe)),
               init_s=time.perf_counter() - t0,
               memory_allocated_gb=torch.cuda.memory_allocated() / 1e9))
@@ -5535,14 +5751,16 @@ def main() -> None:
     check_clean("phase 6")
     del params_moe
     torch.cuda.empty_cache()
+    t = phase_mark(6, t)
 
     # phase 7: mamba2-780m and recurrentgemma-2b at full width and depth
     run, _ = check_recurrent(gen)
     serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     check_clean("phase 7")
+    phase_mark(7, t)
 
     # phase 8: whisper-medium, pixtral-12b, gemma2-9b, deepseek-7b and
-    # command-r-35b at full width and depth, one at a time
+    # command-r-35b at full width (FAMILY_DEPTH), one at a time
     run = check_families(gen)
     serve_launches = {k: serve_launches[k] + run[k] for k in kernels.KERNELS}
     check_clean("phase 8")
@@ -5587,6 +5805,7 @@ def main() -> None:
                 row=g["row"], shape=g["shape"], design=g["design"], max_abs_err=g["max_err"],
                 ms=g["kernel_ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
                 bound_by=g["bound_by"], library_ms=g["library_ms"])
+    phase_mark("total", t_start)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

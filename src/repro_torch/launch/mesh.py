@@ -22,9 +22,6 @@ from __future__ import annotations
 import dataclasses
 import math
 
-#: why the ServeLoop (``--server``) over a mesh raises
-MESH_SERVE_ITEM = "ROADMAP Queue 1 item 13 (the ServeLoop over a mesh)"
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -208,5 +205,5 @@ def bind(mesh: Mesh) -> BoundMesh:
                      subgroups=_subgroups(mesh, rank))
 
 
-__all__ = ["MESH_SERVE_ITEM", "BoundMesh", "DryMesh", "Mesh", "bind", "make_debug_mesh", "make_mesh",
+__all__ = ["BoundMesh", "DryMesh", "Mesh", "bind", "make_debug_mesh", "make_mesh",
            "make_production_mesh", "make_serve_mesh", "seat"]

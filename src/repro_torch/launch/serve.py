@@ -69,8 +69,11 @@ the JAX launcher's with ``--mesh`` on as many devices); ``--trace``
 records rank 0.  ``--mesh`` needs ``--kv paged``.  It takes ``--spec-k``
 with ``--draft-model`` (each rank builds the model draft's copy from the
 run's seed), ``--kv-guard``, ``--kernel-fallback`` and ``--chaos`` (the
-plan armed alike on every rank); with ``--server`` (the ``ServeLoop``) it
-raises ``NotImplementedError`` (``MESH_SERVE_ITEM``).
+plan armed alike on every rank), and ``--server``: ``--server-driver
+sync`` runs ``PagedEngine.run`` of the trace on every rank; ``loop`` runs
+the ``ServeLoop`` on rank 0 (the trace, the validated snapshot,
+``--metrics-json``) while every other rank follows its engine calls
+(``serve.server.follow``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --requests 8 --max-new 32 --shared-prefix 32 [--kernel-policy mcast]
@@ -89,6 +92,10 @@ raises ``NotImplementedError`` (``MESH_SERVE_ITEM``).
         --reduced --device cpu --kv paged --shared-prefix 32 --num-shards 4 \\
         --mcast-mode sw_tree --mesh [--spec-k 2 --draft-model ngram] [--kv-guard] \\
         [--kernel-fallback] [--chaos kernel.nan:0.2]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --reduced --device cpu --server --qps 25 --duration 0.6 --max-slots 3 \\
+        --seed 5 --max-new 8 --shared-prefix 24 --mesh --num-shards 4 \\
+        --pages-per-shard 16 --mcast-mode sw_tree --metrics-json /tmp/m.json
 """
 from __future__ import annotations
 
@@ -105,7 +112,6 @@ from repro_torch import kernels, tree
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.registry import draft_for
 from repro_torch.device import DEFAULT, resolve
-from repro_torch.launch.mesh import MESH_SERVE_ITEM
 from repro_torch.models import lm
 from repro_torch.serve import (
     Lifecycle,
@@ -290,10 +296,6 @@ def _parse(argv: list[str] | None):
                  "runs on the paged engine's COW page machinery)")
     if args.mesh and args.kv != "paged":
         ap.error("--mesh requires --kv paged (it splits the page pool over ranks)")
-    if args.mesh and args.server:
-        raise NotImplementedError(
-            f"--server over --mesh: the ServeLoop does not run over a mesh yet: "
-            f"{MESH_SERVE_ITEM}")
     serve_cfg = serve_config.from_args(
         args, max_slots=(args.max_slots or args.max_batch) if args.server else args.max_batch)
     return args, serve_cfg
@@ -380,6 +382,8 @@ def _serve_mesh(argv, args, serve_cfg, params, draft_params, timeout,
                     backend=backend, timeout=timeout, join_timeout=join_timeout)[0]
     if isinstance(got, Exception):
         raise got
+    if args.server:
+        return report_server(args, serve_cfg, got)
     done, stats = got
     print_request_lines(done)
     print(f"# paged kv stats: {stats}", file=sys.stderr)
@@ -390,9 +394,12 @@ def _mesh_rank(argv: list[str], params=None, draft_params=None):
     """One rank of ``--mesh``: the paged engine over the 1-D mesh of every
     rank, serving the seeded requests under the run's fault plan (armed
     alike on every rank); rank 0 returns (the finished requests,
-    ``stats()``) and records the trace, the others None.  Every rank takes
-    the same host decisions, so an error the run raises is raised on every
-    rank alike: rank 0 returns it, for the launcher to raise."""
+    ``stats()``) and records the trace, the others None.  Under
+    ``--server`` the seeded trace instead, by :func:`serve_trace` (with the
+    ``loop`` driver the other ranks follow rank 0's loop); rank 0 returns
+    what :func:`report_server` prints.  Every rank takes the same host
+    decisions, so an error the run raises is raised on every rank alike:
+    rank 0 returns it, for the launcher to raise."""
     from repro_torch.launch.mesh import bind, make_serve_mesh
 
     args, serve_cfg = _parse(argv)
@@ -416,10 +423,13 @@ def _mesh_rank(argv: list[str], params=None, draft_params=None):
                                  sampler=get_sampler(serve_cfg.sampler),
                                  draft=_draft(args, serve_cfg, draft_params, device),
                                  device=device, mesh=mesh)
-            with serve_cfg.fault_plan() or contextlib.nullcontext():
-                done = engine.run(make_requests(cfg, n=args.requests, max_new=args.max_new,
-                                                shared_prefix=args.shared_prefix,
-                                                seed=serve_cfg.seed))
+            if args.server:
+                served = serve_trace(args, cfg, serve_cfg, engine)
+            else:
+                with serve_cfg.fault_plan() or contextlib.nullcontext():
+                    done = engine.run(make_requests(cfg, n=args.requests, max_new=args.max_new,
+                                                    shared_prefix=args.shared_prefix,
+                                                    seed=serve_cfg.seed))
     except Exception as e:  # noqa: BLE001 — raised by the launcher, as on one device
         if mesh.rank != 0:
             return None
@@ -428,7 +438,9 @@ def _mesh_rank(argv: list[str], params=None, draft_params=None):
     finally:
         if rec is not None:
             _finish_trace(rec, serve_cfg.trace)
-    return (done, engine.stats()) if mesh.rank == 0 else None
+    if mesh.rank != 0:
+        return None
+    return served if args.server else (done, engine.stats())
 
 
 def run_server(args, cfg, serve_cfg, engine: PagedEngine) -> list[Request]:
@@ -436,24 +448,50 @@ def run_server(args, cfg, serve_cfg, engine: PagedEngine) -> list[Request]:
     ServeLoop (metrics snapshot validated, and written to
     ``--metrics-json``); ``sync`` is the turn-by-turn oracle.  Both print
     the same ``req …`` lines."""
+    return report_server(args, serve_cfg, serve_trace(args, cfg, serve_cfg, engine))
+
+
+def serve_trace(args, cfg, serve_cfg, engine: PagedEngine):
+    """Serve ``--server``'s seeded trace under the run's fault plan with
+    ``--server-driver``: ``sync`` gives ``(finished requests, stats())``;
+    ``loop`` the ServeLoop's ``(drained requests, validated snapshot,
+    {rid: state} of the others)``, and None on a mesh rank other than 0,
+    which follows rank 0's loop."""
+    from repro_torch.serve import follow
+
     trace = LoadGen(seed=serve_cfg.seed, qps=args.qps, duration=args.duration,
                     vocab=cfg.vocab, max_new=args.max_new,
                     shared_prefix_len=args.shared_prefix, shared_frac=args.shared_frac).trace()
-    print(f"# trace: {len(trace)} requests over {args.duration}s @ qps {args.qps} "
-          f"(seed {serve_cfg.seed}, driver {args.server_driver})", file=sys.stderr)
-    plan = serve_cfg.fault_plan()
-    if args.server_driver == "sync":
-        reqs = [Request(rid=a.rid, prompt=list(a.prompt), max_new=a.max_new) for a in trace]
-        with plan or contextlib.nullcontext():
-            done = engine.run(reqs)
-        print_request_lines(done)
-        print(f"# paged kv stats: {engine.stats()}", file=sys.stderr)
-        return done
-    loop = ServeLoop(engine, config=serve_cfg, metrics=ServeMetrics())
-    with plan or contextlib.nullcontext():
+    if engine.rank == 0:
+        print(f"# trace: {len(trace)} requests over {args.duration}s @ qps {args.qps} "
+              f"(seed {serve_cfg.seed}, driver {args.server_driver})", file=sys.stderr)
+    with serve_cfg.fault_plan() or contextlib.nullcontext():
+        if args.server_driver == "sync":
+            done = engine.run([Request(rid=a.rid, prompt=list(a.prompt), max_new=a.max_new)
+                               for a in trace])
+            return done, engine.stats()
+        if engine.rank != 0:
+            follow(engine)
+            return None
+        loop = ServeLoop(engine, config=serve_cfg, metrics=ServeMetrics())
         results = loop.run_trace(trace)
     snap = validate_snapshot(loop.snapshot())
     drained = [r.engine_req for r in results.values() if r.state is Lifecycle.DRAINED]
+    bad = {r.rid: r.state.name for r in results.values() if r.state is not Lifecycle.DRAINED}
+    return drained, snap, bad
+
+
+def report_server(args, serve_cfg, served) -> list[Request]:
+    """Print what :func:`serve_trace` served — the ``req …`` lines, then the
+    stats (``sync``) or the snapshot (``loop``, also written to
+    ``--metrics-json``) on stderr — and return the requests.  Without
+    ``--chaos`` a loop run fails unless every request drained."""
+    if args.server_driver == "sync":
+        done, stats = served
+        print_request_lines(done)
+        print(f"# paged kv stats: {stats}", file=sys.stderr)
+        return done
+    drained, snap, bad = served
     print_request_lines(drained)
     print(f"# serve metrics: {json.dumps(snap, sort_keys=True)}", file=sys.stderr)
     if args.metrics_json:
@@ -461,12 +499,10 @@ def run_server(args, cfg, serve_cfg, engine: PagedEngine) -> list[Request]:
             json.dump(snap, f, indent=2, sort_keys=True)
             f.write("\n")
         print(f"# wrote {args.metrics_json}", file=sys.stderr)
-    if plan is None:
+    if bad and serve_cfg.fault_plan() is None:
         # without injected faults every request must drain; a chaos run
         # may end with typed failures (reported above)
-        bad = {r.rid: r.state.name for r in results.values() if r.state is not Lifecycle.DRAINED}
-        if bad:
-            raise SystemExit(f"requests did not drain: {bad}")
+        raise SystemExit(f"requests did not drain: {bad}")
     return drained
 
 

@@ -10,7 +10,9 @@
                 model layer and the paged-attention kernels,
 ``server``    — the async continuous-batching serve loop: streaming
                 request lifecycle, background prefill/decode/emit
-                workers, typed admission backpressure, clean drain,
+                workers, typed admission backpressure, clean drain; its
+                engine calls as one command order, followed by every
+                rank of a mesh,
 ``metrics``   — streaming latency histograms + the flat, schema-checked
                 metrics snapshot,
 ``sampling``  — the typed token-selection interface (``Sampler``):
@@ -61,10 +63,13 @@ from repro_torch.serve.scheduler import (  # noqa: F401
     pad_to_bucket,
 )
 from repro_torch.serve.server import (  # noqa: F401
+    EngineDriver,
     Lifecycle,
     ServedRequest,
     ServeLoop,
     TokenStream,
+    follow,
+    replay,
 )
 from repro_torch.serve.spec import (  # noqa: F401
     DraftModel,

@@ -158,8 +158,9 @@ same host decision from it:
   next collective; an injected raise without the fallback fires on every
   rank and raises JAX's ``InjectedFault`` there.
 
-``ServeLoop`` over a mesh raises ``NotImplementedError``
-(``MESH_SERVE_ITEM``).
+The ``ServeLoop`` over a mesh runs on rank 0 and sends each of its engine
+calls to the other ranks, which make the same calls in the same order
+(``serve/server.py``: ``EngineDriver``, ``follow``).
 """
 from __future__ import annotations
 

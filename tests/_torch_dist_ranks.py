@@ -1,5 +1,6 @@
 """The rank functions of the port's multi-rank tests
-(``tests/test_torch_dist.py``), started by ``repro_torch.dist.spawn.run``
+(``tests/test_torch_dist.py``, ``tests/test_torch_mesh_serve.py``,
+``tests/test_torch_mesh_opts.py``), started by ``repro_torch.dist.spawn.run``
 on gloo ranks: importable by name, no JAX, results as plain Python and
 numpy values (each rank's, the test reads them by rank).
 """
@@ -321,7 +322,7 @@ def home_pages(eng) -> dict[int, np.ndarray]:
 
 def _refusals(cfg, params, mesh) -> dict[str, str]:
     """What the engine refuses over ``mesh`` (2 ranks): each message."""
-    from repro_torch.serve import PagedEngine, ServeConfig, ServeLoop
+    from repro_torch.serve import PagedEngine, ServeConfig
 
     base = dict(max_slots=2, cache_len=64, page_size=8, num_shards=2, pages_per_shard=8)
     out = {}
@@ -334,8 +335,6 @@ def _refusals(cfg, params, mesh) -> dict[str, str]:
 
     catch("shards", lambda: PagedEngine(cfg, params, device="cpu", mesh=mesh,
                                         config=ServeConfig(**{**base, "num_shards": 3})))
-    eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, config=ServeConfig(**base))
-    catch("server", lambda: ServeLoop(eng))
     return out
 
 
@@ -355,7 +354,187 @@ def serve_mesh(n: int, params: dict) -> dict:
                          for e in built]
     if n == 2:
         out["refusals"] = _refusals(cfg, params, mesh)
+    out["loop"] = loop_cases(cfg, params, mesh, n)
     return out
+
+
+# -- the ServeLoop over a mesh ---------------------------------------------------
+
+#: the pressured pool of the loop's preemption case (``reroute_case``'s)
+LOOP_PRESSED = dict(max_slots=3, cache_len=64, page_size=8, num_shards=2, pages_per_shard=4,
+                    watermark=0)
+#: the loop's engines over 2 ranks: ``MESH``'s 4 shards, 2 a rank
+LOOP_TWO = dict(max_slots=2, cache_len=64, page_size=8, num_shards=4, pages_per_shard=8)
+#: the fault plan of the loop's guarded case (the one-device loop test's)
+LOOP_PLAN = (("kernel.raise", dict(at=3)), ("kernel.nan", dict(at=6)), ("pool.alloc", dict(at=1)))
+#: the collective timeout of the real-time case's own 2-rank world, and the
+#: gap between its two halves of arrivals: a few seconds longer
+REALTIME_TIMEOUT = 5.0
+REALTIME_GAP = REALTIME_TIMEOUT + 3.0
+
+
+def _plan(plan):
+    from repro_torch.serve import Fault, FaultPlan
+
+    return FaultPlan([Fault(site, **kw) for site, kw in plan or ()], seed=0)
+
+
+def _loop_trace(cfg, gap: float = 0.0):
+    """``LOOP_MESH_TRACE``'s arrivals; with ``gap``, the second half of them
+    ``gap`` seconds later."""
+    import dataclasses
+
+    from _torch_dist_ref import LOOP_MESH_TRACE
+    from repro_torch.serve import LoadGen
+
+    trace = LoadGen(vocab=cfg.vocab, **LOOP_MESH_TRACE).trace()
+    half = len(trace) // 2
+    return [dataclasses.replace(a, t=a.t + gap) if i >= half else a for i, a in enumerate(trace)]
+
+
+def _pressed_trace():
+    """``reroute_case``'s three requests as arrivals at t = 0: request 0's
+    page fault preempts request 2, which swaps back in on the other
+    shard's rank."""
+    from repro_torch.serve import Arrival
+
+    return [Arrival(rid=i, t=0.0, prompt=tuple(range(100 + 9 * i, 109 + 9 * i)), max_new=m,
+                    shared=False) for i, m in enumerate((12, 4, 12))]
+
+
+def loop_run(cfg, params, mesh, conf: dict, trace, *, plan=None, realtime=False,
+             abort=False, submits=None, queue_cap=None, broken=False) -> dict:
+    """One ``ServeLoop`` over ``PagedEngine(mesh=)`` on this rank: rank 0
+    runs the loop (``run_trace`` of ``trace``, or with ``abort`` a
+    ``close(drain=False)`` once a request decodes, or ``submits`` — (prompt,
+    max_new) pairs — submitted alone), every other rank follows it.  With
+    ``broken`` every model step raises on rank 1 (no fallback: a step that
+    fails and is not retried).  What the rank saw: its requests' tokens, the
+    flat stats, the driver's log, the plan's fired log, its home pages (or
+    the error it ended with); rank 0 also the states, the snapshot's
+    ``loop_keys`` and, but for ``broken``, the log replayed on a one-device
+    engine of ``conf`` under the same plan."""
+    import time
+
+    from _torch_dist_ref import loop_keys
+    from repro_torch.serve import (
+        Lifecycle,
+        PagedEngine,
+        ServeConfig,
+        ServeLoop,
+        follow,
+        replay,
+        validate_snapshot,
+    )
+
+    eng = PagedEngine(cfg, params, device="cpu", mesh=mesh, config=ServeConfig(**conf))
+    if broken and mesh.rank == 1:
+        def fail(*args):
+            raise ValueError("planted failure on rank 1")
+
+        eng._steps = {name: fail for name in eng._steps}
+    swaps = []  # (rid, rank it swapped out from, rank it swapped in on)
+    preempt, swap_in = eng._preempt, eng._swap_in
+
+    def preempted(slot):
+        swaps.append([eng.slots[slot].req.rid, eng._rank_of_shard(eng.slots[slot].shard)])
+        preempt(slot)
+
+    def swapped_in(slot, req):
+        res = swap_in(slot, req)
+        if res is True:
+            for s in swaps:
+                if s[0] == req.rid and len(s) == 2:
+                    s.append(eng._rank_of_shard(eng.slots[slot].shard))
+        return res
+
+    eng._preempt, eng._swap_in = preempted, swapped_in
+    out = {"error": None}
+    fp = _plan(plan)
+    t0 = time.monotonic()
+    try:
+        with fp:
+            if mesh.rank != 0:
+                driver = follow(eng)
+                out["out"] = {rid: list(r.out) for rid, r in driver.requests.items()}
+            else:
+                loop = ServeLoop(eng, queue_cap=queue_cap)
+                driver = loop.driver
+                if submits is not None:
+                    handles = [loop.submit(p, m) for p, m in submits]
+                    loop.close()
+                    results = {h.rid: h for h in handles}
+                elif abort:
+                    loop.warmup_for_trace(trace)
+                    for a in trace:
+                        loop.submit(a.prompt, a.max_new, rid=a.rid)
+                    deadline = time.monotonic() + 60
+                    while not any(r.state is Lifecycle.DECODING for r in loop._by_rid.values()):
+                        assert time.monotonic() < deadline, "nothing decoded"
+                        time.sleep(0.002)
+                    loop.close(drain=False)
+                    results = dict(loop._by_rid)
+                else:
+                    results = loop.run_trace(trace, realtime=realtime)
+                out["out"] = {rid: r.tokens for rid, r in results.items()}
+                out["states"] = {rid: r.state.name for rid, r in results.items()}
+                out["errors"] = {rid: r.error for rid, r in results.items() if r.error}
+                out["keys"] = loop_keys(validate_snapshot(loop.snapshot()))
+    except Exception as e:  # noqa: BLE001 — the error is the case's result
+        out["error"] = f"{type(e).__name__}: {e}"
+        out["cause"] = None if e.__cause__ is None else type(e.__cause__).__name__
+        out["seconds"] = time.monotonic() - t0
+        return out
+    out["seconds"] = time.monotonic() - t0
+    eng.check()
+    out.update(stats=eng.flat_stats(), log=driver.log, fired=[list(f) for f in fp.fired],
+               pages=home_pages(eng), swaps=swaps)
+    if mesh.rank == 0:
+        one = PagedEngine(cfg, params, device="cpu", config=ServeConfig(**conf))
+        with _plan(plan) as rp:
+            again = replay(one, driver.log)
+        one.check()
+        out["replay"] = {"stats": one.flat_stats(), "fired": [list(f) for f in rp.fired],
+                         "out": {rid: list(r.out) for rid, r in again.requests.items()},
+                         "pages": {pid: one._pack([pid]).numpy()
+                                   for pid in range(1, one.pool.num_pages)}}
+    return out
+
+
+def loop_cases(cfg, params, mesh, n: int) -> dict:
+    """The ``ServeLoop`` over ``n`` ranks: over 4, ``LOOP_MESH_TRACE`` on
+    ``MESH``'s engine per mode; over 2, on ``LOOP_TWO``'s the pressured pool
+    whose preempted request swaps in on the other rank, ``kv_guard`` with
+    ``kernel_fallback`` under ``LOOP_PLAN``, the n-gram draft at k = 2, a
+    ``close(drain=False)`` mid-trace, rejections at submit, and last a step
+    that fails on rank 1 and is not retried."""
+    from _torch_dist_ref import MESH, MODES
+
+    trace = _loop_trace(cfg)
+    if n == 4:
+        return {mode: loop_run(cfg, params, mesh, dict(MESH, mcast_mode=mode), trace)
+                for mode in MODES}
+    return {
+        "preempt": loop_run(cfg, params, mesh, LOOP_PRESSED, _pressed_trace()),
+        "plan": loop_run(cfg, params, mesh, dict(LOOP_TWO, kv_guard=True, kernel_fallback=True),
+                         trace, plan=LOOP_PLAN),
+        "spec": loop_run(cfg, params, mesh, dict(LOOP_TWO, spec_k=2, draft_model="ngram"), trace),
+        "abort": loop_run(cfg, params, mesh, LOOP_TWO, trace, abort=True),
+        "reject": loop_run(cfg, params, mesh, LOOP_PRESSED, None, queue_cap=0,
+                           submits=[(list(range(60)), 8), (list(range(40)), 8), ([1, 2, 3], 2)]),
+        "broken": loop_run(cfg, params, mesh, dict(LOOP_TWO, num_shards=2), trace, broken=True),
+    }
+
+
+def serve_loop_realtime(params) -> dict:
+    """The real-time case on 2 ranks started with ``REALTIME_TIMEOUT``:
+    ``LOOP_MESH_TRACE``'s arrivals in real time, the second half
+    ``REALTIME_GAP`` seconds after the first, on ``LOOP_TWO``'s engine."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    cfg = get_config(ARCH, reduced=True)
+    mesh = bind(make_serve_mesh(2))
+    return loop_run(cfg, params, mesh, LOOP_TWO, _loop_trace(cfg, REALTIME_GAP), realtime=True)
 
 
 def _unretried_failure(cfg, params, mesh, fallback: bool) -> dict:

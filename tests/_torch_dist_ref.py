@@ -16,8 +16,11 @@ XLA's excess precision off, as ``_torch_jax_ref.py`` is:
   ``--trace`` report;
 * ``meshserve`` (4 forced host devices): :func:`mesh_cases` on JAX's
   ``PagedEngine(mesh=)`` over 4 and 2 devices, the one-device 4-shard
-  engine of that workload, and the launcher's ``--mesh`` stdout
-  (``MESH_ARGS``);
+  engine of that workload, the launcher's ``--mesh`` stdout
+  (``MESH_ARGS``); JAX's ``ServeLoop`` over ``PagedEngine(mesh=)`` on 4
+  devices per mode for ``LOOP_MESH_TRACE``, and the launcher's ``--server``
+  with CI's ``dist-serve-smoke`` flags (``SERVER_MESH_ARGS``), ``sync`` on
+  one device and ``loop`` with ``SERVER_MESH_FLAGS``;
 * ``meshtrain`` (4 forced host devices): the reduced moonshot's loss and
   aux loss on step 0's batch (``MOE_TRAIN``), and the JAX launcher's
   losses over a 2-device mesh (``MESH_TRAIN_ARGS``);
@@ -231,6 +234,30 @@ def reroute_case(api) -> dict:
 #: (the port adds ``--device cpu``)
 MESH_ARGS = [*TRACE_ARGS, "--mesh"]
 
+#: the ``ServeLoop`` cases over a mesh: a seeded trace whose shared prefix
+#: (3 pages of ``MESH``'s 8 tokens) is cached on one shard and broadcast to
+#: the others, served with ``realtime=False`` on ``MESH``'s engine
+LOOP_MESH_TRACE = dict(seed=3, qps=30.0, duration=0.3, max_new=6, shared_prefix_len=24,
+                       shared_frac=0.5)
+#: the launcher's ``--server`` over a mesh: CI's ``dist-serve-smoke`` flags
+#: (the port adds ``--device cpu``); the ``sync`` oracle runs on one device,
+#: the ``loop`` run adds ``SERVER_MESH_FLAGS`` and ``--metrics-json PATH``
+SERVER_MESH_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--server", "--qps", "25",
+                    "--duration", "0.6", "--max-slots", "3", "--seed", "5", "--max-new", "8",
+                    "--shared-prefix", "24", "--kernel-policy", "backend=pallas"]
+SERVER_MESH_FLAGS = ["--mesh", "--num-shards", "4", "--pages-per-shard", "16", "--mcast-mode",
+                     "sw_tree"]
+SERVER_MESH_SEED = 5
+
+
+def loop_keys(snap: dict) -> dict:
+    """The snapshot keys that do not depend on how admissions interleave
+    with decode ticks: the request counts, ``tokens_out``, the submit-time
+    rejections, ``num_shards`` and ``mcast_mode``."""
+    fixed = ("rejected_too-long", "rejected_too-large", "rejected_queue-full", "tokens_out",
+             "num_shards", "mcast_mode")
+    return {k: v for k, v in snap.items() if k.startswith("requests_") or k in fixed}
+
 #: the paged engine's options over a mesh (mode ``meshopts``): the engine of
 #: the speculative pair (the reduced qwen1.5-1.8b target, the 0.5b draft)
 OPTS_TARGET, OPTS_DRAFT = "qwen1.5-1.8b", "qwen1.5-0.5b"
@@ -388,7 +415,7 @@ def _meshserve(out: dict) -> None:
     assert jax.device_count() == 4, jax.devices()
     cfg, params = _setup()
     api = _jax_api(cfg, params)
-    cases = {}
+    cases = {"loop": _mesh_loops(cfg, params)}
     with kernels.use_policy("backend=pallas"):
         for n in (4, 2):
             mesh = make_serve_mesh(n)
@@ -401,7 +428,53 @@ def _meshserve(out: dict) -> None:
         eng = api.PagedEngine(config=api.ServeConfig(**MESH, mcast_mode="sw_tree"))
         cases["one/4shards"] = _mesh_run(eng, eng.run(_requests(api, **MESH_REQUESTS)))
     out["serve_json"] = np.asarray(json.dumps(
-        {"cases": cases, "launch": _launch(MESH_ARGS)}))
+        {"cases": cases, "launch": _launch(MESH_ARGS), "server": _server_launches()}))
+
+
+def _mesh_loops(cfg, params) -> dict:
+    """JAX's ``ServeLoop`` over ``PagedEngine(mesh=)`` on the 4 devices per
+    mode, ``LOOP_MESH_TRACE`` submitted back to back: the streams, the
+    states and the snapshot's :func:`loop_keys`."""
+    from repro import kernels
+    from repro.launch.mesh import make_serve_mesh
+    from repro.serve import LoadGen, PagedEngine, ServeConfig, ServeLoop
+
+    trace = LoadGen(vocab=cfg.vocab, **LOOP_MESH_TRACE).trace()
+    out = {}
+    with kernels.use_policy("backend=pallas"):
+        for mode in MODES:
+            loop = ServeLoop(PagedEngine(cfg, params, mesh=make_serve_mesh(4),
+                                         config=ServeConfig(**MESH, mcast_mode=mode)))
+            results = loop.run_trace(trace, realtime=False)
+            out[mode] = {"out": {str(r.rid): [int(t) for t in r.tokens]
+                                 for r in results.values()},
+                         "states": sorted({r.state.name for r in results.values()}),
+                         "keys": loop_keys(loop.snapshot())}
+    return out
+
+
+def _server_launches() -> dict:
+    """The launcher's ``--server`` with ``SERVER_MESH_ARGS``: the one-device
+    ``sync`` oracle's stdout, and the 4-device ``--mesh`` loop run's stdout
+    and metrics file."""
+    import os
+    import tempfile
+
+    import jax
+
+    from repro.configs import get_config
+    from repro.models import lm
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "metrics.json")
+        loop = _launch([*SERVER_MESH_ARGS, "--server-driver", "loop", *SERVER_MESH_FLAGS,
+                        "--metrics-json", path])
+        with open(path) as f:
+            metrics = json.load(f)
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    return {"sync": _launch([*SERVER_MESH_ARGS, "--server-driver", "sync"]), "loop": loop,
+            "metrics": metrics,
+            "params_checksum": params_checksum(lm.init(cfg, jax.random.PRNGKey(SERVER_MESH_SEED)))}
 
 
 def _meshopts(out: dict) -> None:

@@ -39,6 +39,7 @@ from repro_torch.serve import (
     Request,
     ServeLoop,
     StreamingHistogram,
+    replay,
     validate_snapshot,
 )
 from repro_torch.serve import metrics as torch_metrics
@@ -263,6 +264,72 @@ def test_abort_shutdown_fails_live_work_cleanly(small):
     assert all(q.state in (Lifecycle.FAILED, Lifecycle.DRAINED) for q in queued)
     assert all(q.stream.closed.is_set() for q in queued)
     eng.check()  # aborted slots released their pages
+
+
+# ---------------------------------------------------------------------------
+# the engine driver: one command order, replayable; a worker that raises
+# ---------------------------------------------------------------------------
+
+def test_loop_command_log_replays_on_a_fresh_engine(small):
+    """Every engine call of the loop goes through its driver: the command
+    log, replayed on a fresh engine, makes the same calls — the same flat
+    stats, tokens and pages — also with the interpreter switching threads
+    every 10 µs, on ``test_pressure_with_preemption_drains_clean``'s small
+    pool."""
+    import sys
+
+    cfg, params = small
+    trace = _mk_trace(cfg, seed=11, qps=50, duration=0.2, max_new=24, shared_prefix_len=0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        eng = _mk_engine(cfg, params, num_pages=9, watermark=1)
+        loop = ServeLoop(eng)
+        results = loop.run_trace(trace, realtime=False)
+    finally:
+        sys.setswitchinterval(interval)
+    assert {r.state for r in results.values()} == {Lifecycle.DRAINED}
+    assert [c[0] for c in loop.driver.log].count("tick") == validate_snapshot(
+        loop.snapshot())["decode_ticks"]
+    again = _mk_engine(cfg, params, num_pages=9, watermark=1)
+    driver = replay(again, loop.driver.log)
+    assert again.flat_stats() == eng.flat_stats()
+    assert {rid: r.out for rid, r in driver.requests.items()} == \
+        {rid: r.tokens for rid, r in results.items()}
+    assert torch.equal(again._pack(list(range(1, again.pool.num_pages))),
+                       eng._pack(list(range(1, eng.pool.num_pages))))
+    again.check()
+
+
+def test_worker_error_fails_live_requests_and_close_raises_it(small):
+    """A decode tick that raises stops the loop: the prefill worker
+    returns, every request not yet terminal fails with the error, a later
+    submit is refused, and ``close()`` raises the error at once (not after
+    its join timeout)."""
+    cfg, params = small
+    eng = _mk_engine(cfg, params)
+    step, calls = eng.step, []
+
+    def failing():
+        calls.append(1)
+        if len(calls) == 3:
+            raise ValueError("planted tick failure")
+        return step()
+
+    eng.step = failing
+    loop = ServeLoop(eng)
+    sreqs = [loop.submit([5, 9, 2, 7 + i], max_new=20) for i in range(4)]
+    for s in sreqs:
+        s.stream.closed.wait(timeout=60)
+    assert all(s.state is Lifecycle.FAILED and "planted tick failure" in s.error
+               for s in sreqs)
+    with pytest.raises(RuntimeError, match="a worker raised"):
+        loop.submit([1, 2, 3], max_new=2)
+    t0 = time.monotonic()
+    with pytest.raises(ValueError, match="planted tick failure"):
+        loop.close(timeout=30)
+    assert time.monotonic() - t0 < 10
+    assert not any(t.is_alive() for t in loop._threads)
 
 
 # ---------------------------------------------------------------------------
